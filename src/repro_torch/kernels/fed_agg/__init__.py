@@ -1,0 +1,2 @@
+"""Weighted federated aggregation: ``ref`` (plain PyTorch), ``kernel`` (the
+CUDA launch) and ``ops`` (the public wrappers)."""

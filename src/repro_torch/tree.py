@@ -1,0 +1,34 @@
+"""Nested-dict helpers: the port's models and caches are plain dicts of
+tensors, walked in sorted key order (the reference's tree order, which
+fixes the packed layout)."""
+from __future__ import annotations
+
+
+def tree_map(fn, *trees):
+    """Apply ``fn`` leaf by leaf over nested dicts of one structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a nested dict in sorted key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """Inverse of :func:`tree_leaves`: a nested dict shaped like ``like``
+    holding ``leaves`` in sorted key order."""
+    return _build(like, iter(leaves))
+
+
+def _build(node, it):
+    # a module-level recursion: a self-referencing closure would form a
+    # reference cycle that keeps every leaf alive until the next garbage
+    # collection (on the card, gigabytes of stale gradients)
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
