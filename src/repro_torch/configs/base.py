@@ -3,13 +3,18 @@
 One documented exception: ``agg_impl`` takes ``"cuda"`` (the default, the
 hand-written Hopper kernel) or ``"torch"`` (its plain version) in place of
 ``xla | pallas | pallas_interpret``; ``agg_block_c`` / ``agg_block_d`` are
-the CUDA kernel's tile knobs.  Values the port does not run yet raise
-``NotImplementedError`` naming the ROADMAP Queue A item that ports them.
+the ``fed_agg`` kernel's tile knobs.  ``agg_rule`` and ``adversary`` must name
+a rule and an attack of the port's registries (``ValueError`` otherwise).
+Values the port does not run yet raise ``NotImplementedError`` naming the
+ROADMAP Queue A item that ports them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
+
+from repro_torch.core.agg_rules import available_agg_rules
+from repro_torch.fleet.adversary import available_adversaries
 
 
 def _not_ported(what: str, item: str):
@@ -78,13 +83,19 @@ class FLConfig:
         if self.pipeline_depth < 1:
             raise ValueError(f"FLConfig.pipeline_depth must be >= 1, got "
                              f"{self.pipeline_depth}")
+        if self.agg_rule not in available_agg_rules():
+            raise ValueError(
+                f"FLConfig.agg_rule must be a registered agg rule "
+                f"({', '.join(available_agg_rules())}), got "
+                f"{self.agg_rule!r}")
+        if self.adversary is not None \
+                and self.adversary not in available_adversaries():
+            raise ValueError(
+                f"FLConfig.adversary must be a registered adversary "
+                f"({', '.join(available_adversaries())}) or None, "
+                f"got {self.adversary!r}")
         if self.selection_mode != "mean":
-            _not_ported("selection_mode", "#8 (baseline policies)")
-        if self.agg_rule != "mean" or self.agg_rule_params:
-            _not_ported("agg_rule", "#11 (robust aggregation)")
-        if self.adversary is not None:
-            _not_ported("adversary", "#11 (robust aggregation and "
-                        "adversaries)")
+            _not_ported("selection_mode", "#18 (Thompson selection)")
         if self.dynamics != "bernoulli_host" or self.dynamics_params:
             _not_ported("dynamics", "#9 (device dynamics loop)")
         if self.pipeline_depth > 1:

@@ -8,17 +8,17 @@ updates (Eq. 1), participation counters (Eq. 3 numerator), U/V membership,
 device.
 
 ``make_server_round_step`` builds the per-round server step: weight
-computation (incl. staleness discount), packed single-kernel aggregation,
-and cache write/clear.  ``host_round_cut`` is the numpy round termination
-(lines 13–16) the host loop runs.
+computation (incl. staleness discount), the model-poisoning transform of
+an adversary, packed aggregation under the configured rule, and cache
+write/clear.  ``host_round_cut`` is the numpy round termination (lines
+13–16) the host loop runs.
 
-This slice ports the full-scan, mean-rule server step; the cohort,
-offload, robust-rule and adversary variants belong to ROADMAP Queue A
-#10–#12.
+The port runs the full-scan server step; the cohort and offload variants
+belong to ROADMAP Queue A #10 and #12.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,8 +28,10 @@ from repro_torch.core import aggregation as AGG
 from repro_torch.core import caching as C
 from repro_torch.core import distribution as D
 from repro_torch.core import selection as SEL
+from repro_torch.core.agg_rules import make_agg_rule
 from repro_torch.core.dependability import (BetaBelief, dependability,
                                             init_belief, update_belief)
+from repro_torch.tree import tree_map
 
 
 class FludeState(NamedTuple):
@@ -127,35 +129,106 @@ def plan_round(state: FludeState, caches: C.ClientCaches,
 
 def make_server_round_step(template_params, *, local_steps: int,
                            agg_impl: str = "cuda",
+                           agg_rule: str = "mean",
+                           agg_rule_params: tuple = (),
+                           adversary_scale: Optional[float] = None,
                            staleness_discount: float = 1.0,
                            uses_cache: bool = True,
                            block_c: int = 8, block_d: int = 2048):
-    """Build the per-round server step (full scan, mean rule).
+    """Build the per-round server step (full scan).
 
     The returned callable runs everything the server does between "uploads
     arrived" and "next round plans": aggregation weights (sample-count ×
     staleness discount for resumed bases, §4.3), the packed whole-model
-    weighted aggregation — one ``fed_agg`` call, one kernel launch on the
-    card — and C3 cache bookkeeping (write failed devices' progress, clear
-    received slots).  Nothing in it reads a value back to the host.
+    aggregation and C3 cache bookkeeping (write failed devices' progress,
+    clear received slots).  Nothing in it reads a value back to the host.
 
     template_params: the *unstacked* global model — fixes the packed
     (C, D) layout once.  ``uses_cache=False`` policies skip the cache
     bookkeeping.
+
+    ``agg_rule`` / ``agg_rule_params``: the robust-aggregation axis
+    (``repro_torch.core.agg_rules``).  The default ``"mean"`` keeps the
+    direct ``fed_aggregate_packed`` call — one ``fed_agg`` call, one
+    kernel launch on the card.  Other rules pack the trainer outputs
+    once and reduce the (C, D) buffer; a *stateful* rule ("trust") takes
+    one (N,) state input and returns it updated as a third output.
+
+    ``adversary_scale``: when set, the step also takes an (N,) malicious
+    mask and transforms the marked clients' uploads as
+    ``u' = g + adversary_scale * (u - g)`` — the model-poisoning channel
+    of ``repro_torch.fleet.adversary``.  Trailing arguments after ``rnd``
+    come in the order: malicious mask, then rule state.
     """
     layout = AGG.pack_layout(template_params)
+    rule = None if agg_rule in (None, "mean") else \
+        make_agg_rule(agg_rule, agg_rule_params)
+    stateful = rule is not None and rule.stateful
+    has_adv = adversary_scale is not None
+
+    def poison(final_params, global_params, mal_rows):
+        """Model-poisoning transform on the malicious rows (stacked
+        leaves), against the round's base model; cast back to each
+        leaf's dtype."""
+        s = float(adversary_scale)
+
+        def pz(f, g):
+            m = mal_rows.reshape((-1,) + (1,) * (f.ndim - 1))
+            g32 = g.to(torch.float32)[None]
+            return torch.where(m, (g32 + s * (f.to(torch.float32) - g32))
+                               .to(f.dtype), f)
+
+        return tree_map(pz, final_params, global_params)
+
+    def aggregate(global_params, final_params, w, rule_state):
+        """Dispatch the configured rule.  Returns ``(new_global,
+        new_rule_state)`` — state rows pass through untouched for
+        stateless rules."""
+        if rule is None:
+            new_global = AGG.fed_aggregate_packed(
+                global_params, final_params, w, layout, impl=agg_impl,
+                block_c=block_c, block_d=block_d)
+            return new_global, rule_state
+        buf = AGG.pack_stacked(final_params, layout)     # (C, D) fp32
+        gvec = AGG.pack(global_params, layout)           # (D,) fp32
+        kw = dict(impl=agg_impl, block_c=block_c, block_d=block_d)
+        if stateful:
+            vec, rule_state = rule.reduce_stateful(buf, gvec, w,
+                                                   rule_state, **kw)
+        else:
+            vec = rule.reduce(buf, gvec, w, **kw)
+        any_received = w.sum() > 0
+        new_global = tree_map(
+            lambda avg, g: torch.where(any_received, avg, g),
+            AGG.unpack(vec, layout), global_params)
+        return new_global, rule_state
+
+    def split_extra(extra):
+        """(malicious, rule_state) from the trailing arguments."""
+        expect = int(has_adv) + int(stateful)
+        if len(extra) != expect:
+            raise TypeError(
+                f"server round step expects {expect} trailing arg(s) "
+                f"(adversary mask: {has_adv}, rule state: {stateful}), "
+                f"got {len(extra)}")
+        malicious = extra[0] if has_adv else None
+        rule_state = extra[-1] if stateful else None
+        return malicious, rule_state
 
     def server_round_step(global_params, caches: C.ClientCaches,
                           final_params, cache_params, cached_steps,
                           selected, fail, received, resume,
-                          n_samples, extra_weights, rnd):
-        """-> (new_global_params, new_caches).
+                          n_samples, extra_weights, rnd, *extra):
+        """-> (new_global_params, new_caches[, new_rule_state]).
 
         final_params / cache_params: stacked (N, ...) trainer outputs.
         selected/fail/received/resume: (N,) bool round masks.
         extra_weights: (N,) policy weight multiplier (ones if unused).
         rnd: int — current round index.
+        extra: the (N,) malicious mask (adversary configured) then the
+        (N,) rule state (stateful rule).
         """
+        malicious, rule_state = split_extra(extra)
         stamp = caches.round_stamp
         rnd = torch.tensor(rnd, dtype=torch.int32, device=stamp.device)
         # staleness of the BASE model each update was trained from
@@ -165,9 +238,10 @@ def make_server_round_step(template_params, *, local_steps: int,
         w = AGG.aggregation_weights(
             received, n_samples=n_samples, staleness=base_stale,
             staleness_discount=staleness_discount) * extra_weights
-        new_global = AGG.fed_aggregate_packed(
-            global_params, final_params, w, layout, impl=agg_impl,
-            block_c=block_c, block_d=block_d)
+        if has_adv:
+            final_params = poison(final_params, global_params, malicious)
+        new_global, rule_state = aggregate(global_params, final_params,
+                                           w, rule_state)
         if uses_cache:
             prior_steps = torch.round(caches.progress * local_steps
                                       ).to(torch.int32)
@@ -180,6 +254,8 @@ def make_server_round_step(template_params, *, local_steps: int,
                 (total_cached / max(local_steps, 1)).to(torch.float32),
                 base_round)
             caches = C.clear_cache(caches, received)
+        if stateful:
+            return new_global, caches, rule_state
         return new_global, caches
 
     return server_round_step

@@ -247,8 +247,7 @@ def get_policy(name: str) -> Type[Policy]:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown policy {name!r}; registered: "
-                       f"{', '.join(available_policies())} (the baselines "
-                       f"are ROADMAP Queue A #8)") from None
+                       f"{', '.join(available_policies())}") from None
 
 
 def available_policies():

@@ -1,11 +1,12 @@
 """FleetEngine: the FL round loop behind the typed policy API.
 
-The port of ``repro.fl.engine`` for the main path: the host-RNG round loop
-(``dynamics="bernoulli_host"``), full scan, mean aggregation, one device.
-The engine owns the all-fleet local trainer, the per-round server step
-(weights + packed aggregation through the hand-written ``fed_agg`` kernel
-+ C3 cache bookkeeping) and the fleet simulator; policies are
-``plan``/``observe`` transitions over ``RoundPlan``/``RoundReport``.
+The port of ``repro.fl.engine`` on the host-RNG round loop
+(``dynamics="bernoulli_host"``), full scan, one device.  The engine owns
+the all-fleet local trainer, the per-round server step (weights, the
+adversary's poison, packed aggregation under the configured rule through
+the hand-written ``fed_agg`` and ``residual_norms`` kernels, C3 cache
+bookkeeping) and the fleet simulator; policies are ``plan``/``observe``
+transitions over ``RoundPlan``/``RoundReport``.
 
 Global params and client caches stay on the engine's device across rounds;
 the host sees (N,)-sized masks each round and the test accuracy at
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.core import caching as C
 from repro_torch.core import round as R
+from repro_torch.core.agg_rules import make_agg_rule
 from repro_torch.configs.base import FLConfig
 from repro_torch.data.synthetic import FederatedClassification
 from repro_torch.fl import classifier as CLF
@@ -29,6 +31,7 @@ from repro_torch.fl import policies as _builtin_policies  # noqa: F401
 from repro_torch.fl.api import (Policy, RoundObservation, RoundReport,
                                 make_policy, to_host)
 from repro_torch.fl.simulator import Fleet, SimConfig
+from repro_torch.fleet.adversary import make_adversary
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 BIG = 1 << 20
@@ -157,8 +160,11 @@ class History:
     per_class_acc: Optional[np.ndarray] = None
     per_client_acc: Optional[np.ndarray] = None
     final_params: Any = None
+    # final per-client trust scores (stateful robust rules)
+    trust: Optional[np.ndarray] = None
 
-    _ARRAY_EXTRAS = ("part_count", "per_class_acc", "per_client_acc")
+    _ARRAY_EXTRAS = ("part_count", "per_class_acc", "per_client_acc",
+                     "trust")
 
     def to_json(self) -> dict:
         """JSON-serializable trajectory dict (the golden-file format);
@@ -239,6 +245,27 @@ class FleetEngine:
         # convolutions on the card
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # adversarial fleet (repro_torch.fleet.adversary): the malicious
+        # mask is drawn once (deterministic in the sim seed), label
+        # poisoning rewrites the training set before the trainer sees it
+        # (the test set stays clean), and model poisoning runs inside the
+        # server step via ``adversary_scale``
+        self._adv_scale = None
+        self._malicious = None
+        if fl_cfg.adversary is not None:
+            adversary = make_adversary(fl_cfg.adversary,
+                                       fl_cfg.adversary_params)
+            mal = adversary.malicious_mask(fl_cfg.num_clients, sim_cfg.seed)
+            self._adv_scale = adversary.delta_scale
+            if adversary.flips_labels:
+                data = adversary.corrupt_data(data, mal)
+            if self._adv_scale is not None:
+                # per-run invariant: placed on the device once
+                self._malicious = torch.from_numpy(mal).to(self.device)
+        self._agg_rule = None if fl_cfg.agg_rule == "mean" else \
+            make_agg_rule(fl_cfg.agg_rule, fl_cfg.agg_rule_params)
+        self._agg_stateful = self._agg_rule is not None \
+            and self._agg_rule.stateful
         self.data = data
         self.sim_cfg = sim_cfg
         self.fl_cfg = fl_cfg
@@ -290,15 +317,41 @@ class FleetEngine:
         return C.init_caches(template, self.fl_cfg.num_clients)
 
     def _server_step(self, uses_cache: bool):
-        key = bool(uses_cache)
+        # keyed by everything that changes the step
+        fl = self.fl_cfg
+        key = (bool(uses_cache), fl.agg_impl, fl.agg_rule,
+               fl.agg_rule_params, self._adv_scale, fl.staleness_discount,
+               fl.agg_block_c, fl.agg_block_d)
         if key not in self._server_steps:
             self._server_steps[key] = R.make_server_round_step(
                 self._template, local_steps=self.sim_cfg.local_steps,
-                agg_impl=self.fl_cfg.agg_impl,
-                staleness_discount=self.fl_cfg.staleness_discount,
-                uses_cache=key, block_c=self.fl_cfg.agg_block_c,
-                block_d=self.fl_cfg.agg_block_d)
+                agg_impl=fl.agg_impl, agg_rule=fl.agg_rule,
+                agg_rule_params=fl.agg_rule_params,
+                adversary_scale=self._adv_scale,
+                staleness_discount=fl.staleness_discount,
+                uses_cache=bool(uses_cache), block_c=fl.agg_block_c,
+                block_d=fl.agg_block_d)
         return self._server_steps[key]
+
+    # -- robust-aggregation state / adversary plumbing ----------------------
+
+    def _init_rule_state(self):
+        """Fresh per-run (N,) rule state (stateful rules only) on the
+        engine's device, threaded through the step like the caches."""
+        if not self._agg_stateful:
+            return None
+        return torch.from_numpy(self._agg_rule.init_state(
+            self.fl_cfg.num_clients)).to(self.device)
+
+    def _step_extra(self, rule_state):
+        """Trailing arguments of the server step: the malicious mask
+        (model-poisoning adversary), then the rule state."""
+        extra = ()
+        if self._adv_scale is not None:
+            extra += (self._malicious,)
+        if self._agg_stateful:
+            extra += (rule_state,)
+        return extra
 
     def run(self, policy: Union[str, Policy], rounds: Optional[int] = None,
             time_budget: Optional[float] = None, eval_every: int = 1,
@@ -333,10 +386,10 @@ class FleetEngine:
         with torch.no_grad():
             global_params = self._template
             caches = self._fresh_caches(global_params)
-            state, global_params, caches = self._host_rounds(
+            state, global_params, caches, rule_state = self._host_rounds(
                 policy, state, fleet, hist, global_params, caches,
-                explore_uniforms, n_rounds, time_budget, eval_every,
-                progress)
+                self._init_rule_state(), explore_uniforms, n_rounds,
+                time_budget, eval_every, progress)
 
             # a time_budget break can land between eval boundaries: force
             # a measurement on the final global model
@@ -360,6 +413,9 @@ class FleetEngine:
                         np.float64)
         for k, v in policy.history_extras(state).items():
             setattr(hist, k, v)
+        if rule_state is not None:
+            # the one read-back of the trust scores, at run end
+            hist.trust = to_host(rule_state)
         hist.final_params = global_params
         self._last_caches = caches
         return hist
@@ -420,8 +476,8 @@ class FleetEngine:
     # -- host-RNG round loop (bernoulli_host) -------------------------------
 
     def _host_rounds(self, policy, state, fleet, hist, global_params,
-                     caches, explore_uniforms, n_rounds, time_budget,
-                     eval_every, progress):
+                     caches, rule_state, explore_uniforms, n_rounds,
+                     time_budget, eval_every, progress):
         """The seed simulator's numpy round loop, draw for draw the
         reference's ``_host_rounds``."""
         sim_cfg, fl_cfg = self.sim_cfg, self.fl_cfg
@@ -486,14 +542,20 @@ class FleetEngine:
             received = success & (times <= t_cut)
 
             # server step (§4.3 hot path): aggregation weights with the
-            # staleness discount for stale BASE models, packed whole-model
-            # aggregation (one fed_agg launch), C3 cache write/clear
+            # staleness discount for stale BASE models, the adversary's
+            # poison, packed whole-model aggregation under the rule (one
+            # fed_agg launch for the mean), C3 cache write/clear
             extra_w = ones_w if plan.agg_weights is None else \
                 self._put(to_host(plan.agg_weights).astype(np.float32))
-            global_params, caches = server_step(
+            out = server_step(
                 global_params, caches, final, cache_p, cached_steps,
                 self._put(selected), self._put(fail), self._put(received),
-                self._put(resume), self._n_samples, extra_w, rnd)
+                self._put(resume), self._n_samples, extra_w, rnd,
+                *self._step_extra(rule_state))
+            if self._agg_stateful:
+                global_params, caches, rule_state = out
+            else:
+                global_params, caches = out
 
             state = policy.observe(
                 state, plan,
@@ -505,5 +567,5 @@ class FleetEngine:
                 hist, rnd, n_rounds, eval_every, global_params,
                 distribute & online, received, selected, duration,
                 cum_comm, cum_time, acc, progress)
-        return state, global_params, caches
+        return state, global_params, caches, rule_state
 

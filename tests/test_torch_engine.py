@@ -143,7 +143,7 @@ def test_configs_copy_the_reference_field_for_field(ours, theirs):
 
 
 @pytest.mark.parametrize("override", [
-    dict(agg_rule="trimmed_mean"), dict(adversary="sign_flip"),
+    dict(cache_offload="host"), dict(dynamics="sessions"),
     dict(mesh_shape=(2,)), dict(cohort_size=8), dict(telemetry="basic"),
     dict(dynamics="markov"), dict(selection_mode="thompson"),
     dict(pipeline_depth=2), dict(donate_buffers=True),

@@ -11,9 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import caching as C
+from repro_torch.core import round as R
 from repro_torch.kernels.fed_agg import kernel as K
 from repro_torch.kernels.fed_agg.ops import fed_agg_packed
 from repro_torch.kernels.fed_agg.ref import fed_agg_ref
+from repro_torch.kernels.robust_agg import kernel as RK
+from repro_torch.kernels.robust_agg import ops as RO
+from repro_torch.kernels.robust_agg.ref import (geometric_median_torch,
+                                                residual_norms_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -102,3 +108,93 @@ def test_fed_agg_kernel_rejects_what_it_does_not_take(cuda):
         fed_agg_packed(u, w.cpu(), impl="cuda")
     with pytest.raises(ValueError):
         fed_agg_packed(u, w, impl="cuda", block_d=100)
+
+
+# ---------------------------------------------------------------------------
+# residual_norms
+# ---------------------------------------------------------------------------
+
+def _rows(C, D, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.randn((C, D), generator=gen, device=device)
+    z = torch.randn((D,), generator=gen, device=device)
+    return u, z
+
+
+@pytest.mark.parametrize("C,D", [(4096, 22026), (13, 22026), (4096, 1),
+                                 (1, 5), (517, 300), (3, 1023)])
+def test_residual_norms_kernel_matches_plain(cuda, C, D):
+    u, z = _rows(C, D, seed=C + D, device=cuda)
+    got = RO.residual_norms(u, z, impl="cuda")
+    torch.cuda.synchronize()
+    want = residual_norms_ref(u, z)
+    assert got.shape == (C,) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=REL_TOL, atol=0)
+
+
+def test_residual_norms_kernel_at_the_center_is_zero(cuda):
+    u, _ = _rows(64, 22026, seed=5, device=cuda)
+    got = RO.residual_norms(u, u[7].contiguous(), impl="cuda")
+    assert got[7].item() == 0.0
+    torch.testing.assert_close(got, residual_norms_ref(u, u[7]),
+                               rtol=REL_TOL, atol=0)
+
+
+def test_residual_norms_kernel_is_deterministic(cuda):
+    u, z = _rows(4096, 22026, seed=6, device=cuda)
+    assert torch.equal(RO.residual_norms(u, z, impl="cuda"),
+                       RO.residual_norms(u, z, impl="cuda"))
+
+
+def test_residual_norms_kernel_counts_each_launch(cuda):
+    u, z = _rows(8, 300, seed=3, device=cuda)
+    before = RK.launches.count
+    RO.residual_norms(u, z, impl="cuda")
+    RO.residual_norms(u, z, impl="torch")          # plain version
+    RO.residual_norms(u[:0], z, impl="cuda")        # empty: no launch
+    assert RK.launches.count == before + 1
+
+
+def test_residual_norms_kernel_rejects_what_it_does_not_take(cuda):
+    u, z = _rows(8, 300, seed=4, device=cuda)
+    with pytest.raises(TypeError):
+        RO.residual_norms(u.double(), z.double(), impl="cuda")
+    with pytest.raises(ValueError):                 # not contiguous
+        RO.residual_norms(u.t(), torch.ones(8, device=cuda), impl="cuda")
+    with pytest.raises(ValueError):
+        RO.residual_norms(u, z[:4], impl="cuda")
+    with pytest.raises(ValueError):
+        RO.residual_norms(u, z.cpu(), impl="cuda")
+
+
+def test_geometric_median_on_the_card_matches_plain(cuda):
+    u, _ = _rows(4096, 2000, seed=8, device=cuda)
+    w = torch.rand(4096, device=cuda)
+    w[torch.rand(4096, device=cuda) < 0.9] = 0.0
+    got = RO.geometric_median(u, w, impl="cuda")
+    torch.testing.assert_close(got, geometric_median_torch(u, w),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rule,norms,sums", [
+    ("mean", 0, 1), ("geometric_median", 6, 7), ("trimmed_mean", 0, 0),
+    ("trust", 1, 1)])
+def test_server_step_launches_per_round(cuda, rule, norms, sums):
+    template = {"a": {"w": torch.ones(30, 20, device=cuda),
+                      "b": torch.zeros(20, device=cuda)}}
+    step = R.make_server_round_step(template, local_steps=2,
+                                    agg_rule=rule, adversary_scale=-4.0)
+    n = 64
+    final = {"a": {"w": torch.randn(n, 30, 20, device=cuda),
+                   "b": torch.randn(n, 20, device=cuda)}}
+    mask = torch.rand(n, device=cuda) < 0.5
+    extra = (mask,) + ((torch.ones(n, device=cuda),)
+                       if rule == "trust" else ())
+    ones = torch.ones(n, device=cuda)
+    before = (RK.launches.count, K.launches.count)
+    step(template, C.init_caches(template, n), final, final,
+         torch.zeros(n, dtype=torch.int32, device=cuda), mask, ~mask, mask,
+         torch.zeros(n, dtype=torch.bool, device=cuda), ones, ones, 0,
+         *extra)
+    assert (RK.launches.count - before[0], K.launches.count - before[1]) \
+        == (norms, sums)
