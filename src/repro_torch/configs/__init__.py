@@ -1,2 +1,63 @@
-"""Configuration dataclasses of the port."""
-from repro_torch.configs.base import FLConfig  # noqa: F401
+"""Config registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
+
+The port of ``repro.configs``: the same 11 configurations, kept as the
+port's own copies of the reference's data files."""
+from __future__ import annotations
+
+from repro_torch.configs.base import (
+    EncDecConfig,
+    FLConfig,
+    HybridConfig,
+    INPUT_SHAPES,
+    InputShape,
+    MLAConfig,
+    ModelConfig,
+    MoEConfig,
+    RWKVConfig,
+    SSMConfig,
+    VisionStubConfig,
+)
+
+from repro_torch.configs.h2o_danube_1p8b import CONFIG as _h2o
+from repro_torch.configs.zamba2_1p2b import CONFIG as _zamba2
+from repro_torch.configs.phi3_vision_4p2b import CONFIG as _phi3v
+from repro_torch.configs.deepseek_v2_236b import CONFIG as _dsv2
+from repro_torch.configs.nemotron_4_340b import CONFIG as _nemotron
+from repro_torch.configs.qwen2_7b import CONFIG as _qwen2
+from repro_torch.configs.whisper_large_v3 import CONFIG as _whisper
+from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv6
+from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral
+from repro_torch.configs.llama3_405b import CONFIG as _llama3
+from repro_torch.configs.flude_paper import CONFIG as _flude_paper
+
+_REGISTRY = {
+    c.name: c
+    for c in [
+        _h2o, _zamba2, _phi3v, _dsv2, _nemotron,
+        _qwen2, _whisper, _rwkv6, _mixtral, _llama3, _flude_paper,
+    ]
+}
+
+ASSIGNED_ARCHS = [
+    "h2o-danube-1.8b", "zamba2-1.2b", "phi-3-vision-4.2b", "deepseek-v2-236b",
+    "nemotron-4-340b", "qwen2-7b", "whisper-large-v3", "rwkv6-7b",
+    "mixtral-8x7b", "llama3-405b",
+]
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_configs():
+    return sorted(_REGISTRY)
+
+
+__all__ = [
+    "ASSIGNED_ARCHS", "EncDecConfig", "FLConfig", "HybridConfig",
+    "INPUT_SHAPES", "InputShape", "MLAConfig", "ModelConfig", "MoEConfig",
+    "RWKVConfig", "SSMConfig", "VisionStubConfig", "get_config",
+    "list_configs",
+]

@@ -1,21 +1,212 @@
-"""FLUDE hyper-parameters, field for field as ``repro.configs.base.FLConfig``.
+"""Configs of the port, field for field as ``repro.configs.base``.
 
-One documented exception: ``agg_impl`` takes ``"cuda"`` (the default, the
-hand-written Hopper kernel) or ``"torch"`` (its plain version) in place of
-``xla | pallas | pallas_interpret``; ``agg_block_c`` / ``agg_block_d`` are
-the ``fed_agg`` kernel's tile knobs.  ``agg_rule`` and ``adversary`` must name
-a rule and an attack of the port's registries (``ValueError`` otherwise).
-Values the port does not run yet raise ``NotImplementedError`` naming the
-ROADMAP Queue A item that ports them.
+``ModelConfig`` with its sub-configs, ``InputShape`` / ``INPUT_SHAPES``
+and ``FLConfig``; ``TrainConfig`` and ``MeshConfig`` come with the
+training and multi-device slices (ROADMAP Queue A #15e, #17).
+
+``FLConfig`` has one documented exception: ``agg_impl`` takes ``"cuda"``
+(the default, the hand-written Hopper kernel) or ``"torch"`` (its plain
+version) in place of ``xla | pallas | pallas_interpret``; ``agg_block_c``
+/ ``agg_block_d`` are the ``fed_agg`` kernel's tile knobs.  ``agg_rule``
+and ``adversary`` must name a rule and an attack of the port's registries
+(``ValueError`` otherwise).  Values the port does not run yet raise
+``NotImplementedError`` naming the ROADMAP Queue A item that ports them.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
 from repro_torch.core.agg_rules import available_agg_rules
 from repro_torch.fleet.adversary import available_adversaries
 
+
+# ---------------------------------------------------------------------------
+# Sub-configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    num_shared_experts: int = 0
+    expert_d_ff: Optional[int] = None      # d_ff of each routed expert
+    shared_d_ff: Optional[int] = None      # d_ff of the shared expert(s)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2)."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) block config."""
+    d_state: int = 64
+    expand: int = 2
+    head_dim: int = 64
+    conv_kernel: int = 4
+    chunk_size: int = 256
+    n_groups: int = 1          # B/C groups (like GQA for SSM)
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora_rank: int = 64
+    gate_lora_rank: int = 64
+    token_shift: bool = True
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """zamba2-style hybrid: Mamba2 backbone + shared attention block."""
+    attn_every: int = 6        # apply the shared attention block every N layers
+    shared_attn_blocks: int = 1
+
+
+@dataclass(frozen=True)
+class EncDecConfig:
+    """whisper-style encoder-decoder."""
+    num_encoder_layers: int = 32
+    num_decoder_layers: int = 32
+    max_target_len: int = 448
+
+
+@dataclass(frozen=True)
+class VisionStubConfig:
+    """VLM frontend stub: precomputed patch embeddings are model inputs."""
+    num_image_tokens: int = 1024   # patch tokens prepended to the sequence
+    patch_embed_dim: int = 1024    # CLIP-style embed dim before projector
+
+
+# ---------------------------------------------------------------------------
+# ModelConfig
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                     # dense | moe | ssm | hybrid | vlm | audio
+    source: str                        # citation (arXiv id / hf model card)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None     # default: d_model // num_heads
+    # attention flavour
+    attention: str = "gqa"             # gqa | mla | none (attention-free)
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None
+    rope_theta: float = 10000.0
+    # mlp flavour
+    mlp_act: str = "silu_glu"          # silu_glu | gelu | relu2
+    norm: str = "rmsnorm"              # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    # family-specific blocks
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+    hybrid: Optional[HybridConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    vision: Optional[VisionStubConfig] = None
+    # numerics
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    # scan/remat
+    scan_layers: bool = True
+    remat: bool = True
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // self.num_heads
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A smoke-test-sized variant of the same family (<=2 layers etc.)."""
+        changes = dict(
+            name=self.name + "-reduced",
+            num_layers=2,
+            d_model=min(self.d_model, 256),
+            num_heads=min(self.num_heads, 4),
+            num_kv_heads=min(self.num_kv_heads, 2),
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            head_dim=64,
+            param_dtype="float32",
+            compute_dtype="float32",
+        )
+        if self.moe is not None:
+            changes["moe"] = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                expert_d_ff=min(self.moe.expert_d_ff or self.d_ff, 256),
+                shared_d_ff=min(self.moe.shared_d_ff or self.d_ff, 256),
+            )
+        if self.mla is not None:
+            changes["mla"] = MLAConfig(
+                q_lora_rank=64, kv_lora_rank=32,
+                qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32)
+            changes["head_dim"] = None
+        if self.ssm is not None:
+            changes["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=32, chunk_size=32)
+        if self.rwkv is not None:
+            changes["rwkv"] = dataclasses.replace(
+                self.rwkv, head_dim=32, decay_lora_rank=16, gate_lora_rank=16)
+        if self.hybrid is not None:
+            changes["hybrid"] = dataclasses.replace(self.hybrid, attn_every=2)
+            changes["num_layers"] = 4
+        if self.encdec is not None:
+            changes["encdec"] = dataclasses.replace(
+                self.encdec, num_encoder_layers=2, num_decoder_layers=2,
+                max_target_len=16)
+        if self.vision is not None:
+            changes["vision"] = dataclasses.replace(
+                self.vision, num_image_tokens=8, patch_embed_dim=64)
+        if self.sliding_window is not None:
+            changes["sliding_window"] = 16
+        changes.update(overrides)
+        return dataclasses.replace(self, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# FL config
+# ---------------------------------------------------------------------------
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(

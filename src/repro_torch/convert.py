@@ -1,8 +1,8 @@
 """Carry parameters over from the JAX reference.
 
-A test hook: the reference draws its initial classifier from threefry
+A test hook: the reference draws its initial parameters from threefry
 bits that the port does not reproduce, so a parity test hands the
-reference's parameters (as numpy) to ``FleetEngine(template=...)``.
+reference's parameters (as numpy) to the port.
 """
 from __future__ import annotations
 
@@ -10,9 +10,34 @@ import numpy as np
 import torch
 
 
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
 def params_from_jax(tree, device="cpu"):
     """Nested dict of numpy arrays (``jax.device_get`` of the reference's
     parameter tree) -> the port's nested dict of tensors on ``device``."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device)
+    return _tensor(tree, device)
+
+
+def lm_params_from_jax(tree, num_layers: int, device="cpu"):
+    """The reference's language-model parameters (numpy, from
+    ``jax.device_get(model.init(key))``) -> the port's: the same dict,
+    with ``params["blocks"]`` unstacked from its leading layer axis into a
+    list of ``num_layers`` per-layer dicts."""
+    out = {k: params_from_jax(v, device) for k, v in tree.items()
+           if k != "blocks"}
+
+    def layer(t, i):
+        if isinstance(t, dict):
+            return {k: layer(v, i) for k, v in t.items()}
+        return _tensor(np.asarray(t)[i], device)
+
+    out["blocks"] = [layer(tree["blocks"], i) for i in range(num_layers)]
+    return out

@@ -26,6 +26,7 @@ from repro_torch.core import round as R
 from repro_torch.core.agg_rules import make_agg_rule
 from repro_torch.configs.base import FLConfig
 from repro_torch.data.synthetic import FederatedClassification
+from repro_torch.device import resolve_device
 from repro_torch.fl import classifier as CLF
 from repro_torch.fl import policies as _builtin_policies  # noqa: F401
 from repro_torch.fl.api import (Policy, RoundObservation, RoundReport,
@@ -35,19 +36,6 @@ from repro_torch.fleet.adversary import make_adversary
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 BIG = 1 << 20
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: the CUDA card unless the caller
-    names another.  Asked for nothing on a machine without a card, it
-    raises rather than drift onto the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on the CUDA card by default and this "
-                "machine has none; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ from typing import Dict, NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"fed_agg": "fed_agg.cu", "robust_agg": "robust_agg.cu"}
+SOURCES = {"fed_agg": "fed_agg.cu", "robust_agg": "robust_agg.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,0 +1,2 @@
+"""Flash attention: ``ref`` (plain PyTorch), ``kernel`` (the CUDA launch)
+and ``ops`` (the public wrappers)."""

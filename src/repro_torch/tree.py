@@ -5,10 +5,14 @@ from __future__ import annotations
 
 
 def tree_map(fn, *trees):
-    """Apply ``fn`` leaf by leaf over nested dicts of one structure."""
+    """Apply ``fn`` leaf by leaf over nested dicts (and lists, as a
+    language model's per-layer ``blocks``) of one structure."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, list):
+        return [tree_map(fn, *(t[i] for t in trees))
+                for i in range(len(first))]
     return fn(*trees)
 
 

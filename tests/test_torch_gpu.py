@@ -16,6 +16,9 @@ from repro_torch.core import round as R
 from repro_torch.kernels.fed_agg import kernel as K
 from repro_torch.kernels.fed_agg.ops import fed_agg_packed
 from repro_torch.kernels.fed_agg.ref import fed_agg_ref
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as FO
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.robust_agg import kernel as RK
 from repro_torch.kernels.robust_agg import ops as RO
 from repro_torch.kernels.robust_agg.ref import (geometric_median_torch,
@@ -198,3 +201,143 @@ def test_server_step_launches_per_round(cuda, rule, norms, sums):
          *extra)
     assert (RK.launches.count - before[0], K.launches.count - before[1]) \
         == (norms, sums)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+# both sides compute in fp32 (summation order differs); bf16 outputs are
+# rounded from fp32 once on each side: at most one bf16 ulp apart
+FLASH_F32_TOL = 1e-5
+FLASH_BF16_REL = 2.0 ** -7
+
+
+def _qkv(B, Hq, Hkv, Sq, Sk, D, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=device).to(dtype)
+                 for shape in ((B, Hq, Sq, D), (B, Hkv, Sk, D),
+                               (B, Hkv, Sk, D)))
+
+
+def _check_flash(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    size = torch.maximum(got.float().abs(), want.float().abs())
+    tol = (FLASH_BF16_REL * size + 1e-6 if got.dtype == torch.bfloat16
+           else FLASH_F32_TOL * size.clamp_min(1.0))
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,dtype,q_offset,causal,window", [
+    (2, 28, 4, 256, 256, 128, torch.bfloat16, 0, True, None),
+    (1, 32, 8, 300, 300, 80, torch.bfloat16, 0, True, 128),
+    (1, 3, 3, 100, 100, 64, torch.float32, 0, True, None),
+    (2, 14, 2, 70, 107, 64, torch.float32, 37, True, None),
+    (1, 7, 1, 130, 190, 64, torch.float32, 60, True, 50),
+    (1, 4, 2, 65, 64, 80, torch.float32, 50, False, 20),
+    (1, 4, 4, 1, 77, 128, torch.float32, 76, True, None),
+    (2, 8, 4, 100, 100, 32, torch.float32, 0, True, None),
+    (2, 8, 4, 64, 64, 32, torch.bfloat16, 0, True, None),
+    (1, 6, 2, 150, 150, 192, torch.float32, 0, True, 64),
+    (1, 96, 8, 130, 130, 192, torch.bfloat16, 0, True, None),
+])
+def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D, dtype,
+                                    q_offset, causal, window):
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Sk, D, dtype, cuda, seed=Sq + Sk)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = FK.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _check_flash(got, attention_ref(q, k, v, **kw))
+
+
+def test_flash_kernel_reads_model_layout_views_in_place(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, 90, 2, 3, 64), generator=gen, device=cuda)
+    k = torch.randn((2, 90, 2, 64), generator=gen, device=cuda)
+    v = torch.randn((2, 90, 2, 64), generator=gen, device=cuda)
+    got = FO.flash_attention_model_layout(q, k, v, causal=True, window=30)
+    want = FO.flash_attention_model_layout(q, k, v, causal=True, window=30,
+                                           impl="torch")
+    assert got.is_contiguous()
+    _check_flash(got, want)
+
+
+def test_flash_kernel_is_deterministic(cuda):
+    q, k, v = _qkv(2, 8, 2, 500, 500, 128, torch.bfloat16, cuda)
+    assert torch.equal(FK.flash_attention_cuda(q, k, v),
+                       FK.flash_attention_cuda(q, k, v))
+
+
+def test_flash_kernel_counts_each_launch(cuda):
+    q, k, v = _qkv(1, 2, 2, 16, 16, 64, torch.float32, cuda)
+    before = FK.launches.count
+    FO.flash_attention(q, k, v)
+    FO.flash_attention(q, k, v, impl="torch")      # plain version
+    FO.flash_attention(q, k[:, :, :0], v[:, :, :0])   # no keys: no launch
+    assert FK.launches.count == before + 1
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _qkv(1, 4, 2, 16, 16, 64, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        FK.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):                  # no head_dim 96 variant
+        FK.flash_attention_cuda(*_qkv(1, 2, 2, 8, 8, 96, torch.float32,
+                                      cuda))
+    with pytest.raises(ValueError):                  # last axis strided
+        FK.flash_attention_cuda(q.transpose(2, 3).contiguous()
+                                .transpose(2, 3), k, v)
+    with pytest.raises(ValueError):
+        FK.flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError):                  # Hq not a multiple
+        FK.flash_attention_cuda(q[:, :3], k, v)
+
+
+def test_prefill_launches_flash_once_per_layer_and_decode_never(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    for arch in ("qwen2-7b", "h2o-danube-1.8b"):
+        model = build_model(get_config(arch).reduced())
+        params = model.init(torch.Generator(device=cuda).manual_seed(0))
+        tokens = torch.randint(0, 512, (2, 40), device=cuda)
+        before = FK.launches.count
+        with torch.inference_mode():
+            _, cache = model.prefill(params, {"tokens": tokens}, max_len=45)
+            assert FK.launches.count == before + model.cfg.num_layers
+            pos = torch.full((2, 1), 40, dtype=torch.int32, device=cuda)
+            model.decode_step(params, tokens[:, :1], pos, cache)
+        assert FK.launches.count == before + model.cfg.num_layers
+
+
+def test_serve_default_arch_runs_through_the_kernel(cuda, capsys):
+    """``python -m repro_torch.launch.serve`` with no flags: flude-paper,
+    head_dim 32, on the card, one flash launch per layer."""
+    from repro_torch.launch import serve as S
+    before = FK.launches.count
+    res = S.main(["--decode-tokens", "3"])
+    assert FK.launches.count == before + 4          # flude-paper's layers
+    assert res.ids.shape == (4, 4)
+    assert capsys.readouterr().out.startswith("serving flude-paper: ")
+
+
+def test_prefill_and_decode_do_not_synchronise(cuda):
+    """No step of the serve path waits for the card: a hidden sync (a
+    host copy, ``.item()``) serialises the host's dispatch with the
+    device and made decode host-bound once already."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    model = build_model(get_config("h2o-danube-1.8b").reduced())
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, 512, (2, 40), device=cuda)
+    pos = torch.full((2, 1), 40, dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": tokens}, max_len=45)
+        model.decode_step(params, tokens[:, :1], pos, cache)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, cache = model.prefill(params, {"tokens": tokens}, max_len=45)
+            model.decode_step(params, tokens[:, :1], pos, cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
