@@ -11,9 +11,11 @@ Phases, each of which raises on failure:
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes and at ragged ones, bit-identical reruns, and timings
    (kernel, plain version, one PyTorch library call) beside the bound:
-   ``fed_agg``, ``residual_norms``, and ``flash_attention`` at the two
+   ``fed_agg``, ``residual_norms``, ``flash_attention`` at the two
    serve prefills' shapes (SDPA as the library call) and once at
-   Qwen2-7B's through the model-layout adapter on strided views;
+   Qwen2-7B's through the model-layout adapter on strided views, and
+   ``ssm_scan`` and ``rwkv6_scan`` at the zamba2-1.2b and rwkv6-7b
+   prefill shapes (no library call computes either);
 4. main path: ``FleetEngine.run("flude")`` at N = 4096 clients, 512 per
    round, the default classifier (D = 22,026 packed parameters), with
    every kernel's launch count read across the run, then a profiled
@@ -23,13 +25,16 @@ Phases, each of which raises on failure:
    by ``geometric_median`` and ``trust`` (FLUDE selection) and by
    ``trimmed_mean`` (random selection), each run with its launch counts
    read across it, then a profiled short run of each;
-6. serve: ``qwen2-7b`` (batch 4, prompt 2048, 32 decode steps) and
+6. serve: ``qwen2-7b`` (batch 4, prompt 2048, 32 decode steps),
    ``h2o-danube-1.8b`` (batch 2, prompt 6144 past its 4096 window, 16
-   steps) at full width and depth in bf16 through ``serve()``, launch
-   counts read across each run, the prefill checked against the plain
-   attention, then a profiled prefill + 4 decode steps;
+   steps), ``zamba2-1.2b`` (batch 4, prompt 4096, 32 steps: 38 Mamba2
+   layers and 7 shared-attention applications) and ``rwkv6-7b`` (batch
+   4, prompt 2048, 32 steps) at full width and depth in bf16 through
+   ``serve()``, launch counts read across each run, the prefill checked
+   against the plain attention and scans, then a profiled prefill + 4
+   decode steps;
 7. card against CPU: the golden FL setup (N = 24, 5 rounds) for FLUDE
-   and three robust rule / attack / policy combinations, and the two
+   and three robust rule / attack / policy combinations, and the four
    reduced serve configs in fp32.
 
 Before the last line it prints a ``{"kernels": [...]}`` JSON line and the
@@ -37,6 +42,7 @@ Before the last line it prints a ``{"kernels": [...]}`` JSON line and the
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 port's sources beside it, it exits non-zero and prints no result.
 """
+import dataclasses
 import json
 import math
 import os
@@ -65,17 +71,53 @@ FLASH_BF16_REL = 2.0 ** -7
 # causal, window)
 FLASH_QWEN2 = (4, 28, 4, 2048, 2048, 128, torch.bfloat16, 0, True, None)
 FLASH_DANUBE = (2, 32, 8, 6144, 6144, 80, torch.bfloat16, 0, True, 4096)
+# the SSD and WKV scans at the serve prefills' shapes: (B, S, H, P, N,
+# G, dtype of x/B/C) and (B, S, H, D, dtype of r/k/v); dt and logw fp32
+SSM_ZAMBA2 = (4, 4096, 64, 64, 64, 1, torch.bfloat16)
+WKV_RWKV6 = (4, 2048, 64, 64, torch.bfloat16)
+# ssm_scan (the chunked form at chunk 64) against ssm_scan_ref (the
+# per-step recurrence), both fp32 inside: exp of a within-chunk cumsum
+# against a product of per-step exps, 2.5e-5 of max(1, |y|) measured on
+# the CPU at S 4096, P = N = 64 (float64 truth); stated before the first
+# run: within 2e-4 of max(1, |y|).  rwkv6_scan runs the oracle's own
+# per-step recurrence in another summation order (1e-6 of max(1, |y|)
+# between fp32 and fp64 on the CPU): within 2e-5
+SSM_REL = 2e-4
+WKV_REL = 2e-5
 # the serve runs: (path label, arch, batch, prompt, decode steps,
-# parameters, flash launches per prefill = layers)
+# parameters, launches per prefill of each kernel of the path (flash one
+# per attention layer or shared-attention application, the scans one per
+# Mamba2 or RWKV layer), the dtype the prefill is held to the plain path
+# in)
 SERVE_RUNS = [
-    ("serve_qwen2", "qwen2-7b", 4, 2048, 32, 7_615_616_512, 28),
-    ("serve_danube", "h2o-danube-1.8b", 2, 6144, 16, 1_831_201_280, 24),
+    ("serve_qwen2", "qwen2-7b", 4, 2048, 32, 7_615_616_512,
+     {"flash_attention": 28}, "bf16"),
+    ("serve_danube", "h2o-danube-1.8b", 2, 6144, 16, 1_831_201_280,
+     {"flash_attention": 24}, "bf16"),
+    ("serve_zamba2", "zamba2-1.2b", 4, 4096, 32, 1_153_696_640,
+     {"ssm_scan": 38, "flash_attention": 7}, "fp32"),
+    ("serve_rwkv6", "rwkv6-7b", 4, 2048, 32, 7_618_838_528,
+     {"rwkv6_scan": 32}, "fp32"),
 ]
-# bf16 prefill logits, flash kernel against the plain attention: the two
-# round attention's fp32 result to bf16 at other places (a bf16 ulp is
-# 2^-8 relative) and 28 residual layers carry it; stated before the
-# first run: within 0.1 of max(1, |logit|)
+# bf16 prefill logits of the dense models, the kernel against the plain
+# attention: the two round the fp32 results to bf16 at other places (a
+# bf16 ulp is 2^-8 relative) and 24-28 residual layers carry it; stated
+# before the first run of PR 13: within 0.1 of max(1, |logit|)
 SERVE_BF16_TOL = 0.1
+# The recurrent stacks amplify those bf16 roundings (on the H100 the bf16
+# kernel path is 0.76 and 0.97 of max(1, |logit|) from the bf16 plain
+# path at full depth, with other first tokens).  Their kernels are
+# held to the plain path in fp32 at full width and depth: the scans
+# differ by up to 2e-4 of max(1, |y|) per layer in fp32 (the chunked
+# forms' exponent sums); stated before the first such run: within 5e-3
+# of max(1, |logit|), the same first token
+SERVE_F32_FULL_TOL = 5e-3
+# and the timed bf16 kernel path is held to that fp32 plain prefill: its
+# gap there at most twice the bf16 plain path's own gap to it.  Both
+# round the same bf16 weights and activations and differ only in the
+# scans' fp32 summation order and where y is rounded, so their gaps
+# should be alike; stated before the first such run
+SERVE_BF16_RATIO = 2.0
 SERVE_F32_TOL = 1e-4            # fp32 logits, card against CPU
 # the robust runs: (label, policy, FLConfig overrides, launches per round
 # of each kernel).  The attack and the trim follow the reference's robust
@@ -83,14 +125,15 @@ SERVE_F32_TOL = 1e-4            # fp32 logits, card against CPU
 # Weiszfeld steps, each one norm and one weighted sum, after the mean
 ATTACK = dict(adversary="sign_flip",
               adversary_params=(("malicious_frac", 0.2),))
+SERVE_ONLY = {"flash_attention": 0, "ssm_scan": 0, "rwkv6_scan": 0}
 ROBUST_RUNS = [
     ("geometric_median", "flude", dict(agg_rule="geometric_median"),
-     {"fed_agg": 7, "residual_norms": 6, "flash_attention": 0}),
+     {"fed_agg": 7, "residual_norms": 6, **SERVE_ONLY}),
     ("trust", "flude", dict(agg_rule="trust"),
-     {"fed_agg": 1, "residual_norms": 1, "flash_attention": 0}),
+     {"fed_agg": 1, "residual_norms": 1, **SERVE_ONLY}),
     ("trimmed_mean", "random",
      dict(agg_rule="trimmed_mean", agg_rule_params=(("trim", 0.3),)),
-     {"fed_agg": 0, "residual_norms": 0, "flash_attention": 0}),
+     {"fed_agg": 0, "residual_norms": 0, **SERVE_ONLY}),
 ]
 
 
@@ -436,6 +479,243 @@ def phase_flash_model_layout():
     del q, k, v, got, want, err, size
 
 
+def ssd_bounds(B, S, H, P, N, G, dtype, with_h0):
+    """(bytes, flops, bytes ms, bf16 tensor-core ms, fp32 ms) of one
+    ssm_scan call: x, dt, A, B, C (and h0 when given) read once, y and the
+    final state written once; the chunked form's products at the kernel's
+    chunk of 64 (the last chunk ragged): per chunk of L rows C·Bᵀ and
+    M·(x·dt) over the L(L+1)/2 pairs l <= i, C·stateᵀ and the state
+    update, 2 flops a multiply-add."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = ((B * S * H * P + 2 * B * S * G * N) * esize
+              + (B * S * H + H) * 4 + B * S * H * P * 4
+              + B * H * P * N * 4 * (2 if with_h0 else 1))
+    flops = 0
+    for c0 in range(0, S, 64):
+        L = min(64, S - c0)
+        tri = L * (L + 1) // 2
+        flops += 2 * tri * N + 2 * tri * P + 4 * L * N * P
+    flops *= B * H
+    return (nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3,
+            flops / H100_BF16_FLOPS * 1e3, flops / H100_FP32_FLOPS * 1e3)
+
+
+def _ssd_inputs(B, S, H, P, N, G, dtype, seed, with_h0=False):
+    """The model's layout: x, B and C are views of one (B, S, H·P +
+    2·G·N) tensor, as ``ssm_forward`` splits its conv output; dt a
+    softplus, A = -exp(a_log)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xbc = (torch.randn((B, S, H * P + 2 * G * N), generator=gen,
+                       device="cuda") * 0.5).to(dtype)
+    x, Bm, Cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda"))
+    A = -torch.exp(torch.rand((H,), generator=gen, device="cuda") * 2.8)
+    h0 = torch.randn((B, H, P, N), generator=gen, device="cuda") \
+        if with_h0 else None
+    return (x.reshape(B, S, H, P), dt, A, Bm.reshape(B, S, G, N),
+            Cm.reshape(B, S, G, N), h0)
+
+
+def _check_scan(tag, label, got, want, rel):
+    """Max abs error, and raise unless every element is within ``rel``
+    of max(1, |want|) and finite."""
+    err = (got - want).abs()
+    worst = float((err / want.abs().clamp_min(1.0)).max())
+    if not bool(torch.isfinite(got).all()) or worst > rel:
+        raise RuntimeError(f"{tag} {label}: error {worst:.3e} of max(1, "
+                           f"|plain|) above {rel} or non-finite output")
+    return float(err.max()), worst
+
+
+def phase_ssm_scan():
+    """ssm_scan against ssm_scan_ref on the card at the zamba2-1.2b
+    prefill shape and at ragged ones (S off the chunk, G 2 with H 4, P 32
+    / N 16, a nonzero h0 carried across two calls), bit-identical reruns,
+    and timings beside the bound; returns its kernels-line entry
+    (``launches`` is filled in by the serve runs)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    for line in ptxas_lines(_build.build_all(["ssm_scan"])
+                            ["ssm_scan"].report):
+        log(f"[ssm_scan] ptxas: {line}")
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, S, H, P, N, G, dtype, h0, split the call at)
+    cases = [
+        ("zamba2-1.2b prefill", *SSM_ZAMBA2, False, None),
+        ("ragged S 1000, G 2, H 4, P 32 / N 16", 2, 1000, 4, 32, 16, 2,
+         f32, False, None),
+        ("h0 carried across two calls (S 130 + 170)", 2, 300, 4, 64, 64, 2,
+         bf16, True, 130),
+        ("ragged S 77, P 64 / N 16, G 4, h0", 1, 77, 8, 64, 16, 4, f32,
+         True, None),
+        ("S 1, P 32 / N 64", 3, 1, 2, 32, 64, 1, f32, True, None),
+    ]
+    max_err = 0.0
+    for label, B, S, H, P, N, G, dt_, with_h0, split in cases:
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, G, dt_,
+                                           seed=S + H, with_h0=with_h0)
+        if split is None:
+            got = ssm_scan(x, dt, A, Bm, Cm, h0)
+        else:
+            y1, h1 = ssm_scan(x[:, :split], dt[:, :split], A,
+                              Bm[:, :split], Cm[:, :split], h0)
+            y2, h2 = ssm_scan(x[:, split:], dt[:, split:], A,
+                              Bm[:, split:], Cm[:, split:], h1)
+            got = (torch.cat([y1, y2], 1), h2)
+        again = ssm_scan(x, dt, A, Bm, Cm, h0)
+        torch.cuda.synchronize()
+        want = ssm_scan(x, dt, A, Bm, Cm, h0, impl="torch")
+        ey, ry = _check_scan("ssm_scan", label, got[0], want[0], SSM_REL)
+        eh, rh = _check_scan("ssm_scan", label + " state", got[1],
+                             want[1], SSM_REL)
+        same = bool(torch.equal(again[0], ssm_scan(x, dt, A, Bm, Cm, h0)[0]))
+        max_err = max(max_err, ey, eh)
+        log(f"[ssm_scan] {label} (B{B} S{S} H{H} P{P} N{N} G{G} "
+            f"{str(dt_)[6:]}, h0 {with_h0}): y max abs err {ey:.3e} "
+            f"({ry:.3e} of max(1, |y|)), state {eh:.3e} ({rh:.3e}); "
+            f"reruns bit-identical {same}")
+        if not same:
+            raise RuntimeError(f"ssm_scan {label}: two launches differ")
+        del x, dt, A, Bm, Cm, h0, got, again, want
+
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(*SSM_ZAMBA2, seed=1)
+    ms = cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm), reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, impl="torch"),
+                       reps=2, warmup=1)
+    nbytes, flops, bytes_ms, bf16_ms, fp32_ms = ssd_bounds(*SSM_ZAMBA2,
+                                                           False)
+    bound_ms = max(bytes_ms, bf16_ms)
+    log(f"[ssm_scan] zamba2-1.2b timing: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (the per-step oracle), no library call; bound "
+        f"{bound_ms * 1e3:.1f} us ({nbytes} bytes at 3.35 TB/s; "
+        f"{flops:.4e} flops take {bf16_ms * 1e3:.1f} us on bf16 tensor "
+        f"cores), {fp32_ms * 1e3:.1f} us at fp32's 67 TFLOP/s; kernel at "
+        f"{bound_ms / ms:.1%} of the bound, {fp32_ms / ms:.1%} of fp32 "
+        f"peak")
+    del x, dt, A, Bm, Cm
+    return {"name": "ssm_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan/kernel.py:66",
+            "launches": None, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= bf16_ms else "operations",
+            "library_ms": None, "at": "zamba2-1.2b prefill shape"}
+
+
+def wkv_bounds(B, S, H, D, dtype, with_s0):
+    """(bytes, flops, bytes ms, bf16 tensor-core ms, fp32 ms) of one
+    rwkv6_scan call: r, k, v, logw (fp32), u (and s0 when given) read
+    once, y and the final state written once.  The flops are those of the
+    chunked form's products (``wkv_chunked``) at a chunk of 64 (the last
+    chunk ragged), as ``ssd_bounds`` counts the SSD's: per chunk of L rows
+    the r·kᵀ scores and their product with v over the L(L+1)/2 pairs
+    j <= t (the diagonal carries the bonus u), r·S and the state update
+    kᵀ·v, 2 flops a multiply-add, on bf16 tensor cores.  The fp32 time is
+    that of the per-step form, which has no matrix product: 5·D² flops a
+    step and head (r·S, w·S + k⊗v)."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (3 * B * S * H * D * esize + B * S * H * D * 4 + H * D * 4
+              + B * S * H * D * 4 + B * H * D * D * 4 * (2 if with_s0
+                                                          else 1))
+    flops = 0
+    for c0 in range(0, S, 64):
+        L = min(64, S - c0)
+        flops += 4 * (L * (L + 1) // 2) * D + 4 * L * D * D
+    flops *= B * H
+    step_flops = 5 * D * D * B * H * S
+    return (nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3,
+            flops / H100_BF16_FLOPS * 1e3,
+            step_flops / H100_FP32_FLOPS * 1e3)
+
+
+def _wkv_inputs(B, S, H, D, dtype, seed, with_s0=False):
+    """The model's layout (B, S, H, D), as ``time_mix`` reshapes its
+    projections; logw = -exp(·) in fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = ((rn(B, S, H, D) * 0.5).to(dtype) for _ in range(3))
+    logw = -torch.exp(rn(B, S, H, D) * 0.5)
+    u = rn(H, D) * 0.3
+    return r, k, v, logw, u, (rn(B, H, D, D) * 0.5 if with_s0 else None)
+
+
+def phase_rwkv6_scan():
+    """rwkv6_scan against rwkv6_scan_ref on the card at the rwkv6-7b
+    prefill shape and at ragged ones (D 32, a nonzero s0 carried across
+    two calls), bit-identical reruns, and timings beside the bound;
+    returns its kernels-line entry."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    for line in ptxas_lines(_build.build_all(["rwkv6_scan"])
+                            ["rwkv6_scan"].report):
+        log(f"[rwkv6_scan] ptxas: {line}")
+    kern, plain = wkv_kernel_adapter("cuda"), wkv_kernel_adapter("torch")
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, S, H, D, dtype, s0, split the call at)
+    cases = [
+        ("rwkv6-7b prefill", *WKV_RWKV6, False, None),
+        ("ragged S 1000, D 32", 2, 1000, 8, 32, f32, False, None),
+        ("s0 carried across two calls (S 45 + 255), D 64", 2, 300, 4, 64,
+         bf16, True, 45),
+        ("ragged S 77, D 32, s0", 1, 77, 3, 32, bf16, True, None),
+        ("S 1, D 64, s0", 3, 1, 2, 64, f32, True, None),
+    ]
+    max_err = 0.0
+    for label, B, S, H, D, dt_, with_s0, split in cases:
+        r, k, v, lw, u, s0 = _wkv_inputs(B, S, H, D, dt_, seed=S + H,
+                                         with_s0=with_s0)
+        if split is None:
+            got = kern(r, k, v, lw, u, s0)
+        else:
+            y1, s1 = kern(r[:, :split], k[:, :split], v[:, :split],
+                          lw[:, :split], u, s0)
+            y2, s2 = kern(r[:, split:], k[:, split:], v[:, split:],
+                          lw[:, split:], u, s1)
+            got = (torch.cat([y1, y2], 1), s2)
+        again = kern(r, k, v, lw, u, s0)
+        torch.cuda.synchronize()
+        want = plain(r, k, v, lw, u, s0)
+        ey, ry = _check_scan("rwkv6_scan", label, got[0], want[0], WKV_REL)
+        es, rs = _check_scan("rwkv6_scan", label + " state", got[1],
+                             want[1], WKV_REL)
+        same = bool(torch.equal(again[0], kern(r, k, v, lw, u, s0)[0]))
+        max_err = max(max_err, ey, es)
+        log(f"[rwkv6_scan] {label} (B{B} S{S} H{H} D{D} {str(dt_)[6:]}, "
+            f"s0 {with_s0}): y max abs err {ey:.3e} ({ry:.3e} of max(1, "
+            f"|y|)), state {es:.3e} ({rs:.3e}); reruns bit-identical "
+            f"{same}")
+        if not same:
+            raise RuntimeError(f"rwkv6_scan {label}: two launches differ")
+        del r, k, v, lw, u, s0, got, again, want
+
+    r, k, v, lw, u, _ = _wkv_inputs(*WKV_RWKV6, seed=1)
+    ms = cuda_ms(lambda: kern(r, k, v, lw, u, None), reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: plain(r, k, v, lw, u, None), reps=2,
+                       warmup=1)
+    nbytes, flops, bytes_ms, bf16_ms, fp32_ms = wkv_bounds(*WKV_RWKV6,
+                                                           False)
+    bound_ms = max(bytes_ms, bf16_ms)
+    log(f"[rwkv6_scan] rwkv6-7b timing: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (the per-step oracle), no library call; bound "
+        f"{bound_ms * 1e3:.1f} us ({nbytes} bytes at 3.35 TB/s; the "
+        f"chunked form's {flops:.4e} flops take {bf16_ms * 1e3:.1f} us on "
+        f"bf16 tensor cores), the per-step form's flops "
+        f"{fp32_ms * 1e3:.1f} us at fp32's 67 TFLOP/s; kernel at "
+        f"{bound_ms / ms:.1%} of the bound, {fp32_ms / ms:.1%} of fp32 "
+        f"peak")
+    del r, k, v, lw, u
+    return {"name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:55",
+            "launches": None, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= bf16_ms else "operations",
+            "library_ms": None, "at": "rwkv6-7b prefill shape"}
+
+
 def timed_run(engine, policy, counters):
     """One run of ``engine`` with every kernel count set to 0 just before
     it and read just after; returns (History, launches, ms per round over
@@ -472,40 +752,6 @@ def check_run(label, hist, launches, per_round, num_classes):
             raise RuntimeError(f"{label}: received {r}, selected {s}")
 
 
-def unported_bounds():
-    """The least time an H100 could take for each kernel not ported yet,
-    at the shapes of ``benchmarks/bench_kernels.py``, fp32 in and out:
-    the larger of bytes (each input read once, each output written once)
-    over 3.35 TB/s and fp32 operations over 67 TFLOP/s.  Computed from
-    the shapes, not measured.  Returns ``{name: (bound_ms, bound_by,
-    bytes, flops)}``."""
-    f4 = 4
-    # Mamba2 SSD: B1 S512 H4 P64 N64, one B/C group, chunks of 128; per
-    # head and chunk: CBᵀ and M·(x·dt) over the causal triangle, the
-    # inter-chunk C·stateᵀ and the state update
-    B, S, H, P, N, L = 1, 512, 4, 64, 64, 128
-    ssd_bytes = (B * S * H * P + B * S * H + H + 2 * B * S * N
-                 + B * S * H * P + B * H * P * N) * f4
-    tri = L * (L + 1) // 2
-    ssd_flops = (S // L) * B * H * (2 * tri * N + 2 * tri * P
-                                    + 2 * L * N * P + 2 * L * P * N)
-    # WKV6: B1 H4 S256 D64; per step and head k⊗v (D²), S + u·a (2D²),
-    # r·(…) (2D²), w·S + a (2D²)
-    B, H, S, D = 1, 4, 256, 64
-    wkv_bytes = (4 * B * H * S * D + H * D + B * H * S * D
-                 + B * H * D * D) * f4
-    wkv_flops = 7 * D * D * B * H * S
-    out = {}
-    for name, nbytes, flops in (("ssm_scan", ssd_bytes, ssd_flops),
-                                ("rwkv6_scan", wkv_bytes, wkv_flops)):
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        ops_ms = flops / H100_FP32_FLOPS * 1e3
-        out[name] = (max(bytes_ms, ops_ms),
-                     "bytes" if bytes_ms >= ops_ms else "operations",
-                     nbytes, flops)
-    return out
-
-
 def phase_main_path(counters):
     """FleetEngine.run("flude") at N = 4096 on the card; returns the
     data and each kernel's launches in the run."""
@@ -531,7 +777,7 @@ def phase_main_path(counters):
         f"launches {launches}")
     # the mean path: one fed_agg launch a round and no residual norms
     check_run("main path", hist, launches,
-              {"fed_agg": 1, "residual_norms": 0, "flash_attention": 0},
+              {"fed_agg": 1, "residual_norms": 0, **SERVE_ONLY},
               data.num_classes)
     phase_profile(engine, "flude", "profile")
     return data, launches
@@ -669,15 +915,48 @@ def phase_card_vs_cpu():
                 raise RuntimeError(f"{tag}: trust differs by {tdiff}")
 
 
-def phase_serve(label, arch, B, S, N, n_params, per_prefill, counters):
+def rel_gap(got, want):
+    """(max |got - want|, max |got - want| / max(1, |want|), first greedy
+    token equal) of two logit tensors."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return (float(err.max()), float((err / want.abs().clamp_min(1.0)).max()),
+            bool(torch.equal(got.argmax(-1), want.argmax(-1))))
+
+
+def compare_prefill(tag, dtype, per_prefill, got, want):
+    """Log the last-position logits of a prefill through the kernels
+    against the plain path's; returns (max error / max(1, |logit|),
+    first greedy token equal)."""
+    want = want.float()
+    err, rel, same = rel_gap(got, want)
+    top2 = want.topk(2, dim=-1).values
+    log(f"[{tag}] {dtype} prefill logits, kernels ({', '.join(per_prefill)})"
+        f" against the plain attention and scans: max abs err "
+        f"{err:.4e}, max err / max(1, |logit|) {rel:.4e}; first"
+        f" greedy token equal {same} (top-2 logit gaps "
+        f"{[round(float(g), 4) for g in top2[:, 0] - top2[:, 1]]})")
+    return rel, same
+
+
+def phase_serve(label, arch, B, S, N, n_params, per_prefill, gate,
+                counters):
     """``serve()`` at full width and depth, bf16, random weights from a
     seed: a warm-up, then the timed run with every kernel count set to 0
-    just before it and read just after; the same prefill under the plain
-    attention; a profiled prefill + 4 decode steps.  Returns the launches
-    of the timed run."""
+    just before it and read just after (``per_prefill`` launches of each
+    kernel of the path, none in a decode step); the same prefill under
+    the plain attention and scans, held to SERVE_BF16_TOL and the same
+    first token where ``gate`` is "bf16", and logged where it is "fp32":
+    then the kernel and plain prefills are rerun on fp32 copies of the
+    weights and held to SERVE_F32_FULL_TOL and the same first token, and
+    the timed bf16 prefill is held to the fp32 plain one at
+    SERVE_BF16_RATIO times the bf16 plain prefill's gap to it; a
+    profiled prefill + 4 decode steps.  Returns the launches of the timed
+    run."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import ExecConfig, build_model
+    from repro_torch.tree import tree_map
     tag = f"serve {arch}"
     cfg = get_config(arch)
     model = build_model(cfg)
@@ -707,9 +986,8 @@ def phase_serve(label, arch, B, S, N, n_params, per_prefill, counters):
         f"({B * N / res.decode_s:.0f} tok/s); peak device memory "
         f"{peak:.2f} GiB; launches {launches}")
     log(f"[{tag}] ids (first request) {res.ids[0].tolist()}")
-    want = {name: 0 for name in counters}
-    want["flash_attention"] = per_prefill   # one prefill, 0 per decode step
-    if launches != want:
+    want = {name: per_prefill.get(name, 0) for name in counters}
+    if launches != want:          # one prefill, nothing in a decode step
         raise RuntimeError(f"{tag}: launches {launches}, expected {want}")
     if res.ids.shape != (B, N + 1) or not bool(
             ((res.ids >= 0) & (res.ids < cfg.vocab_size)).all()) \
@@ -717,25 +995,52 @@ def phase_serve(label, arch, B, S, N, n_params, per_prefill, counters):
         raise RuntimeError(f"{tag}: ids {tuple(res.ids.shape)} out of "
                            f"range or non-finite logits")
 
+    plain_cfg = ExecConfig(attn_impl="torch")
     with torch.inference_mode():
-        plain, _ = model.prefill(params, {"tokens": tokens},
-                                 ExecConfig(attn_impl="torch"),
+        plain, _ = model.prefill(params, {"tokens": tokens}, plain_cfg,
                                  max_len=S + N + 1)
-    got, want_l = res.logits[:, 0].float(), plain[:, -1].float()
-    err = (got - want_l).abs()
-    rel = float((err / want_l.abs().clamp_min(1.0)).max())
-    same = bool(torch.equal(got.argmax(-1), want_l.argmax(-1)))
-    top2 = want_l.topk(2, dim=-1).values
-    log(f"[{tag}] prefill logits, flash kernel against plain attention: "
-        f"max abs err {float(err.max()):.4f}, max err / max(1, |logit|) "
-        f"{rel:.4f}; first greedy token equal {same} (top-2 logit gaps "
-        f"{[round(float(g), 4) for g in top2[:, 0] - top2[:, 1]]})")
-    if rel > SERVE_BF16_TOL:
-        raise RuntimeError(f"{tag}: prefill logits differ by {rel:.4f} "
-                           f"of max(1, |logit|) from the plain attention")
-    if not same:
-        raise RuntimeError(f"{tag}: first greedy token differs from the "
-                           f"plain attention's")
+    rel, same = compare_prefill(f"{tag}", cfg.compute_dtype, per_prefill,
+                                res.logits[:, 0], plain[:, -1])
+    if gate == "bf16" and (rel > SERVE_BF16_TOL or not same):
+        raise RuntimeError(f"{tag}: prefill logits differ by {rel:.4f} of "
+                           f"max(1, |logit|) from the plain path, or the "
+                           f"first greedy token differs")
+    if gate == "fp32":
+        # the recurrences carry bf16 rounding through every layer: the
+        # kernels are held to the plain path in fp32 at full width
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        model32 = build_model(cfg32)
+        p32 = tree_map(lambda t: t.float(), params)
+        with torch.inference_mode():
+            kern, _ = model32.prefill(p32, {"tokens": tokens}, ExecConfig(),
+                                      max_len=S + 1)
+            plain32, _ = model32.prefill(p32, {"tokens": tokens},
+                                         plain_cfg, max_len=S + 1)
+        rel, same = compare_prefill(f"{tag}", "float32", per_prefill,
+                                    kern[:, -1], plain32[:, -1])
+        del p32, kern
+        if rel > SERVE_F32_FULL_TOL or not same:
+            raise RuntimeError(f"{tag}: fp32 prefill logits differ by "
+                               f"{rel:.3e} of max(1, |logit|) from the "
+                               f"plain path, or the first greedy token "
+                               f"differs")
+        # the timed bf16 path, against the fp32 plain prefill, beside the
+        # bf16 plain path's own distance to it
+        want32 = plain32[:, -1]
+        _, gap_k, tok_k = rel_gap(res.logits[:, 0], want32)
+        _, gap_p, tok_p = rel_gap(plain[:, -1], want32)
+        log(f"[{tag}] bfloat16 prefill logits against the float32 plain "
+            f"path, max err / max(1, |logit|): kernels {gap_k:.4e} (first "
+            f"token equal {tok_k}), plain {gap_p:.4e} (first token equal "
+            f"{tok_p}); ratio {gap_k / max(gap_p, 1e-30):.3f}, held to "
+            f"{SERVE_BF16_RATIO}")
+        del plain32
+        if not gap_k <= SERVE_BF16_RATIO * gap_p:
+            raise RuntimeError(f"{tag}: the bf16 kernel path is {gap_k:.4e}"
+                               f" of max(1, |logit|) from the fp32 plain "
+                               f"path, more than {SERVE_BF16_RATIO} times "
+                               f"the bf16 plain path's {gap_p:.4e}")
     del plain, res
     profile_serve(tag, model, params, tokens)
     del params
@@ -743,11 +1048,16 @@ def phase_serve(label, arch, B, S, N, n_params, per_prefill, counters):
     return launches
 
 
+# the device-side names of the port's serve kernels (launched through
+# ctypes, outside any aten op)
+KERNEL_NAMES = ("flash_fwd", "ssd_fwd", "wkv_fwd")
+
+
 def profile_serve(tag, model, params, tokens, steps=4, top=12):
     """``torch.profiler`` over one prefill and ``steps`` decode steps,
     with spans around ``Model.prefill`` and ``Model.decode_step``: wall,
-    device busy and idle share, the flash kernel's share of the device
-    time, and the operators with the most device time."""
+    device busy and idle share, the hand-written kernels' share of the
+    device time, and the operators with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.launch.serve import serve
@@ -774,14 +1084,15 @@ def profile_serve(tag, model, params, tokens, steps=4, top=12):
     device = {e.key: e for e in events if e.device_type == DeviceType.CUDA}
     busy_ms = sum(e.self_device_time_total for k, e in device.items()
                   if k not in spans) / 1e3
-    flash_ms = sum(e.self_device_time_total for k, e in device.items()
-                   if "flash_fwd" in k) / 1e3
+    mine = {k: e for k, e in device.items()
+            if any(n in k for n in KERNEL_NAMES)}
+    kern_ms = sum(e.self_device_time_total for e in mine.values()) / 1e3
     log(f"[{tag} profile] one prefill + {steps} decode steps: wall "
         f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (idle "
-        f"{1 - busy_ms / wall_ms:.1%}), flash_attention {flash_ms:.1f} ms "
-        f"({flash_ms / busy_ms:.1%} of device time)")
-    # the flash kernel is launched through ctypes, outside any aten op:
-    # the profiler does not count it in the prefill span's kernels
+        f"{1 - busy_ms / wall_ms:.1%}), hand-written kernels "
+        f"{kern_ms:.1f} ms ({kern_ms / busy_ms:.1%} of device time)")
+    # the kernels are launched through ctypes, outside any aten op: the
+    # profiler does not count them in the prefill span's kernels
     for span in spans[:2]:
         if span not in host:
             raise RuntimeError(f"{tag} profile: no {span!r} span")
@@ -789,11 +1100,11 @@ def profile_serve(tag, model, params, tokens, steps=4, top=12):
         log(f"[{tag} profile]   span {span:12s} x{e.count:<3d} host "
             f"{e.cpu_time_total / 1e3:8.2f} ms, aten kernels "
             f"{e.device_time_total / 1e3:8.2f} ms"
-            + (f" (+ flash_attention {flash_ms:.2f} ms)"
+            + (f" (+ hand-written kernels {kern_ms:.2f} ms)"
                if span == "prefill" else ""))
     ops = [e for e in host.values() if e.key not in spans
            and e.self_device_time_total > 0]
-    ops += [e for k, e in device.items() if "flash_fwd" in k]
+    ops += list(mine.values())
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         log(f"[{tag} profile]   {ms:8.3f} ms {ms / busy_ms:6.1%} "
@@ -808,11 +1119,14 @@ def phase_serve_card_vs_cpu():
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
-    for arch in ("qwen2-7b", "h2o-danube-1.8b"):
+    # the stateful families at a prompt past RWKV's S > 64 switch and
+    # ragged against zamba2-reduced's chunk of 32
+    for arch, prompt in (("qwen2-7b", 32), ("h2o-danube-1.8b", 32),
+                         ("zamba2-1.2b", 72), ("rwkv6-7b", 72)):
         cfg = get_config(arch).reduced()
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0))
-        tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+        tokens = torch.randint(0, cfg.vocab_size, (2, prompt),
                                generator=torch.Generator().manual_seed(1))
         cpu = serve(model, params, tokens, 20, device="cpu")
         card = serve(model, tree_map(lambda t: t.to("cuda"), params),
@@ -821,7 +1135,8 @@ def phase_serve_card_vs_cpu():
         rel = float((err / cpu.logits.abs().clamp_min(1.0)).max())
         same = bool(torch.equal(card.ids.cpu(), cpu.ids))
         log(f"[serve card vs CPU] {cfg.name} (window "
-            f"{cfg.sliding_window}, prompt 32, 20 steps, fp32): max |card "
+            f"{cfg.sliding_window}, prompt {prompt}, 20 steps, fp32): max "
+            f"|card "
             f"- cpu| logit {float(err.max()):.3e}, of max(1, |logit|) "
             f"{rel:.3e}; ids equal {same}")
         if rel > SERVE_F32_TOL or not same:
@@ -842,32 +1157,34 @@ def main():
     from repro_torch.kernels.fed_agg import kernel as fed_agg_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.robust_agg import kernel as robust_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ssd_kernel
     counters = {"fed_agg": fed_agg_kernel.launches,
                 "residual_norms": robust_kernel.launches,
-                "flash_attention": flash_kernel.launches}
+                "flash_attention": flash_kernel.launches,
+                "ssm_scan": ssd_kernel.launches,
+                "rwkv6_scan": wkv_kernel.launches}
     torch.backends.cuda.matmul.allow_tf32 = False    # fp32 card vs CPU
 
     name, count, smi = phase_device()
     phase_build()
     entries = {"fed_agg": phase_fed_agg(),
                "residual_norms": phase_residual_norms(),
-               "flash_attention": phase_flash_attention()}
+               "flash_attention": phase_flash_attention(),
+               "ssm_scan": phase_ssm_scan(),
+               "rwkv6_scan": phase_rwkv6_scan()}
     data, main = phase_main_path(counters)
     paths = {"main": main, **phase_robust(data, counters)}
     for run in SERVE_RUNS:
         paths[run[0]] = phase_serve(*run, counters)
     for k, entry in entries.items():
         # launches over the driven paths: the FL main and robust runs and
-        # the two serve runs
+        # the four serve runs
         by_path = {p: n[k] for p, n in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
     phase_card_vs_cpu()
     phase_serve_card_vs_cpu()
-    for k, (ms, by, nbytes, flops) in unported_bounds().items():
-        log(f"[bounds] {k} (not ported; computed, not measured): "
-            f"{ms * 1e3:.3f} us, {by}-bound ({nbytes} bytes, {flops} "
-            f"fp32 flops)")
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

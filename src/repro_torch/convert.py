@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import LAYERED
+
 
 def _tensor(a, device):
     a = np.asarray(a)
@@ -29,15 +31,19 @@ def params_from_jax(tree, device="cpu"):
 def lm_params_from_jax(tree, num_layers: int, device="cpu"):
     """The reference's language-model parameters (numpy, from
     ``jax.device_get(model.init(key))``) -> the port's: the same dict,
-    with ``params["blocks"]`` unstacked from its leading layer axis into a
-    list of ``num_layers`` per-layer dicts."""
+    with each layered tree (``blocks``, ``mamba``, ``mamba_norm``)
+    unstacked from its leading layer axis into a list of ``num_layers``
+    per-layer dicts; ``shared_attn`` and ``ln0`` carried over as they
+    are."""
     out = {k: params_from_jax(v, device) for k, v in tree.items()
-           if k != "blocks"}
+           if k not in LAYERED}
 
     def layer(t, i):
         if isinstance(t, dict):
             return {k: layer(v, i) for k, v in t.items()}
         return _tensor(np.asarray(t)[i], device)
 
-    out["blocks"] = [layer(tree["blocks"], i) for i in range(num_layers)]
+    for k in LAYERED:
+        if k in tree:
+            out[k] = [layer(tree[k], i) for i in range(num_layers)]
     return out

@@ -1,0 +1,111 @@
+"""Launch wrapper of the CUDA ``rwkv6_scan`` kernel
+(``csrc/rwkv6_scan.cu``).
+
+Replaces ``repro/kernels/rwkv6_scan/kernel.py:55 rwkv6_scan_pallas``.  One
+CUDA block of D threads owns one (batch, head) and walks all of S, thread
+j holding column j of the (D, D) fp32 state in registers; every tensor
+is read through its strides, so the model's (B, S, H, D) layout goes in
+without a transpose.  See the source for the design and its bound.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+# rwkv6-7b's head size and its reduced() variant's
+HEAD_DIMS = (32, 64)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = _build.LaunchCounter()
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = _build.load("rwkv6_scan").rwkv6_scan_fwd
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    logw: torch.Tensor, u: torch.Tensor,
+                    s0: Optional[torch.Tensor] = None):
+    """r, k, v, logw: (B, H, S, D); u: (H, D); s0: (B, H, D, D) fp32 or
+    None (zeros), all on one CUDA device.
+
+    Returns y (B, H, S, D) fp32 — a view of (B, S, H, D) memory, the
+    model's layout — and the final state (B, H, D, D) fp32.  Launches on
+    the current stream and does not synchronise."""
+    dev = r.device
+    tensors = (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u)) + \
+        ((("s0", s0),) if s0 is not None else ())
+    if dev.type != "cuda" or any(t.device != dev for _, t in tensors):
+        raise ValueError(f"rwkv6_scan cuda: every tensor must lie on one "
+                         f"CUDA device, got " + ", ".join(
+                             f"{n} {t.device}" for n, t in tensors))
+    if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype \
+            or logw.dtype not in DTYPES:
+        raise TypeError(f"rwkv6_scan cuda: takes float32 or bfloat16 r, k "
+                        f"and v of one dtype and a float32 or bfloat16 "
+                        f"logw, got {r.dtype}, {k.dtype}, {v.dtype}, "
+                        f"{logw.dtype}")
+    if s0 is not None and s0.dtype != torch.float32:
+        raise TypeError(f"rwkv6_scan cuda: s0 must be float32, got "
+                        f"{s0.dtype}")
+    if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, logw)):
+        raise ValueError(f"rwkv6_scan cuda: needs r, k, v, logw of one "
+                         f"shape (B, H, S, D), got {tuple(r.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(logw.shape)}")
+    B, H, S, D = r.shape
+    if tuple(u.shape) != (H, D) or \
+            (s0 is not None and tuple(s0.shape) != (B, H, D, D)):
+        raise ValueError(f"rwkv6_scan cuda: u {tuple(u.shape)} or s0 "
+                         f"{None if s0 is None else tuple(s0.shape)} does "
+                         f"not agree with r {tuple(r.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan cuda: head size {D} has no kernel "
+                         f"variant (one of {HEAD_DIMS})")
+    if B > 65535:
+        raise ValueError(f"rwkv6_scan cuda: B ({B}) must be at most 65535 "
+                         f"(grid limit)")
+    for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"rwkv6_scan cuda: {name} must have a "
+                             f"contiguous last axis, got strides "
+                             f"{t.stride()}")
+    y = torch.empty((B, S, H, D), dtype=torch.float32,
+                    device=dev).transpose(1, 2)
+    if S == 0 or B == 0 or H == 0:
+        sf = torch.zeros((B, H, D, D), dtype=torch.float32, device=dev) \
+            if s0 is None else s0.clone()
+        return y, sf
+    sf = torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
+    u32 = u.float().contiguous()
+    s0c = None if s0 is None else s0.contiguous()
+    strides = (ctypes.c_int64 * 15)(*r.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *logw.stride()[:3],
+                                    *y.stride()[:3])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry()(DTYPES[r.dtype], DTYPES[logw.dtype], D,
+                       r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       logw.data_ptr(), u32.data_ptr(),
+                       None if s0c is None else s0c.data_ptr(),
+                       y.data_ptr(), sf.data_ptr(), strides, B, H, S,
+                       stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan cuda: launch failed with CUDA "
+                           f"error {err} at r {tuple(r.shape)}, {r.dtype}")
+    launches.count += 1
+    return y, sf

@@ -1,0 +1,117 @@
+"""Launch wrapper of the CUDA ``ssm_scan`` kernel (``csrc/ssm_scan.cu``).
+
+Replaces ``repro/kernels/ssm_scan/kernel.py:66 ssm_scan_pallas``.  One
+CUDA block owns one (batch, head) and walks the chunks of S with the
+(P, N) fp32 state in shared memory; B and C are read per group (no
+``repeat`` copy) and every tensor through its strides, so the model's
+(B, S, H, P) layout goes in without a transpose.  See the source for the
+design and its bound.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+# (P, N): zamba2-1.2b's SSD heads (64, 64), its reduced() variant's
+# (32, 16), and the two mixed sizes
+SIZES = ((32, 16), (32, 64), (64, 16), (64, 64))
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = _build.LaunchCounter()
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = _build.load("ssm_scan").ssm_scan_fwd
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor,
+                  h0: Optional[torch.Tensor] = None):
+    """x: (B, H, S, P); dt: (B, H, S); A: (H,); Bm, Cm: (B, G, S, N) with
+    head h reading group h // (H // G) (G == H: groups already expanded);
+    h0: (B, H, P, N) fp32 or None (zeros), all on one CUDA device.
+
+    Returns y (B, H, S, P) fp32 — a view of (B, S, H, P) memory, the
+    model's layout — and the final state (B, H, P, N) fp32.  Launches on
+    the current stream and does not synchronise."""
+    dev = x.device
+    tensors = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)) + \
+        ((("h0", h0),) if h0 is not None else ())
+    if dev.type != "cuda" or any(t.device != dev for _, t in tensors):
+        raise ValueError(f"ssm_scan cuda: every tensor must lie on one CUDA "
+                         f"device, got " + ", ".join(
+                             f"{n} {t.device}" for n, t in tensors))
+    if x.dtype not in DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype \
+            or dt.dtype not in DTYPES:
+        raise TypeError(f"ssm_scan cuda: takes float32 or bfloat16 x, Bm "
+                        f"and Cm of one dtype and a float32 or bfloat16 "
+                        f"dt, got {x.dtype}, {Bm.dtype}, {Cm.dtype}, "
+                        f"{dt.dtype}")
+    if h0 is not None and h0.dtype != torch.float32:
+        raise TypeError(f"ssm_scan cuda: h0 must be float32, got "
+                        f"{h0.dtype}")
+    if x.ndim != 4 or Bm.ndim != 4 or Bm.shape != Cm.shape:
+        raise ValueError(f"ssm_scan cuda: needs x (B, H, S, P) and Bm, Cm "
+                         f"(B, G, S, N), got {tuple(x.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    B, H, S, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[3]
+    if tuple(dt.shape) != (B, H, S) or tuple(A.shape) != (H,) \
+            or Bm.shape[0] != B or Bm.shape[2] != S or G == 0 or H % G \
+            or (h0 is not None and tuple(h0.shape) != (B, H, P, N)):
+        raise ValueError(f"ssm_scan cuda: shapes do not agree: x "
+                         f"{tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, Bm {tuple(Bm.shape)}, h0 "
+                         f"{None if h0 is None else tuple(h0.shape)} (H "
+                         f"must be a multiple of G)")
+    if (P, N) not in SIZES:
+        raise ValueError(f"ssm_scan cuda: (head_dim P, d_state N) = "
+                         f"{(P, N)} has no kernel variant (one of {SIZES})")
+    if B > 65535:
+        raise ValueError(f"ssm_scan cuda: B ({B}) must be at most 65535 "
+                         f"(grid limit)")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"ssm_scan cuda: {name} must have a contiguous "
+                             f"last axis, got strides {t.stride()}")
+    y = torch.empty((B, S, H, P), dtype=torch.float32,
+                    device=dev).transpose(1, 2)
+    if S == 0 or B == 0 or H == 0:
+        hf = torch.zeros((B, H, P, N), dtype=torch.float32, device=dev) \
+            if h0 is None else h0.clone()
+        return y, hf
+    hf = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    A32 = A.float().contiguous()
+    h0c = None if h0 is None else h0.contiguous()
+    strides = (ctypes.c_int64 * 15)(*x.stride()[:3], *dt.stride(),
+                                    *Bm.stride()[:3], *Cm.stride()[:3],
+                                    *y.stride()[:3])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry()(DTYPES[x.dtype], DTYPES[dt.dtype], P, N,
+                       x.data_ptr(), dt.data_ptr(), A32.data_ptr(),
+                       Bm.data_ptr(), Cm.data_ptr(),
+                       None if h0c is None else h0c.data_ptr(),
+                       y.data_ptr(), hf.data_ptr(), strides, B, H, G, S,
+                       stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan cuda: launch failed with CUDA error "
+                           f"{err} at x {tuple(x.shape)}, Bm "
+                           f"{tuple(Bm.shape)}, {x.dtype}")
+    launches.count += 1
+    return y, hf

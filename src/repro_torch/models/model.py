@@ -1,4 +1,5 @@
-"""Model API of the dense GQA decoder.
+"""Model API of the causal LMs the port serves (dense GQA, the zamba2
+hybrid, RWKV6).
 
 The port of ``repro.models.model.Model`` for the configs the port serves
 (``transformer.check_supported``); the dry-run specs (``input_specs``,
@@ -26,13 +27,14 @@ class Model:
     # -- params ------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Draw the parameters on ``gen``'s device by the reference's init
-        laws: the top-level leaves in sorted key order, then the blocks
-        layer by layer.  ``blocks`` is a list of per-layer dicts."""
-        top = {k: v for k, v in self.specs.items() if k != "blocks"}
+        laws: the top-level leaves in sorted key order, then each layered
+        tree (``blocks``; the hybrid's ``mamba`` and ``mamba_norm``) layer
+        by layer into a list of per-layer dicts."""
+        top = {k: v for k, v in self.specs.items() if k not in T.LAYERED}
         params = L.init_params(top, gen)
-        one = T.layer_spec(self.specs["blocks"], self.cfg.scan_layers)
-        params["blocks"] = [L.init_params(one, gen)
-                            for _ in range(self.cfg.num_layers)]
+        for k, one in T.layered_specs(self.cfg, self.specs).items():
+            params[k] = [L.init_params(one, gen)
+                         for _ in range(self.cfg.num_layers)]
         return params
 
     def param_count(self) -> int:

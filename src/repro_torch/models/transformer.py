@@ -1,13 +1,14 @@
-"""Causal-LM stack: the dense GQA decoder (with or without a sliding window).
+"""Causal-LM stacks: the dense GQA decoder (with or without a sliding
+window), the zamba2 hybrid (Mamba2 + one shared attention block) and RWKV6.
 
-The port of the dense path of ``repro.models.transformer``.  Parameters
-are nested dicts with the reference's keys, except that ``params
-["blocks"]`` is a list with one dict per layer where the reference stacks
-the layers on a leading axis (``repro_torch.convert`` unstacks them).
+The port of the dense, hybrid and RWKV paths of
+``repro.models.transformer``.  Parameters are nested dicts with the
+reference's keys, except that each tree the reference stacks on a leading
+layer axis (``blocks``; the hybrid's ``mamba`` and ``mamba_norm``) is a
+list with one dict per layer (``repro_torch.convert`` unstacks them).
 The layers run in a Python loop, eagerly; there is no remat (the slice
-serves, it does not train).  Hybrid (zamba2), RWKV, MoE, MLA, vision and
-encoder-decoder configs raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+serves, it does not train).  MoE, MLA, vision and encoder-decoder configs
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -16,24 +17,41 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as SSM
 
 ATTN_IMPLS = ("cuda", "torch")
+# the parameter trees the reference stacks on a leading layer axis and the
+# port keeps as per-layer lists: blocks (when cfg.scan_layers), and the
+# hybrid's Mamba2 layers and their norms (always)
+LAYERED = ("blocks", "mamba", "mamba_norm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecConfig:
     """Runtime execution knobs, field for field as the reference's.
 
-    One documented exception: ``attn_impl`` takes ``"cuda"`` (the default,
-    the hand-written Hopper flash-attention kernel) or ``"torch"`` (its
-    plain version) in place of ``chunked | dense``.  Every other knob
-    keeps its default or raises ``NotImplementedError``: the kernel's
-    tiles are fixed (``q_chunk``, ``k_chunk``, ``unroll_causal``), the
-    layers run in a Python loop with no remat, as the slice serves and
-    does not train (``scan_layers``, ``remat``: ROADMAP Queue A #15e), and
-    sharding and MoE dispatch are not ported (#17, #15d)."""
+    One documented exception: ``attn_impl`` takes ``"cuda"`` (the
+    default) or ``"torch"`` in place of ``chunked | dense``, and picks
+    every hand-written kernel of a prefill or forward, not only the
+    attention's.  ``"cuda"`` runs, on a CUDA tensor, the Hopper
+    flash-attention kernel and the Mamba2 SSD and WKV6 scan kernels
+    (``kernels.flash_attention``, ``kernels.ssm_scan``,
+    ``kernels.rwkv6_scan``); on a CPU tensor, which has no kernel to run,
+    it runs the plain versions.  ``"torch"`` runs the plain versions on
+    either device: flash's plain attention and the reference model's own
+    scan forms, ``_ssd_chunked`` at ``cfg.ssm.chunk_size`` and
+    ``wkv_chunked`` (S > 64) or ``wkv_recurrence``.  Decode steps are
+    plain PyTorch under both, as the reference's are plain JAX.  Every
+    other knob keeps its default or raises ``NotImplementedError``: the
+    kernel's tiles are fixed (``q_chunk``, ``k_chunk``,
+    ``unroll_causal``), the layers run in a Python loop with no remat, as
+    the slice serves and does not train (``scan_layers``, ``remat``:
+    ROADMAP Queue A #15e), and sharding and MoE dispatch are not ported
+    (#17, #15d)."""
     attn_impl: str = "cuda"          # cuda | torch
     q_chunk: int = 512
     k_chunk: int = 512
@@ -74,26 +92,30 @@ class ExecConfig:
 
 def check_supported(cfg):
     """Raise ``NotImplementedError`` for a config outside the dense GQA
-    decoder, naming the ROADMAP Queue A item that ports it."""
+    decoder, the zamba2 hybrid and RWKV6, naming the ROADMAP Queue A item
+    that ports it."""
     why = None
     if cfg.encdec is not None:
         why = "encoder-decoder models (whisper) are #15d"
-    elif cfg.arch_type == "hybrid" or cfg.hybrid is not None:
-        why = "hybrid Mamba2 models (zamba2) are #15b"
-    elif cfg.rwkv is not None:
-        why = "RWKV models are #15c"
     elif cfg.moe is not None:
         why = "MoE models are #15d"
     elif cfg.attention == "mla" or cfg.mla is not None:
         why = "MLA attention is #15d"
     elif cfg.vision is not None:
         why = "vision-language models are #15d"
-    elif cfg.attention != "gqa":
+    elif cfg.rwkv is None and cfg.attention != "gqa":
         why = f"attention={cfg.attention!r} is not ported"
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch serves the dense GQA decoder only; "
-            f"{why} in ROADMAP Queue A")
+            f"{cfg.name}: repro_torch serves the dense GQA decoder, the "
+            f"zamba2 hybrid and RWKV6 only; {why} in ROADMAP Queue A")
+
+
+def _wkv_kernel(exec_cfg, x):
+    """``time_mix``'s kernel hook: the WKV6 kernel on a CUDA tensor under
+    ``attn_impl="cuda"``, else None (the reference's plain forms)."""
+    return wkv_kernel_adapter("cuda") if exec_cfg.attn_impl == "cuda" \
+        and x.device.type != "cpu" else None
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +135,9 @@ def _lnorm(cfg, layered):
 
 def build_spec(cfg) -> Dict[str, Any]:
     """The reference's spec tree: ``blocks`` stacked on a leading layer
-    axis when ``cfg.scan_layers`` (every config has it)."""
+    axis when ``cfg.scan_layers`` (every config has it); the hybrid's
+    ``mamba`` and ``mamba_norm`` always stacked, its one ``shared_attn``
+    block not; RWKV's pre-embedding norm ``ln0``."""
     check_supported(cfg)
     dt = L.cfg_dtype(cfg.param_dtype)
     spec: Dict[str, Any] = {
@@ -125,8 +149,31 @@ def build_spec(cfg) -> Dict[str, Any]:
         spec["lm_head"] = L.ParamSpec((cfg.d_model, cfg.vocab_size),
                                       "normal", dt, ("embed", "vocab"))
     Lr = cfg.num_layers if cfg.scan_layers else None
-    spec["blocks"] = _block_spec(cfg, Lr)
+    if cfg.arch_type == "hybrid":
+        spec["mamba_norm"] = L.norm_spec(cfg, cfg.d_model,
+                                         layered=cfg.num_layers)
+        spec["mamba"] = SSM.ssm_spec(cfg, layered=cfg.num_layers)
+        spec["shared_attn"] = {
+            "norm1": _lnorm(cfg, None),
+            "attn": A.gqa_spec(cfg, layered=None),
+            "norm2": _lnorm(cfg, None),
+            "mlp": L.mlp_spec(cfg, cfg.d_model, cfg.d_ff),
+        }
+    elif cfg.rwkv is not None:
+        spec["blocks"] = {
+            "norm1": _lnorm(cfg, Lr), "norm2": _lnorm(cfg, Lr),
+            "rwkv": R.rwkv_spec(cfg, layered=Lr),
+        }
+        spec["ln0"] = L.norm_spec(cfg, cfg.d_model)   # pre-embedding LN
+    else:
+        spec["blocks"] = _block_spec(cfg, Lr)
     return spec
+
+
+def layered_specs(cfg, specs) -> Dict[str, Any]:
+    """One layer's spec of each tree of ``LAYERED`` that ``specs`` holds."""
+    return {k: layer_spec(specs[k], k != "blocks" or cfg.scan_layers)
+            for k in LAYERED if k in specs}
 
 
 def layer_spec(blocks_spec, stacked: bool):
@@ -201,12 +248,17 @@ def _positions(batch, tokens):
 
 def forward(params, batch, cfg, exec_cfg=ExecConfig()):
     """Full forward -> (logits, aux_loss); the auxiliary loss is MoE's
-    router loss, 0.0 for the dense stack."""
+    router loss, 0.0 for the stacks the port runs."""
     check_supported(cfg)
     tokens = batch["tokens"]
     positions = _positions(batch, tokens)
     x = embed_tokens(params, tokens, cfg)
-    x = _dense_forward(params, x, positions, cfg, exec_cfg)
+    if cfg.arch_type == "hybrid":
+        x = _hybrid_forward(params, x, positions, cfg, exec_cfg)
+    elif cfg.rwkv is not None:
+        x = _rwkv_forward(params, x, cfg, exec_cfg)
+    else:
+        x = _dense_forward(params, x, positions, cfg, exec_cfg)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return lm_head(params, x, cfg), 0.0
 
@@ -217,46 +269,175 @@ def _dense_forward(params, x, positions, cfg, exec_cfg):
     return x
 
 
+def _hybrid_segments(cfg):
+    """zamba2 layer plan: the shared attention block runs before layers
+    0, k, 2k, ... (k = ``attn_every``); returns the [lo, hi) Mamba2 layer
+    ranges that follow each application."""
+    k = cfg.hybrid.attn_every
+    bounds = list(range(0, cfg.num_layers, k)) + [cfg.num_layers]
+    return [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
+
+
+def _shared_attn_block(p, x, positions, cfg, exec_cfg):
+    h = L.apply_norm(p["norm1"], x, cfg)
+    x = x + A.gqa_forward(p["attn"], h, positions, cfg,
+                          impl=exec_cfg.attn_impl)
+    h = L.apply_norm(p["norm2"], x, cfg)
+    return x + L.apply_mlp(p["mlp"], h, cfg)
+
+
+def _hybrid_forward(params, x, positions, cfg, exec_cfg):
+    for lo, hi in _hybrid_segments(cfg):
+        x = _shared_attn_block(params["shared_attn"], x, positions, cfg,
+                               exec_cfg)
+        for i in range(lo, hi):
+            h = L.apply_norm(params["mamba_norm"][i], x, cfg)
+            x = x + SSM.ssm_forward(params["mamba"][i], h, cfg,
+                                    impl=exec_cfg.attn_impl)
+    return x
+
+
+def _rwkv_forward(params, x, cfg, exec_cfg):
+    x = L.apply_norm(params["ln0"], x, cfg)
+    kernel = _wkv_kernel(exec_cfg, x)
+    for p_l in params["blocks"]:
+        x = R.rwkv_block(p_l["rwkv"], x, cfg, p_l["norm1"], p_l["norm2"],
+                         kernel=kernel)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Decode (serve) paths
 # ---------------------------------------------------------------------------
 
 class DecodeCache(NamedTuple):
-    layers: List[A.KVCache]   # one cache per layer
+    layers: List[Any]        # one per layer: KVCache (dense), SSMState
+                             # (hybrid) or RWKVState
+    extra: Optional[List[A.KVCache]] = None   # hybrid: one KV cache per
+                                              # shared-attention application
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
     check_supported(cfg)
+    if cfg.arch_type == "hybrid":
+        return DecodeCache(
+            [SSM.init_ssm_state(cfg, batch, device=device)
+             for _ in range(cfg.num_layers)],
+            [A.init_kv_cache(cfg, batch, max_len, device=device)
+             for _ in _hybrid_segments(cfg)])
+    if cfg.rwkv is not None:
+        return DecodeCache([R.init_rwkv_state(cfg, batch, device=device)
+                            for _ in range(cfg.num_layers)])
     return DecodeCache([A.init_kv_cache(cfg, batch, max_len, device=device)
                         for _ in range(cfg.num_layers)])
 
 
 def decode_step(params, tokens, positions, cache: DecodeCache, cfg):
     """One-token decode.  tokens: (B, 1); positions: (B, 1) absolute.
-    Each layer's cache is updated in place."""
+    KV caches are updated in place; the recurrent states are replaced."""
     x = embed_tokens(params, tokens, cfg)
-    new = []
-    for p_l, c_l in zip(params["blocks"], cache.layers):
-        x, c_l = block_decode(p_l, x, positions, cfg, c_l)
-        new.append(c_l)
+    if cfg.arch_type == "hybrid":
+        x, cache = _hybrid_decode(params, x, positions, cache, cfg)
+    elif cfg.rwkv is not None:
+        x, cache = _rwkv_decode(params, x, cache, cfg)
+    else:
+        new = []
+        for p_l, c_l in zip(params["blocks"], cache.layers):
+            x, c_l = block_decode(p_l, x, positions, cfg, c_l)
+            new.append(c_l)
+        cache = DecodeCache(new)
     x = L.apply_norm(params["final_norm"], x, cfg)
-    return lm_head(params, x, cfg), DecodeCache(new)
+    return lm_head(params, x, cfg), cache
+
+
+def _hybrid_decode(params, x, positions, cache, cfg):
+    sa = params["shared_attn"]
+    new_ssm, new_attn = [], []
+    for si, (lo, hi) in enumerate(_hybrid_segments(cfg)):
+        h = L.apply_norm(sa["norm1"], x, cfg)
+        o, attn_c = A.gqa_decode_step(sa["attn"], h, positions, cfg,
+                                      cache.extra[si])
+        x = x + o
+        h = L.apply_norm(sa["norm2"], x, cfg)
+        x = x + L.apply_mlp(sa["mlp"], h, cfg)
+        new_attn.append(attn_c)
+        for i in range(lo, hi):
+            h = L.apply_norm(params["mamba_norm"][i], x, cfg)
+            o, st = SSM.ssm_decode_step(params["mamba"][i], h, cfg,
+                                        cache.layers[i])
+            x = x + o
+            new_ssm.append(st)
+    return x, DecodeCache(new_ssm, new_attn)
+
+
+def _rwkv_decode(params, x, cache, cfg):
+    x = L.apply_norm(params["ln0"], x, cfg)
+    new = []
+    for p_l, st in zip(params["blocks"], cache.layers):
+        h = L.apply_norm(p_l["norm1"], x, cfg)
+        tm, wkv = R.time_mix(p_l["rwkv"], h, cfg, st)
+        x = x + tm
+        h2 = L.apply_norm(p_l["norm2"], x, cfg)
+        x = x + R.channel_mix(p_l["rwkv"], h2, st)
+        new.append(R.RWKVState(h[:, -1], h2[:, -1], wkv, st.length + 1))
+    return x, DecodeCache(new)
 
 
 def prefill(params, batch, cfg, exec_cfg=ExecConfig(), max_len=None):
     """Prompt prefill: returns (last-position logits, filled cache).
 
-    ``max_len`` sets the cache capacity (>= prompt length) so subsequent
-    decode steps have headroom; defaults to the prompt length."""
+    ``max_len`` sets the KV cache capacity (>= prompt length) so
+    subsequent decode steps have headroom; defaults to the prompt length.
+    The recurrent states of the hybrid and RWKV stacks have no length."""
     tokens = batch["tokens"]
     B, Sq = tokens.shape
     max_len = max_len or Sq
     positions = _positions(batch, tokens)
     x = embed_tokens(params, tokens, cfg)
-    cache = init_cache(cfg, B, max_len, device=tokens.device)
-    new = []
-    for p_l, c_l in zip(params["blocks"], cache.layers):
-        x, c_l = block_prefill(p_l, x, positions, cfg, c_l, exec_cfg)
-        new.append(c_l)
+    if cfg.arch_type == "hybrid":
+        x, cache = _hybrid_prefill(params, x, positions, cfg, exec_cfg,
+                                   max_len)
+    elif cfg.rwkv is not None:
+        x, cache = _rwkv_prefill(params, x, cfg, exec_cfg)
+    else:
+        cache = init_cache(cfg, B, max_len, device=tokens.device)
+        new = []
+        for p_l, c_l in zip(params["blocks"], cache.layers):
+            x, c_l = block_prefill(p_l, x, positions, cfg, c_l, exec_cfg)
+            new.append(c_l)
+        cache = DecodeCache(new)
     x = L.apply_norm(params["final_norm"], x[:, -1:], cfg)
-    return lm_head(params, x, cfg), DecodeCache(new)
+    return lm_head(params, x, cfg), cache
+
+
+def _hybrid_prefill(params, x, positions, cfg, exec_cfg, max_len):
+    sa = params["shared_attn"]
+    ssm_states, attn_caches = [], []
+    for lo, hi in _hybrid_segments(cfg):
+        c0 = A.init_kv_cache(cfg, x.shape[0], max_len, device=x.device)
+        h = L.apply_norm(sa["norm1"], x, cfg)
+        o, c = A.gqa_prefill(sa["attn"], h, positions, cfg, c0,
+                             impl=exec_cfg.attn_impl)
+        x = x + o
+        h = L.apply_norm(sa["norm2"], x, cfg)
+        x = x + L.apply_mlp(sa["mlp"], h, cfg)
+        attn_caches.append(c)
+        for i in range(lo, hi):
+            h = L.apply_norm(params["mamba_norm"][i], x, cfg)
+            o, st = SSM.ssm_forward(params["mamba"][i], h, cfg,
+                                    return_state=True,
+                                    impl=exec_cfg.attn_impl)
+            x = x + o
+            ssm_states.append(st)
+    return x, DecodeCache(ssm_states, attn_caches)
+
+
+def _rwkv_prefill(params, x, cfg, exec_cfg):
+    x = L.apply_norm(params["ln0"], x, cfg)
+    kernel = _wkv_kernel(exec_cfg, x)
+    states = []
+    for p_l in params["blocks"]:
+        x, st = R.rwkv_block(p_l["rwkv"], x, cfg, p_l["norm1"],
+                             p_l["norm2"], return_state=True, kernel=kernel)
+        states.append(st)
+    return x, DecodeCache(states)

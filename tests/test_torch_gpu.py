@@ -341,3 +341,213 @@ def test_prefill_and_decode_do_not_synchronise(cuda):
             model.decode_step(params, tokens[:, :1], pos, cache)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan and rwkv6_scan
+# ---------------------------------------------------------------------------
+
+# The SSD kernel computes the chunked form at chunk 64 in fp32, the plain
+# version the per-step recurrence: exp of a within-chunk cumsum against a
+# product of per-step exps, 2.5e-5 of max(1, |y|) measured on the CPU at
+# S 4096 (P = N = 64); held to 2e-4.  The WKV kernel runs the plain
+# version's own per-step recurrence, in another summation order: 1e-6 of
+# max(1, |y|) measured between fp32 and fp64 on the CPU; held to 2e-5.
+SSM_REL = 2e-4
+WKV_REL = 2e-5
+
+
+def _within(got, want, rel):
+    err = (got - want).abs()
+    return bool((err <= rel * want.abs().clamp_min(1.0)).all()), \
+        float(err.max())
+
+
+def _ssd_inputs(B, S, H, P, N, G, dtype, device, seed=0, h0=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    x = (rn(B, S, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, H))
+    A = -(torch.rand((H,), generator=gen, device=device) * 4 + 0.5)
+    Bm = (rn(B, S, G, N) * 0.5).to(dtype)
+    Cm = (rn(B, S, G, N) * 0.5).to(dtype)
+    return x, dt, A, Bm, Cm, (rn(B, H, P, N) if h0 else None)
+
+
+def _ssd_plain(x, dt, A, Bm, Cm, h0):
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    rep = x.shape[2] // Bm.shape[2]
+    y, h = ssm_scan_ref(x.transpose(1, 2), dt.transpose(1, 2), A,
+                        Bm.transpose(1, 2).repeat_interleave(rep, 1),
+                        Cm.transpose(1, 2).repeat_interleave(rep, 1), h0)
+    return y.transpose(1, 2), h
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,dtype,h0", [
+    (1, 100, 4, 32, 16, 2, torch.float32, False),   # ragged, G 2
+    (2, 64, 2, 64, 64, 1, torch.float32, True),
+    (1, 130, 4, 64, 16, 4, torch.bfloat16, True),
+    (1, 77, 2, 32, 64, 1, torch.float32, False),
+    (2, 1, 2, 64, 64, 1, torch.float32, True),      # one step
+    (1, 300, 8, 64, 64, 1, torch.bfloat16, False),
+])
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, H, P, N, G, dtype, h0):
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    args = _ssd_inputs(B, S, H, P, N, G, dtype, cuda, seed=S, h0=h0)
+    y, h = ssm_scan(*args, impl="cuda")
+    torch.cuda.synchronize()
+    want_y, want_h = _ssd_plain(*args)
+    assert y.shape == (B, S, H, P) and y.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    for got, want in ((y, want_y), (h, want_h)):
+        ok, err = _within(got, want, SSM_REL)
+        assert ok, err
+
+
+def test_ssm_scan_kernel_splits_over_a_carried_state(cuda):
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(2, 150, 4, 32, 16, 2, torch.float32,
+                                      cuda, seed=3)
+    y, h = ssm_scan(x, dt, A, Bm, Cm)
+    y1, h1 = ssm_scan(x[:, :70], dt[:, :70], A, Bm[:, :70], Cm[:, :70])
+    y2, h2 = ssm_scan(x[:, 70:], dt[:, 70:], A, Bm[:, 70:], Cm[:, 70:], h1)
+    assert _within(torch.cat([y1, y2], 1), y, SSM_REL)[0]
+    assert _within(h2, h, SSM_REL)[0]
+
+
+def test_ssm_scan_kernel_is_deterministic_and_counts_launches(cuda):
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    args = _ssd_inputs(2, 200, 4, 64, 64, 1, torch.bfloat16, cuda)
+    before = SK.launches.count
+    a = ssm_scan(*args)
+    b = ssm_scan(*args)
+    ssm_scan(*args, impl="torch")                   # plain version
+    assert SK.launches.count == before + 2
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_cuda
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 8, 4, 32, 16, 2, torch.float32,
+                                      cuda)
+    k = lambda t: t.transpose(1, 2)                 # noqa: E731
+    with pytest.raises(ValueError, match=r"\(32, 32\)"):   # no N 32 variant
+        ssm_scan_cuda(k(x), k(dt), A, k(torch.cat([Bm, Bm], -1)),
+                      k(torch.cat([Cm, Cm], -1)))
+    with pytest.raises(TypeError):
+        ssm_scan_cuda(k(x).half(), k(dt), A, k(Bm).half(), k(Cm).half())
+    with pytest.raises(ValueError):                 # H not a multiple of G
+        ssm_scan_cuda(k(x[:, :, :3]), k(dt[:, :, :3]), A[:3], k(Bm), k(Cm))
+    with pytest.raises(ValueError):
+        ssm_scan_cuda(k(x), k(dt), A.cpu(), k(Bm), k(Cm))
+
+
+def _wkv_inputs(B, S, H, D, dtype, device, seed=0, s0=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    r, k, v = ((rn(B, S, H, D) * 0.5).to(dtype) for _ in range(3))
+    lw = -torch.exp(rn(B, S, H, D) * 0.5)
+    u = rn(H, D) * 0.3
+    return r, k, v, lw, u, (rn(B, H, D, D) * 0.5 if s0 else None)
+
+
+@pytest.mark.parametrize("B,S,H,D,dtype,s0", [
+    (1, 100, 4, 32, torch.float32, True),            # ragged, D 32, s0
+    (2, 64, 2, 64, torch.float32, False),
+    (1, 77, 3, 64, torch.bfloat16, True),
+    (2, 1, 2, 32, torch.float32, True),              # one step
+    (1, 333, 8, 64, torch.bfloat16, False),
+])
+def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, D, dtype, s0):
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    args = _wkv_inputs(B, S, H, D, dtype, cuda, seed=S, s0=s0)
+    y, s = wkv_kernel_adapter("cuda")(*args)
+    torch.cuda.synchronize()
+    want_y, want_s = wkv_kernel_adapter("torch")(*args)
+    assert y.shape == (B, S, H, D) and y.dtype == torch.float32
+    for got, want in ((y, want_y), (s, want_s)):
+        ok, err = _within(got, want, WKV_REL)
+        assert ok, err
+
+
+def test_rwkv6_scan_kernel_is_deterministic_and_counts_launches(cuda):
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    args = _wkv_inputs(2, 150, 4, 64, torch.bfloat16, cuda, s0=True)
+    before = WK.launches.count
+    a = wkv_kernel_adapter()(*args)
+    b = wkv_kernel_adapter()(*args)
+    wkv_kernel_adapter("torch")(*args)              # plain version
+    assert WK.launches.count == before + 2
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_rwkv6_scan_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+    r, k, v, lw, u, _ = _wkv_inputs(1, 8, 2, 32, torch.float32, cuda)
+    t = lambda a: a.transpose(1, 2)                 # noqa: E731
+    with pytest.raises(ValueError, match="16"):     # no D 16 variant
+        rwkv6_scan_cuda(t(r[..., :16]), t(k[..., :16]), t(v[..., :16]),
+                        t(lw[..., :16]), u[:, :16])
+    with pytest.raises(TypeError):
+        rwkv6_scan_cuda(t(r).half(), t(k).half(), t(v).half(), t(lw), u)
+    with pytest.raises(ValueError):
+        rwkv6_scan_cuda(t(r), t(k), t(v), t(lw), u[:1])
+    with pytest.raises(ValueError):
+        rwkv6_scan_cuda(t(r), t(k), t(v).cpu(), t(lw), u)
+
+
+def test_stateful_prefill_launches_the_scans_and_decode_never(cuda):
+    """Reduced zamba2: one ssm_scan launch per Mamba2 layer and one
+    flash launch per shared-attention application a prefill; reduced
+    RWKV6: one rwkv6_scan launch per layer.  No launch in a decode
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import _hybrid_segments
+    counters = {"ssm_scan": SK.launches, "rwkv6_scan": WK.launches,
+                "flash_attention": FK.launches}
+    for arch in ("zamba2-1.2b", "rwkv6-7b"):
+        model = build_model(get_config(arch).reduced())
+        cfg = model.cfg
+        want = {"ssm_scan": 0, "rwkv6_scan": cfg.num_layers,
+                "flash_attention": 0}
+        if arch == "zamba2-1.2b":
+            want = {"ssm_scan": cfg.num_layers, "rwkv6_scan": 0,
+                    "flash_attention": len(_hybrid_segments(cfg))}
+        params = model.init(torch.Generator(device=cuda).manual_seed(0))
+        tokens = torch.randint(0, 512, (2, 70), device=cuda)
+        before = {k: c.count for k, c in counters.items()}
+        with torch.inference_mode():
+            _, cache = model.prefill(params, {"tokens": tokens}, max_len=75)
+            pos = torch.full((2, 1), 70, dtype=torch.int32, device=cuda)
+            model.decode_step(params, tokens[:, :1], pos, cache)
+        assert {k: c.count - before[k] for k, c in counters.items()} == \
+            want, arch
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
+def test_stateful_prefill_and_decode_do_not_synchronise(cuda, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    model = build_model(get_config(arch).reduced())
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, 512, (2, 70), device=cuda)
+    pos = torch.full((2, 1), 70, dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": tokens}, max_len=75)
+        model.decode_step(params, tokens[:, :1], pos, cache)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, cache = model.prefill(params, {"tokens": tokens}, max_len=75)
+            model.decode_step(params, tokens[:, :1], pos, cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")

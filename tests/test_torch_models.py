@@ -117,8 +117,22 @@ def test_rope_matches_reference_at_qwen2_theta():
     pos = (np.arange(40)[None] + np.array([[0], [3000]])).astype(np.int32)
     want = RL.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
     got = L.apply_rope(_t(x), _t(pos), theta)
-    # cos / sin of angles up to ~3000 rad: a few ulps of the angle
-    _close(got, want, dict(rtol=1e-5, atol=5e-5))
+    # cos / sin of angles up to ~3000 rad: a few ulps of the angle.  Both
+    # sides form the same float32 angles; evaluated in float64 they give
+    # the exact rotation, and each side's distance from it names the side
+    # at fault if the two ever disagree
+    ang = (pos[..., None].astype(np.float32)
+           * L.rope_freqs(128, theta)).astype(np.float64)[..., None, :]
+    x1, x2 = np.split(x.astype(np.float64), 2, axis=-1)
+    exact = np.concatenate([x1 * np.cos(ang) - x2 * np.sin(ang),
+                            x1 * np.sin(ang) + x2 * np.cos(ang)], axis=-1)
+    port_err = float(np.abs(got.numpy() - exact).max())
+    ref_err = float(np.abs(np.asarray(want) - exact).max())
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(want, np.float32), rtol=1e-5, atol=5e-5,
+        err_msg=f"max error against a float64 evaluation of the same "
+                f"float32 angles: port {port_err:.3e}, reference "
+                f"{ref_err:.3e}")
     # halves, not interleaved pairs: position 0 is the identity
     assert torch.equal(L.apply_rope(_t(x), torch.zeros(2, 40), theta),
                        _t(x))
@@ -312,11 +326,15 @@ def test_bf16_parameters_convert_bit_for_bit():
 
 
 def test_exec_config_takes_cuda_or_torch_only():
+    """The reference's fields, and no other: ``attn_impl`` picks the
+    attention and both scans."""
     assert [f.name for f in dataclasses.fields(ExecConfig)] == \
         [f.name for f in dataclasses.fields(RefExecConfig)]
     assert ExecConfig().attn_impl == "cuda"
     with pytest.raises(ValueError):
         ExecConfig(attn_impl="chunked")
+    with pytest.raises(TypeError):
+        ExecConfig(scan_impl="torch")
     with pytest.raises(NotImplementedError, match="#17"):
         ExecConfig(mesh=object())
 
@@ -332,11 +350,159 @@ def test_exec_config_rejects_knobs_the_port_does_not_read(knob, item):
         ExecConfig(**knob)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + ["zamba2-1.2b"])
 def test_every_served_config_has_a_flash_kernel_head_dim(name):
     """The CUDA kernel is compiled for a fixed set of head dims: every
-    dense config the port serves, at full width and reduced, is one."""
+    config the port serves with attention (the dense ones and zamba2's
+    shared block), at full width and reduced, is one."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     for cfg in (get_config(name), get_config(name).reduced()):
         assert cfg.resolved_head_dim in HEAD_DIMS, (cfg.name,
                                                     cfg.resolved_head_dim)
+
+
+# ---------------------------------------------------------------------------
+# the stateful families: zamba2 (Mamba2 hybrid) and RWKV6
+# ---------------------------------------------------------------------------
+
+STATEFUL = ["zamba2-1.2b", "rwkv6-7b"]
+
+
+def _stateful_pair(arch, seed=0):
+    """The reference's reduced model and its parameters, with every
+    constant leaf (zeros or ones by its init law) drawn away from its
+    constant, and the port's model with the same parameters."""
+    rcfg = ref_get_config(arch).reduced()
+    ref = ref_build_model(rcfg)
+    rng = np.random.RandomState(seed)
+
+    def draw(v):
+        v = np.asarray(v)
+        if np.all(v == v.flat[0]):
+            v = v + rng.randn(*v.shape).astype(v.dtype) * 0.2
+        return np.array(v)
+    rparams = jax.tree.map(draw, _np(ref.init(jax.random.key(seed))))
+    port = build_model(get_config(arch).reduced())
+    return ref, rparams, port, lm_params_from_jax(rparams, rcfg.num_layers)
+
+
+@pytest.mark.parametrize("arch", STATEFUL)
+@pytest.mark.parametrize("attn_impl", ["cuda", "torch"])
+def test_stateful_prefill_then_decode_matches_reference_forward(arch,
+                                                                attn_impl):
+    """Prompt 70 (past RWKV's S > 64 switch to the chunked form, ragged
+    against zamba2-reduced's chunk of 32), then 6 decode steps, against
+    the reference's teacher-forced forward and its own prefill / decode,
+    as ``tests/test_decode_consistency.py`` holds the reference."""
+    ref, rparams, port, params = _stateful_pair(arch)
+    B, S, K = 2, 70, 6
+    tokens = np.random.RandomState(9).randint(
+        0, port.cfg.vocab_size, (B, S + K)).astype(np.int32)
+    rparams_j = jax.tree.map(jnp.asarray, rparams)
+    full = _np(ref.logits(rparams_j, {"tokens": jnp.asarray(tokens)},
+                          RefExecConfig(attn_impl="dense")))
+    rl, rcache = ref.prefill(rparams_j, {"tokens": jnp.asarray(
+        tokens[:, :S])}, RefExecConfig(attn_impl="dense"), max_len=S + K)
+    ecfg = ExecConfig(attn_impl=attn_impl)
+    _close(port.logits(params, {"tokens": _t(tokens).long()}, ecfg), full,
+           TOL)
+    lg, cache = port.prefill(params, {"tokens": _t(tokens[:, :S]).long()},
+                             ecfg, max_len=S + K)
+    assert lg.shape == (B, 1, port.cfg.vocab_size)
+    _close(lg, rl, TOL)
+    _close(lg[:, 0], full[:, S - 1], TOL)
+    for k in range(K - 1):
+        t = S + k
+        pos = np.full((B, 1), t, np.int32)
+        rl, rcache = ref.decode_step(rparams_j,
+                                     jnp.asarray(tokens[:, t:t + 1]),
+                                     jnp.asarray(pos), rcache)
+        lg, cache = port.decode_step(params, _t(tokens[:, t:t + 1]).long(),
+                                     _t(pos), cache)
+        _close(lg, rl, TOL)
+        _close(lg[:, 0], full[:, t], TOL)
+
+
+def test_hybrid_cache_holds_one_kv_cache_per_shared_attention():
+    cfg = get_config("zamba2-1.2b")
+    ref = ref_get_config("zamba2-1.2b")
+    from repro.models.transformer import _hybrid_segments as ref_segments
+    from repro_torch.models.transformer import _hybrid_segments
+    assert _hybrid_segments(cfg) == ref_segments(ref)
+    assert len(_hybrid_segments(cfg)) == 7      # before layers 0, 6, …, 36
+    red = get_config("zamba2-1.2b").reduced()
+    cache = build_model(red).init_cache(2, 40, device="cpu")
+    assert len(cache.layers) == red.num_layers
+    assert len(cache.extra) == len(_hybrid_segments(red)) == 2
+    assert cache.extra[0].k.shape == (2, 40, red.num_kv_heads, 64)
+    rwkv = build_model(get_config("rwkv6-7b").reduced()).init_cache(
+        2, 40, device="cpu")
+    assert rwkv.extra is None and len(rwkv.layers) == 2
+
+
+@pytest.mark.parametrize("name,count", [("zamba2-1.2b", 1_153_696_640),
+                                        ("rwkv6-7b", 7_618_838_528)])
+def test_stateful_param_count_equals_reference_at_full_width(name, count):
+    got = build_model(get_config(name)).param_count()
+    assert got == count == \
+        ref_build_model(ref_get_config(name)).param_count()
+
+
+@pytest.mark.parametrize("arch", STATEFUL)
+def test_stateful_trees_convert_and_match_the_port_init(arch):
+    """``lm_params_from_jax`` unstacks ``blocks`` / ``mamba`` /
+    ``mamba_norm`` layer by layer and carries ``shared_attn`` and ``ln0``
+    over as they are; the result has the tree, shapes and dtypes of the
+    port's own ``Model.init``."""
+    rcfg = ref_get_config(arch).reduced(param_dtype="bfloat16",
+                                        compute_dtype="bfloat16")
+    rparams = _np(ref_build_model(rcfg).init(jax.random.key(2)))
+    params = lm_params_from_jax(rparams, rcfg.num_layers)
+    model = build_model(get_config(arch).reduced(param_dtype="bfloat16",
+                                                 compute_dtype="bfloat16"))
+    own = model.init(torch.Generator().manual_seed(0))
+    assert jax.tree.map(lambda t: (tuple(t.shape), t.dtype), params) == \
+        jax.tree.map(lambda t: (tuple(t.shape), t.dtype), own)
+    assert sum(t.numel() for t in jax.tree.leaves(own)) == \
+        model.param_count()
+    layered = ("mamba", "mamba_norm") if arch == "zamba2-1.2b" \
+        else ("blocks",)
+    for key in layered:
+        for i in range(rcfg.num_layers):
+            for got, want in zip(jax.tree.leaves(params[key][i]),
+                                 jax.tree.leaves(jax.tree.map(
+                                     lambda a: a[i], rparams[key]))):
+                assert np.array_equal(got.float().numpy(),
+                                      np.asarray(want, np.float32))
+    for key in ("shared_attn", "ln0"):
+        if key in rparams:
+            for got, want in zip(jax.tree.leaves(params[key]),
+                                 jax.tree.leaves(rparams[key])):
+                assert np.array_equal(got.float().numpy(),
+                                      np.asarray(want, np.float32))
+
+
+def test_stateful_init_follows_the_reference_laws():
+    """Each stacked leaf keeps the fan-in the reference's stacked spec
+    reads (dim -2): ``conv_w`` (L, K, C) is drawn at 1/sqrt(K)."""
+    cfg = get_config("zamba2-1.2b").reduced()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    m = params["mamba"][1]
+    d, K = cfg.d_model, cfg.ssm.conv_kernel
+    torch.testing.assert_close(m["w_in"].std().item(), d ** -0.5,
+                               rtol=0.05, atol=0)
+    torch.testing.assert_close(m["conv_w"].std().item(), K ** -0.5,
+                               rtol=0.1, atol=0)
+    torch.testing.assert_close(m["w_out"].std().item(),
+                               (cfg.ssm.expand * d) ** -0.5, rtol=0.05,
+                               atol=0)
+    assert torch.equal(m["a_log"], torch.zeros_like(m["a_log"]))
+    assert torch.equal(params["mamba_norm"][0]["scale"], torch.ones(d))
+    assert not torch.equal(params["mamba"][0]["w_in"], m["w_in"])
+    rcfg = get_config("rwkv6-7b").reduced()
+    blk = build_model(rcfg).init(torch.Generator().manual_seed(0))[
+        "blocks"][0]["rwkv"]
+    torch.testing.assert_close(blk["cm_wv"].std().item(),
+                               rcfg.d_ff ** -0.5, rtol=0.05, atol=0)
+    torch.testing.assert_close(blk["w_r"].std().item(),
+                               rcfg.d_model ** -0.5, rtol=0.05, atol=0)

@@ -8,8 +8,11 @@
   then decode steps past the wrap);
 * the device rule: ``serve`` and ``main`` raise where there is no card unless
   asked for the CPU; ``--ckpt`` raises naming its ROADMAP item;
-* configs outside the dense GQA decoder raise ``NotImplementedError``
-  naming theirs.
+* ``zamba2-1.2b.reduced()`` and ``rwkv6-7b.reduced()`` (prompt 72, 12
+  steps) under both scan impls: ids equal, logits within 1e-4, and the
+  entry point on the CPU;
+* configs outside the dense GQA decoder, the zamba2 hybrid and RWKV6
+  raise ``NotImplementedError`` naming theirs.
 """
 import dataclasses
 import os
@@ -80,6 +83,41 @@ def test_serve_matches_reference_serve_loop(arch, attn_impl):
     assert res.prefill_s > 0 and res.decode_s > 0
 
 
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
+@pytest.mark.parametrize("attn_impl", ["cuda", "torch"])
+def test_stateful_serve_matches_reference_serve_loop(arch, attn_impl):
+    """The zamba2 hybrid (its KV caches in ``DecodeCache.extra``, its
+    Mamba2 states in ``layers``) and RWKV6 (a prompt past the S > 64
+    switch of the reference's plain WKV forms) through the same loop."""
+    rcfg = ref_get_config(arch).reduced()
+    ref = ref_build_model(rcfg)
+    rparams = ref.init(jax.random.key(5))
+    B, Sq, N = 2, 72, 12
+    tokens = np.random.RandomState(13).randint(
+        0, rcfg.vocab_size, (B, Sq)).astype(np.int32)
+    want_ids, want_logits = _reference_serve(ref, rparams,
+                                             jnp.asarray(tokens), N)
+    model = build_model(get_config(arch).reduced())
+    params = lm_params_from_jax(jax.tree.map(np.asarray, rparams),
+                                rcfg.num_layers)
+    res = S.serve(model, params, torch.from_numpy(tokens).long(), N,
+                  exec_cfg=ExecConfig(attn_impl=attn_impl), device="cpu")
+    np.testing.assert_allclose(res.logits.numpy(), want_logits, **TOL)
+    assert np.array_equal(res.ids.numpy(), want_ids)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
+def test_serve_entry_point_runs_the_stateful_families_on_the_cpu(
+        arch, capsys):
+    res = S.main(["--arch", arch, "--reduced", "--batch", "2",
+                  "--prompt-len", "70", "--decode-tokens", "3",
+                  "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"serving {arch}-reduced: ")
+    assert res.ids.shape == (2, 4)
+    assert bool(torch.isfinite(res.logits).all())
+
+
 def test_serve_wants_a_card_unless_asked_for_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = build_model(get_config("qwen2-7b").reduced())
@@ -116,14 +154,12 @@ def test_ckpt_is_not_ported_yet():
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (get_config("zamba2-1.2b"), "#15b"),
-    (get_config("rwkv6-7b"), "#15c"),
     (get_config("mixtral-8x7b"), "#15d"),
     (dataclasses.replace(get_config("qwen2-7b"), attention="mla",
                          mla=MLAConfig()), "#15d"),
     (get_config("phi-3-vision-4.2b"), "#15d"),
     (get_config("whisper-large-v3"), "#15d"),
-], ids=["hybrid", "rwkv", "moe", "mla", "vision", "encdec"])
+], ids=["moe", "mla", "vision", "encdec"])
 def test_other_families_raise_naming_their_roadmap_item(cfg, item):
     with pytest.raises(NotImplementedError, match=item):
         build_model(cfg)

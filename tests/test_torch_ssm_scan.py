@@ -1,0 +1,162 @@
+"""The port's Mamba2 SSD scan against the JAX reference, on the CPU.
+
+On the same numpy inputs (fp32 unless a case says bf16):
+
+* the port's per-step oracle ``ssm_scan_ref`` (kernel layout, groups
+  expanded) against JAX's ``ssm_scan_ref``;
+* ``ops.ssm_scan`` in the model layout under ``impl="torch"`` and
+  ``impl="cuda"`` (a CPU tensor takes the plain version) against JAX's
+  ``ssm_scan`` under ``impl="xla"`` (its per-step oracle) and
+  ``impl="pallas_interpret"`` (the Pallas kernel's chunked form, run in
+  interpret mode): ragged S, groups 1 and 2, P 32 / 64 with N 16 / 64;
+* a carried h0: two calls over the halves of S equal one call over all of
+  it, on both sides;
+* the wrapper's contract: unknown impls, the CUDA wrapper refusing CPU
+  tensors.
+
+The CUDA kernel itself is held to ``ssm_scan_ref`` on the card by
+``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssm_scan.ops import ssm_scan as jax_ssm_scan
+from repro.kernels.ssm_scan.ref import ssm_scan_ref as jax_ssm_scan_ref
+
+from repro_torch.kernels.ssm_scan import kernel as K
+from repro_torch.kernels.ssm_scan import ops
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+# Per-step forms on both sides: fp32, other summation order in the
+# einsums only.  Against the Pallas kernel's chunked form: exp(seg_i -
+# seg_l) of a within-chunk cumsum against a product of per-step exps, a
+# few ulps of the decay per step (2.5e-5 of max(1, |y|) measured at S 4096,
+# P = N = 64, chunk 64)
+STEP_TOL = dict(rtol=1e-5, atol=1e-5)
+CHUNK_TOL = dict(rtol=2e-4, atol=2e-4)
+
+# (B, S, H, P, N, G, chunk, dtype)
+CASES = [
+    (2, 64, 4, 32, 16, 2, 16, "float32"),     # reduced zamba2 heads, G 2
+    (1, 100, 2, 32, 16, 1, 32, "float32"),    # ragged S
+    (2, 96, 2, 64, 64, 1, 64, "float32"),     # full-width heads
+    (1, 77, 4, 64, 16, 2, 32, "float32"),     # ragged, P 64 / N 16
+    (1, 50, 2, 32, 64, 2, 16, "float32"),     # P 32 / N 64
+    (1, 64, 2, 32, 16, 2, 32, "bfloat16"),    # bf16 x, B, C
+]
+
+
+def _inputs(B, S, H, P, N, G, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, S, H, P).astype(np.float32)
+    dt = (rng.rand(B, S, H) * 0.5).astype(np.float32)
+    A = (-rng.rand(H) - 0.1).astype(np.float32)
+    Bm = rng.randn(B, S, G, N).astype(np.float32)
+    Cm = rng.randn(B, S, G, N).astype(np.float32)
+    if dtype == "bfloat16":     # one rounding, the same bits on both sides
+        x, Bm, Cm = (a.astype(ml_dtypes.bfloat16).astype(np.float32)
+                     for a in (x, Bm, Cm))
+    return x, dt, A, Bm, Cm
+
+
+def _t(a, dtype="float32"):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _j(a, dtype="float32"):
+    return jnp.asarray(a, jnp.bfloat16 if dtype == "bfloat16" else
+                       jnp.float32)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,dtype", CASES)
+def test_ref_matches_jax_ref(B, S, H, P, N, G, chunk, dtype):
+    x, dt, A, Bm, Cm = _inputs(B, S, H, P, N, G, dtype)
+    rep = H // G
+    kl = lambda a: np.moveaxis(a, 1, 2)        # noqa: E731  (B,H,S,…)
+    Bk = np.repeat(kl(Bm), rep, axis=1)
+    Ck = np.repeat(kl(Cm), rep, axis=1)
+    want_y, want_h = jax_ssm_scan_ref(_j(kl(x), dtype), _j(kl(dt)), _j(A),
+                                      _j(Bk, dtype), _j(Ck, dtype))
+    got_y, got_h = ssm_scan_ref(_t(kl(x), dtype), _t(kl(dt)), _t(A),
+                                _t(Bk, dtype), _t(Ck, dtype))
+    assert got_y.dtype == torch.float32 and got_y.shape == (B, H, S, P)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                               **STEP_TOL)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h),
+                               **STEP_TOL)
+
+
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,dtype", CASES)
+def test_ops_match_jax_xla_and_pallas_interpret(B, S, H, P, N, G, chunk,
+                                                dtype, impl):
+    x, dt, A, Bm, Cm = _inputs(B, S, H, P, N, G, dtype, seed=1)
+    got_y, got_h = ops.ssm_scan(_t(x, dtype), _t(dt), _t(A), _t(Bm, dtype),
+                                _t(Cm, dtype), impl=impl)
+    assert got_y.shape == (B, S, H, P) and got_h.shape == (B, H, P, N)
+    jargs = (_j(x, dtype), _j(dt), _j(A), _j(Bm, dtype), _j(Cm, dtype))
+    xla_y, xla_h = jax_ssm_scan(*jargs, impl="xla")
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(xla_y), **STEP_TOL)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(xla_h), **STEP_TOL)
+    pal_y, pal_h = jax_ssm_scan(*jargs, impl="pallas_interpret",
+                                chunk=chunk)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(pal_y),
+                               **CHUNK_TOL)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(pal_h),
+                               **CHUNK_TOL)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_carried_state_splits_the_scan(G):
+    """Two calls over the halves of S, the second from the first's final
+    state, give one call's output, on the port and on the reference."""
+    B, S, H, P, N = 1, 70, 4, 32, 16
+    x, dt, A, Bm, Cm = _inputs(B, S, H, P, N, G, "float32", seed=2)
+    h = 33
+    full_y, full_h = ops.ssm_scan(_t(x), _t(dt), _t(A), _t(Bm), _t(Cm))
+    y1, h1 = ops.ssm_scan(_t(x[:, :h]), _t(dt[:, :h]), _t(A),
+                          _t(Bm[:, :h]), _t(Cm[:, :h]))
+    y2, h2 = ops.ssm_scan(_t(x[:, h:]), _t(dt[:, h:]), _t(A),
+                          _t(Bm[:, h:]), _t(Cm[:, h:]), h1)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(),
+                               full_y.numpy(), **STEP_TOL)
+    np.testing.assert_allclose(h2.numpy(), full_h.numpy(), **STEP_TOL)
+    # the reference from the port's carried state
+    ry, rh = jax_ssm_scan(_j(x[:, h:]), _j(dt[:, h:]), _j(A),
+                          _j(Bm[:, h:]), _j(Cm[:, h:]), h0=_j(h1.numpy()),
+                          impl="pallas_interpret", chunk=16)
+    np.testing.assert_allclose(y2.numpy(), np.asarray(ry), **CHUNK_TOL)
+    np.testing.assert_allclose(h2.numpy(), np.asarray(rh), **CHUNK_TOL)
+
+
+def test_empty_sequence_keeps_the_state():
+    x, dt, A, Bm, Cm = _inputs(1, 0, 2, 32, 16, 1, "float32")
+    h0 = torch.randn(1, 2, 32, 16)
+    y, h = ops.ssm_scan(_t(x), _t(dt), _t(A), _t(Bm), _t(Cm), h0)
+    assert y.shape == (1, 0, 2, 32) and torch.equal(h, h0)
+
+
+def test_wrapper_contract():
+    x, dt, A, Bm, Cm = (_t(a) for a in _inputs(1, 8, 2, 32, 16, 1,
+                                               "float32"))
+    with pytest.raises(ValueError, match="impl"):
+        ops.ssm_scan(x, dt, A, Bm, Cm, impl="pallas")
+    with pytest.raises(ValueError, match="CUDA"):
+        K.ssm_scan_cuda(x.transpose(1, 2), dt.transpose(1, 2), A,
+                        Bm.transpose(1, 2), Cm.transpose(1, 2))
+    before = K.launches.count
+    ops.ssm_scan(x, dt, A, Bm, Cm)                 # CPU: the plain version
+    assert K.launches.count == before
+
+
+def test_every_ssm_config_has_a_kernel_variant():
+    """The CUDA kernel is compiled for fixed (P, N): zamba2-1.2b's at
+    full width and reduced."""
+    from repro_torch.configs import get_config
+    for cfg in (get_config("zamba2-1.2b"),
+                get_config("zamba2-1.2b").reduced()):
+        assert (cfg.ssm.head_dim, cfg.ssm.d_state) in K.SIZES, cfg.name
