@@ -10,11 +10,7 @@
  *     head dims of the dense configs the port serves.
  *
  * Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:69
- * flash_attention_pallas (body _flash_kernel).  What it computes is that
- * kernel's, step for step: q, k and v are read in their dtype and turned
- * into fp32; q is scaled in fp32; scores, the running max m, the running
- * sum l and the accumulator are fp32; p stays fp32 in the P.V product; l
- * is clamped at 1e-30 before the division.  Masks work on absolute
+ * flash_attention_pallas (body _flash_kernel).  Masks work on absolute
  * positions qp = q_offset + i and kp: causal keeps kp <= qp, a window W
  * keeps kp > qp - W, and a masked score is the finite NEG_INF = -1e30, so
  * a row that sees no key averages V over all Sk keys, as the reference's
@@ -22,54 +18,110 @@
  * take no part at all: where the Pallas wrapper pads K and V with zeros
  * and relies on the causal mask to hide them, this kernel masks them.
  *
- * Design.  On the TPU the kv-block axis is the innermost, sequential grid
- * axis and (m, l, acc) live in VMEM scratch across it.  Here one block of
- * 256 threads owns one (batch, query head, 64-row query tile) and walks
- * the kv tiles in a loop, so (m, l, acc) never leave registers:
- *   - the scaled Q tile (64 x D fp32) sits in shared memory for the whole
- *     loop; each kv tile of 64 keys is staged as K transposed (D x 68,
- *     so a thread reads its four keys of one d as one float4) and V (64 x
- *     D); the P tile (64 x 68) reuses K's space once the scores are done
- *     (that space holds max(D, 64) rows, so P fits at D = 32 too);
- *   - thread (ty, tx) of a 16 x 16 grid owns query rows 4ty..4ty+3: of
- *     the 64 x 64 scores it computes keys 4tx..4tx+3, of the output
- *     columns tx + 16j (j < D / 16).  A row's max and sum are reduced
- *     over its 16 threads with xor shuffles, which leave the same value in
- *     every lane, so the 16 copies of m and l agree bit for bit;
- *   - GQA is an index: kv head = q head / G, with the query heads ordered
- *     hk * G + g as repro's flash_attention_model_layout orders them;
- *   - tiles wholly above the causal diagonal or wholly left of the window
- *     are skipped (exact: a masked key adds exp(-1e30 - m) = 0 once a row
- *     has seen a visible key, and its p = 1 before that is cancelled by
- *     alpha = 0 when the first visible key comes).  A query tile holding
- *     a row with no visible key walks every tile instead, so that row
- *     averages V over all keys as the reference does;
- *   - causal query tiles are scheduled last-first, so the longest blocks
- *     start first;
- *   - ragged Sq and Sk are masked, never padded; offsets are 64-bit;
- *     there are no atomics, and every sum runs in an order fixed by the
- *     shapes, so two launches give bit-identical output.
+ * Two variants, chosen by the input dtype with no fallback between them:
+ *
+ * flash_fwd_simt<D>, fp32 inputs.  The Pallas kernel's arithmetic step
+ * for step: q is scaled in fp32, scores, the running max m, the running
+ * sum l, p and the accumulator are fp32, and l is clamped at 1e-30
+ * before the division.  One block of 256 threads owns one (batch, query
+ * head, 64-row query tile) and walks the kv tiles in a loop, (m, l, acc)
+ * in registers; the scaled Q tile (64 x D), K transposed (D x 68) and V
+ * (64 x D) in shared memory, P reusing K's space; thread (ty, tx) of a
+ * 16 x 16 grid owns 4 rows x 4 keys of the scores and 4 rows x D/16
+ * output columns, a row's max and sum reduced over its 16 threads with
+ * xor shuffles.  SIMT fp32 FMAs: bound by the 67 TFLOP/s fp32 rate.
+ *
+ * flash_fwd_wgmma<D>, bf16 inputs (the serve path).  Warp-specialised:
+ * one block of 384 threads owns one (batch, query head, 128-row query
+ * tile).  Warpgroup 2 is the producer: after setmaxnreg hands its
+ * registers to the consumers (24 against 240), one thread issues every
+ * copy by TMA — the Q tile once, then K and V tiles of 64 keys (128 at
+ * D <= 64, 32 at D 192) into a ring of 3 shared-memory stages with a
+ * full and an empty mbarrier each, 128-byte swizzled.  Warpgroups 0
+ * and 1 are consumers of 64 query rows each; per kv tile n:
+ *   1. S_n = Q K_n^T by wgmma.mma_async m64nBKk16, bf16 -> fp32, Q and K
+ *      both K-major from shared memory, issued together with the
+ *      previous tile's O += P_{n-1} V_{n-1}, so the tensor cores run that
+ *      product while the warpgroup does the softmax of S_n;
+ *   2. the masks on S in registers, on absolute positions (a masked
+ *      score -1e30, a key past Sk -inf), only on tiles that cross the
+ *      diagonal, the window's edge or Sk;
+ *   3. online softmax in the log2 domain: S is scaled in fp32 by
+ *      scale * log2(e) and exponentiated by ex2.approx (the same function
+ *      as scale then exp, within 2 ulp).  A row's max is reduced over the
+ *      4 threads that share it in the accumulator layout; l is kept per
+ *      thread and reduced once at the end;
+ *   4. P stays in registers, where the accumulator layout of S is already
+ *      the A-operand layout of the next product, as two bf16 terms, hi =
+ *      bf16(P) and lo = bf16(P - hi), so hi + lo is P within 2^-17; O +=
+ *      hi V + lo V by wgmma m64nDk16 with A from registers and V from
+ *      shared memory as an MN-major B operand (imm-trans-b);
+ *   5. O, m and l stay in registers; a stage goes back to the producer
+ *      once the P V that reads its V is done.
+ * Epilogue: O / max(l, 1e-30), stored as bf16 pairs straight into the
+ * strided output, rows past Sq and padded columns not stored.
+ * Head dims: a 128-byte-swizzled box is 64 bf16 columns, so D is cut
+ * into ceil(D / 64) boxes and padded to a multiple of 64 by TMA's zero
+ * fill (D 32 -> 64, D 80 -> 128, D 192 = three boxes): zero columns of Q
+ * and K add nothing to S, zero columns of V give output columns that are
+ * not stored.  The same padding as the Pallas wrapper's D -> 128.
+ * Numerics: P in one bf16 term (bf16(P) V, as first built) moved the
+ * bf16 Qwen2-7B prefill's logits by up to 0.098 against the plain path's
+ * fp32 P and flipped the first token of a request whose top two logits
+ * were one bf16 ulp apart; two terms keep P to fp32's precision class at
+ * the cost of a second P V product (1.5x the tensor-core work).  What
+ * differs from the Pallas kernel's fp32 arithmetic: P carries 16
+ * significant bits, scale multiplies S rather than Q, and the sums run
+ * in the tensor cores' order.  So it is held to the fp32-P plain
+ * version, attention_ref on the same bf16 inputs in fp32: each output
+ * within one bf16 ulp plus 2^-12 of its row's largest |o|, a gate that
+ * the one-term kernel fails (chip_smoke.py, tools/flash_probe.py).
+ *
+ * Shared by both: GQA is an index (kv head = q head / G, query heads
+ * ordered hk * G + g as repro's flash_attention_model_layout orders
+ * them); kv tiles wholly above the causal diagonal or wholly left of the
+ * window are skipped (exact: a masked key adds exp(-1e30 - m) = 0 once a
+ * row has seen a visible key, and its p = 1 before that is cancelled by
+ * alpha = 0 when the first visible key comes), except that a query tile
+ * holding a row with no visible key walks every tile, so that row
+ * averages V over all keys as the reference does; causal query tiles
+ * are scheduled longest first; ragged Sq and Sk are masked, never padded
+ * in device memory (TMA fills out-of-bounds rows and columns with zeros,
+ * which the masks then decide on); offsets are 64-bit; there are no
+ * atomics, and every sum runs in an order fixed by the shapes, so two
+ * launches give bit-identical output.
  *
  * What bounds it.  At the Qwen2-7B prefill shape (B 4, Hq 28, Hkv 4,
  * S 2048, D 128, bf16, causal) the work is 4 * B * Hq * D * S(S+1)/2 =
  * 1.203e11 flops against 134,217,728 bytes of q, k, v and o: on bf16
- * tensor cores (989 TFLOP/s) the bound is 121.6 us, on the fp32 cores
- * this kernel uses (67 TFLOP/s) 1.796 ms; the bytes take 40.1 us at
- * 3.35 TB/s.  The kernel is bound by its fp32 FMAs and by shared-memory
- * reads (one float4 of Q and one of K per 16 FMAs, one float4 of P and
- * four scalars of V per 4 D/16-wide FMA groups); bf16 wgmma with TMA
- * tiles is the later step (ROADMAP Queue B #3).
+ * tensor cores (989 TFLOP/s) the bound is 121.6 us, the bytes take 40.1
+ * us at 3.35 TB/s; at fp32's 67 TFLOP/s, the SIMT variant's rate, 1.796
+ * ms.  Danube's (B 2, Hq 32, Hkv 8, S 6144, D 80, window 4096) and
+ * zamba2's (B 4, Hq = Hkv = 32, S 4096, D 64, causal) are also bound by
+ * the tensor cores: 347.3 and 277.9 us.  The wgmma variant does 1.5x
+ * the tensor-core work of those bounds (two P V products), and 1.6x more
+ * at Danube's D 80 padded to 128; what holds it back on an H100 is the
+ * softmax of each tile, which overlaps only its own warpgroup's P V (the
+ * two consumer warpgroups are not yet scheduled in turn): at the Qwen2
+ * shape a warpgroup spends ~1150 cycles a tile in the softmax against
+ * ~770 waiting for S (tools/flash_probe.py).
+ *
+ * The tensor maps need the driver's cuTensorMapEncodeTiled; it is
+ * fetched through cudaGetDriverEntryPoint, so the library links only the
+ * CUDA runtime.  They are encoded on the host at every call (a few us)
+ * and passed by value as __grid_constant__ parameters.
+ *
+ * Lines "// @probe <name>" mark where tools/flash_probe.py inserts clock
+ * reads, or its deliberate faults, into a copy of this source; they are
+ * comments and compile to nothing.
  */
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;          // query rows of a block
-constexpr int kBK = 64;          // keys of a kv tile
-constexpr int kKS = kBK + 4;     // row stride of the K^T and P tiles
 constexpr float kNegInf = -1e30f;
 
 struct Params {
@@ -89,36 +141,34 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
-__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
+__host__ __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
   return a > b ? a : b;
 }
+
+// ---------------------------------------------------------------------------
+// flash_fwd_simt: fp32 inputs
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kBQ = 64;          // query rows of a block
+constexpr int kBK = 64;          // keys of a kv tile
+constexpr int kKS = kBK + 4;     // row stride of the K^T and P tiles
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float lane(const float4& x, int j) {
   return j == 0 ? x.x : j == 1 ? x.y : j == 2 ? x.z : x.w;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd(const Params p) {
+flash_fwd_simt(const Params p) {
   // D % 16: the output columns and the K^T staging (D / 4 % 4); D <= 192
   // keeps acc in registers and the tiles within a block's shared memory
   static_assert(D % 16 == 0 && D <= 192, "D a multiple of 16, at most 192");
@@ -140,13 +190,13 @@ flash_fwd(const Params p) {
   const int64_t hk = h / p.group;
   const int64_t q0 = qt * kBQ;
 
-  const T* __restrict__ qg = static_cast<const T*>(p.q) + b * p.sqb +
+  const float* __restrict__ qg = static_cast<const float*>(p.q) + b * p.sqb +
                              h * p.sqh;
-  const T* __restrict__ kg = static_cast<const T*>(p.k) + b * p.skb +
+  const float* __restrict__ kg = static_cast<const float*>(p.k) + b * p.skb +
                              hk * p.skh;
-  const T* __restrict__ vg = static_cast<const T*>(p.v) + b * p.svb +
+  const float* __restrict__ vg = static_cast<const float*>(p.v) + b * p.svb +
                              hk * p.svh;
-  T* __restrict__ og = static_cast<T*>(p.o) + b * p.sob + h * p.soh;
+  float* __restrict__ og = static_cast<float*>(p.o) + b * p.sob + h * p.soh;
 
   for (int idx = tid; idx < kBQ * kV4; idx += kThreads) {
     const int r = idx / kV4;
@@ -309,45 +359,749 @@ flash_fwd(const Params p) {
     const int64_t row = q0 + ty * 4 + i;
     if (row < p.Sq) {
       const float li = fmaxf(l[i], 1e-30f);
-      T* orow = og + row * p.sos;
+      float* orow = og + row * p.sos;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) store1(orow + tx + 16 * j, acc[i][j] / li);
     }
   }
 }
 
-template <typename T, int D>
-int launch(const Params& p, int64_t B, int64_t Hq, cudaStream_t stream) {
-  const int smem = (kBQ * D + (D > kBQ ? D : kBQ) * kKS + kBK * D) *
-                   (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)p.n_qtiles, (unsigned)Hq, (unsigned)B);
-  flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(p);
+// ---------------------------------------------------------------------------
+// flash_fwd_wgmma: bf16 inputs
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 128;     // query rows of a block: two warpgroups
+constexpr int kWgThreads = 384;  // consumer warpgroups 0, 1; producer 2
+constexpr int kBox = 64;         // bf16 columns of a 128-byte swizzled box
+
+template <int D>
+struct Wg {
+  static constexpr int NB = (D + kBox - 1) / kBox;  // boxes across D
+  static constexpr int DP = NB * kBox;              // D padded
+  // keys of a kv tile: 128 at D <= 64 (fewer, larger S products where O
+  // is small), 32 at D 192 (O takes 96 registers a thread), else 64
+  static constexpr int BK = NB == 1 ? 128 : NB == 2 ? 64 : 32;
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BOX = kWgRows * 128;       // bytes of a Q box
+  static constexpr int KV_BOX = BK * 128;           // bytes of a K/V box
+  static constexpr int Q_BYTES = NB * Q_BOX;
+  static constexpr int KV_BYTES = NB * KV_BOX;      // K (or V) of a stage
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte
+  // period, then the tiles, then 2 * STAGES + 1 mbarriers
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (2 * STAGES + 1);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n" : "=r"(ok) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// returns once the phase of parity `parity` has completed.  (No trapping
+// timeout here: a __trap in the loop made ptxas allocate the consumers
+// within the launch's 168 registers, setmaxnreg notwithstanding.)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// one box of a rank-4 (D, S, H, B) tensor map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled tile: the start address,
+// the leading and the stride byte offsets (in 16-byte units), layout 1
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// wgmma.mma_async bf16 -> fp32: SS (A and B from shared memory, both
+// K-major) for S, RS (A from registers, B MN-major) for O
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db,
+                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                     uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                     uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t* a,
+                                     uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db,
+                                       int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "S tile of 32-128 keys");
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a,
+                                       uint64_t db) {
+  static_assert(N == 64 || N == 128 || N == 192, "D padded to 64/128/192");
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db, 1);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
+  else wgmma_rs_n192(d, a, db, 1);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (a, b) as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi): hi + lo
+// is x within 2^-17 of |x|
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
+// S = Q K^T of one kv tile into sc: DP / 16 steps of 16 columns, four in
+// each 64-column box; issued and committed, not waited for
+template <int BK, int DP, int Q_BOX, int KV_BOX>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_addr,
+                                         uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    mma_ss<BK>(sc, desc_sw128(q_addr + (kk >> 2) * Q_BOX + off, 16, 1024),
+               desc_sw128(k_addr + (kk >> 2) * KV_BOX + off, 16, 1024),
+               kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V of one kv tile, P = hi + lo from registers; V MN-major, 8 keys
+// 128 bytes apart in a 1024-byte swizzle atom, the boxes across D KV_BOX
+// bytes apart; issued and committed, not waited for
+template <int BK, int DP, int KV_BOX>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
+                                         const uint32_t (&hi)[BK / 16][4],
+                                         const uint32_t (&lo)[BK / 16][4],
+                                         uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = desc_sw128(v_addr + kk * 16 * 128, KV_BOX, 1024);
+    mma_rs<DP>(o, hi[kk], db);
+    // @probe lo-term (the next line)
+    mma_rs<DP>(o, lo[kk], db);
+  }
+  wgmma_commit();
+}
+
+// Where a tile crosses the diagonal, the window's left edge or Sk, the
+// masks of one of the thread's rows, as columns of the tile (0..BK-1):
+// keys past Sk are the columns above kmax, masked keys those below lo or
+// above hi.  Computed once a tile in 64 bits and clamped, so the per-key
+// tests are 32-bit.
+struct TileMask {
+  int kmax;
+  int lo[2];
+  int hi[2];
+};
+
+template <int BK>
+__device__ __forceinline__ TileMask tile_mask(const Params& p, int64_t k0,
+                                              const int64_t (&qp)[2]) {
+  TileMask t;
+  t.kmax = (int)max64(-1, min64(BK - 1, p.Sk - 1 - k0));
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    t.hi[hh] = p.causal ? (int)max64(-1, min64(BK - 1, qp[hh] - k0))
+                        : BK - 1;
+    t.lo[hh] = p.window > 0
+                   ? (int)max64(0, min64(BK, qp[hh] - p.window + 1 - k0))
+                   : 0;
+  }
+  return t;
+}
+
+// The masks and the online-softmax update of one tile's scores: sc
+// becomes p = exp2(sc * sl2 - m) (log2 domain), m and l are updated and
+// alpha is the factor the accumulator of each of the thread's two rows
+// must be rescaled by.  Touches neither O nor the P registers, so it runs
+// while the previous tile's P V is in flight.  Only tiles on an edge
+// (``edge``) take the masks, in a branch of their own.
+template <int BK>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    bool edge, const TileMask& mask, int qd, float sl2) {
+  float mx[2] = {m[0], m[1]};
+  if (edge) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * qd + e;
+          float x = sc[4 * j + 2 * hh + e] * sl2;
+          if (col < mask.lo[hh] || col > mask.hi[hh]) x = kNegInf;
+          if (col > mask.kmax) x = -INFINITY;
+          sc[4 * j + 2 * hh + e] = x;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = sc[4 * j + 2 * hh + e] * sl2;
+          sc[4 * j + 2 * hh + e] = x;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    alpha[hh] = fast_exp2(m[hh] - mx[hh]);
+    m[hh] = mx[hh];
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pe = fast_exp2(sc[4 * j + 2 * hh + e] - mx[hh]);
+        sc[4 * j + 2 * hh + e] = pe;
+        sum += pe;
+      }
+    }
+    l[hh] = l[hh] * alpha[hh] + sum;
+  }
+}
+
+// the S accumulator of keys 16kk..16kk+15 is the A fragment of the kk-th
+// k-step of P V: pairs (0,1) row r, (2,3) row r+8, (4,5) row r cols +8,
+// (6,7) row r+8 cols +8
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
+                                       uint32_t (&hi)[BK / 16][4],
+                                       uint32_t (&lo)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], hi[kk][i],
+                 lo[kk][i]);
+}
+
+// 168 registers a thread at launch (384 x 168 = 64,512 of the SM's
+// 65,536); setmaxnreg then moves them from the producer warpgroup to the
+// consumers: 24 + 2 x 240 per lane of each SM sub-partition
+template <int D>
+__global__ void __maxnreg__(168)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const Params p) {
+  using W = Wg<D>;
+  constexpr int BK = W::BK;
+  constexpr int DP = W::DP;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;                          // [NB][128 rows][128 B]
+  uint8_t* kvs = smem + W::Q_BYTES;            // [STAGES][K, V][NB][BK][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      kvs + W::STAGES * W::STAGE_BYTES);
+  uint64_t* empty = full + W::STAGES;
+  uint64_t* qbar = empty + W::STAGES;
+
+  const int tid = threadIdx.x;
+  const int64_t h = blockIdx.x;
+  const int64_t qt = (int64_t)gridDim.y - 1 - blockIdx.y;  // longest first
+  const int64_t b = blockIdx.z;
+  const int64_t hk = h / p.group;
+  const int64_t q0 = qt * kWgRows;
+
+  // The kv tiles this query tile visits, the same in every thread.  A row
+  // qp sees no key iff causal and qp < 0, or a window and qp >= Sk + W - 1;
+  // such rows lie at the tile's ends, and then every tile is walked.
+  const int64_t n_rows = min64(kWgRows, p.Sq - q0);
+  const int64_t qlo = p.q_offset + q0;
+  const int64_t qhi = qlo + n_rows - 1;
+  const bool any_empty = (p.causal && qlo < 0) ||
+                         (p.window > 0 && qhi >= p.Sk + p.window - 1);
+  int64_t kt_first = 0;
+  int64_t kt_last = (p.Sk - 1) / BK;
+  if (!any_empty) {
+    if (p.window > 0) kt_first = max64(0, qlo - p.window + 1) / BK;
+    if (p.causal) kt_last = min64(p.Sk - 1, qhi) / BK;
+  }
+  const int n_tiles = (int)(kt_last - kt_first + 1);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(&full[s], 1);          // the producer's expect_tx
+      mbar_init(&empty[s], 2);         // one arrive per consumer warpgroup
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 2) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 2 * 128) {
+      const int cb = (int)b, ch = (int)h, chk = (int)hk;
+      mbar_expect_tx(qbar, W::Q_BYTES);
+#pragma unroll
+      for (int x = 0; x < W::NB; ++x)
+        tma_load(qs + x * W::Q_BOX, &tq, qbar, x * kBox, (int)q0, ch, cb);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % W::STAGES;
+        mbar_wait(&empty[s], ((n / W::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        const int k0 = (int)((kt_first + n) * BK);
+        uint8_t* ks = kvs + s * W::STAGE_BYTES;
+#pragma unroll
+        for (int x = 0; x < W::NB; ++x)
+          tma_load(ks + x * W::KV_BOX, &tk, &full[s], x * kBox, k0, chk, cb);
+#pragma unroll
+        for (int x = 0; x < W::NB; ++x)
+          tma_load(ks + W::KV_BYTES + x * W::KV_BOX, &tv, &full[s],
+                   x * kBox, k0, chk, cb);
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroups ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int t = tid & 127;
+    const int qd = t & 3;                       // column pair in an 8-chunk
+    // this thread's rows: r and r + 8 of the tile's 128
+    const int r = wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
+    const float sl2 = p.scale * 1.4426950408889634f;   // scale * log2(e)
+
+    float o[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+    const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
+    int64_t qp[2];
+    qp[0] = qlo + r;
+    qp[1] = qlo + r + 8;
+
+    // tiles on the diagonal, the window's left edge or Sk are masked
+    auto edge_tile = [&](int64_t k0) {
+      return k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > qlo) ||
+             (p.window > 0 && k0 <= qhi - p.window);
+    };
+    float sc[BK / 2];
+    uint32_t hi[BK / 16][4], lo[BK / 16][4];
+    float alpha[2];
+
+    // @probe start
+    // tile 0: S, softmax, P
+    mbar_wait(qbar, 0);
+    mbar_wait(&full[0], 0);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+    issue_qk<BK, DP, W::Q_BOX, W::KV_BOX>(sc, q_addr, smem_u32(kvs));
+    wgmma_wait<0>();
+    fence_regs(sc);
+    {
+      const int64_t k0 = kt_first * BK;
+      online_softmax<BK>(sc, m, l, alpha, edge_tile(k0),
+                         tile_mask<BK>(p, k0, qp), qd, sl2);
+    }
+    pack_p<BK>(sc, hi, lo);
+
+    // @probe loop
+    // tile n: S_n and the previous tile's P V go to the tensor cores
+    // together; the softmax of S_n runs while P V is in flight
+    for (int n = 1; n < n_tiles; ++n) {
+      const int s = n % W::STAGES;
+      const int sp = (n - 1) % W::STAGES;
+      const uint32_t k_addr = smem_u32(kvs + s * W::STAGE_BYTES);
+      const uint32_t v_prev =
+          smem_u32(kvs + sp * W::STAGE_BYTES) + W::KV_BYTES;
+      const int64_t k0 = (kt_first + n) * BK;
+      // @probe tile-wait
+      mbar_wait(&full[s], (n / W::STAGES) & 1);
+      // @probe tile-ready
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      fence_regs(o);
+      wgmma_fence();
+      issue_qk<BK, DP, W::Q_BOX, W::KV_BOX>(sc, q_addr, k_addr);
+      issue_pv<BK, DP, W::KV_BOX>(o, hi, lo, v_prev);
+      wgmma_wait<1>();                    // S_n is done, P V may not be
+      fence_regs(sc);
+      // @probe scores
+      online_softmax<BK>(sc, m, l, alpha, edge_tile(k0),
+                         tile_mask<BK>(p, k0, qp), qd, sl2);
+      // @probe pv-wait
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(sc);                     // P is repacked after the wait
+      // @probe pv-done
+      if (t == 0) mbar_arrive(&empty[sp]);
+      // once the rows' maxima settle, alpha is 1 and the rescale, exact
+      // either way, is skipped
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          o[4 * j] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
+      }
+      pack_p<BK>(sc, hi, lo);
+      // @probe packed
+    }
+
+    // the last tile's P V
+    fence_regs(o);
+    wgmma_fence();
+    issue_pv<BK, DP, W::KV_BOX>(
+        o, hi, lo,
+        smem_u32(kvs + ((n_tiles - 1) % W::STAGES) * W::STAGE_BYTES) +
+            W::KV_BYTES);
+    wgmma_wait<0>();
+    fence_regs(o);
+
+    // @probe epilogue
+    // epilogue: the 4 threads of a row hold parts of its l
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.sob +
+                        h * p.soh;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float lt = l[hh];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      lt = fmaxf(lt, 1e-30f);
+      const int64_t row = q0 + r + 8 * hh;
+      if (row < p.Sq) {
+        __nv_bfloat16* orow = og + row * p.sos + 2 * qd;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          if (8 * j < D) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+                __floats2bfloat162_rn(o[4 * j + 2 * hh] / lt,
+                                      o[4 * j + 2 * hh + 1] / lt);
+          }
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// Error codes past the CUDA runtime's own, for the wrapper's message
+constexpr int kErrNoEncoder = 10000;     // cuTensorMapEncodeTiled not found
+constexpr int kErrEncode = 20000;        // + the CUresult of the encoder
+
+// A rank-4 map over a strided (B, H, S, D) bf16 view, innermost first;
+// a stride of a size-1 axis is never used and is replaced by a valid one
+int encode_map(CUtensorMap* map, const void* base, int64_t D, int64_t S,
+               int64_t H, int64_t B, int64_t ss, int64_t sh, int64_t sb,
+               int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)((S > 1 ? ss : D) * 2),
+                                 (cuuint64_t)((H > 1 ? sh : D) * 2),
+                                 (cuuint64_t)((B > 1 ? sb : D) * 2)};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                          const_cast<void*>(base), dims, strides, box, unit,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kErrEncode + (int)res;
+}
+
+template <int D>
+int launch_wgmma(Params p, int64_t B, int64_t Hq, int64_t Hkv,
+                 cudaStream_t stream) {
+  using W = Wg<D>;
+  CUtensorMap tq, tk, tv;
+  int err = encode_map(&tq, p.q, D, p.Sq, Hq, B, p.sqs, p.sqh, p.sqb,
+                       kWgRows);
+  if (!err) err = encode_map(&tk, p.k, D, p.Sk, Hkv, B, p.sks, p.skh, p.skb,
+                             W::BK);
+  if (!err) err = encode_map(&tv, p.v, D, p.Sk, Hkv, B, p.svs, p.svh, p.svb,
+                             W::BK);
+  if (err) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::SMEM);
+  if (cerr != cudaSuccess) return (int)cerr;
+  p.n_qtiles = (int)((p.Sq + kWgRows - 1) / kWgRows);
+  const dim3 grid((unsigned)Hq, (unsigned)p.n_qtiles, (unsigned)B);
+  flash_fwd_wgmma<D><<<grid, kWgThreads, W::SMEM, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int D, const Params& p, int64_t B, int64_t Hq,
-               cudaStream_t stream) {
+int launch_simt(Params p, int D, int64_t B, int64_t Hq,
+                cudaStream_t stream) {
+  p.n_qtiles = (int)((p.Sq + kBQ - 1) / kBQ);
+  const dim3 grid((unsigned)p.n_qtiles, (unsigned)Hq, (unsigned)B);
+  const int smem = (kBQ * D + (D > kBQ ? D : kBQ) * kKS + kBK * D) *
+                   (int)sizeof(float);
+  void (*kernel)(const Params);
   switch (D) {
-    case 32: return launch<T, 32>(p, B, Hq, stream);
-    case 64: return launch<T, 64>(p, B, Hq, stream);
-    case 80: return launch<T, 80>(p, B, Hq, stream);
-    case 128: return launch<T, 128>(p, B, Hq, stream);
-    case 192: return launch<T, 192>(p, B, Hq, stream);
+    case 32: kernel = flash_fwd_simt<32>; break;
+    case 64: kernel = flash_fwd_simt<64>; break;
+    case 80: kernel = flash_fwd_simt<80>; break;
+    case 128: kernel = flash_fwd_simt<128>; break;
+    case 192: kernel = flash_fwd_simt<192>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int launch_wgmma_d(const Params& p, int D, int64_t B, int64_t Hq,
+                   int64_t Hkv, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_wgmma<32>(p, B, Hq, Hkv, stream);
+    case 64: return launch_wgmma<64>(p, B, Hq, Hkv, stream);
+    case 80: return launch_wgmma<80>(p, B, Hq, Hkv, stream);
+    case 128: return launch_wgmma<128>(p, B, Hq, Hkv, stream);
+    case 192: return launch_wgmma<192>(p, B, Hq, Hkv, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (batch,
-// head, seq) of q, k, v and o in that order; the last axis of each is
-// contiguous.  window <= 0 means none.  Returns cudaGetLastError() after
-// the launch (0 = cudaSuccess).  The caller handles Sq == 0 and Sk == 0
-// without a launch.
+// dtype: 0 = float32 (flash_fwd_simt), 1 = bfloat16 (flash_fwd_wgmma).
+// strides: 12 element strides, (batch, head, seq) of q, k, v and o in that
+// order; the last axis of each is contiguous, and for bf16 every stride of
+// an axis longer than 1 is a multiple of 8 elements and q, k and v start
+// 16-byte aligned (TMA).  window <= 0 means none.  Returns 0 on success, a
+// CUDA runtime error code, or 10000 (no tensor-map encoder in the driver)
+// / 20000 + a CUresult (a tensor map was refused).  The caller handles
+// Sq == 0 and Sk == 0 without a launch.
 extern "C" int flash_attention_fwd(int dtype, int D, const void* q,
                                    const void* k, const void* v, void* o,
                                    const int64_t* strides, int64_t B,
@@ -356,7 +1110,7 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q,
                                    int64_t window, int causal, float scale,
                                    void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || Hq % Hkv ||
-      B > 65535 || Hq > 65535 || (Sq + kBQ - 1) / kBQ > 0x7fffffffLL)
+      B > 65535 || Hq > 65535 || Sq > 0x7fffffffLL || Sk > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -373,10 +1127,14 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q,
   p.window = window;
   p.group = (int)(Hq / Hkv);
   p.causal = causal;
-  p.n_qtiles = (int)((Sq + kBQ - 1) / kBQ);
+  p.n_qtiles = 0;
   p.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch_d<float>(D, p, B, Hq, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, p, B, Hq, s);
+  if (dtype == 0) return launch_simt(p, D, B, Hq, s);
+  if (dtype == 1) {
+    if ((Sq + kWgRows - 1) / kWgRows > 65535)        // grid.y
+      return (int)cudaErrorInvalidValue;
+    return launch_wgmma_d(p, D, B, Hq, Hkv, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -14,11 +14,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -96,6 +97,49 @@ def build_all(names=None) -> Dict[str, Build]:
     return out
 
 
+class KernelReport(NamedTuple):
+    """What ``ptxas -v`` says of one entry function: registers at launch
+    and bytes spilled."""
+    registers: int
+    spill_stores: int
+    spill_loads: int
+
+
+def ptxas_kernels(report: str) -> Dict[str, KernelReport]:
+    """Each entry function of a ``-Xptxas -v`` report, by mangled name."""
+    out: Dict[str, KernelReport] = {}
+    name, spills = None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = KernelReport(int(m.group(1)), *spills)
+            name = None
+    return out
+
+
+def ptxas_warnings(report: str) -> List[str]:
+    """The warning lines of a ``-Xptxas -v`` report (e.g. wgmma
+    serialisation, an ignored ``setmaxnreg``)."""
+    return [line.strip() for line in report.splitlines()
+            if "warning" in line.lower()]
+
+
+def wgmma_serialised(report: str) -> List[str]:
+    """The lines of a ``-Xptxas -v`` report saying ptxas serialised wgmma
+    instructions (it prints some as "info", C7512, some as warnings)."""
+    return [line.strip() for line in report.splitlines()
+            if "wgmma" in line and "serializ" in line]
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
@@ -105,10 +149,21 @@ def load(name: str) -> ctypes.CDLL:
 class LaunchCounter:
     """Plain-integer count of one kernel's launches.  A wrapper adds one
     where it launches its kernel and nowhere else, so a run can show that
-    its main path went through the kernel."""
+    its main path went through the kernel.  A kernel with several
+    variants also counts each in ``by_variant`` (``count`` is their
+    total); the dict is reset in place, so a reference to it stays
+    live."""
 
-    def __init__(self):
+    def __init__(self, variants=()):
         self.count = 0
+        self.by_variant = {v: 0 for v in variants}
+
+    def add(self, variant=None):
+        if variant is not None:
+            self.by_variant[variant] += 1
+        self.count += 1
 
     def reset(self):
         self.count = 0
+        for v in self.by_variant:
+            self.by_variant[v] = 0

@@ -5,7 +5,8 @@ kernel is memory-bound (it reads every byte of the (C, D) buffer once);
 see the source for the design.  ``block_c`` / ``block_d`` keep the
 names of the TPU kernel's tile knobs: here ``block_d`` is the columns one
 CUDA block owns (256 threads × 1, 2, 4 or 8 columns each) and ``block_c``
-the granularity of the client chunks the grid splits C into.
+the granularity of the client chunks the grid splits C into (``geometry``:
+one wave of blocks on the card, float2 loads where D is even).
 """
 from __future__ import annotations
 
@@ -18,24 +19,29 @@ import torch
 from repro_torch.kernels import _build
 
 THREADS = 256
-# aim for ~8 resident 256-thread blocks on each of an H100's 132 SMs; a
-# constant (not read from the device) so the chunking — and therefore the
-# summation order — depends on the shapes alone
-TARGET_BLOCKS = 8 * 132
+# one wave of the partial pass on an H100: one block of 256 threads on
+# each of its 132 SMs.  A constant (not read from the device), so the
+# chunking — and therefore the summation order — depends on the shapes
+# alone
+WAVE = 132
 
 launches = _build.LaunchCounter()
 
 
 class Geometry(NamedTuple):
-    rows_per_chunk: int
-    n_chunks: int
+    n_chunks: int         # grid.y: client chunks
+    row_blocks: int       # ceil(C / block_c) blocks of block_c rows
     cols_per_thread: int
-    col_blocks: int
+    col_blocks: int       # grid.x
+    vec: int              # 2: float2 loads; 1: scalar loads
 
 
-def geometry(C: int, D: int, block_c: int = 8,
-             block_d: int = 2048) -> Geometry:
-    """Grid of one launch: (col_blocks, n_chunks) blocks of 256 threads.
+def geometry(C: int, D: int, block_c: int = 8, block_d: int = 2048,
+             aligned: bool = True) -> Geometry:
+    """Grid of one launch: (col_blocks, n_chunks) blocks of 256 threads,
+    as many chunks as fill one wave (``WAVE`` blocks) with the column
+    blocks, at most one a block of rows.  ``aligned``: the buffer starts
+    8-byte aligned, so with an even D every row takes float2 loads.
 
     Raises ``ValueError`` on tile knobs the kernel has no variant for."""
     if block_d not in (THREADS, 2 * THREADS, 4 * THREADS, 8 * THREADS):
@@ -45,12 +51,18 @@ def geometry(C: int, D: int, block_c: int = 8,
     if block_c < 1:
         raise ValueError(f"fed_agg cuda: block_c must be >= 1, got "
                          f"{block_c}")
-    col_blocks = -(-D // block_d)
-    want_chunks = max(1, -(-TARGET_BLOCKS // max(col_blocks, 1)))
-    rows = -(-C // want_chunks)
-    rows = max(block_c, -(-rows // block_c) * block_c)
-    n_chunks = max(1, -(-C // rows))
-    return Geometry(rows, n_chunks, block_d // THREADS, col_blocks)
+    col_blocks = max(1, -(-D // block_d))
+    row_blocks = max(1, -(-C // block_c))
+    n_chunks = max(1, min(row_blocks, WAVE // col_blocks))
+    vec = 2 if aligned and D % 2 == 0 and block_d >= 2 * THREADS else 1
+    return Geometry(n_chunks, row_blocks, block_d // THREADS, col_blocks,
+                    vec)
+
+
+def chunk_rows(g: Geometry, C: int, block_c: int, i: int):
+    """Rows [begin, end) of chunk ``i``, as the kernel computes them."""
+    begin = block_c * (i * g.row_blocks // g.n_chunks)
+    return begin, min(C, block_c * ((i + 1) * g.row_blocks // g.n_chunks))
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,8 +70,8 @@ def _entry():
     fn = _build.load("fed_agg").fed_agg_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -88,14 +100,15 @@ def fed_agg_cuda(updates: torch.Tensor, weights: torch.Tensor, *,
     out = torch.empty((D,), dtype=torch.float32, device=updates.device)
     if D == 0:
         return out
-    g = geometry(C, D, block_c, block_d)
+    g = geometry(C, D, block_c, block_d,
+                 aligned=updates.data_ptr() % 8 == 0)
     partial = out if g.n_chunks == 1 else torch.empty(
         (g.n_chunks, D), dtype=torch.float32, device=updates.device)
     with torch.cuda.device(updates.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(updates.data_ptr(), weights.data_ptr(),
-                       out.data_ptr(), partial.data_ptr(), C, D,
-                       g.rows_per_chunk, g.n_chunks, g.cols_per_thread,
+                       out.data_ptr(), partial.data_ptr(), C, D, block_c,
+                       g.row_blocks, g.n_chunks, g.cols_per_thread, g.vec,
                        stream)
     if err != 0:
         raise RuntimeError(f"fed_agg cuda: launch failed with CUDA error "

@@ -2,9 +2,14 @@
 (``csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention/kernel.py:69
-flash_attention_pallas``.  The kernel takes strided (B, H, S, D) views
-whose last axis is contiguous, so the model's (B, S, H, D) projections go
-in without a transpose; see the source for the design and its bound.
+flash_attention_pallas``.  Two variants, chosen by dtype with no fallback
+between them: fp32 inputs launch ``flash_fwd_simt`` (SIMT fp32, the
+Pallas kernel's arithmetic), bf16 inputs launch ``flash_fwd_wgmma``
+(tensor cores, TMA; P carried as two bf16 terms, each output held to
+one bf16 ulp of ``attention_ref``'s fp32 result plus a small floor, see
+``ref.bf16_excess``).  Both take strided (B, H, S, D) views whose last
+axis is contiguous, so the model's (B, S, H, D) projections go in
+without a transpose; see the source for the design and its bound.
 """
 from __future__ import annotations
 
@@ -21,8 +26,10 @@ from repro_torch.kernels import _build
 # 128, nemotron-4-340b 192)
 HEAD_DIMS = (32, 64, 80, 128, 192)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 
-launches = _build.LaunchCounter()
+launches = _build.LaunchCounter(variants=("wgmma", "simt"))
+launches_by_variant = launches.by_variant
 
 
 @functools.lru_cache(maxsize=None)
@@ -38,11 +45,54 @@ def _entry():
     return fn
 
 
+def smem_bytes(variant: str, D: int) -> int:
+    """Dynamic shared memory of one block, as ``csrc/flash_attention.cu``
+    sizes it: SIMT, the fp32 Q, K^T and V tiles; wgmma, the Q tile of 128
+    rows and 3 stages of K and V tiles of 64 keys (128 at D <= 64, 32 at
+    D 192) in
+    64-column boxes, 1024 bytes of alignment slack and the mbarriers."""
+    if variant == "simt":
+        return (64 * D + max(D, 64) * 68 + 64 * D) * 4
+    boxes = -(-D // 64)
+    keys = {1: 128, 2: 64}.get(boxes, 32)
+    return 1024 + boxes * 128 * 128 + 3 * 2 * boxes * keys * 128 + 8 * 7
+
+
+def tma_layout_error(shape, strides, data_ptr: int,
+                     element_size: int = 2) -> Optional[str]:
+    """Why TMA cannot read a (B, H, S, D) view, or None if it can.
+
+    TMA wants the last axis contiguous, a 16-byte-aligned base and every
+    other stride a positive multiple of 16 bytes below 2**40; the stride
+    of an axis of length 1 is never used (the kernel replaces it)."""
+    if strides[-1] != 1:
+        return f"the last axis must be contiguous, got strides {strides}"
+    if data_ptr % 16:
+        return (f"the base address must be 16-byte aligned, got "
+                f"{data_ptr} ({data_ptr % 16} past a multiple of 16)")
+    for n, st in zip(shape[:-1], strides[:-1]):
+        nbytes = st * element_size
+        if n > 1 and (st <= 0 or nbytes % 16 or nbytes >= 2 ** 40):
+            return (f"every stride of an axis longer than 1 must be a "
+                    f"positive multiple of 16 bytes below 2**40, got "
+                    f"strides {strides} at {element_size} bytes an "
+                    f"element")
+    return None
+
+
 def _check_layout(name: str, x: torch.Tensor):
-    """The kernel reads rows of 4 elements at a time: the last axis
+    """The SIMT variant reads rows of 4 elements at a time: the last axis
     contiguous, the other strides and the base address aligned to 4
-    elements."""
+    elements.  The wgmma variant reads q, k and v by TMA
+    (``tma_layout_error``) and writes pairs of elements."""
     strides = x.stride()
+    if x.dtype == torch.bfloat16 and name != "out":
+        why = tma_layout_error(tuple(x.shape), strides, x.data_ptr(),
+                               x.element_size())
+        if why is not None:
+            raise ValueError(f"flash_attention cuda: {name} cannot be read "
+                             f"by TMA: {why}")
+        return
     if strides[-1] != 1 or any(s % 4 for s in strides[:-1]) \
             or x.data_ptr() % (4 * x.element_size()):
         raise ValueError(f"flash_attention cuda: {name} must have a "
@@ -58,7 +108,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) on one CUDA device ->
     (B, Hq, Sq, D) in q's dtype, laid out like q (``empty_like``).
 
-    Launches on the current stream and does not synchronise."""
+    fp32 launches the SIMT variant, bf16 the wgmma one.  Launches on the
+    current stream and does not synchronise."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention cuda: q, k and v must lie on "
@@ -107,8 +158,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        0 if window is None else int(window), int(causal),
                        float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention cuda: launch failed with CUDA "
-                           f"error {err} at q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype}")
-    launches.count += 1
+        raise RuntimeError(f"flash_attention cuda: {VARIANTS[q.dtype]} "
+                           f"launch failed with error {err} (a CUDA error; "
+                           f"10000: no tensor-map encoder, 20000 + n: "
+                           f"CUresult n encoding a tensor map) at q "
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+                           f"{q.dtype}")
+    launches.add(VARIANTS[q.dtype])
     return out

@@ -9,6 +9,11 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+# the bf16 flash kernel's gate: bf16_excess(kernel output, fp32 truth) at
+# most this.  It lies between the kernel's readings on an H100 (two bf16
+# terms of P) and those of a kernel that rounds P to one bf16 term
+# (PERF.md)
+BF16_FLOOR = 2.0 ** -12
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,3 +44,26 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element of ``x`` (fp32; 0 where ``x`` is 0):
+    2^(e - 7) for 2^e <= |x| < 2^(e + 1)."""
+    x = x.float()
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def bf16_excess(got: torch.Tensor, truth: torch.Tensor) -> float:
+    """How far a bf16 result strays beyond one bf16 ulp of the fp32
+    truth, as a share of its row's largest |truth|: the max over elements
+    of (|got - truth| - ulp(truth)) / max_d |truth[..., d]|.  At most 0
+    when every element lies within one ulp of the truth (a correctly
+    rounded result lies within half of one); the gate of the bf16 flash
+    kernel holds it to ``BF16_FLOOR``, so an error that is small against
+    the row's largest output but large against an element's own ulp
+    still counts."""
+    truth = truth.float()
+    err = (got.float() - truth).abs() - bf16_ulp(truth)
+    row = truth.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return float((err / row).max())

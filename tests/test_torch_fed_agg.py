@@ -115,23 +115,45 @@ def test_pack_layout_follows_reference_tree_order():
 
 
 @pytest.mark.parametrize("C,D", [(4096, 22026), (13, 22026), (4096, 1),
-                                 (1, 5), (0, 9), (100000, 3)])
+                                 (1, 5), (0, 9), (100000, 3),
+                                 (4096, 22027), (517, 2_000_001)])
 @pytest.mark.parametrize("block_c,block_d", [(8, 2048), (1, 256), (5, 512)])
 def test_kernel_grid_covers_every_row_and_column(C, D, block_c, block_d):
     g = K.geometry(C, D, block_c, block_d)
-    assert g.rows_per_chunk % block_c == 0 and g.n_chunks >= 1
-    assert (g.n_chunks - 1) * g.rows_per_chunk < max(C, 1) \
-        <= g.n_chunks * g.rows_per_chunk or C == 0
-    assert g.n_chunks <= 65535                       # CUDA grid.y limit
+    assert 1 <= g.n_chunks <= 65535                  # CUDA grid.y limit
+    assert g.col_blocks * g.n_chunks <= max(K.WAVE, g.col_blocks)
+    # the chunks tile [0, C) in order, each starting on a block of rows,
+    # and differ in size by at most one block
+    bounds = [K.chunk_rows(g, C, block_c, i) for i in range(g.n_chunks)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == C
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(lo % block_c == 0 and lo <= hi for lo, hi in bounds)
+    sizes = [hi - lo for lo, hi in bounds[:-1]] or [0]
+    assert max(sizes) - min(sizes) <= block_c
     assert g.cols_per_thread * K.THREADS == block_d
     assert (g.col_blocks - 1) * block_d < D <= g.col_blocks * block_d
 
 
 def test_kernel_grid_at_the_main_path_shape_fills_the_card():
     g = K.geometry(4096, 22026)
-    assert g.col_blocks * g.n_chunks >= 4 * 132
+    # one whole wave: 11 column blocks x 12 chunks, a block on each of
+    # the 132 SMs
+    assert g.col_blocks * g.n_chunks == K.WAVE == 132
+    assert g.vec == 2                                # float2 loads
     # the partials add at most a few percent to the bytes read
     assert g.n_chunks * 22026 * 4 * 2 < 0.05 * 4096 * 22026 * 4
+
+
+@pytest.mark.parametrize("D,block_d,aligned,vec", [
+    (22026, 2048, True, 2), (22027, 2048, True, 1), (22026, 2048, False, 1),
+    (22026, 256, True, 1), (22025, 512, True, 1), (22024, 512, True, 2),
+    (1, 2048, True, 1), (2, 1024, True, 2)])
+def test_kernel_grid_takes_float2_loads_only_where_rows_align(
+        D, block_d, aligned, vec):
+    """float2 loads need every row start 8-byte aligned: an even D and an
+    aligned buffer; odd D (rows alternate) and 256-wide blocks (one column
+    a thread) take scalar loads."""
+    assert K.geometry(64, D, 8, block_d, aligned=aligned).vec == vec
 
 
 @pytest.mark.parametrize("block_c,block_d", [(0, 2048), (8, 100),

@@ -27,8 +27,10 @@ import torch
 from repro.kernels.flash_attention import ops as RefOps
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention import ref as _ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # fp32: both sides compute in fp32 and differ in summation order only.
@@ -177,3 +179,153 @@ def test_unknown_impl_and_cpu_tensors_to_the_kernel_raise():
         K.flash_attention_cuda(q, k, v)
     ops.flash_attention(q, k, v, impl="cuda")        # CPU: the plain version
     assert K.launches.count == before
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's gate, its TMA layout rule and its build report
+# ---------------------------------------------------------------------------
+
+def _attention_masked_by_hand(q, k, v, ok, p_bf16=False):
+    """fp32 softmax attention of (B, H, Sq, D) inputs (group 1) under the
+    boolean mask ``ok`` (Sq, Sk); ``p_bf16`` rounds P to bf16 before P·V,
+    as a kernel that carries P in one bf16 term would."""
+    s = q.float() @ k.float().transpose(-1, -2) * q.shape[-1] ** -0.5
+    p = torch.softmax(torch.where(ok, s, -1e30), -1)
+    if p_bf16:
+        p = p.to(torch.bfloat16).float()
+    return p @ v.float()
+
+
+def test_bf16_ulp_is_the_step_to_the_next_bf16_value():
+    x = torch.from_numpy(np.random.RandomState(5).randn(4096)
+                         .astype(np.float32) * 10.0 ** np.arange(-6, 2)
+                         .repeat(512)).to(torch.bfloat16).abs()
+    x = x[x > 0]
+    step = (x.view(torch.int16) + 1).view(torch.bfloat16).float() - x.float()
+    assert torch.equal(_ref.bf16_ulp(x), step)
+    assert torch.equal(_ref.bf16_ulp(-x), step)
+    assert float(_ref.bf16_ulp(torch.zeros(1))) == 0.0
+    assert float(_ref.bf16_ulp(torch.ones(1))) == 2.0 ** -7
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [(True, None, 0),
+                                                    (True, 24, 40),
+                                                    (False, 10, 25)])
+def test_bf16_gate_passes_the_rounded_truth(causal, window, q_offset):
+    """The plain version on bf16 inputs (fp32 inside, one rounding to
+    bf16) lies within one ulp of the fp32 truth everywhere, rows that see
+    no key included."""
+    q, k, v = (_torch(x, torch.bfloat16)
+               for x in _inputs(1, 4, 2, 40, 70, 64, seed=11))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    truth = attention_ref(q.float(), k.float(), v.float(), **kw)
+    assert _ref.bf16_excess(attention_ref(q, k, v, **kw), truth) <= 0.0
+    assert _ref.bf16_excess(truth.to(torch.bfloat16), truth) <= 0.0
+
+
+def test_bf16_gate_fails_a_skipped_kv_tile():
+    """Keys 64..127 left out of every row past them, as a kernel that
+    skipped its second tile of 64 keys would: far beyond the floor."""
+    q, k, v = (_torch(x, torch.bfloat16)
+               for x in _inputs(1, 4, 4, 512, 512, 64, seed=13))
+    qp, kp = torch.arange(512)[:, None], torch.arange(512)[None, :]
+    causal = kp <= qp
+    truth = _attention_masked_by_hand(q, k, v, causal)
+    skipped = _attention_masked_by_hand(
+        q, k, v, causal & ~((kp >= 64) & (kp < 128) & (qp >= 128)))
+    assert _ref.bf16_excess(skipped.to(torch.bfloat16), truth) > 16 * _ref.BF16_FLOOR
+
+
+def test_bf16_gate_fails_p_in_one_bf16_term():
+    """P rounded to bf16 before P·V (one term) moves small outputs by far
+    more than their ulp: beyond the floor, which a kernel that carries P
+    in two terms stays under."""
+    q, k, v = (_torch(x, torch.bfloat16)
+               for x in _inputs(1, 4, 4, 1024, 1024, 128, seed=14))
+    causal = torch.arange(1024)[None, :] <= torch.arange(1024)[:, None]
+    truth = _attention_masked_by_hand(q, k, v, causal)
+    one_term = _attention_masked_by_hand(q, k, v, causal, p_bf16=True)
+    assert _ref.bf16_excess(one_term.to(torch.bfloat16),
+                            truth) > _ref.BF16_FLOOR
+
+
+def test_tma_layout_accepts_the_model_layout_views():
+    """The serve path's (B, S, Hk, G, D) and (B, S, Hk, D) projections,
+    read as (B, H, S, D) views, at every head dim."""
+    for D in K.HEAD_DIMS:
+        q = torch.zeros(2, 50, 2, 3, D, dtype=torch.bfloat16)
+        kv = torch.zeros(2, 50, 2, D, dtype=torch.bfloat16)
+        qv = q.reshape(2, 50, 6, D).transpose(1, 2)
+        for x in (qv, kv.transpose(1, 2), qv.contiguous()):
+            assert K.tma_layout_error(tuple(x.shape), x.stride(),
+                                      16 * 1000) is None
+        # a stride of an axis of length 1 is never used
+        assert K.tma_layout_error((1, 6, 50, D), (7, D, 6 * D, 1),
+                                  16 * 1000) is None
+
+
+@pytest.mark.parametrize("shape,strides,ptr,match", [
+    ((1, 4, 64, 64), (16384, 4096, 64, 1), 16 * 7 + 2, "16-byte aligned"),
+    ((1, 4, 64, 64), (16384, 4096, 64, 1), 8, "16-byte aligned"),
+    ((1, 4, 64, 64), (17408, 4352, 68, 1), 0, "multiple of 16"),
+    ((2, 4, 64, 64), (3, 4096, 64, 1), 0, "multiple of 16"),
+    ((1, 4, 64, 64), (16384, 0, 64, 1), 0, "positive"),
+    ((1, 4, 64, 64), (16384, 64, 1, 64), 0, "contiguous"),
+    ((2, 2, 64, 64), (2 ** 39, 4096, 64, 1), 0, "below 2"),
+])
+def test_tma_layout_refuses_what_tma_cannot_read(shape, strides, ptr, match):
+    why = K.tma_layout_error(shape, strides, ptr)
+    assert why is not None and match.split()[0] in why
+
+
+def test_kernel_variants_fit_shared_memory():
+    """Every variant's dynamic shared memory fits a block's 227 KB."""
+    for D in K.HEAD_DIMS:
+        for variant in ("simt", "wgmma"):
+            assert 0 < K.smem_bytes(variant, D) <= 232_448
+    assert K.smem_bytes("wgmma", 128) == 1024 + 32768 + 3 * 32768 + 56
+
+
+def test_launch_counter_counts_each_variant():
+    c = _build.LaunchCounter(variants=("wgmma", "simt"))
+    view = c.by_variant
+    c.add("wgmma")
+    c.add("wgmma")
+    c.add("simt")
+    assert (c.count, view) == (3, {"wgmma": 2, "simt": 1})
+    c.reset()
+    assert (c.count, view) == (0, {"wgmma": 0, "simt": 0})
+    plain = _build.LaunchCounter()
+    plain.add()
+    assert (plain.count, plain.by_variant) == (1, {})
+
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi128EEEv14CUtensorMap_stS1_S1_NS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115flash_fwd_wgmmaILi128EEEv14CUtensorMap_stS1_S1_NS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas warning : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114flash_fwd_simtILi64EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114flash_fwd_simtILi64EEEvNS_6ParamsE
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 110 registers, 1024 bytes smem, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_is_read_per_kernel():
+    got = _build.ptxas_kernels(PTXAS_REPORT)
+    wg = "_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi128EEEv14CUtensorMap_stS1_S1_NS_6ParamsE"
+    simt = "_ZN12_GLOBAL__N_114flash_fwd_simtILi64EEEvNS_6ParamsE"
+    assert got == {wg: _build.KernelReport(168, 0, 0),
+                   simt: _build.KernelReport(110, 12, 8)}
+    warnings = _build.ptxas_warnings(PTXAS_REPORT)
+    assert len(warnings) == 1 and "serialized" in warnings[0]
+    # ptxas also reports serialisation as an info line
+    info = ("ptxas info    : (C7512) Potential Performance Loss: "
+            "wgmma.mma_async instructions are serialized due to "
+            "insufficient register resources for the function 'f'")
+    assert len(_build.wgmma_serialised(PTXAS_REPORT)) == 1
+    assert _build.wgmma_serialised(PTXAS_REPORT + info) == [
+        warnings[0], info]

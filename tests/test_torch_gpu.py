@@ -18,7 +18,9 @@ from repro_torch.kernels.fed_agg.ops import fed_agg_packed
 from repro_torch.kernels.fed_agg.ref import fed_agg_ref
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as FO
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (BF16_FLOOR,
+                                                     attention_ref,
+                                                     bf16_excess)
 from repro_torch.kernels.robust_agg import kernel as RK
 from repro_torch.kernels.robust_agg import ops as RO
 from repro_torch.kernels.robust_agg.ref import (geometric_median_torch,
@@ -59,12 +61,43 @@ def _check(got, u, w):
 
 
 @pytest.mark.parametrize("C,D", [(4096, 22026), (13, 22026), (4096, 1),
-                                 (13, 2049), (1, 5), (517, 300)])
+                                 (13, 2049), (1, 5), (517, 300),
+                                 # D mod 4 = 0, 1, 2, 3; C off the chunks
+                                 (4093, 22024), (4093, 22025), (999, 22026),
+                                 (4095, 22027), (3, 2)])
 def test_fed_agg_kernel_matches_plain(cuda, C, D):
     u, w = _inputs(C, D, seed=C + D, device=cuda, zero_frac=0.5)
     got = fed_agg_packed(u, w, impl="cuda")
     torch.cuda.synchronize()
     _check(got, u, w)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("D", [22026, 22025])
+def test_fed_agg_kernel_reads_misaligned_rows(cuda, offset, D):
+    """A buffer that starts 4, 8 or 12 bytes past a 16-byte boundary."""
+    u, w = _inputs(777, D, seed=offset, device=cuda)
+    flat = torch.empty(777 * D + offset, device=cuda)
+    flat[offset:] = u.reshape(-1)
+    shifted = flat[offset:].view(777, D)
+    assert shifted.data_ptr() % 16 == 4 * offset
+    got = fed_agg_packed(shifted, w, impl="cuda")
+    torch.cuda.synchronize()
+    _check(got, u, w)
+
+
+def test_fed_agg_kernel_propagates_nan_from_zero_weight_rows(cuda):
+    """A zero-weight row is read like any other: 0 * NaN is NaN, as in
+    the plain version."""
+    u, w = _inputs(300, 22026, seed=9, device=cuda)
+    w[17] = 0.0
+    u[17, 5:9] = float("nan")
+    got = fed_agg_packed(u, w, impl="cuda")
+    want = fed_agg_ref(u, w)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(got).sum()) == 4
+    keep = ~torch.isnan(want)
+    _check(got[keep], u[:, keep], w)
 
 
 @pytest.mark.parametrize("block_c,block_d", [(1, 256), (8, 512), (3, 1024),
@@ -207,10 +240,13 @@ def test_server_step_launches_per_round(cuda, rule, norms, sums):
 # flash_attention
 # ---------------------------------------------------------------------------
 
-# both sides compute in fp32 (summation order differs); bf16 outputs are
-# rounded from fp32 once on each side: at most one bf16 ulp apart
+# fp32 (the SIMT variant): both sides compute in fp32 and differ in
+# summation order only, within 1e-5 of max(1, |o|).  bf16 (the wgmma
+# variant) carries P in two bf16 terms and rounds its output once: each
+# element within one bf16 ulp of the fp32 truth (attention_ref on the same
+# bf16 inputs, fp32 P and output) plus ref.BF16_FLOOR (2^-12) of its
+# row's largest |truth|, the gate of chip_smoke.py
 FLASH_F32_TOL = 1e-5
-FLASH_BF16_REL = 2.0 ** -7
 
 
 def _qkv(B, Hq, Hkv, Sq, Sk, D, dtype, device, seed=0):
@@ -220,13 +256,20 @@ def _qkv(B, Hq, Hkv, Sq, Sk, D, dtype, device, seed=0):
                                (B, Hkv, Sk, D)))
 
 
-def _check_flash(got, want):
-    assert got.dtype == want.dtype and got.shape == want.shape
-    err = (got.float() - want.float()).abs()
-    size = torch.maximum(got.float().abs(), want.float().abs())
-    tol = (FLASH_BF16_REL * size + 1e-6 if got.dtype == torch.bfloat16
-           else FLASH_F32_TOL * size.clamp_min(1.0))
-    assert bool((err <= tol).all()), float(err.max())
+def _check_flash(got, q, k, v, **kw):
+    """``got`` against the plain version on the same inputs: the fp32
+    tolerance, or the bf16 gate above."""
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    if got.dtype == torch.float32:
+        want = attention_ref(q, k, v, **kw)
+        err = (got - want).abs()
+        assert bool((err <= FLASH_F32_TOL * torch.maximum(
+            got.abs(), want.abs()).clamp_min(1.0)).all()), float(err.max())
+        return
+    truth = attention_ref(q.float(), k.float(), v.float(), **kw)
+    excess = bf16_excess(got, truth)
+    assert excess <= BF16_FLOOR, excess
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,dtype,q_offset,causal,window", [
@@ -241,6 +284,17 @@ def _check_flash(got, want):
     (2, 8, 4, 64, 64, 32, torch.bfloat16, 0, True, None),
     (1, 6, 2, 150, 150, 192, torch.float32, 0, True, 64),
     (1, 96, 8, 130, 130, 192, torch.bfloat16, 0, True, None),
+    # bf16 at every head dim: ragged Sq and Sk, q_offset with Sq < Sk,
+    # windows, one query, and rows that see no key
+    (2, 8, 4, 100, 100, 32, torch.bfloat16, 0, True, 40),
+    (1, 8, 8, 4096, 4096, 64, torch.bfloat16, 0, True, None),
+    (2, 14, 2, 70, 300, 64, torch.bfloat16, 230, True, None),
+    (1, 4, 2, 200, 200, 64, torch.bfloat16, 50, False, 20),
+    (1, 8, 2, 777, 777, 80, torch.bfloat16, 0, True, 300),
+    (1, 4, 4, 1, 77, 128, torch.bfloat16, 76, True, None),
+    (1, 7, 1, 333, 1000, 128, torch.bfloat16, 667, True, 100),
+    (1, 4, 2, 130, 256, 128, torch.bfloat16, 0, False, None),
+    (1, 6, 2, 150, 150, 192, torch.bfloat16, 0, True, 64),
 ])
 def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D, dtype,
                                     q_offset, causal, window):
@@ -248,7 +302,21 @@ def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D, dtype,
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     got = FK.flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
-    _check_flash(got, attention_ref(q, k, v, **kw))
+    _check_flash(got, q, k, v, **kw)
+
+
+def test_flash_bf16_rows_without_a_visible_key_average_v(cuda):
+    """Non-causal with a window, past the keys, in a 128-row query tile:
+    row i (position 200 + i) sees keys 171 + i .. 199 (window 30), so rows
+    from 29 on see none and average V over every key."""
+    q, k, v = _qkv(1, 4, 2, 160, 200, 64, torch.bfloat16, cuda, seed=3)
+    kw = dict(causal=False, window=30, q_offset=200)
+    got = FK.flash_attention_cuda(q, k, v, **kw)
+    _check_flash(got, q, k, v, **kw)
+    mean_v = v.float().mean(2).repeat_interleave(2, dim=1)[:, :, None]
+    torch.testing.assert_close(got[:, :, 29:].float(),
+                               mean_v.expand(-1, -1, 131, -1),
+                               rtol=2 ** -7, atol=2 ** -7)
 
 
 def test_flash_kernel_reads_model_layout_views_in_place(cuda):
@@ -260,7 +328,27 @@ def test_flash_kernel_reads_model_layout_views_in_place(cuda):
     want = FO.flash_attention_model_layout(q, k, v, causal=True, window=30,
                                            impl="torch")
     assert got.is_contiguous()
-    _check_flash(got, want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got - want).abs()
+    assert bool((err <= FLASH_F32_TOL * torch.maximum(
+        got.abs(), want.abs()).clamp_min(1.0)).all()), float(err.max())
+
+
+def test_flash_bf16_reads_model_layout_views_in_place(cuda):
+    """The serve path's call: (B, S, Hk, G, D) and (B, S, Hk, D) bf16
+    projections read through TMA maps over their strided views."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               .to(torch.bfloat16)
+               for shape in ((2, 300, 2, 7, 128), (2, 300, 2, 128),
+                             (2, 300, 2, 128)))
+    before = dict(FK.launches_by_variant)
+    got = FO.flash_attention_model_layout(q, k, v, causal=True)
+    assert FK.launches_by_variant["wgmma"] == before["wgmma"] + 1
+    B, S, Hk, G, D = q.shape
+    _check_flash(got.reshape(B, S, Hk * G, D).transpose(1, 2),
+                 q.reshape(B, S, Hk * G, D).transpose(1, 2),
+                 k.transpose(1, 2), v.transpose(1, 2), causal=True)
 
 
 def test_flash_kernel_is_deterministic(cuda):
@@ -278,6 +366,26 @@ def test_flash_kernel_counts_each_launch(cuda):
     assert FK.launches.count == before + 1
 
 
+def test_flash_bf16_goes_to_wgmma_and_fp32_to_simt(cuda):
+    before = dict(FK.launches_by_variant)
+    total = FK.launches.count
+    for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
+        FO.flash_attention(*_qkv(1, 4, 2, 70, 70, 64, dtype, cuda))
+    assert FK.launches_by_variant == {"wgmma": before["wgmma"] + 2,
+                                      "simt": before["simt"] + 1}
+    assert FK.launches.count == total + 3
+
+
+def test_flash_bf16_refuses_what_tma_cannot_read(cuda):
+    q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):    # base off by 2 B
+        FK.flash_attention_cuda(flat[1:].view(q.shape), k, v)
+    wide = torch.zeros((1, 2, 64, 68), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):   # 136 B rows
+        FK.flash_attention_cuda(q, wide[..., :64], v)
+
+
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v = _qkv(1, 4, 2, 16, 16, 64, torch.float32, cuda)
     with pytest.raises(TypeError):
@@ -292,6 +400,31 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         FK.flash_attention_cuda(q, k.cpu(), v)
     with pytest.raises(ValueError):                  # Hq not a multiple
         FK.flash_attention_cuda(q[:, :3], k, v)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "h2o-danube-1.8b",
+                                  "zamba2-1.2b"])
+def test_bf16_prefill_launches_only_the_wgmma_variant(cuda, arch):
+    """A bf16 prefill of each dense and hybrid model: every attention
+    through flash_fwd_wgmma, none through the SIMT variant, and no
+    launch in a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import _hybrid_segments
+    cfg = get_config(arch).reduced(param_dtype="bfloat16",
+                                   compute_dtype="bfloat16")
+    model = build_model(cfg)
+    n = len(_hybrid_segments(cfg)) if cfg.hybrid is not None \
+        else cfg.num_layers
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, 512, (2, 140), device=cuda)
+    before = dict(FK.launches_by_variant)
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": tokens}, max_len=145)
+        pos = torch.full((2, 1), 140, dtype=torch.int32, device=cuda)
+        model.decode_step(params, tokens[:, :1], pos, cache)
+    assert FK.launches_by_variant == {"wgmma": before["wgmma"] + n,
+                                      "simt": before["simt"]}
 
 
 def test_prefill_launches_flash_once_per_layer_and_decode_never(cuda):
