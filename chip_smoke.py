@@ -10,7 +10,7 @@ Phases, each of which raises on failure:
    csrc`` by ``nvcc`` (seconds and the ``-Xptxas -v`` report; each
    flash_attention variant's registers, shared memory and spills, and a
    failure on serialised wgmma or on a spill of the wgmma variant at D
-   64, 80 or 128);
+   64, 80 or 128; each scan variant's registers and spills);
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes and at ragged ones, bit-identical reruns, and timings
    (kernel, plain version, one PyTorch library call, in turns) beside
@@ -20,7 +20,10 @@ Phases, each of which raises on failure:
    at the three serve prefills' shapes (SDPA as the library call) and
    once at Qwen2-7B's through the model-layout adapter on strided views,
    and ``ssm_scan`` and ``rwkv6_scan`` at the zamba2-1.2b and rwkv6-7b
-   prefill shapes (no library call computes either);
+   prefill shapes, each variant held to the per-step oracle (bf16: the
+   tensor-core ``ssd_fwd_mma`` / ``wkv_fwd_mma``, fp32: the SIMT
+   ``ssd_fwd_simt`` / ``wkv_fwd_simt``) and both timed there (no library
+   call computes either);
 4. main path: ``FleetEngine.run("flude")`` at N = 4096 clients, 512 per
    round, the default classifier (D = 22,026 packed parameters), with
    every kernel's launch count read across the run, then a profiled
@@ -35,8 +38,8 @@ Phases, each of which raises on failure:
    steps), ``zamba2-1.2b`` (batch 4, prompt 4096, 32 steps: 38 Mamba2
    layers and 7 shared-attention applications) and ``rwkv6-7b`` (batch
    4, prompt 2048, 32 steps) at full width and depth in bf16 through
-   ``serve()``, launch counts read across each run (every flash launch
-   of the bf16 prefill the wgmma variant), the prefill checked
+   ``serve()``, launch counts read across each run (every flash and scan
+   launch of the bf16 prefill a tensor-core variant), the prefill checked
    against the plain attention and scans, then a profiled prefill + 4
    decode steps;
 7. card against CPU: the golden FL setup (N = 24, 5 rounds) for FLUDE
@@ -95,9 +98,12 @@ WKV_RWKV6 = (4, 2048, 64, 64, torch.bfloat16)
 # per-step recurrence), both fp32 inside: exp of a within-chunk cumsum
 # against a product of per-step exps, 2.5e-5 of max(1, |y|) measured on
 # the CPU at S 4096, P = N = 64 (float64 truth); stated before the first
-# run: within 2e-4 of max(1, |y|).  rwkv6_scan runs the oracle's own
-# per-step recurrence in another summation order (1e-6 of max(1, |y|)
-# between fp32 and fp64 on the CPU): within 2e-5
+# run: within 2e-4 of max(1, |y|), for both variants (the bf16 one
+# carries its fp32 factors as two bf16 terms, 2^-18 each).
+# rwkv6_scan's SIMT variant runs the oracle's own per-step recurrence in
+# another summation order (1e-6 of max(1, |y|) between fp32 and fp64 on
+# the CPU), its bf16 variant the chunked form with fp32 operands as three
+# bf16 terms: within 2e-5
 SSM_REL = 2e-4
 WKV_REL = 2e-5
 # the serve runs: (path label, arch, batch, prompt, decode steps,
@@ -183,6 +189,7 @@ def phase_device():
 
 
 def phase_build():
+    import re
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     builds = _build.build_all()
@@ -195,6 +202,13 @@ def phase_build():
         for line in _build.ptxas_warnings(b.report):
             log(f"[build]   {line}")
     check_flash_build(builds["flash_attention"].report)
+    for name in ("ssm_scan", "rwkv6_scan"):
+        for kernel, k in sorted(_build.ptxas_kernels(
+                builds[name].report).items()):
+            short = re.search(r"(ssd|wkv)_fwd_\w+?E(?=vN)", kernel)
+            log(f"[build] {short.group(0) if short else kernel}: "
+                f"{k.registers} registers at launch, spills "
+                f"{k.spill_stores} / {k.spill_loads} bytes")
 
 
 def check_flash_build(report):
@@ -643,10 +657,12 @@ def _check_scan(tag, label, got, want, rel):
 def phase_ssm_scan():
     """ssm_scan against ssm_scan_ref on the card at the zamba2-1.2b
     prefill shape and at ragged ones (S off the chunk, G 2 with H 4, P 32
-    / N 16, a nonzero h0 carried across two calls), bit-identical reruns,
-    and timings beside the bound; returns its kernels-line entry
-    (``launches`` is filled in by the serve runs)."""
+    / N 16, a nonzero h0 carried across two calls), each variant (bf16:
+    ssd_fwd_mma, fp32: ssd_fwd_simt) at least once, bit-identical reruns,
+    and timings of both variants beside the bound; returns its
+    kernels-line entry (``launches`` is filled in by the serve runs)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     for line in ptxas_lines(_build.build_all(["ssm_scan"])
                             ["ssm_scan"].report):
@@ -655,13 +671,19 @@ def phase_ssm_scan():
     # (label, B, S, H, P, N, G, dtype, h0, split the call at)
     cases = [
         ("zamba2-1.2b prefill", *SSM_ZAMBA2, False, None),
+        ("zamba2-1.2b prefill, fp32", *SSM_ZAMBA2[:-1], f32, False, None),
         ("ragged S 1000, G 2, H 4, P 32 / N 16", 2, 1000, 4, 32, 16, 2,
          f32, False, None),
+        ("ragged S 1000, G 2, H 4, P 32 / N 16, bf16", 2, 1000, 4, 32, 16,
+         2, bf16, False, None),
         ("h0 carried across two calls (S 130 + 170)", 2, 300, 4, 64, 64, 2,
          bf16, True, 130),
         ("ragged S 77, P 64 / N 16, G 4, h0", 1, 77, 8, 64, 16, 4, f32,
          True, None),
         ("S 1, P 32 / N 64", 3, 1, 2, 32, 64, 1, f32, True, None),
+        ("S 1, P 32 / N 64, bf16", 3, 1, 2, 32, 64, 1, bf16, True, None),
+        ("h0 carried across two calls (S 130 + 170), fp32", 2, 300, 4, 64,
+         64, 2, f32, True, 130),
     ]
     max_err = 0.0
     for label, B, S, H, P, N, G, dt_, with_h0, split in cases:
@@ -684,7 +706,8 @@ def phase_ssm_scan():
         same = bool(torch.equal(again[0], ssm_scan(x, dt, A, Bm, Cm, h0)[0]))
         max_err = max(max_err, ey, eh)
         log(f"[ssm_scan] {label} (B{B} S{S} H{H} P{P} N{N} G{G} "
-            f"{str(dt_)[6:]}, h0 {with_h0}): y max abs err {ey:.3e} "
+            f"{str(dt_)[6:]}, {SK.VARIANTS[dt_]}, h0 {with_h0}): y max abs "
+            f"err {ey:.3e} "
             f"({ry:.3e} of max(1, |y|)), state {eh:.3e} ({rh:.3e}); "
             f"reruns bit-identical {same}")
         if not same:
@@ -692,27 +715,38 @@ def phase_ssm_scan():
         del x, dt, A, Bm, Cm, h0, got, again, want
 
     x, dt, A, Bm, Cm, _ = _ssd_inputs(*SSM_ZAMBA2, seed=1)
-    ms = cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm), reps=20, warmup=3)
+    x32, B32, C32 = x.float(), Bm.float(), Cm.float()
+    ms, simt_ms = [], []
+    for _ in range(2):             # in turns: mma, SIMT, mma, SIMT
+        ms.append(cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm), reps=20,
+                          warmup=3))
+        simt_ms.append(cuda_ms(lambda: ssm_scan(x32, dt, A, B32, C32),
+                               reps=5, warmup=1))
+    ms, simt_ms = min(ms), min(simt_ms)
     plain_ms = cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, impl="torch"),
                        reps=2, warmup=1)
     nbytes, flops, bytes_ms, bf16_ms, fp32_ms = ssd_bounds(*SSM_ZAMBA2,
                                                            False)
     bound_ms = max(bytes_ms, bf16_ms)
-    log(f"[ssm_scan] zamba2-1.2b timing: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms (the per-step oracle), no library call; bound "
-        f"{bound_ms * 1e3:.1f} us ({nbytes} bytes at 3.35 TB/s; "
+    bytes32_ms = ssd_bounds(*SSM_ZAMBA2[:-1], f32, False)[2]
+    log(f"[ssm_scan] zamba2-1.2b timing: ssd_fwd_mma (bf16) {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms (the per-step oracle), no library call; "
+        f"bound {bound_ms * 1e3:.1f} us ({nbytes} bytes at 3.35 TB/s; "
         f"{flops:.4e} flops take {bf16_ms * 1e3:.1f} us on bf16 tensor "
-        f"cores), {fp32_ms * 1e3:.1f} us at fp32's 67 TFLOP/s; kernel at "
-        f"{bound_ms / ms:.1%} of the bound, {fp32_ms / ms:.1%} of fp32 "
-        f"peak")
-    del x, dt, A, Bm, Cm
+        f"cores); kernel at {bound_ms / ms:.1%} of the bound.  "
+        f"ssd_fwd_simt (fp32 x, B, C) {simt_ms:.3f} ms against its bytes' "
+        f"{bytes32_ms * 1e3:.1f} us and fp32's {fp32_ms * 1e3:.1f} us "
+        f"({fp32_ms / simt_ms:.1%} of fp32 peak); mma / SIMT "
+        f"{ms / simt_ms:.3f}")
+    del x, dt, A, Bm, Cm, x32, B32, C32
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:66",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= bf16_ms else "operations",
-            "library_ms": None, "at": "zamba2-1.2b prefill shape"}
+            "library_ms": None, "at": "zamba2-1.2b prefill shape",
+            "variant": "mma", "simt_ms": simt_ms}
 
 
 def wkv_bounds(B, S, H, D, dtype, with_s0):
@@ -757,9 +791,11 @@ def _wkv_inputs(B, S, H, D, dtype, seed, with_s0=False):
 def phase_rwkv6_scan():
     """rwkv6_scan against rwkv6_scan_ref on the card at the rwkv6-7b
     prefill shape and at ragged ones (D 32, a nonzero s0 carried across
-    two calls), bit-identical reruns, and timings beside the bound;
-    returns its kernels-line entry."""
+    two calls), each variant (bf16: wkv_fwd_mma, fp32: wkv_fwd_simt) at
+    least once, bit-identical reruns, and timings of both variants beside
+    the bound; returns its kernels-line entry."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
     from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
     for line in ptxas_lines(_build.build_all(["rwkv6_scan"])
                             ["rwkv6_scan"].report):
@@ -769,11 +805,16 @@ def phase_rwkv6_scan():
     # (label, B, S, H, D, dtype, s0, split the call at)
     cases = [
         ("rwkv6-7b prefill", *WKV_RWKV6, False, None),
+        ("rwkv6-7b prefill, fp32", *WKV_RWKV6[:-1], f32, False, None),
         ("ragged S 1000, D 32", 2, 1000, 8, 32, f32, False, None),
+        ("ragged S 1000, D 32, bf16", 2, 1000, 8, 32, bf16, False, None),
         ("s0 carried across two calls (S 45 + 255), D 64", 2, 300, 4, 64,
          bf16, True, 45),
         ("ragged S 77, D 32, s0", 1, 77, 3, 32, bf16, True, None),
         ("S 1, D 64, s0", 3, 1, 2, 64, f32, True, None),
+        ("S 1, D 64, s0, bf16", 3, 1, 2, 64, bf16, True, None),
+        ("s0 carried across two calls (S 45 + 255), D 64, fp32", 2, 300, 4,
+         64, f32, True, 45),
     ]
     max_err = 0.0
     for label, B, S, H, D, dt_, with_s0, split in cases:
@@ -796,7 +837,8 @@ def phase_rwkv6_scan():
         same = bool(torch.equal(again[0], kern(r, k, v, lw, u, s0)[0]))
         max_err = max(max_err, ey, es)
         log(f"[rwkv6_scan] {label} (B{B} S{S} H{H} D{D} {str(dt_)[6:]}, "
-            f"s0 {with_s0}): y max abs err {ey:.3e} ({ry:.3e} of max(1, "
+            f"{WK.VARIANTS[dt_]}, s0 {with_s0}): y max abs err {ey:.3e} "
+            f"({ry:.3e} of max(1, "
             f"|y|)), state {es:.3e} ({rs:.3e}); reruns bit-identical "
             f"{same}")
         if not same:
@@ -804,28 +846,36 @@ def phase_rwkv6_scan():
         del r, k, v, lw, u, s0, got, again, want
 
     r, k, v, lw, u, _ = _wkv_inputs(*WKV_RWKV6, seed=1)
-    ms = cuda_ms(lambda: kern(r, k, v, lw, u, None), reps=20, warmup=3)
+    r32, k32, v32 = r.float(), k.float(), v.float()
+    ms, simt_ms = [], []
+    for _ in range(2):             # in turns: mma, SIMT, mma, SIMT
+        ms.append(cuda_ms(lambda: kern(r, k, v, lw, u, None), reps=20,
+                          warmup=3))
+        simt_ms.append(cuda_ms(lambda: kern(r32, k32, v32, lw, u, None),
+                               reps=5, warmup=1))
+    ms, simt_ms = min(ms), min(simt_ms)
     plain_ms = cuda_ms(lambda: plain(r, k, v, lw, u, None), reps=2,
                        warmup=1)
     nbytes, flops, bytes_ms, bf16_ms, fp32_ms = wkv_bounds(*WKV_RWKV6,
                                                            False)
     bound_ms = max(bytes_ms, bf16_ms)
-    log(f"[rwkv6_scan] rwkv6-7b timing: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms (the per-step oracle), no library call; bound "
-        f"{bound_ms * 1e3:.1f} us ({nbytes} bytes at 3.35 TB/s; the "
+    log(f"[rwkv6_scan] rwkv6-7b timing: wkv_fwd_mma (bf16) {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms (the per-step oracle), no library call; "
+        f"bound {bound_ms * 1e3:.1f} us ({nbytes} bytes at 3.35 TB/s; the "
         f"chunked form's {flops:.4e} flops take {bf16_ms * 1e3:.1f} us on "
-        f"bf16 tensor cores), the per-step form's flops "
-        f"{fp32_ms * 1e3:.1f} us at fp32's 67 TFLOP/s; kernel at "
-        f"{bound_ms / ms:.1%} of the bound, {fp32_ms / ms:.1%} of fp32 "
-        f"peak")
-    del r, k, v, lw, u
+        f"bf16 tensor cores); kernel at {bound_ms / ms:.1%} of the bound.  "
+        f"wkv_fwd_simt (fp32 r, k, v) {simt_ms:.3f} ms, the per-step "
+        f"form's flops {fp32_ms * 1e3:.1f} us at fp32's 67 TFLOP/s "
+        f"({fp32_ms / simt_ms:.1%} of it); mma / SIMT {ms / simt_ms:.3f}")
+    del r, k, v, lw, u, r32, k32, v32
     return {"name": "rwkv6_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/rwkv6_scan.cu",
             "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:55",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= bf16_ms else "operations",
-            "library_ms": None, "at": "rwkv6-7b prefill shape"}
+            "library_ms": None, "at": "rwkv6-7b prefill shape",
+            "variant": "mma", "simt_ms": simt_ms}
 
 
 def timed_run(engine, policy, counters):
@@ -1091,8 +1141,9 @@ def phase_serve(label, arch, B, S, N, n_params, per_prefill, gate,
         c.reset()
     res = serve(model, params, tokens, N, device="cuda")
     launches = {name: c.count for name, c in counters.items()}
-    variants = dict(counters["flash_attention"].by_variant)
-    FLASH_VARIANTS[label] = variants
+    variants = {name: dict(c.by_variant) for name, c in counters.items()
+                if c.by_variant}
+    VARIANT_LAUNCHES[label] = variants
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{tag}] prefill {res.prefill_s * 1e3:.1f} ms "
         f"({B * S / res.prefill_s:.0f} tok/s); decode "
@@ -1103,11 +1154,13 @@ def phase_serve(label, arch, B, S, N, n_params, per_prefill, gate,
     want = {name: per_prefill.get(name, 0) for name in counters}
     if launches != want:          # one prefill, nothing in a decode step
         raise RuntimeError(f"{tag}: launches {launches}, expected {want}")
-    # a bf16 prefill's attention goes to the wgmma variant, never SIMT
-    want = {"wgmma": per_prefill.get("flash_attention", 0), "simt": 0}
-    log(f"[{tag}] flash_attention launches by variant {variants}")
+    # a bf16 prefill goes to the tensor-core variants, never SIMT
+    want = {name: {v: per_prefill.get(name, 0) if v != "simt" else 0
+                   for v in by_variant}
+            for name, by_variant in variants.items()}
+    log(f"[{tag}] launches by variant {variants}")
     if variants != want:
-        raise RuntimeError(f"{tag}: flash_attention variants {variants}, "
+        raise RuntimeError(f"{tag}: launches by variant {variants}, "
                            f"expected {want}")
     if res.ids.shape != (B, N + 1) or not bool(
             ((res.ids >= 0) & (res.ids < cfg.vocab_size)).all()) \
@@ -1168,8 +1221,9 @@ def phase_serve(label, arch, B, S, N, n_params, per_prefill, gate,
     return launches
 
 
-# flash_attention launches by variant in each timed serve run
-FLASH_VARIANTS = {}
+# launches by variant of each kernel that has variants (flash_attention,
+# ssm_scan, rwkv6_scan), in each timed serve run
+VARIANT_LAUNCHES = {}
 # the device-side names of the port's serve kernels (launched through
 # ctypes, outside any aten op)
 KERNEL_NAMES = ("flash_fwd", "ssd_fwd", "wkv_fwd")
@@ -1305,9 +1359,10 @@ def main():
         by_path = {p: n[k] for p, n in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-    entries["flash_attention"]["launches_by_variant"] = {
-        v: sum(n[v] for n in FLASH_VARIANTS.values())
-        for v in ("wgmma", "simt")}
+    for k in ("flash_attention", "ssm_scan", "rwkv6_scan"):
+        entries[k]["launches_by_variant"] = {
+            v: sum(n[k][v] for n in VARIANT_LAUNCHES.values())
+            for v in counters[k].by_variant}
     phase_card_vs_cpu()
     phase_serve_card_vs_cpu()
     print(json.dumps({"kernels": list(entries.values())}))

@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Each source under ``repro_torch/csrc/`` compiles into a shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds).  The
-library lands in ``build/kernels/`` at the repository root, named by a hash
+a plain C interface (no PyTorch headers, so a build takes seconds); the
+scan kernels share ``csrc/mma.cuh``.  The library lands in ``build/kernels/`` at the repository root, named by a hash
 of the source and the flags, and is reused until either changes.  Nothing
 is built when this module is imported: the first kernel launch builds what
 it needs, and ``build_all`` builds every source at once, one ``nvcc``
@@ -53,8 +53,12 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """Where the library of one source goes: named by a hash of the source,
+    the headers beside it (``csrc/*.cuh``) and the flags."""
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

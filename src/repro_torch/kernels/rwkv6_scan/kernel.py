@@ -1,11 +1,19 @@
 """Launch wrapper of the CUDA ``rwkv6_scan`` kernel
 (``csrc/rwkv6_scan.cu``).
 
-Replaces ``repro/kernels/rwkv6_scan/kernel.py:55 rwkv6_scan_pallas``.  One
-CUDA block of D threads owns one (batch, head) and walks all of S, thread
-j holding column j of the (D, D) fp32 state in registers; every tensor
-is read through its strides, so the model's (B, S, H, D) layout goes in
-without a transpose.  See the source for the design and its bound.
+Replaces ``repro/kernels/rwkv6_scan/kernel.py:55 rwkv6_scan_pallas``.  Two
+variants, chosen by the dtype of r, k and v with no fallback between
+them: fp32 launches ``wkv_fwd_simt`` (the per-step recurrence, one block
+of D threads a (batch, head), thread j holding column j of the (D, D)
+fp32 state in registers: latency-bound), bf16 launches ``wkv_fwd_mma``
+(the chunked form of ``wkv_chunked`` in sub-chunks of 16 steps on tensor
+cores, the fp32 operands as three bf16 terms, every decay a product of
+w's <= 1; a cluster of two blocks of 128 threads a (batch, head), each
+owning half of the keys, that is of the state's rows, the two trading
+partial y by st.async; bound by the bytes it moves, held back by the
+latency of its SIMT parts).  Every tensor is read through its strides,
+so the model's (B, S, H, D) layout goes in without a transpose.  See the
+source for the design and its bound.
 """
 from __future__ import annotations
 
@@ -20,8 +28,39 @@ from repro_torch.kernels import _build
 # rwkv6-7b's head size and its reduced() variant's
 HEAD_DIMS = (32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {torch.float32: "simt", torch.bfloat16: "mma"}
+SUB = 16                        # steps of a sub-chunk (mma)
+STAGED = 32                     # steps staged at once (SIMT)
 
-launches = _build.LaunchCounter()
+launches = _build.LaunchCounter(variants=("mma", "simt"))
+
+
+def smem_bytes(variant: str, D: int, w_dtype=torch.float32) -> int:
+    """Shared memory of one block, as ``csrc/rwkv6_scan.cu`` sizes it.
+    SIMT (static): r, k, w and v of 32 steps and u, fp32.  mma (dynamic):
+    two stages of r, k and logw (the block's D / 2 keys, logw in its own
+    dtype) and v (all D values); w = exp(logw) of its keys in fp32; three
+    bf16 terms each of r o cp and k o cs (its keys) and of its D / 2 rows
+    of the state; the other block's partial y of its columns, by
+    sub-chunk parity, and its own partial scores; its decays and u; the
+    midpoint factors of the scores' dense 8 x 8 block; two mbarriers."""
+    if variant == "simt":
+        return 4 * (4 * STAGED * D + D)
+    DH = D // 2
+    esize = torch.finfo(w_dtype).bits // 8
+    stage = 2 * SUB * DH * 2 + SUB * D * 2 + SUB * DH * esize
+    return (2 * stage + SUB * DH * 4 + 3 * (2 * SUB * DH * 2 + DH * D * 2)
+            + 2 * SUB * DH * 4 + SUB * SUB * 4 + 2 * DH * 4
+            + 2 * 8 * (DH + 4) * 4 + 2 * 8)
+
+
+def launch_shape(variant: str, B: int, H: int, D: int):
+    """(grid, threads a block) of one launch: SIMT one block of D threads
+    a (batch, head), mma one cluster of two blocks of 128 (each half of
+    the keys: of the state's rows)."""
+    if variant == "simt":
+        return (H, B), D
+    return (2 * H, B), 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,8 +83,9 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     None (zeros), all on one CUDA device.
 
     Returns y (B, H, S, D) fp32 — a view of (B, S, H, D) memory, the
-    model's layout — and the final state (B, H, D, D) fp32.  Launches on
-    the current stream and does not synchronise."""
+    model's layout — and the final state (B, H, D, D) fp32.  fp32 r, k
+    and v launch the SIMT variant, bf16 the mma one.  Launches on the
+    current stream and does not synchronise."""
     dev = r.device
     tensors = (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u)) + \
         ((("s0", s0),) if s0 is not None else ())
@@ -84,6 +124,15 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"rwkv6_scan cuda: {name} must have a "
                              f"contiguous last axis, got strides "
                              f"{t.stride()}")
+        # the mma variant copies rows of 16 bytes by cp.async
+        if r.dtype == torch.bfloat16 and (
+                any(st * t.element_size() % 16 for st in t.stride()[:-1])
+                or t.data_ptr() % 16):
+            raise ValueError(f"rwkv6_scan cuda: with bf16 r, k, v, {name} "
+                             f"must have strides that are multiples of 16 "
+                             f"bytes and a 16-byte-aligned base (its rows "
+                             f"are copied 16 bytes at a time), got strides "
+                             f"{t.stride()}")
     y = torch.empty((B, S, H, D), dtype=torch.float32,
                     device=dev).transpose(1, 2)
     if S == 0 or B == 0 or H == 0:
@@ -105,7 +154,8 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        y.data_ptr(), sf.data_ptr(), strides, B, H, S,
                        stream)
     if err != 0:
-        raise RuntimeError(f"rwkv6_scan cuda: launch failed with CUDA "
-                           f"error {err} at r {tuple(r.shape)}, {r.dtype}")
-    launches.count += 1
+        raise RuntimeError(f"rwkv6_scan cuda: {VARIANTS[r.dtype]} launch "
+                           f"failed with CUDA error {err} at r "
+                           f"{tuple(r.shape)}, {r.dtype}")
+    launches.add(VARIANTS[r.dtype])
     return y, sf

@@ -5,10 +5,12 @@ The port of ``repro.kernels.rwkv6_scan.ops``.  ``impl="cuda"`` (the
 default) launches the hand-written kernel on a CUDA tensor; a tensor on
 the CPU has no kernel to run and takes the plain version.
 ``impl="torch"`` is the plain version (the per-step oracle
-``rwkv6_scan_ref``) on either device.  The kernel masks the ragged end of
-S itself and reads every tensor through its strides, so nothing is
-padded or copied here; the reference's ``chunk`` knob is not taken (the
-kernel stages 32 steps at a time, the oracle none).
+``rwkv6_scan_ref``) on either device.  The kernel's variant follows the
+dtype of r, k and v (``kernel.VARIANTS``: fp32 SIMT, bf16 tensor cores).
+It masks the ragged end of S itself and reads every tensor through its
+strides, so nothing is padded or copied here; the reference's ``chunk``
+knob is not taken (the SIMT variant stages 32 steps at a time, the
+tensor-core one works in sub-chunks of 16, the oracle has none).
 ``wkv_kernel_adapter`` plugs into ``repro_torch.models.rwkv.time_mix``'s
 ``kernel=`` hook (the contract of ``wkv_recurrence``).
 """

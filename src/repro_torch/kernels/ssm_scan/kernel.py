@@ -1,8 +1,14 @@
 """Launch wrapper of the CUDA ``ssm_scan`` kernel (``csrc/ssm_scan.cu``).
 
-Replaces ``repro/kernels/ssm_scan/kernel.py:66 ssm_scan_pallas``.  One
-CUDA block owns one (batch, head) and walks the chunks of S with the
-(P, N) fp32 state in shared memory; B and C are read per group (no
+Replaces ``repro/kernels/ssm_scan/kernel.py:66 ssm_scan_pallas``.  Two
+variants, chosen by the dtype of x, B and C with no fallback between them:
+fp32 launches ``ssd_fwd_simt`` (one block of 256 threads a (batch, head),
+the three chunk products as fp32 FMAs, bound by the SIMT rate), bf16
+launches ``ssd_fwd_mma`` (two blocks of 128 threads a (batch, head), each
+owning half of P; the chunk products on tensor cores with the fp32
+factors as two bf16 terms, the next chunk staged by cp.async while this
+one computes: bound by the bytes it moves).  Both walk the chunks of S
+with the (P, N) fp32 state on the SM, read B and C per group (no
 ``repeat`` copy) and every tensor through its strides, so the model's
 (B, S, H, P) layout goes in without a transpose.  See the source for the
 design and its bound.
@@ -21,8 +27,45 @@ from repro_torch.kernels import _build
 # (32, 16), and the two mixed sizes
 SIZES = ((32, 16), (32, 64), (64, 16), (64, 64))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {torch.float32: "simt", torch.bfloat16: "mma"}
+CHUNK = 64                      # rows of a chunk inside the kernel
 
-launches = _build.LaunchCounter()
+launches = _build.LaunchCounter(variants=("mma", "simt"))
+
+
+def smem_bytes(variant: str, P: int, N: int) -> int:
+    """Dynamic shared memory of one block, as ``csrc/ssm_scan.cu`` sizes
+    it.  SIMT: x·dt, B, C, the state and the masked decay matrix in fp32,
+    rows padded by one float, and four rows of 64 (dt, seg, exp(seg),
+    exp(seg_last - seg)).  mma: two stages of x (P / 2 columns), B and C
+    in bf16 and dt in fp32, the state's two bf16 terms and each of the 4
+    warps' seg."""
+    L = CHUNK
+    if variant == "simt":
+        return 4 * (L * (P + 1) + 2 * L * (N + 1) + P * (N + 1)
+                    + L * (L + 1) + 4 * L)
+    PB = P // 2
+    stage = L * PB * 2 + 2 * L * N * 2 + L * 4
+    return 2 * stage + 2 * PB * N * 2 + 4 * L * 4
+
+
+def launch_shape(variant: str, B: int, H: int):
+    """(grid, threads a block) of one launch: SIMT one block a (batch,
+    head), mma two (each half of P)."""
+    if variant == "simt":
+        return (H, B), 256
+    return (2 * H, B), 128
+
+
+def _check_rows(name: str, t: torch.Tensor):
+    """The mma variant copies rows of 16 bytes by cp.async: every stride
+    but the last a multiple of 8 bf16 elements, and a 16-byte-aligned
+    base."""
+    if any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+        raise ValueError(f"ssm_scan cuda: bf16 {name} must have strides "
+                         f"that are multiples of 8 elements and a 16-byte-"
+                         f"aligned base (its rows are copied 16 bytes at a "
+                         f"time), got strides {t.stride()}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,8 +90,9 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h0: (B, H, P, N) fp32 or None (zeros), all on one CUDA device.
 
     Returns y (B, H, S, P) fp32 — a view of (B, S, H, P) memory, the
-    model's layout — and the final state (B, H, P, N) fp32.  Launches on
-    the current stream and does not synchronise."""
+    model's layout — and the final state (B, H, P, N) fp32.  fp32 x, B
+    and C launch the SIMT variant, bf16 the mma one.  Launches on the
+    current stream and does not synchronise."""
     dev = x.device
     tensors = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)) + \
         ((("h0", h0),) if h0 is not None else ())
@@ -89,6 +133,8 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"ssm_scan cuda: {name} must have a contiguous "
                              f"last axis, got strides {t.stride()}")
+        if x.dtype == torch.bfloat16:
+            _check_rows(name, t)
     y = torch.empty((B, S, H, P), dtype=torch.float32,
                     device=dev).transpose(1, 2)
     if S == 0 or B == 0 or H == 0:
@@ -110,8 +156,9 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        y.data_ptr(), hf.data_ptr(), strides, B, H, G, S,
                        stream)
     if err != 0:
-        raise RuntimeError(f"ssm_scan cuda: launch failed with CUDA error "
-                           f"{err} at x {tuple(x.shape)}, Bm "
-                           f"{tuple(Bm.shape)}, {x.dtype}")
-    launches.count += 1
+        raise RuntimeError(f"ssm_scan cuda: {VARIANTS[x.dtype]} launch "
+                           f"failed with CUDA error {err} at x "
+                           f"{tuple(x.shape)}, Bm {tuple(Bm.shape)}, "
+                           f"{x.dtype}")
+    launches.add(VARIANTS[x.dtype])
     return y, hf

@@ -4,10 +4,12 @@ The port of ``repro.kernels.ssm_scan.ops``.  ``impl="cuda"`` (the
 default) launches the hand-written kernel on a CUDA tensor; a tensor on
 the CPU has no kernel to run and takes the plain version.
 ``impl="torch"`` is the plain version (the per-step oracle
-``ssm_scan_ref``) on either device.  The kernel reads B and C per group
-and every tensor through its strides, so nothing is copied or padded
-here; the reference's ``chunk`` knob is not taken, as the kernel's chunk
-is fixed (64 rows) and the per-step oracle has none.
+``ssm_scan_ref``) on either device.  The kernel's variant follows the
+dtype of x, B and C (``kernel.VARIANTS``: fp32 SIMT, bf16 tensor cores).
+It reads B and C per group and every tensor through its strides, so
+nothing is copied or padded here; the reference's ``chunk`` knob is not
+taken, as both variants' chunk is fixed (64 rows) and the per-step
+oracle has none.
 """
 from __future__ import annotations
 

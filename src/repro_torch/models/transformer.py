@@ -73,7 +73,9 @@ class ExecConfig:
             raise NotImplementedError(
                 "ExecConfig q_chunk, k_chunk and unroll_causal pick the "
                 "reference's chunked attention; repro_torch's flash kernel "
-                "has fixed 64-row tiles (ROADMAP Queue B #3)")
+                "has fixed tiles (128 query rows in the bf16 wgmma "
+                "variant, 64 in the fp32 SIMT one) and takes no chunk "
+                "sizes (ROADMAP Queue B #3)")
         if self.scan_layers is not None or self.remat is not None:
             raise NotImplementedError(
                 "ExecConfig scan_layers and remat shape the training "

@@ -480,12 +480,14 @@ def test_prefill_and_decode_do_not_synchronise(cuda):
 # ssm_scan and rwkv6_scan
 # ---------------------------------------------------------------------------
 
-# The SSD kernel computes the chunked form at chunk 64 in fp32, the plain
-# version the per-step recurrence: exp of a within-chunk cumsum against a
-# product of per-step exps, 2.5e-5 of max(1, |y|) measured on the CPU at
-# S 4096 (P = N = 64); held to 2e-4.  The WKV kernel runs the plain
-# version's own per-step recurrence, in another summation order: 1e-6 of
-# max(1, |y|) measured between fp32 and fp64 on the CPU; held to 2e-5.
+# Both SSD variants compute the chunked form at chunk 64 (the bf16 one
+# with its fp32 factors as two bf16 terms), the plain version the
+# per-step recurrence: exp of a within-chunk cumsum against a product of
+# per-step exps, 2.5e-5 of max(1, |y|) measured on the CPU at S 4096
+# (P = N = 64); held to 2e-4.  The SIMT WKV kernel runs the plain
+# version's own per-step recurrence in another summation order (1e-6 of
+# max(1, |y|) between fp32 and fp64 on the CPU), the bf16 one the chunked
+# form with fp32 operands as three bf16 terms; both held to 2e-5.
 SSM_REL = 2e-4
 WKV_REL = 2e-5
 
@@ -518,19 +520,32 @@ def _ssd_plain(x, dt, A, Bm, Cm, h0):
     return y.transpose(1, 2), h
 
 
-@pytest.mark.parametrize("B,S,H,P,N,G,dtype,h0", [
-    (1, 100, 4, 32, 16, 2, torch.float32, False),   # ragged, G 2
-    (2, 64, 2, 64, 64, 1, torch.float32, True),
-    (1, 130, 4, 64, 16, 4, torch.bfloat16, True),
-    (1, 77, 2, 32, 64, 1, torch.float32, False),
-    (2, 1, 2, 64, 64, 1, torch.float32, True),      # one step
-    (1, 300, 8, 64, 64, 1, torch.bfloat16, False),
+# the cases of chip_smoke.py's scan phases and more: S off the chunk, S 1,
+# G 2 with H 4, P 32 / N 16, D 32, h0 / s0; each under both variants
+SCAN_VARIANTS = pytest.mark.parametrize(
+    "dtype", [torch.float32, torch.bfloat16], ids=["simt", "mma"])
+
+
+@SCAN_VARIANTS
+@pytest.mark.parametrize("B,S,H,P,N,G,h0", [
+    (1, 100, 4, 32, 16, 2, False),                  # ragged, G 2
+    (2, 64, 2, 64, 64, 1, True),
+    (1, 130, 4, 64, 16, 4, True),
+    (1, 77, 2, 32, 64, 1, False),
+    (2, 1, 2, 64, 64, 1, True),                     # one step
+    (1, 300, 8, 64, 64, 1, False),
+    (2, 1000, 4, 32, 16, 2, False),                 # ragged S 1000
 ])
-def test_ssm_scan_kernel_matches_plain(cuda, B, S, H, P, N, G, dtype, h0):
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, H, P, N, G, h0, dtype):
+    from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     args = _ssd_inputs(B, S, H, P, N, G, dtype, cuda, seed=S, h0=h0)
+    before = dict(SK.launches.by_variant)
     y, h = ssm_scan(*args, impl="cuda")
     torch.cuda.synchronize()
+    variant = SK.VARIANTS[dtype]
+    assert {v: n - before[v] for v, n in SK.launches.by_variant.items()} \
+        == {v: int(v == variant) for v in before}
     want_y, want_h = _ssd_plain(*args)
     assert y.shape == (B, S, H, P) and y.dtype == torch.float32
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
@@ -539,10 +554,11 @@ def test_ssm_scan_kernel_matches_plain(cuda, B, S, H, P, N, G, dtype, h0):
         assert ok, err
 
 
-def test_ssm_scan_kernel_splits_over_a_carried_state(cuda):
+@SCAN_VARIANTS
+def test_ssm_scan_kernel_splits_over_a_carried_state(cuda, dtype):
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
-    x, dt, A, Bm, Cm, _ = _ssd_inputs(2, 150, 4, 32, 16, 2, torch.float32,
-                                      cuda, seed=3)
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(2, 150, 4, 32, 16, 2, dtype, cuda,
+                                      seed=3)
     y, h = ssm_scan(x, dt, A, Bm, Cm)
     y1, h1 = ssm_scan(x[:, :70], dt[:, :70], A, Bm[:, :70], Cm[:, :70])
     y2, h2 = ssm_scan(x[:, 70:], dt[:, 70:], A, Bm[:, 70:], Cm[:, 70:], h1)
@@ -550,15 +566,19 @@ def test_ssm_scan_kernel_splits_over_a_carried_state(cuda):
     assert _within(h2, h, SSM_REL)[0]
 
 
-def test_ssm_scan_kernel_is_deterministic_and_counts_launches(cuda):
+@SCAN_VARIANTS
+def test_ssm_scan_kernel_is_deterministic_and_counts_launches(cuda, dtype):
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
-    args = _ssd_inputs(2, 200, 4, 64, 64, 1, torch.bfloat16, cuda)
+    args = _ssd_inputs(2, 200, 4, 64, 64, 1, dtype, cuda)
     before = SK.launches.count
+    by_variant = dict(SK.launches.by_variant)
     a = ssm_scan(*args)
     b = ssm_scan(*args)
     ssm_scan(*args, impl="torch")                   # plain version
     assert SK.launches.count == before + 2
+    assert SK.launches.by_variant[SK.VARIANTS[dtype]] == \
+        by_variant[SK.VARIANTS[dtype]] + 2
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
@@ -576,6 +596,11 @@ def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
         ssm_scan_cuda(k(x[:, :, :3]), k(dt[:, :, :3]), A[:3], k(Bm), k(Cm))
     with pytest.raises(ValueError):
         ssm_scan_cuda(k(x), k(dt), A.cpu(), k(Bm), k(Cm))
+    # bf16 rows the mma variant cannot copy 16 bytes at a time
+    flat = torch.zeros(1 + x.numel(), dtype=torch.bfloat16, device=cuda)
+    xs = flat[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        ssm_scan_cuda(k(xs), k(dt), A, k(Bm).bfloat16(), k(Cm).bfloat16())
 
 
 def _wkv_inputs(B, S, H, D, dtype, device, seed=0, s0=False):
@@ -589,18 +614,25 @@ def _wkv_inputs(B, S, H, D, dtype, device, seed=0, s0=False):
     return r, k, v, lw, u, (rn(B, H, D, D) * 0.5 if s0 else None)
 
 
-@pytest.mark.parametrize("B,S,H,D,dtype,s0", [
-    (1, 100, 4, 32, torch.float32, True),            # ragged, D 32, s0
-    (2, 64, 2, 64, torch.float32, False),
-    (1, 77, 3, 64, torch.bfloat16, True),
-    (2, 1, 2, 32, torch.float32, True),              # one step
-    (1, 333, 8, 64, torch.bfloat16, False),
+@SCAN_VARIANTS
+@pytest.mark.parametrize("B,S,H,D,s0", [
+    (1, 100, 4, 32, True),                           # ragged, D 32, s0
+    (2, 64, 2, 64, False),
+    (1, 77, 3, 64, True),
+    (2, 1, 2, 32, True),                             # one step
+    (1, 333, 8, 64, False),
+    (2, 1000, 8, 32, False),                         # ragged S 1000
 ])
-def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, D, dtype, s0):
+def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, D, s0, dtype):
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
     from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
     args = _wkv_inputs(B, S, H, D, dtype, cuda, seed=S, s0=s0)
+    before = dict(WK.launches.by_variant)
     y, s = wkv_kernel_adapter("cuda")(*args)
     torch.cuda.synchronize()
+    variant = WK.VARIANTS[dtype]
+    assert {v: n - before[v] for v, n in WK.launches.by_variant.items()} \
+        == {v: int(v == variant) for v in before}
     want_y, want_s = wkv_kernel_adapter("torch")(*args)
     assert y.shape == (B, S, H, D) and y.dtype == torch.float32
     for got, want in ((y, want_y), (s, want_s)):
@@ -608,15 +640,33 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, D, dtype, s0):
         assert ok, err
 
 
-def test_rwkv6_scan_kernel_is_deterministic_and_counts_launches(cuda):
+@SCAN_VARIANTS
+def test_rwkv6_scan_kernel_splits_over_a_carried_state(cuda, dtype):
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    kern = wkv_kernel_adapter("cuda")
+    r, k, v, lw, u, s0 = _wkv_inputs(2, 300, 4, 64, dtype, cuda, seed=5,
+                                     s0=True)
+    y, s = kern(r, k, v, lw, u, s0)
+    y1, s1 = kern(r[:, :45], k[:, :45], v[:, :45], lw[:, :45], u, s0)
+    y2, s2 = kern(r[:, 45:], k[:, 45:], v[:, 45:], lw[:, 45:], u, s1)
+    assert _within(torch.cat([y1, y2], 1), y, WKV_REL)[0]
+    assert _within(s2, s, WKV_REL)[0]
+
+
+@SCAN_VARIANTS
+def test_rwkv6_scan_kernel_is_deterministic_and_counts_launches(cuda,
+                                                                dtype):
     from repro_torch.kernels.rwkv6_scan import kernel as WK
     from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
-    args = _wkv_inputs(2, 150, 4, 64, torch.bfloat16, cuda, s0=True)
+    args = _wkv_inputs(2, 150, 4, 64, dtype, cuda, s0=True)
     before = WK.launches.count
+    by_variant = dict(WK.launches.by_variant)
     a = wkv_kernel_adapter()(*args)
     b = wkv_kernel_adapter()(*args)
     wkv_kernel_adapter("torch")(*args)              # plain version
     assert WK.launches.count == before + 2
+    assert WK.launches.by_variant[WK.VARIANTS[dtype]] == \
+        by_variant[WK.VARIANTS[dtype]] + 2
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
@@ -633,6 +683,11 @@ def test_rwkv6_scan_kernel_rejects_what_it_does_not_take(cuda):
         rwkv6_scan_cuda(t(r), t(k), t(v), t(lw), u[:1])
     with pytest.raises(ValueError):
         rwkv6_scan_cuda(t(r), t(k), t(v).cpu(), t(lw), u)
+    # bf16 rows the mma variant cannot copy 16 bytes at a time
+    flat = torch.zeros(1 + r.numel(), dtype=torch.bfloat16, device=cuda)
+    rs = flat[1:].view(r.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_scan_cuda(t(rs), t(k).bfloat16(), t(v).bfloat16(), t(lw), u)
 
 
 def test_stateful_prefill_launches_the_scans_and_decode_never(cuda):

@@ -186,3 +186,40 @@ def test_wrapper_contract():
 def test_every_rwkv_config_has_a_kernel_variant():
     for cfg in (get_config("rwkv6-7b"), get_config("rwkv6-7b").reduced()):
         assert cfg.rwkv.head_dim in K.HEAD_DIMS, cfg.name
+
+
+# One SM: 228 KB of shared memory, of which each resident block reserves
+# 1 KB; one block may use at most 227 KB, static shared memory 48 KB
+# (H100)
+SM_SMEM, BLOCK_RESERVED, BLOCK_SMEM_MAX = 233_472, 1024, 232_448
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "simt"),
+                                           (torch.bfloat16, "mma")])
+def test_the_variant_follows_the_dtype(dtype, variant):
+    """fp32 r, k and v launch the SIMT kernel, bf16 the tensor-core one;
+    the launch counter counts each, and a CPU call counts neither."""
+    assert K.VARIANTS[dtype] == variant
+    assert set(K.launches.by_variant) == {"mma", "simt"}
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    r, k, v, lw, u, _ = _inputs(1, 2, 40, 32, name, False)
+    before = (K.launches.count, dict(K.launches.by_variant))
+    ops.rwkv6_scan(_t(r, name), _t(k, name), _t(v, name), _t(lw), _t(u))
+    assert (K.launches.count, dict(K.launches.by_variant)) == before
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", K.HEAD_DIMS)
+def test_each_variant_fits_the_sm(D, w_dtype):
+    """Shared memory and grid of both variants at every compiled D and
+    logw dtype: the SIMT variant's static arrays within 48 KB, the mma
+    variant's within a block's 227 KB and four blocks an SM; the mma
+    variant two blocks (one cluster) of 128 threads a (batch, head)."""
+    simt = K.smem_bytes("simt", D, w_dtype)
+    mma = K.smem_bytes("mma", D, w_dtype)
+    assert 0 < simt <= 48 * 1024 and 0 < mma <= BLOCK_SMEM_MAX
+    assert 4 * (mma + BLOCK_RESERVED) <= SM_SMEM
+    B, H = 4, 64                                     # rwkv6-7b's prefill
+    assert K.launch_shape("simt", B, H, D) == ((H, B), D)
+    assert K.launch_shape("mma", B, H, D) == ((2 * H, B), 128)
+    assert (2 * H) * B > B * H                       # more blocks than B H

@@ -160,3 +160,55 @@ def test_every_ssm_config_has_a_kernel_variant():
     for cfg in (get_config("zamba2-1.2b"),
                 get_config("zamba2-1.2b").reduced()):
         assert (cfg.ssm.head_dim, cfg.ssm.d_state) in K.SIZES, cfg.name
+
+
+# One SM: 228 KB of shared memory, of which each resident block reserves
+# 1 KB; one block may use at most 227 KB (H100)
+SM_SMEM, BLOCK_RESERVED, BLOCK_SMEM_MAX = 233_472, 1024, 232_448
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "simt"),
+                                           (torch.bfloat16, "mma")])
+def test_the_variant_follows_the_dtype(dtype, variant):
+    """fp32 x, B and C launch the SIMT kernel, bf16 the tensor-core one;
+    the launch counter counts each, and a CPU call counts neither."""
+    assert K.VARIANTS[dtype] == variant
+    assert set(K.launches.by_variant) == {"mma", "simt"}
+    x, dt, A, Bm, Cm = _inputs(1, 70, 2, 32, 16, 1, "float32")
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    before = (K.launches.count, dict(K.launches.by_variant))
+    ops.ssm_scan(_t(x, name), _t(dt), _t(A), _t(Bm, name), _t(Cm, name))
+    assert (K.launches.count, dict(K.launches.by_variant)) == before
+
+
+def test_the_launch_counter_counts_the_scan_variants():
+    from repro_torch.kernels import _build
+    c = _build.LaunchCounter(variants=("mma", "simt"))
+    view = c.by_variant
+    for v in ("mma", "mma", "simt"):
+        c.add(v)
+    assert (c.count, view) == (3, {"mma": 2, "simt": 1})
+    c.reset()
+    assert (c.count, view) == (0, {"mma": 0, "simt": 0})
+
+
+@pytest.mark.parametrize("P,N", K.SIZES)
+def test_each_variant_fits_the_sm(P, N):
+    """Shared memory and grid of both variants at every compiled (P, N):
+    within a block's 227 KB; the mma variant four blocks an SM, two
+    blocks of 128 threads a (batch, head)."""
+    simt, mma = K.smem_bytes("simt", P, N), K.smem_bytes("mma", P, N)
+    assert 0 < simt <= BLOCK_SMEM_MAX and 0 < mma <= BLOCK_SMEM_MAX
+    assert 4 * (mma + BLOCK_RESERVED) <= SM_SMEM
+    B, H = 4, 64                                     # zamba2's prefill
+    assert K.launch_shape("simt", B, H) == ((H, B), 256)
+    assert K.launch_shape("mma", B, H) == ((2 * H, B), 128)
+
+
+def test_smem_bytes_at_the_zamba2_heads():
+    """The layouts as the source's header states them (P = N = 64)."""
+    assert K.smem_bytes("simt", 64, 64) == 84_224
+    # two stages of x (64 x 32), B and C (64 x 64) bf16 and dt, the
+    # state's two bf16 terms (32 x 64), four warps' seg
+    assert K.smem_bytes("mma", 64, 64) == \
+        2 * (64 * 32 * 2 + 2 * 64 * 64 * 2 + 256) + 2 * 32 * 64 * 2 + 1024
