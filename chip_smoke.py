@@ -33,6 +33,15 @@ Phases, each of which raises on failure:
    by ``geometric_median`` and ``trust`` (FLUDE selection) and by
    ``trimmed_mean`` (random selection), each run with its launch counts
    read across it, then a profiled short run of each;
+5b. dynamics: the device round loop on the same fleet — FLUDE under the
+   ``churn`` (markov), ``diurnal`` (sessions) and ``flash-crowd`` (trace)
+   scenarios and under ``bernoulli`` at pipeline depths 1 and 2 (the two
+   held to identical History rows), each held to one ``fed_agg`` launch a
+   round; ``sign-flip-20`` under ``geometric_median`` held to that rule's
+   launches; a depth-2 run under ``torch.cuda`` sync debug mode "error"
+   (only the round ledger's resolve and the run-end read-back may wait
+   for the card); N = 24 under churn on the card against the CPU with the
+   same uniforms; a profiled short run of the depth-2 engine;
 6. serve: ``qwen2-7b`` (batch 4, prompt 2048, 32 decode steps),
    ``h2o-danube-1.8b`` (batch 2, prompt 6144 past its 4096 window, 16
    steps), ``zamba2-1.2b`` (batch 4, prompt 4096, 32 steps: 38 Mamba2
@@ -52,6 +61,7 @@ Before the last line it prints a ``{"kernels": [...]}`` JSON line and the
 port's sources beside it, it exits non-zero and prints no result.
 """
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -881,13 +891,16 @@ def phase_rwkv6_scan():
 def timed_run(engine, policy, counters):
     """One run of ``engine`` with every kernel count set to 0 just before
     it and read just after; returns (History, launches, ms per round over
-    rounds 1-5, peak device GiB)."""
+    rounds 1-5, peak device GiB).  Engines of earlier phases that a
+    profile's wrappers hold in reference cycles are collected first, so
+    the peak is this run's own."""
     ticks = {}
 
     def progress(rnd, acc, comm, wall):
         torch.cuda.synchronize()
         ticks[rnd] = time.perf_counter()
 
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.reset()
@@ -980,15 +993,147 @@ def phase_robust(data, counters):
     return out
 
 
+# the dynamics runs: (label, scenario preset or None, FLConfig changes,
+# launches per round of each kernel).  The flude runs aggregate by the
+# mean (one fed_agg a round); the sign-flip-20 scenario runs
+# geometric_median, as [robust] does
+MEAN_ONLY = {"fed_agg": 1, "residual_norms": 0, **SERVE_ONLY}
+DYNAMICS_RUNS = [
+    ("bernoulli depth 1", None, dict(dynamics="bernoulli"), MEAN_ONLY),
+    ("bernoulli depth 2", None, dict(dynamics="bernoulli",
+                                     pipeline_depth=2), MEAN_ONLY),
+    ("churn", "churn", {}, MEAN_ONLY),
+    ("diurnal", "diurnal", {}, MEAN_ONLY),
+    ("flash-crowd", "flash-crowd", {}, MEAN_ONLY),
+    ("sign-flip-20 geometric_median", "sign-flip-20",
+     dict(agg_rule="geometric_median"), ROBUST_RUNS[0][3]),
+]
+
+
+def _dynamics_config(scenario, changes, **base):
+    """``FLConfig(**base, **changes)`` with the scenario preset applied."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fleet import apply_scenario
+    fl = FLConfig(**base, **changes)
+    return fl if scenario is None else apply_scenario(fl, scenario)
+
+
+def phase_dynamics(data, counters):
+    """The device dynamics loop (``FLConfig.dynamics`` a device process)
+    at the main path's size: the runs of ``DYNAMICS_RUNS``, each timed
+    with its launches read across it; depths 1 and 2 held to identical
+    History rows; a depth-2 run under sync debug mode "error"; the card
+    against the CPU; a profiled short run of the depth-2 engine.  Returns
+    each run's launches."""
+    from repro_torch.fl import FleetEngine, SimConfig
+    sim = SimConfig(num_clients=MAIN_N, rounds=MAIN_ROUNDS)
+    out, rows = {}, {}
+    # one engine alive at a time, so each peak is its own
+    for label, scenario, changes, per_round in DYNAMICS_RUNS:
+        t0 = time.perf_counter()
+        fl = _dynamics_config(scenario, changes, num_clients=MAIN_N,
+                              clients_per_round=MAIN_PER_ROUND,
+                              agg_impl="cuda")
+        engine = FleetEngine(data, sim, fl)
+        setup = time.perf_counter() - t0
+        hist, launches, ms, peak = timed_run(engine, "flude", counters)
+        log(f"[dynamics] {label} (flude, {fl.dynamics} "
+            f"{dict(fl.dynamics_params)}, depth {fl.pipeline_depth}, agg "
+            f"{fl.agg_rule}, adversary {fl.adversary}): engine set-up "
+            f"{setup:.1f} s; selected {hist.selected}; received "
+            f"{hist.received}; acc {hist.acc}")
+        log(f"[dynamics] {label}: {ms:.1f} ms/round over rounds 1-"
+            f"{MAIN_ROUNDS - 1}, peak device memory {peak:.2f} GiB, "
+            f"launches {launches}")
+        check_run(f"dynamics {label}", hist, launches, per_round,
+                  data.num_classes)
+        out[f"dynamics {label}"] = launches
+        rows[label] = hist.to_json()
+        if label == "bernoulli depth 2":
+            same = rows["bernoulli depth 1"] == rows[label]
+            log(f"[dynamics] bernoulli History rows at depths 1 and 2 "
+                f"identical: {same}")
+            if not same:
+                raise RuntimeError(
+                    f"dynamics: depth 1 and depth 2 rows differ: "
+                    f"{rows['bernoulli depth 1']} vs {rows[label]}")
+            check_no_sync(engine, data.num_classes)
+            phase_profile(engine, "flude",
+                          "dynamics profile bernoulli depth 2")
+        del engine, hist
+    phase_dynamics_card_vs_cpu()
+    return out
+
+
+def check_no_sync(engine, num_classes):
+    """One flude run of the (warm) depth-2 engine under ``torch.cuda``
+    sync debug mode "error": any wait for the card outside the ledger's
+    resolve and the run-end read-back (``host_readback``) raises."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist = engine.run("flude", diagnostics=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[dynamics] no-sync run (bernoulli, depth 2, sync debug mode "
+        f"'error'): {MAIN_ROUNDS} rounds in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, no synchronisation "
+        f"outside the ledger's resolve and the run-end read-back; "
+        f"selected {hist.selected}, received {hist.received}")
+    check_run("dynamics no-sync", hist, {}, {}, num_classes)
+
+
+def phase_dynamics_card_vs_cpu():
+    """N = 24, 5 rounds of flude under churn on the card and on the CPU
+    from the same dynamics and explore uniforms, drawn once on the CPU:
+    selected, received and comm identical, wall clock within 1e-5,
+    accuracy within ACC_TOL."""
+    import repro_torch.fl as F
+    from repro_torch.data.synthetic import federated_classification
+    from repro_torch.fleet import draw_noise, get_dynamics
+    n, rounds = 24, 5
+    data = federated_classification(n, seed=2, margin=1.3, noise=1.3,
+                                    n_per_client=32)
+    sim = F.SimConfig(num_clients=n, rounds=rounds, seed=3, local_steps=4)
+    fl = _dynamics_config("churn", {}, num_clients=n, clients_per_round=8)
+    proc = get_dynamics(fl.dynamics)
+    gen = torch.Generator().manual_seed(0)
+    noise = {"init": draw_noise(proc.init_noise, n, gen, "cpu")}
+    for rnd in range(rounds):
+        noise[rnd] = draw_noise(proc.step_noise, n, gen, "cpu")
+    us = [torch.rand((n,), generator=gen) for _ in range(rounds)]
+    cpu, card = (F.FleetEngine(data, sim, fl, device=d).run(
+        "flude", explore_uniforms=lambda r: us[r],
+        dynamics_noise=lambda r: noise[r]) for d in ("cpu", "cuda"))
+    wall = max(abs(a - b) for a, b in zip(cpu.wall_clock, card.wall_clock))
+    acc = max(abs(a - b) for a, b in zip(cpu.acc, card.acc))
+    log(f"[dynamics card vs CPU] churn, N={n}, {rounds} rounds: cpu "
+        f"selected {cpu.selected} received {cpu.received}; card acc "
+        f"{card.acc}; max |card - cpu| wall clock {wall:.3e}, acc "
+        f"{acc:.6f}")
+    if (cpu.selected, cpu.received, cpu.comm_mb) != \
+            (card.selected, card.received, card.comm_mb):
+        raise RuntimeError(f"dynamics card vs CPU: trajectories differ: "
+                           f"{card.to_json()} vs {cpu.to_json()}")
+    if wall > 1e-5 or acc > ACC_TOL:
+        raise RuntimeError(f"dynamics card vs CPU: wall clock differs by "
+                           f"{wall}, accuracy by {acc}")
+
+
 def phase_profile(engine, policy, tag, rounds=3, top=12):
     """Where a round's time goes: ``torch.profiler`` over a short
     run after the timed one, with spans around the engine's trainer,
-    server step and eval (the rest of a round is planning and the host
-    loop).  Prints host and device time per span, the device's busy share
-    of the wall clock and the operators with the most device time.  The
-    spans wrap this engine's instance attributes; it is not used after."""
+    server step and eval — on the device dynamics loop also around the
+    process step and the round cut (the rest of a round is planning, the
+    ledger and the host loop).  Prints host and device time per span, the
+    device's busy share of the wall clock and the operators with the most
+    device time.  The spans wrap this engine's instance attributes; it is
+    not used after."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.fleet import get_dynamics
 
     def spanned(name, fn):
         def run(*args, **kw):
@@ -996,17 +1141,27 @@ def phase_profile(engine, policy, tag, rounds=3, top=12):
                 return fn(*args, **kw)
         return run
 
-    engine._trainer = spanned("trainer", engine.trainer)
+    spans = ("trainer", "server_step", "eval")
     engine._server_steps = {k: spanned("server_step", v)
                             for k, v in engine._server_steps.items()}
-    engine._accuracy = spanned("eval", engine._accuracy)
+    if get_dynamics(engine.fl_cfg.dynamics).host_side:
+        engine._trainer = spanned("trainer", engine.trainer)
+        engine._accuracy = spanned("eval", engine._accuracy)
+    else:
+        # the device loop: the eval is a device scalar the ledger reads
+        for key, (process, trainer) in engine._dyn_cache.items():
+            process.step = spanned("dynamics_step", process.step)
+            engine._dyn_cache[key] = (process, spanned("trainer", trainer))
+        engine._cut_fns = {k: spanned("round_cut", v)
+                           for k, v in engine._cut_fns.items()}
+        engine._eval = spanned("eval", engine._eval)
+        spans += ("dynamics_step", "round_cut")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run(policy, rounds=rounds, diagnostics=False)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
-    spans = ("trainer", "server_step", "eval")
     events = prof.key_averages()
     host = {e.key: e for e in events if e.device_type == DeviceType.CPU}
     # CUDA-side events are the kernels plus one annotation per span
@@ -1350,12 +1505,13 @@ def main():
                "ssm_scan": phase_ssm_scan(),
                "rwkv6_scan": phase_rwkv6_scan()}
     data, main = phase_main_path(counters)
-    paths = {"main": main, **phase_robust(data, counters)}
+    paths = {"main": main, **phase_robust(data, counters),
+             **phase_dynamics(data, counters)}
     for run in SERVE_RUNS:
         paths[run[0]] = phase_serve(*run, counters)
     for k, entry in entries.items():
-        # launches over the driven paths: the FL main and robust runs and
-        # the four serve runs
+        # launches over the driven paths: the FL main, robust and
+        # dynamics runs and the four serve runs
         by_path = {p: n[k] for p, n in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

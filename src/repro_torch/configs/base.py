@@ -7,9 +7,10 @@ training and multi-device slices (ROADMAP Queue A #15e, #17).
 ``FLConfig`` has one documented exception: ``agg_impl`` takes ``"cuda"``
 (the default, the hand-written Hopper kernel) or ``"torch"`` (its plain
 version) in place of ``xla | pallas | pallas_interpret``; ``agg_block_c``
-/ ``agg_block_d`` are the ``fed_agg`` kernel's tile knobs.  ``agg_rule``
-and ``adversary`` must name a rule and an attack of the port's registries
-(``ValueError`` otherwise).  Values the port does not run yet raise
+/ ``agg_block_d`` are the ``fed_agg`` kernel's tile knobs.  ``agg_rule``,
+``adversary`` and ``dynamics`` must name a rule, an attack and an
+availability process of the port's registries (``ValueError``
+otherwise).  Values the port does not run yet raise
 ``NotImplementedError`` naming the ROADMAP Queue A item that ports them.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Any, Optional, Tuple
 
 from repro_torch.core.agg_rules import available_agg_rules
 from repro_torch.fleet.adversary import available_adversaries
+from repro_torch.fleet.api import available_dynamics
 
 
 # ---------------------------------------------------------------------------
@@ -285,12 +287,13 @@ class FLConfig:
                 f"FLConfig.adversary must be a registered adversary "
                 f"({', '.join(available_adversaries())}) or None, "
                 f"got {self.adversary!r}")
+        if self.dynamics not in available_dynamics():
+            raise ValueError(
+                f"FLConfig.dynamics must be a registered dynamics "
+                f"process ({', '.join(available_dynamics())}), got "
+                f"{self.dynamics!r}")
         if self.selection_mode != "mean":
             _not_ported("selection_mode", "#18 (Thompson selection)")
-        if self.dynamics != "bernoulli_host" or self.dynamics_params:
-            _not_ported("dynamics", "#9 (device dynamics loop)")
-        if self.pipeline_depth > 1:
-            _not_ported("pipeline_depth", "#9 (device dynamics loop)")
         if self.cohort_size is not None:
             _not_ported("cohort_size", "#10 (compact cohorts)")
         if self.cache_offload is not None:

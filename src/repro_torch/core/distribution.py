@@ -32,7 +32,7 @@ class DistributionPlan(NamedTuple):
 
 def init_distributor(w_init: float = 3.0, device="cpu") -> DistributorState:
     def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=device)
+        return torch.full((), v, dtype=torch.float32, device=device)
     return DistributorState(f32(w_init), f32(0.0), f32(1.0))
 
 

@@ -11,13 +11,15 @@ device.
 computation (incl. staleness discount), the model-poisoning transform of
 an adversary, packed aggregation under the configured rule, and cache
 write/clear.  ``host_round_cut`` is the numpy round termination (lines
-13–16) the host loop runs.
+13–16) the host loop runs, ``make_round_cut`` its float32 device form for
+the device dynamics loop.
 
 The port runs the full-scan server step; the cohort and offload variants
 belong to ROADMAP Queue A #10 and #12.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -58,10 +60,12 @@ class FludePlan(NamedTuple):
 
 
 def init_state(cfg: FLConfig, device="cpu") -> FludeState:
+    """Fresh fleet state on ``device``, filled there (nothing is copied
+    from the host, so a run's set-up does not wait for the card)."""
     N = cfg.num_clients
 
     def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=device)
+        return torch.full((), v, dtype=torch.float32, device=device)
     return FludeState(
         belief=init_belief(N, cfg.beta_alpha0, cfg.beta_beta0, device),
         part_count=torch.zeros((N,), dtype=torch.int32, device=device),
@@ -70,7 +74,7 @@ def init_state(cfg: FLConfig, device="cpu") -> FludeState:
         distributor=D.init_distributor(cfg.w_init, device),
         epsilon=f32(cfg.epsilon_init),
         total_selected=f32(0.0),
-        round=torch.tensor(0, dtype=torch.int32, device=device),
+        round=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
@@ -230,7 +234,8 @@ def make_server_round_step(template_params, *, local_steps: int,
         """
         malicious, rule_state = split_extra(extra)
         stamp = caches.round_stamp
-        rnd = torch.tensor(rnd, dtype=torch.int32, device=stamp.device)
+        # filled on the device: a host copy would wait for the card
+        rnd = torch.full((), rnd, dtype=torch.int32, device=stamp.device)
         # staleness of the BASE model each update was trained from
         base_stale = torch.where(resume & (stamp >= 0),
                                  (rnd - stamp).clamp_min(0),
@@ -284,6 +289,70 @@ def host_round_cut(times, quorum, round_deadline: float,
         t_cut = round_deadline
     duration = t_cut if np.isfinite(t_cut) else round_deadline
     return t_cut, duration
+
+
+def make_round_cut(num_clients: int, round_deadline: float,
+                   waits_for_stragglers: bool):
+    """Build the device round cut (Algorithm 2 lines 13–16), full scan.
+
+    Semantically :func:`host_round_cut`, in float32 on the engine's
+    device, as the reference's ``make_round_cut(..., with_counts=True)``.
+    The returned callable maps ``(times, quorum, success, online,
+    distribute, selected)`` to ``(t_cut, received, capped,
+    received_count, download_count, selected_count)``:
+
+    * ``t_cut`` — 0-d float32 tensor; the billed duration is
+      ``round_deadline if capped else float(t_cut)``: a deadline such as
+      100.3 has no float32 value, so the cap comes back as a flag and the
+      ledger bills the exact configured deadline;
+    * ``received`` — the (N,) receive mask.  A capped round compares
+      against the float32-nearest cast of the deadline (``d_cmp``);
+    * ``capped`` — 0-d bool: the round closed at the deadline rather than
+      at an arrival, decided against the largest float32 ≤ the deadline
+      (``d_flag``), so the flag is exact;
+    * the round's three History counts as 0-d tensors, the downloads
+      being ``distribute & online``.
+
+    ``quorum`` is a 0-d tensor (a policy that plans on the device) or a
+    python number.  Nothing is read back to the host: the order statistic
+    is taken with ``index_select`` on a device index.
+    """
+    deadline = float(round_deadline)
+    # nearest float32: what a capped round's uploads are compared against
+    d_cmp = np.float32(deadline)
+    # largest float32 <= deadline: for float32 t, (t > d_flag) == (t > d)
+    d_flag = d_cmp
+    if float(d_flag) > deadline:
+        d_flag = np.nextafter(d_flag, np.float32(-np.inf))
+    d_cmp, d_flag = float(d_cmp), float(d_flag)
+    last = num_clients - 1
+
+    def at(order, i):
+        """order[i] for a 0-d device index, without a read-back."""
+        return torch.index_select(order, 0,
+                                  i.clamp(0, last).reshape(1).long())[0]
+
+    def round_cut(times, quorum, success, online, distribute, selected):
+        if isinstance(quorum, torch.Tensor):
+            q = torch.ceil(quorum.to(torch.float32)).to(torch.int32)
+        else:
+            q = torch.full((), math.ceil(np.float32(quorum)),
+                           dtype=torch.int32, device=times.device)
+        order = torch.sort(times).values          # inf sorts to the end
+        finite_count = torch.isfinite(times).sum()
+        has_quorum = (finite_count >= q) & (q > 0)
+        t_raw = torch.where(has_quorum, at(order, q - 1), math.inf)
+        if not waits_for_stragglers:
+            # async/semi-async designs close at the last arrival
+            t_raw = torch.where(~has_quorum & (finite_count > 0),
+                                at(order, finite_count - 1), t_raw)
+        capped = t_raw > d_flag
+        t_cut = torch.where(capped, d_cmp, t_raw)
+        received = success & (times <= t_cut)
+        return (t_cut, received, capped, received.sum(),
+                (distribute & online).sum(), selected.sum())
+
+    return round_cut
 
 
 def update_after_round(state: FludeState, plan: FludePlan,

@@ -51,8 +51,8 @@ def _rank_mask(scores: torch.Tensor, k) -> torch.Tensor:
     The reference's ``jnp.argsort`` is stable and ties are common among
     equal beliefs, so the sort here is stable too."""
     order = torch.argsort(-scores, stable=True)
-    ranks = torch.empty_like(order)
-    ranks[order] = torch.arange(scores.shape[0], device=scores.device)
+    ranks = torch.empty_like(order).scatter_(
+        0, order, torch.arange(scores.shape[0], device=scores.device))
     return (ranks < k) & (scores > NEG / 2)
 
 

@@ -79,6 +79,43 @@ class RoundPlan:
         object.__setattr__(plan, "_validated", True)
         return plan
 
+    @classmethod
+    def device(cls, selected, distribute, resume, quorum,
+               steps_override=None, agg_weights=None) -> "RoundPlan":
+        """Construction for policies that plan on the engine's device.
+
+        Runs the structural checks only (1-D bool masks of one length,
+        optionals of the same length, a 0-d quorum) — shape and dtype are
+        tensor metadata, so nothing is read back and ``quorum`` stays a
+        device scalar: the round loop can queue the round without waiting
+        for the card.  The value invariants (quorum ≤ |selected|, resume ⊆
+        selected) are the caller's: the built-in device policy guarantees
+        them by construction, and the engine clamps the workload
+        regardless."""
+        plan = cls(selected=selected, distribute=distribute, resume=resume,
+                   quorum=quorum, steps_override=steps_override,
+                   agg_weights=agg_weights)
+        n = plan._check_structure()
+        if getattr(quorum, "ndim", 0) != 0:
+            raise ValueError(
+                f"RoundPlan.quorum must be a scalar, got shape "
+                f"{getattr(quorum, 'shape', None)}")
+        if steps_override is not None and (
+                tuple(getattr(steps_override, "shape", ())) != (n,)
+                or steps_override.dtype.is_floating_point
+                or steps_override.dtype == torch.bool):
+            raise ValueError(
+                f"RoundPlan.steps_override must be ({n},) int, got shape "
+                f"{getattr(steps_override, 'shape', None)} dtype "
+                f"{getattr(steps_override, 'dtype', None)}")
+        if agg_weights is not None and \
+                tuple(getattr(agg_weights, "shape", ())) != (n,):
+            raise ValueError(
+                f"RoundPlan.agg_weights must be ({n},), got "
+                f"{getattr(agg_weights, 'shape', None)}")
+        object.__setattr__(plan, "_validated", True)
+        return plan
+
     def _check_structure(self, num_clients: Optional[int] = None) -> int:
         """Shape/dtype checks on array metadata."""
         n = num_clients
@@ -162,7 +199,11 @@ class RoundReport:
     rnd:      int — round index.
 
     On the host-RNG loop the array fields are numpy and ``duration`` is a
-    python float.
+    python float.  On the device round loop every field but ``rnd`` is a
+    tensor on the engine's device (``duration`` the round cut, a 0-d
+    float32 tensor; a round that waited out the deadline carries its
+    float32 cast, while History bills the exact configured deadline):
+    host-side policies read them back at their own boundary.
     """
     received: Any
     fail: Any
@@ -176,15 +217,21 @@ class RoundReport:
 class RoundObservation:
     """What a policy may read when planning round ``rnd``.
 
-    ``online`` is the host (numpy) mask; ``caches`` stay on the engine's
-    device.  ``uniforms`` is the round's (N,) float32 explore noise in
-    [0, 1), drawn by the engine (the reference draws it from the round's
-    ``jax.random`` key inside the selector).
+    ``caches`` stay on the engine's device.  ``uniforms`` is the round's
+    (N,) float32 explore noise in [0, 1), drawn by the engine (the
+    reference draws it from the round's ``jax.random`` key inside the
+    selector).  ``draw`` is the round's ``repro_torch.fleet.FleetDraw``
+    when a device dynamics process made it (None on the host-RNG loop).
+    On that loop ``online`` is the device mask (``draw.online``) and
+    ``uniforms`` a device tensor: a policy that plans on the device reads
+    them in place, a host-side policy converts with ``to_host`` at its own
+    sync point.  On the host-RNG loop ``online`` is a numpy mask.
     """
     rnd: int
     online: Any
     caches: ClientCaches
     uniforms: Any = None
+    draw: Optional[Any] = None
 
 
 class Policy:

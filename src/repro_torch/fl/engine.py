@@ -1,21 +1,31 @@
 """FleetEngine: the FL round loop behind the typed policy API.
 
-The port of ``repro.fl.engine`` on the host-RNG round loop
-(``dynamics="bernoulli_host"``), full scan, one device.  The engine owns
+The port of ``repro.fl.engine``, full scan, one device.  The engine owns
 the all-fleet local trainer, the per-round server step (weights, the
 adversary's poison, packed aggregation under the configured rule through
 the hand-written ``fed_agg`` and ``residual_norms`` kernels, C3 cache
 bookkeeping) and the fleet simulator; policies are ``plan``/``observe``
 transitions over ``RoundPlan``/``RoundReport``.
 
-Global params and client caches stay on the engine's device across rounds;
-the host sees (N,)-sized masks each round and the test accuracy at
-``eval_every`` boundaries.  The engine runs on the CUDA card unless the
-caller passes ``device="cpu"``.
+``FLConfig.dynamics`` picks the round loop.  ``bernoulli_host`` (the
+default) runs the seed simulator's host-RNG loop: the host sees (N,)-sized
+masks each round.  Every other registered process
+(``repro_torch.fleet``) runs the device round loop: the availability
+draw, workload, failures, timing model and the round cut run on the
+engine's device, History bookkeeping is deferred through a
+``_RoundLedger``, and ``FLConfig.pipeline_depth`` > 1 lets the host queue
+round k+1 while round k still runs on the card.  Rows are the same at
+every depth.
+
+Global params and client caches stay on the engine's device across
+rounds.  The engine runs on the CUDA card unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Any, Callable, List, Optional, Union
 
 import numpy as np
@@ -31,8 +41,9 @@ from repro_torch.fl import classifier as CLF
 from repro_torch.fl import policies as _builtin_policies  # noqa: F401
 from repro_torch.fl.api import (Policy, RoundObservation, RoundReport,
                                 make_policy, to_host)
-from repro_torch.fl.simulator import Fleet, SimConfig
-from repro_torch.fleet.adversary import make_adversary
+from repro_torch.fl.simulator import Fleet, SimConfig, place_per_client
+from repro_torch.fleet import (draw_noise, get_dynamics, make_adversary,
+                               make_dynamics)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 BIG = 1 << 20
@@ -43,7 +54,7 @@ BIG = 1 << 20
 # ---------------------------------------------------------------------------
 
 def make_trainer(sim_cfg: SimConfig, data: FederatedClassification,
-                 device="cpu"):
+                 device="cpu", dynamics_features=None):
     """Build the all-fleet local trainer over the client training set,
     placed once on ``device``.
 
@@ -53,6 +64,15 @@ def make_trainer(sim_cfg: SimConfig, data: FederatedClassification,
     every client exactly its own gradient — the clients' parameters are
     independent, so the sum's gradient with respect to client i's
     parameters is the gradient of client i's loss.
+
+    ``dynamics_features``: a ``repro_torch.fleet.FleetFeatures`` switches
+    to the device dynamics variant (``train_all_dyn``): the round's
+    workload (steps from cache progress), exposure-scaled failures and
+    interruption points (from the ``FleetDraw`` variates) and the
+    per-device timing model run with the training on the device, so
+    nothing is drawn on the host and nothing (N,)-sized is uploaded per
+    round.  The cohort and offload variants belong to ROADMAP Queue A #10
+    and #12.
     """
     device = torch.device(device)
     x_all = torch.as_tensor(data.x, dtype=torch.float32, device=device)
@@ -127,7 +147,53 @@ def make_trainer(sim_cfg: SimConfig, data: FederatedClassification,
         return local_scan(x_all, y_all, start_params, steps_needed,
                           stop_step, cache_every)
 
-    return train_all
+    if dynamics_features is None:
+        return train_all
+
+    steps_per_sec = dynamics_features.steps_per_sec
+    model_mb = sim_cfg.model_mb
+    # the reference's jitted ``steps / max_steps``: XLA multiplies by the
+    # float32 reciprocal of the constant
+    inv_steps = float(np.float32(1.0) / np.float32(max(max_steps, 1)))
+
+    def train_all_dyn(global_params, caches, draw, selected, distribute,
+                      resume, base_steps, cache_every):
+        """Dynamics round body: workload + failures + training + timing.
+
+        draw:       ``repro_torch.fleet.FleetDraw`` of this round.
+        selected/distribute/resume: (N,) bool plan masks.
+        base_steps: (N,) int planned steps before resume credit.
+        Returns (final_params, cache_params, cached_steps, mean_loss,
+        steps_needed, fail, success, times) — times in simulated seconds,
+        inf where the device never uploads.
+        """
+        # clamp to the scan length: an oversized steps_override would
+        # otherwise charge un-run steps in the timing model below
+        base_steps = base_steps.clamp_max(max_steps)
+        prior = torch.round(caches.progress * max_steps).to(torch.int32)
+        steps_needed = torch.where(resume, (base_steps - prior).clamp_min(1),
+                                   base_steps)
+        steps_needed = torch.where(selected, steps_needed, 0).to(torch.int32)
+        fail = draw.failure_mask(steps_needed * inv_steps) & selected
+        stop = torch.where(fail, draw.interruption_step(steps_needed), BIG)
+        start_params = C.resume_params(caches, global_params, resume)
+        params, cache, cached_steps, mean_loss = local_scan(
+            x_all, y_all, start_params, steps_needed, stop, cache_every)
+        # timing model (Algorithm 2 lines 13–16) on the round's bandwidth;
+        # tensor / tensor divides exactly, as XLA does here (a python
+        # number over a tensor is a reciprocal times the number in torch)
+        success = selected & ~fail & (steps_needed > 0)
+        completed = torch.minimum(steps_needed, stop)
+        comm = torch.full_like(draw.bandwidth, model_mb * 8.0) \
+            / draw.bandwidth
+        t = torch.where(distribute, comm, 0.0) \
+            + completed / steps_per_sec \
+            + torch.where(success, comm, 0.0)
+        times = torch.where(success, t, math.inf)
+        return (params, cache, cached_steps, mean_loss, steps_needed, fail,
+                success, times)
+
+    return train_all_dyn
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +270,100 @@ class History:
         return float("inf")
 
 
+@contextlib.contextmanager
+def host_readback(device):
+    """A deliberate host read-back on ``device``: lifts
+    ``torch.cuda``'s sync debug mode for its extent and restores it, so a
+    run under ``set_sync_debug_mode("error")`` fails on any other wait for
+    the card.  The engine reads back only through here: the round
+    ledger's resolve and the run-end read-back."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+class _RoundLedger:
+    """Deferred History bookkeeping of the device round loop.
+
+    Each round the loop hands over the device scalars one History row
+    needs — the round cut and its capped flag, the received / download /
+    selected counts and, at eval boundaries, the test accuracy.  ``push``
+    packs them into one float64 tensor (every value is exact there) and,
+    on a card, starts its copy into pinned host memory without waiting,
+    recording an event behind it.  ``resolve(keep)`` reads rows back
+    oldest first until ``keep`` remain in flight, waiting only for each
+    row's own event — the work queued after it keeps running.  The loop
+    calls it with ``keep = pipeline_depth - 1``, with ``keep=0`` at run
+    end, at ``progress`` ticks and every round under a ``time_budget``.
+
+    The float64 sums of comm and wall clock happen here on the host over
+    exact values — a capped round bills the exact configured
+    ``round_deadline`` — so rows are the same at every depth.
+    """
+
+    def __init__(self, hist: History, model_mb: float, round_deadline: float,
+                 progress: Optional[Callable], n_rounds: int, device):
+        self.hist = hist
+        self.model_mb = model_mb
+        self.round_deadline = round_deadline
+        self.progress = progress
+        self.n_rounds = n_rounds
+        self.device = torch.device(device)
+        self.pending: List[tuple] = []
+        self.cum_comm = 0.0
+        self.cum_time = 0.0
+        self.acc = float("nan")
+
+    def push(self, rnd, evaluated, duration, capped, received, downloads,
+             selected, acc=None):
+        """Queue one round's device scalars (``acc`` only when the round
+        was evaluated)."""
+        vals = [duration, capped, received, downloads, selected]
+        if evaluated:
+            vals.append(acc)
+        packed = torch.stack([v.to(torch.float64) for v in vals])
+        event = None
+        if packed.is_cuda:
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            packed = host
+        self.pending.append((rnd, evaluated, packed, event))
+
+    def resolve(self, keep: int = 0):
+        """Read back all but the newest ``keep`` rounds."""
+        while len(self.pending) > keep:
+            rnd, evaluated, packed, event = self.pending.pop(0)
+            with host_readback(self.device):
+                if event is not None:
+                    event.synchronize()
+                vals = packed.tolist()
+            duration, capped, received, downloads, selected = vals[:5]
+            self.cum_comm += (int(downloads) + int(received)) \
+                * self.model_mb
+            self.cum_time += self.round_deadline if capped else duration
+            if evaluated:
+                self.acc = vals[5]
+            hist = self.hist
+            hist.acc.append(self.acc)
+            hist.eval_mask.append(evaluated)
+            hist.comm_mb.append(self.cum_comm)
+            hist.wall_clock.append(self.cum_time)
+            hist.received.append(int(received))
+            hist.selected.append(int(selected))
+            if self.progress and (rnd % 10 == 0
+                                  or rnd == self.n_rounds - 1):
+                self.progress(rnd, self.acc, self.cum_comm, self.cum_time)
+
+
 # ---------------------------------------------------------------------------
 # FleetEngine
 # ---------------------------------------------------------------------------
@@ -261,6 +421,19 @@ class FleetEngine:
         self._trainer = None      # built on first run
         self._server_steps = {}
         self._last_caches = None  # previous run's fleet caches (recycled)
+        self.pipeline_depth = int(fl_cfg.pipeline_depth)
+        # device dynamics (repro_torch.fleet): the process and its trainer
+        # are memoized per (process, params), the per-run (N,) constants
+        # and the round cut per policy trait — placed once and reused, so
+        # steady-state rounds upload nothing
+        get_dynamics(fl_cfg.dynamics)          # fail fast on unknown names
+        self._dyn_cache = {}
+        self._round_consts = {}
+        self._cut_fns = {}
+        # the device round loop's final process state and draw (kept on
+        # the device between runs, like the caches)
+        self._last_fleet_state = None
+        self._last_draw = None
         if template is None:
             gen = torch.Generator().manual_seed(sim_cfg.seed + 1)
             template = CLF.init_classifier(
@@ -292,8 +465,12 @@ class FleetEngine:
         """Place one host (N,) per-client array on the engine's device."""
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _eval(self, params) -> torch.Tensor:
+        """Test accuracy as a 0-d tensor on the engine's device."""
+        return CLF.clf_accuracy(params, self._test_x, self._test_y)
+
     def _accuracy(self, params) -> float:
-        return float(CLF.clf_accuracy(params, self._test_x, self._test_y))
+        return float(self._eval(params))
 
     def _fresh_caches(self, template):
         """Empty (N, ...) C3 cache state for a new run.  The previous
@@ -328,8 +505,8 @@ class FleetEngine:
         engine's device, threaded through the step like the caches."""
         if not self._agg_stateful:
             return None
-        return torch.from_numpy(self._agg_rule.init_state(
-            self.fl_cfg.num_clients)).to(self.device)
+        return place_per_client(self._agg_rule.init_state(
+            self.fl_cfg.num_clients), self.device)
 
     def _step_extra(self, rule_state):
         """Trailing arguments of the server step: the malicious mask
@@ -344,25 +521,39 @@ class FleetEngine:
     def run(self, policy: Union[str, Policy], rounds: Optional[int] = None,
             time_budget: Optional[float] = None, eval_every: int = 1,
             progress: Optional[Callable] = None, diagnostics: bool = True,
-            explore_uniforms: Optional[Callable] = None) -> History:
+            explore_uniforms: Optional[Callable] = None,
+            dynamics_noise: Optional[Callable] = None) -> History:
         """Run FL rounds.  ``time_budget`` (simulated seconds) caps the run
         by wall clock instead of round count; ``rounds`` (default
         ``sim_cfg.rounds``) remains the hard round cap.
         ``diagnostics=False`` skips the end-of-run per-class/per-client
         accuracy sweep.
 
+        ``FLConfig.dynamics`` picks the round loop: ``bernoulli_host`` the
+        host-RNG loop, any other registered process the device round loop
+        (see the module docstring).
+
         ``explore_uniforms``: optional ``rnd -> (N,) float32`` callable
-        giving each round's explore noise.  By default the engine draws it
-        from a CPU ``torch.Generator`` seeded with ``sim_cfg.seed``, so the
-        run is the same on the CPU and on the card; a test passes the
-        reference's ``jax.random`` numbers here."""
+        giving each round's explore noise.  By default the host loop draws
+        it from a CPU ``torch.Generator`` seeded with ``sim_cfg.seed`` (the
+        run is the same on the CPU and on the card) and the device loop
+        from a generator on the engine's device, so its rounds read
+        nothing from the host; a test passes the reference's
+        ``jax.random`` numbers here.
+
+        ``dynamics_noise``: the device loop's process uniforms, an
+        optional callable mapping ``"init"`` and then each round index to
+        a dict of the (N,) float32 uniforms the process names
+        (``init_noise`` / ``step_noise``).  By default they come from a
+        generator on the engine's device seeded from ``sim_cfg.seed``."""
         sim_cfg, fl_cfg = self.sim_cfg, self.fl_cfg
         N = fl_cfg.num_clients
         fleet = self._fleet if self._fleet is not None else Fleet(sim_cfg)
         if isinstance(policy, str):
             policy = make_policy(policy, sim_cfg, fl_cfg, fleet,
                                  device=self.device)
-        if explore_uniforms is None:
+        host_side = get_dynamics(fl_cfg.dynamics).host_side
+        if explore_uniforms is None and host_side:
             gen = torch.Generator().manual_seed(sim_cfg.seed)
 
             def explore_uniforms(rnd):
@@ -374,11 +565,31 @@ class FleetEngine:
         with torch.no_grad():
             global_params = self._template
             caches = self._fresh_caches(global_params)
-            state, global_params, caches, rule_state = self._host_rounds(
-                policy, state, fleet, hist, global_params, caches,
-                self._init_rule_state(), explore_uniforms, n_rounds,
-                time_budget, eval_every, progress)
+            if host_side:
+                state, global_params, caches, rule_state = \
+                    self._host_rounds(
+                        policy, state, fleet, hist, global_params, caches,
+                        self._init_rule_state(), explore_uniforms,
+                        n_rounds, time_budget, eval_every, progress)
+            else:
+                state, global_params, caches, rule_state = \
+                    self._device_rounds(
+                        policy, state, fleet, hist, global_params, caches,
+                        self._init_rule_state(), explore_uniforms,
+                        dynamics_noise, n_rounds, time_budget, eval_every,
+                        progress)
+            hist = self._run_end(policy, state, hist, global_params,
+                                 rule_state, time_budget, diagnostics)
+        hist.final_params = global_params
+        self._last_caches = caches
+        return hist
 
+    def _run_end(self, policy, state, hist, global_params, rule_state,
+                 time_budget, diagnostics) -> History:
+        """The run-end read-back: a forced final eval, the diagnostics,
+        the policy's History extras and the trust scores."""
+        N = self.fl_cfg.num_clients
+        with host_readback(self.device):
             # a time_budget break can land between eval boundaries: force
             # a measurement on the final global model
             if time_budget is not None and hist.eval_mask \
@@ -399,13 +610,11 @@ class FleetEngine:
                 hist.per_client_acc = to_host(
                     CLF.clf_accuracy(global_params, x, y)).astype(
                         np.float64)
-        for k, v in policy.history_extras(state).items():
-            setattr(hist, k, v)
-        if rule_state is not None:
-            # the one read-back of the trust scores, at run end
-            hist.trust = to_host(rule_state)
-        hist.final_params = global_params
-        self._last_caches = caches
+            for k, v in policy.history_extras(state).items():
+                setattr(hist, k, v)
+            if rule_state is not None:
+                # the one read-back of the trust scores, at run end
+                hist.trust = to_host(rule_state)
         return hist
 
     # -- host-side round closing / bookkeeping ------------------------------
@@ -557,3 +766,166 @@ class FleetEngine:
                 cum_comm, cum_time, acc, progress)
         return state, global_params, caches, rule_state
 
+    # -- device dynamics round loop (repro_torch.fleet) ---------------------
+
+    def _dynamics_fns(self, fleet):
+        """Memoized device-dynamics artifacts for the configured process:
+        ``(process, trainer)`` — the process built on this fleet's
+        features on the engine's device, and the dynamics trainer.  (The
+        round cut is memoized per straggler trait — ``_round_cut``.)"""
+        key = (self.fl_cfg.dynamics, self.fl_cfg.dynamics_params)
+        if key not in self._dyn_cache:
+            feats = fleet.features(self.device)
+            process = make_dynamics(self.fl_cfg.dynamics, self.sim_cfg,
+                                    features=feats, device=self.device,
+                                    params=self.fl_cfg.dynamics_params)
+            trainer = make_trainer(self.sim_cfg, self.data, self.device,
+                                   dynamics_features=feats)
+            self._dyn_cache[key] = (process, trainer)
+        return self._dyn_cache[key]
+
+    def _dyn_consts(self, fleet, uses_cache):
+        """Per-run (N,) constants, placed once and reused across runs."""
+        N = self.fl_cfg.num_clients
+        key = ("cache_every", bool(uses_cache))
+        if key not in self._round_consts:
+            ce = np.clip(np.round(to_host(C.adaptive_cache_interval(
+                2.0, fleet.battery, fleet.stability))), 1, 4
+            ).astype(np.int32) if uses_cache else np.full(N, BIG, np.int32)
+            self._round_consts[key] = place_per_client(ce, self.device)
+        if "ones" not in self._round_consts:
+            self._round_consts["ones"] = torch.ones(
+                (N,), dtype=torch.float32, device=self.device)
+            self._round_consts["full_steps"] = torch.full(
+                (N,), self.sim_cfg.local_steps, dtype=torch.int32,
+                device=self.device)
+        return (self._round_consts[key], self._round_consts["ones"],
+                self._round_consts["full_steps"])
+
+    def _from_plan(self, arr, dtype=None):
+        """One (N,) plan field on the engine's device.  Tensors (the
+        device policy's plans) pass through; a host-side policy's numpy
+        arrays cost one upload."""
+        if isinstance(arr, torch.Tensor):
+            return arr.to(self.device)
+        return place_per_client(np.asarray(arr) if dtype is None
+                                else np.asarray(arr, dtype), self.device)
+
+    def _round_cut(self, waits_for_stragglers: bool):
+        """Memoized device round cut for one straggler trait."""
+        key = bool(waits_for_stragglers)
+        if key not in self._cut_fns:
+            self._cut_fns[key] = R.make_round_cut(
+                self.fl_cfg.num_clients, self.sim_cfg.round_deadline, key)
+        return self._cut_fns[key]
+
+    def _noise_sources(self, process, explore_uniforms, dynamics_noise):
+        """``(explore(rnd), noise(rnd_or_"init"))`` on the engine's device:
+        handed-in values are placed there, the defaults drawn there from
+        generators seeded from ``sim_cfg.seed``."""
+        N, device, seed = self.fl_cfg.num_clients, self.device, \
+            self.sim_cfg.seed
+
+        def place(u):
+            if isinstance(u, torch.Tensor):
+                return u.to(device=device, dtype=torch.float32)
+            return place_per_client(np.asarray(u, np.float32), device)
+
+        if explore_uniforms is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+
+            def explore(rnd):
+                return torch.rand((N,), generator=gen, device=device)
+        else:
+            def explore(rnd):
+                return place(explore_uniforms(rnd))
+
+        if dynamics_noise is None:
+            dgen = torch.Generator(device=device).manual_seed(
+                seed + 0x0F1EE7)
+
+            def noise(rnd):
+                specs = process.init_noise if rnd == "init" \
+                    else process.step_noise
+                return draw_noise(specs, N, dgen, device)
+        else:
+            def noise(rnd):
+                return {k: place(v) for k, v in dynamics_noise(rnd).items()}
+        return explore, noise
+
+    def _device_rounds(self, policy, state, fleet, hist, global_params,
+                       caches, rule_state, explore_uniforms, dynamics_noise,
+                       n_rounds, time_budget, eval_every, progress):
+        """The device round loop, the reference's ``_device_rounds`` (full
+        scan): the process step, the plan, the dynamics trainer, the round
+        cut and the server step run on the engine's device with no host
+        value between them.  History rows go through a ``_RoundLedger``,
+        read back when the pipeline depth, an eval-free ``progress`` tick,
+        a ``time_budget`` or the run end asks for them.  FLUDE plans on the
+        device; the host-side baselines read back at their own
+        boundary."""
+        sim_cfg = self.sim_cfg
+        process, trainer = self._dynamics_fns(fleet)
+        cache_every, ones_w, full_steps = self._dyn_consts(
+            fleet, policy.uses_cache)
+        server_step = self._server_step(policy.uses_cache)
+        cut_fn = self._round_cut(policy.waits_for_stragglers)
+        explore, noise = self._noise_sources(process, explore_uniforms,
+                                             dynamics_noise)
+        ledger = _RoundLedger(hist, sim_cfg.model_mb, sim_cfg.round_deadline,
+                              progress, n_rounds, self.device)
+        fstate = process.init_state(noise("init"))
+        draw = None
+        for rnd in range(n_rounds):
+            if time_budget is not None:
+                # the budget check needs the wall clock: resolve all
+                ledger.resolve()
+                if ledger.cum_time >= time_budget:
+                    break
+            fstate, draw = process.step(fstate, noise(rnd))
+            state, plan = policy.plan(
+                state, RoundObservation(rnd, draw.online, caches,
+                                        explore(rnd), draw=draw))
+            self._validate_plan(plan)
+            sel_d = self._from_plan(plan.selected, bool)
+            dist_d = self._from_plan(plan.distribute, bool)
+            res_d = self._from_plan(plan.resume, bool)
+            base_steps = full_steps if plan.steps_override is None else \
+                self._from_plan(plan.steps_override, np.int32)
+            extra_w = ones_w if plan.agg_weights is None else \
+                self._from_plan(plan.agg_weights, np.float32)
+
+            # workload + failure/interruption + masked local training +
+            # per-device timing
+            (final, cache_p, cached_steps, losses, _steps, fail, success,
+             times) = trainer(global_params, caches, draw, sel_d, dist_d,
+                              res_d, base_steps, cache_every)
+            # round termination on the device; a capped round comes back
+            # as a flag so the ledger bills the exact deadline
+            t_cut, received, capped, recv_n, down_n, sel_n = cut_fn(
+                times, plan.quorum, success, draw.online, dist_d, sel_d)
+            out = server_step(
+                global_params, caches, final, cache_p, cached_steps, sel_d,
+                fail, received, res_d, self._n_samples, extra_w, rnd,
+                *self._step_extra(rule_state))
+            if self._agg_stateful:
+                global_params, caches, rule_state = out
+            else:
+                global_params, caches = out
+            state = policy.observe(
+                state, plan,
+                RoundReport(received=received, fail=fail, losses=losses,
+                            durations=times, duration=t_cut, rnd=rnd))
+
+            evaluated = rnd % eval_every == 0 or rnd == n_rounds - 1
+            ledger.push(rnd, evaluated, t_cut, capped, recv_n, down_n,
+                        sel_n, self._eval(global_params) if evaluated
+                        else None)
+            if progress and rnd % 10 == 0:
+                ledger.resolve()        # live ticks resolve on schedule
+            else:
+                ledger.resolve(keep=self.pipeline_depth - 1)
+        ledger.resolve()
+        self._last_fleet_state = fstate
+        self._last_draw = draw
+        return state, global_params, caches, rule_state

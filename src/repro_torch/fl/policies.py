@@ -5,7 +5,9 @@ Algorithms 1–2) and the five comparison baselines of ``repro.fl.policies``
 Each policy keeps its mutable per-run state in an explicit state returned
 by ``init_state`` and threaded through ``plan``/``observe``.  FLUDE plans
 on the engine's device; the baselines are host numpy, as in the
-reference.  The states that carry a ``np.random.RandomState`` (random,
+reference: on the device round loop they read the observation and the
+report back with ``to_host``, which waits for the card at their own
+boundary.  The states that carry a ``np.random.RandomState`` (random,
 oort, safa, fedsea) advance it in place inside ``plan``, seeded and drawn
 as the reference draws it, so a seed gives the reference's selections.
 """
@@ -20,6 +22,7 @@ import torch
 from repro_torch.core import round as R
 from repro_torch.fl.api import (Policy, RoundObservation, RoundPlan,
                                 RoundReport, register_policy, to_host)
+from repro_torch.fl.simulator import place_per_client
 
 BIG = 1 << 20
 
@@ -42,33 +45,45 @@ class FludePolicy(Policy):
         # (the host fp64 product, cast to float32 as in the reference)
         self._hints = None
         if fleet is not None:
-            self._hints = torch.from_numpy(np.asarray(
-                fleet.battery * fleet.stability, np.float32)
-            ).to(self.device)
+            self._hints = place_per_client(np.asarray(
+                fleet.battery * fleet.stability, np.float32), self.device)
 
     def init_state(self) -> FludePolicyState:
         return FludePolicyState(R.init_state(self.fl_cfg, self.device), None)
 
     def plan(self, state, obs: RoundObservation):
-        online = torch.from_numpy(np.asarray(obs.online, bool)
-                                  ).to(self.device)
-        uniforms = torch.tensor(np.asarray(obs.uniforms, np.float32),
-                                device=self.device)
+        if obs.draw is not None:
+            # device round loop: the online mask, the explore uniforms, the
+            # plan and the quorum clamp stay on the device, and
+            # RoundPlan.device checks structure only — planning reads
+            # nothing back
+            online, uniforms = obs.draw.online, obs.uniforms
+        else:
+            online = torch.from_numpy(np.asarray(obs.online, bool)
+                                      ).to(self.device)
+            uniforms = torch.tensor(np.asarray(obs.uniforms, np.float32),
+                                    device=self.device)
         p = R.plan_round(state.core, obs.caches, online, self.fl_cfg,
                          uniforms, explore_hints=self._hints)
         # quorum clamp: can't wait for more receipts than selections
         p = p._replace(quorum=torch.minimum(
             p.quorum, p.selected.sum().to(torch.float32)))
-        plan = RoundPlan.create(p.selected, p.distribute, p.resume,
-                                float(p.quorum))
+        if obs.draw is not None:
+            plan = RoundPlan.device(p.selected, p.distribute, p.resume,
+                                    p.quorum)
+        else:
+            plan = RoundPlan.create(p.selected, p.distribute, p.resume,
+                                    float(p.quorum))
         return FludePolicyState(state.core, p), plan
 
     def observe(self, state, plan, report: RoundReport):
         # Eq. 1 bookkeeping right away (the reference parks the receipts
         # and folds them into the next plan's dispatch: same update on the
         # same values)
-        received = torch.from_numpy(np.asarray(report.received, bool)
-                                    ).to(self.device)
+        received = report.received
+        if not isinstance(received, torch.Tensor):
+            received = torch.from_numpy(np.asarray(received, bool))
+        received = received.to(self.device)
         return FludePolicyState(
             R.update_after_round(state.core, state.last, received,
                                  self.fl_cfg), None)
@@ -100,8 +115,8 @@ class RandomPolicy(Policy):
 
     def plan(self, state, obs):
         N = self.fl_cfg.num_clients
-        sel = _random_online(state, obs.online, self.fl_cfg.clients_per_round,
-                             N)
+        sel = _random_online(state, to_host(obs.online),
+                             self.fl_cfg.clients_per_round, N)
         return state, RoundPlan.create(sel, sel, np.zeros(N, bool),
                                        float(sel.sum()))
 
@@ -135,7 +150,7 @@ class OortPolicy(Policy):
 
     def plan(self, state, obs):
         N = self.fl_cfg.num_clients
-        online = obs.online
+        online = to_host(obs.online)
         X = min(self.fl_cfg.clients_per_round, int(online.sum()))
         n_explore = int(round(state.eps * X))
         sel = np.zeros(N, bool)
@@ -159,10 +174,10 @@ class OortPolicy(Policy):
                                            float(sel.sum()))
 
     def observe(self, state, plan, report):
-        upd = to_host(plan.selected) & report.received
-        util = np.where(upd, report.losses * np.sqrt(
+        upd = to_host(plan.selected) & to_host(report.received)
+        util = np.where(upd, to_host(report.losses) * np.sqrt(
             self.sim_cfg.batch_size * self.sim_cfg.local_steps), state.util)
-        duration = np.where(upd, report.durations, state.duration)
+        duration = np.where(upd, to_host(report.durations), state.duration)
         return dataclasses.replace(state, util=util, duration=duration)
 
 
@@ -185,8 +200,8 @@ class SafaPolicy(Policy):
 
     def plan(self, state, obs):
         N = self.fl_cfg.num_clients
-        sel = _random_online(state, obs.online, self.fl_cfg.clients_per_round,
-                             N)
+        sel = _random_online(state, to_host(obs.online),
+                             self.fl_cfg.clients_per_round, N)
         stamp = to_host(obs.caches.round_stamp)
         lag = np.where(stamp >= 0, obs.rnd - stamp, BIG)
         resume = sel & (lag <= self.tau)
@@ -218,8 +233,8 @@ class FedSeaPolicy(Policy):
 
     def plan(self, state, obs):
         N = self.fl_cfg.num_clients
-        sel = _random_online(state, obs.online, self.fl_cfg.clients_per_round,
-                             N)
+        sel = _random_online(state, to_host(obs.online),
+                             self.fl_cfg.clients_per_round, N)
         return state, RoundPlan.create(sel, sel, np.zeros(N, bool),
                                        float(sel.sum()),
                                        steps_override=self.steps)
@@ -237,7 +252,7 @@ class MifaPolicy(Policy):
     waits_for_stragglers = False
 
     def plan(self, state, obs):
-        sel = np.array(obs.online, bool)
+        sel = np.array(to_host(obs.online), bool)
         stamp = to_host(obs.caches.round_stamp)
         resume = sel & (stamp >= 0)
         # undo the engine's staleness discount on resumed (memorized) bases
@@ -259,11 +274,11 @@ class AsyncFedEdPolicy(Policy):
         return np.zeros(self.fl_cfg.num_clients, np.int32)   # last sync rnd
 
     def plan(self, state, obs):
-        sel = np.array(obs.online, bool)
+        sel = np.array(to_host(obs.online), bool)
         lag = obs.rnd - state
         w = 1.0 / (1.0 + np.maximum(lag, 0))
         return state, RoundPlan.create(sel, sel, np.zeros_like(sel),
                                        float(sel.sum()), agg_weights=w)
 
     def observe(self, state, plan, report):
-        return np.where(report.received, report.rnd, state)
+        return np.where(to_host(report.received), report.rnd, state)

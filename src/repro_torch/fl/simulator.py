@@ -14,6 +14,18 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
+
+
+def place_per_client(arr, device) -> torch.Tensor:
+    """Place one host per-client array on ``device`` — a copy.  On a card
+    the copy goes through pinned memory and does not block the host, so a
+    placement never waits for the work queued before it."""
+    t = torch.from_numpy(np.array(arr, order="C", copy=True))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +85,13 @@ class Fleet:
         self.battery = rng.uniform(0.2, 1.0, N)
         self.stability = rng.uniform(0.3, 1.0, N)
         self._rng = rng
+
+    def features(self, device):
+        """This population as ``repro_torch.fleet.FleetFeatures`` on
+        ``device`` — the one-time host→device hand-off every dynamics
+        process draws its static per-device parameters from."""
+        from repro_torch.fleet import FleetFeatures
+        return FleetFeatures.from_fleet(self, device)
 
     # -- per-round draws ----------------------------------------------------
     def online_mask(self) -> np.ndarray:

@@ -143,10 +143,11 @@ def test_configs_copy_the_reference_field_for_field(ours, theirs):
 
 
 @pytest.mark.parametrize("override", [
-    dict(cache_offload="host"), dict(dynamics="sessions"),
+    dict(cache_offload="host"), dict(dynamics="sessions", cohort_size=8),
     dict(mesh_shape=(2,)), dict(cohort_size=8), dict(telemetry="basic"),
-    dict(dynamics="markov"), dict(selection_mode="thompson"),
-    dict(pipeline_depth=2), dict(donate_buffers=True),
+    dict(dynamics="markov", cache_offload="host"),
+    dict(selection_mode="thompson"),
+    dict(pipeline_depth=2, telemetry="basic"), dict(donate_buffers=True),
     dict(debug_checks=True)])
 def test_config_values_outside_the_slice_name_their_queue_item(override):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A #"):

@@ -739,3 +739,67 @@ def test_stateful_prefill_and_decode_do_not_synchronise(cuda, arch):
             model.decode_step(params, tokens[:, :1], pos, cache)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# The device dynamics round loop
+# ---------------------------------------------------------------------------
+
+def _dyn_engine(device, dynamics="bernoulli", depth=1, n=64, rounds=4):
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.synthetic import federated_classification
+    from repro_torch.fl import FleetEngine, SimConfig
+    from repro_torch.fleet import apply_scenario
+    scenario = dynamics == "churn"
+    fl = FLConfig(num_clients=n, clients_per_round=16, pipeline_depth=depth,
+                  dynamics="bernoulli" if scenario else dynamics)
+    if scenario:
+        fl = apply_scenario(fl, dynamics)
+    return FleetEngine(federated_classification(n, seed=1, n_per_client=32),
+                       SimConfig(num_clients=n, rounds=rounds, seed=2,
+                                 local_steps=2), fl, device=device)
+
+
+def test_dynamics_loop_does_not_synchronise_outside_the_ledger(cuda):
+    """A flude run on the device loop at depth 2 under sync debug mode
+    "error": the only waits for the card are the round ledger's resolve
+    and the run-end read-back, which lift the mode (``host_readback``)."""
+    engine = _dyn_engine(cuda, depth=2)
+    engine.run("flude")                      # builds, places, warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist = engine.run("flude", diagnostics=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(hist.acc) == 4
+
+
+def test_dynamics_loop_card_matches_cpu(cuda):
+    """N = 24, 5 rounds under churn, the dynamics and explore uniforms
+    drawn once on the CPU and handed to both runs: the same integer
+    trajectory, wall clock within 1e-5, accuracy within 4 of 2048."""
+    from repro_torch.fleet import draw_noise, get_dynamics
+    proc = get_dynamics("markov")
+    gen = torch.Generator().manual_seed(0)
+    noise = {"init": draw_noise(proc.init_noise, 24, gen, "cpu")}
+    for rnd in range(5):
+        noise[rnd] = draw_noise(proc.step_noise, 24, gen, "cpu")
+    us = [torch.rand(24, generator=gen) for _ in range(5)]
+    runs = [_dyn_engine(d, "churn", n=24, rounds=5).run(
+        "flude", explore_uniforms=lambda r: us[r],
+        dynamics_noise=lambda r: noise[r]) for d in ("cpu", cuda)]
+    cpu, card = runs
+    assert (card.selected, card.received, card.comm_mb) == \
+        (cpu.selected, cpu.received, cpu.comm_mb)
+    np.testing.assert_allclose(card.wall_clock, cpu.wall_clock, rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(card.acc, cpu.acc, rtol=0, atol=4 / 2048)
+
+
+def test_dynamics_loop_launches_fed_agg_once_a_round(cuda):
+    engine = _dyn_engine(cuda, depth=2, rounds=3)
+    before = (K.launches.count, RK.launches.count)
+    engine.run("flude", diagnostics=False)
+    assert (K.launches.count - before[0], RK.launches.count - before[1]) \
+        == (3, 0)
