@@ -74,6 +74,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
+H100_L2_BYTES = 50 * 2**20      # L2 cache, H100 SXM
 H100_BF16_FLOPS = 989.4e12      # bf16 tensor cores, dense
 REL_TOL = 1e-5                  # of Σ_c |w_c u_cd| (fed_agg), of the
                                 # distance itself (residual_norms)
@@ -81,6 +82,11 @@ ACC_TOL = 4 / 2048              # a few of the 2048 test samples
 TRUST_TOL = 1e-5                # trust scores, card against CPU
 MAIN_N, MAIN_PER_ROUND, MAIN_ROUNDS = 4096, 512, 6
 MAIN_D = 22026                  # packed parameters of the default model
+# compact cohorts: X rows a round at the main path's fleet, and the
+# reference's million-client smoke (benchmarks/bench_engine.py:679-700):
+# the default classifier on dim-4, 2-class data packs D = 17,410
+COHORT_X = 512
+N_1M, D_1M, ROUNDS_1M = 1_000_000, 17410, 3
 # flash_attention against attention_ref.  fp32 (flash_fwd_simt): both
 # compute in fp32 and differ in summation order; within 1e-5 of max(1,
 # |o|).  bf16 (flash_fwd_wgmma) carries P to the tensor cores in two bf16
@@ -173,12 +179,43 @@ def log(*args):
     print(*args, flush=True)
 
 
+_SLEEP_RATE = []
+
+
+def sleep_cycles_per_ms():
+    """Cycles of ``torch.cuda._sleep`` a millisecond on this card, read
+    once."""
+    if not _SLEEP_RATE:
+        cycles = 10_000_000
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_RATE.append(cycles / start.elapsed_time(end))
+    return _SLEEP_RATE[0]
+
+
 def cuda_ms(fn, reps=100, warmup=10):
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
-    for _ in range(warmup):
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls.  The
+    calls are queued behind a ``torch.cuda._sleep`` that covers the
+    host's time to issue them (1.5 times the later warm-up calls' host
+    time, at most 200 ms), so the card runs them back to back even where
+    issuing a call takes longer than its kernels run (a ~20 us kernel)."""
+    torch.cuda.synchronize()
+    for i in range(warmup):
+        if i == warmup // 2:
+            t0 = time.perf_counter()
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / (warmup - warmup // 2) \
+        if warmup else 1.0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * host_ms * reps + 0.1, 200.0)
+                          * sleep_cycles_per_ms()))
     start.record()
     for _ in range(reps):
         fn()
@@ -276,7 +313,9 @@ def phase_fed_agg():
              ("D = 1 mod 4, C off the chunks", C - 3, D - 1, False, 0),
              ("D = 3 mod 4 (odd)", C, D + 1, False, 0),
              ("rows start 4 bytes off", 999, D, False, 1),
-             ("odd D, rows start 12 bytes off", 999, D + 1, False, 3)]
+             ("odd D, rows start 12 bytes off", 999, D + 1, False, 3),
+             ("cohort X = 512", COHORT_X, D, False, 0),
+             ("cohort X = 512, 1M-fleet model", COHORT_X, D_1M, False, 0)]
     max_err = 0.0
     for label, c, d, zero, off in cases:
         u, w = _agg_inputs(c, d, seed=c + d, zero_weights=zero)
@@ -308,13 +347,52 @@ def phase_fed_agg():
             raise RuntimeError("fed_agg: all-zero weights gave non-zeros")
         del u, w, got, again, want, scale, err
 
-    u, w = _agg_inputs(C, D, seed=1)
+    main = time_fed_agg(C, D)
+    cohort = [time_fed_agg(COHORT_X, d) for d in (D, D_1M)]
+    return {"name": "fed_agg", "route": "cuda",
+            "source": "src/repro_torch/csrc/fed_agg.cu",
+            "replaces": "src/repro/kernels/fed_agg/kernel.py:37",
+            "launches": None, "max_abs_err": max_err, **main,
+            "at_cohort_shapes": cohort}
+
+
+def rotating(fn, args):
+    """A call of ``fn`` on the next of the argument tuples ``args`` each
+    time: timed calls that cycle through copies larger together than the
+    L2 read every input from device memory, as the bound counts."""
+    it = [0]
+
+    def call():
+        a = args[it[0] % len(args)]
+        it[0] += 1
+        return fn(*a)
+    return call
+
+
+def l2_copies(*tensors):
+    """Copies of ``tensors`` (the first as is) that together hold three
+    times the H100's L2: a (512, D) buffer of 36-45 MB fits in its 50
+    MB, and back-to-back calls on one copy would read it from there."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(1, -(-3 * H100_L2_BYTES // nbytes))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(n - 1)]
+
+
+def time_fed_agg(C, D):
+    """fed_agg's time at (C, D) beside its plain version, one torch.mv
+    and the bound; the times and the bound in ms."""
+    from repro_torch.kernels.fed_agg.kernel import fed_agg_cuda
+    from repro_torch.kernels.fed_agg.ref import fed_agg_ref
+    copies = l2_copies(*_agg_inputs(C, D, seed=1))
+    mv = rotating(lambda u, w: torch.mv(u.t(), w), copies)
+    kernel = rotating(fed_agg_cuda, copies)
     # in turns: library, kernel, kernel, library
-    lib = [cuda_ms(lambda: torch.mv(u.t(), w))]
-    kern = [cuda_ms(lambda: fed_agg_cuda(u, w)) for _ in range(2)]
-    lib.append(cuda_ms(lambda: torch.mv(u.t(), w)))
+    lib = [cuda_ms(mv)]
+    kern = [cuda_ms(kernel) for _ in range(2)]
+    lib.append(cuda_ms(mv))
     ms, library_ms = sum(kern) / 2, sum(lib) / 2
-    plain_ms = cuda_ms(lambda: fed_agg_ref(u, w))
+    plain_ms = cuda_ms(rotating(fed_agg_ref, copies))
     nbytes = (C * D + C + D) * 4
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = 2 * C * D / H100_FP32_FLOPS * 1e3
@@ -327,12 +405,8 @@ def phase_fed_agg():
         f"{bound_ms / ms:.1%} of bound, torch.mv at "
         f"{bound_ms / library_ms:.1%}; kernel / torch.mv "
         f"{ms / library_ms:.3f}; {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
-    del u, w
-    return {"name": "fed_agg", "route": "cuda",
-            "source": "src/repro_torch/csrc/fed_agg.cu",
-            "replaces": "src/repro/kernels/fed_agg/kernel.py:37",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"at": [C, D], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms}
 
@@ -348,12 +422,13 @@ def phase_residual_norms():
         log(f"[residual_norms] ptxas: {line}")
     C, D = MAIN_N, MAIN_D
     cases = [("main", C, D), ("ragged C", 13, D), ("ragged D", C, 1),
-             ("u == z", C, D)]
+             ("u == z", C, D), ("cohort X = 512", COHORT_X, D),
+             ("cohort X = 512, u == z", COHORT_X, D)]
     max_err = 0.0
     for label, c, d in cases:
         gen = torch.Generator(device="cuda").manual_seed(c + d)
         z = torch.randn((d,), generator=gen, device="cuda")
-        u = z.expand(c, d).contiguous() if label == "u == z" else \
+        u = z.expand(c, d).contiguous() if "u == z" in label else \
             torch.randn((c, d), generator=gen, device="cuda")
         got = residual_norms_cuda(u, z)
         again = residual_norms_cuda(u, z)
@@ -374,13 +449,28 @@ def phase_residual_norms():
             raise RuntimeError(f"residual_norms {label}: two launches "
                                f"differ")
 
+    main = time_residual_norms(C, D)
+    cohort = time_residual_norms(COHORT_X, D)
+    return {"name": "residual_norms", "route": "cuda",
+            "source": "src/repro_torch/csrc/robust_agg.cu",
+            "replaces": "src/repro/kernels/robust_agg/kernel.py:42",
+            "launches": None, "max_abs_err": max_err, **main,
+            "at_cohort_shapes": [cohort]}
+
+
+def time_residual_norms(C, D):
+    """residual_norms' time at (C, D) beside its plain version, one
+    torch.cdist and the bound; the times and the bound in ms."""
+    from repro_torch.kernels.robust_agg.kernel import residual_norms_cuda
+    from repro_torch.kernels.robust_agg.ref import residual_norms_ref
     gen = torch.Generator(device="cuda").manual_seed(1)
     u = torch.randn((C, D), generator=gen, device="cuda")
     z = torch.randn((D,), generator=gen, device="cuda")
-    ms = cuda_ms(lambda: residual_norms_cuda(u, z))
-    plain_ms = cuda_ms(lambda: residual_norms_ref(u, z))
-    library_ms = cuda_ms(lambda: torch.cdist(
-        u, z[None], compute_mode="donot_use_mm_for_euclid_dist"))
+    copies = l2_copies(u, z)
+    ms = cuda_ms(rotating(residual_norms_cuda, copies))
+    plain_ms = cuda_ms(rotating(residual_norms_ref, copies))
+    library_ms = cuda_ms(rotating(lambda u, z: torch.cdist(
+        u, z[None], compute_mode="donot_use_mm_for_euclid_dist"), copies))
     nbytes = (C * D + D + C) * 4
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = 3 * C * D / H100_FP32_FLOPS * 1e3
@@ -390,11 +480,8 @@ def phase_residual_norms():
         f" us; bound {bound_ms * 1e3:.1f} us ({nbytes} bytes at 3.35 TB/s),"
         f" {bound_ms / ms:.1%} of bound, "
         f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
-    return {"name": "residual_norms", "route": "cuda",
-            "source": "src/repro_torch/csrc/robust_agg.cu",
-            "replaces": "src/repro/kernels/robust_agg/kernel.py:42",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"at": [C, D], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms}
 
@@ -1024,10 +1111,10 @@ def phase_dynamics(data, counters):
     with its launches read across it; depths 1 and 2 held to identical
     History rows; a depth-2 run under sync debug mode "error"; the card
     against the CPU; a profiled short run of the depth-2 engine.  Returns
-    each run's launches."""
+    each run's launches, History rows and peak device GiB."""
     from repro_torch.fl import FleetEngine, SimConfig
     sim = SimConfig(num_clients=MAIN_N, rounds=MAIN_ROUNDS)
-    out, rows = {}, {}
+    out, rows, peaks = {}, {}, {}
     # one engine alive at a time, so each peak is its own
     for label, scenario, changes, per_round in DYNAMICS_RUNS:
         t0 = time.perf_counter()
@@ -1049,6 +1136,7 @@ def phase_dynamics(data, counters):
                   data.num_classes)
         out[f"dynamics {label}"] = launches
         rows[label] = hist.to_json()
+        peaks[label] = peak
         if label == "bernoulli depth 2":
             same = rows["bernoulli depth 1"] == rows[label]
             log(f"[dynamics] bernoulli History rows at depths 1 and 2 "
@@ -1057,18 +1145,20 @@ def phase_dynamics(data, counters):
                 raise RuntimeError(
                     f"dynamics: depth 1 and depth 2 rows differ: "
                     f"{rows['bernoulli depth 1']} vs {rows[label]}")
-            check_no_sync(engine, data.num_classes)
+            check_no_sync(engine, data.num_classes, "dynamics",
+                          "bernoulli, depth 2")
             phase_profile(engine, "flude",
                           "dynamics profile bernoulli depth 2")
         del engine, hist
     phase_dynamics_card_vs_cpu()
-    return out
+    return out, rows, peaks
 
 
-def check_no_sync(engine, num_classes):
-    """One flude run of the (warm) depth-2 engine under ``torch.cuda``
-    sync debug mode "error": any wait for the card outside the ledger's
-    resolve and the run-end read-back (``host_readback``) raises."""
+def check_no_sync(engine, num_classes, tag, label):
+    """One flude run of a (warm) engine under ``torch.cuda`` sync debug
+    mode "error": any wait for the card outside the ledger's resolve, the
+    run-end read-back and the offload stream's two reads a round (all
+    through ``host_readback``) raises."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
@@ -1077,12 +1167,11 @@ def check_no_sync(engine, num_classes):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log(f"[dynamics] no-sync run (bernoulli, depth 2, sync debug mode "
-        f"'error'): {MAIN_ROUNDS} rounds in "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, no synchronisation "
-        f"outside the ledger's resolve and the run-end read-back; "
-        f"selected {hist.selected}, received {hist.received}")
-    check_run("dynamics no-sync", hist, {}, {}, num_classes)
+    log(f"[{tag}] no-sync run ({label}, sync debug mode 'error'): "
+        f"{MAIN_ROUNDS} rounds in {(time.perf_counter() - t0) * 1e3:.1f} "
+        f"ms, no synchronisation outside host_readback; selected "
+        f"{hist.selected}, received {hist.received}")
+    check_run(f"{tag} no-sync", hist, {}, {}, num_classes)
 
 
 def phase_dynamics_card_vs_cpu():
@@ -1122,6 +1211,307 @@ def phase_dynamics_card_vs_cpu():
                            f"{wall}, accuracy by {acc}")
 
 
+# the compact-cohort runs at the main path's fleet: (label, FLConfig
+# changes, launches per round of each kernel).  X = 512 = clients per
+# round, under bernoulli availability
+COHORT_BASE = dict(dynamics="bernoulli", cohort_size=COHORT_X)
+COHORT_RUNS = [
+    ("resident depth 1", {}, MEAN_ONLY),
+    ("resident depth 2", dict(pipeline_depth=2), MEAN_ONLY),
+    ("host offload", dict(cache_offload="host"), MEAN_ONLY),
+    ("discard bound 1", dict(cache_offload="discard",
+                             cache_staleness_bound=1), MEAN_ONLY),
+    ("sign-flip-20 geometric_median", dict(agg_rule="geometric_median",
+                                           **ATTACK), ROBUST_RUNS[0][3]),
+]
+
+
+# the [dynamics] run each cohort run is held to: same fleet, seeds and
+# rule over all N rows
+FULL_SCAN_TWIN = {"resident depth 1": "bernoulli depth 1",
+                  "sign-flip-20 geometric_median":
+                      "sign-flip-20 geometric_median"}
+
+
+def phase_cohort(data, counters, dyn_rows, dyn_peaks):
+    """Compact cohorts and host cache offload on the device loop at the
+    main path's fleet (N = 4096, X = 512): the runs of ``COHORT_RUNS``,
+    each timed with its launches read across it and its engine freed
+    before the next.  Held: rows at depths 1 and 2 identical, host
+    offload rows identical to resident rows, the resident run and the
+    sign-flip-20 run against their ``[dynamics]`` twins (selected,
+    received, comm exact, accuracy within ACC_TOL), one fed_agg launch a round, each peak at
+    most the full scan's, the stream's copies (none synchronous, X·D
+    bytes a round each way), a no-sync run of the cohort engine and of
+    the offload engine, and card = CPU at N = 32.  Returns each run's
+    launches."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl import FleetEngine, SimConfig
+    from repro_torch.kernels.fed_agg.kernel import chunk_rows, geometry
+    for d in (MAIN_D, D_1M):
+        g = geometry(COHORT_X, d)
+        sizes = [b - a for a, b in (chunk_rows(g, COHORT_X, 8, i)
+                                    for i in range(g.n_chunks))]
+        log(f"[cohort] fed_agg at ({COHORT_X}, {d}): {g.col_blocks} x "
+            f"{g.n_chunks} blocks, chunks of {sorted(set(sizes))} rows")
+        if sum(sizes) != COHORT_X or any(n % 8 for n in sizes):
+            raise RuntimeError(f"cohort: fed_agg splits {COHORT_X} rows "
+                               f"into {sizes}, not whole block_c chunks")
+    sim = SimConfig(num_clients=MAIN_N, rounds=MAIN_ROUNDS)
+    out, rows = {}, {}
+    for label, changes, per_round in COHORT_RUNS:
+        t0 = time.perf_counter()
+        fl = FLConfig(num_clients=MAIN_N, clients_per_round=MAIN_PER_ROUND,
+                      agg_impl="cuda", **COHORT_BASE, **changes)
+        engine = FleetEngine(data, sim, fl)
+        setup = time.perf_counter() - t0
+        hist, launches, ms, peak = timed_run(engine, "flude", counters)
+        stats = engine.transfer_stats.snapshot()
+        log(f"[cohort] {label} (flude, X={fl.cohort_size}, depth "
+            f"{fl.pipeline_depth}, offload {fl.cache_offload}, agg "
+            f"{fl.agg_rule}, adversary {fl.adversary}): engine set-up "
+            f"{setup:.1f} s; selected {hist.selected}; received "
+            f"{hist.received}; acc {hist.acc}")
+        log(f"[cohort] {label}: {ms:.1f} ms/round over rounds 1-"
+            f"{MAIN_ROUNDS - 1}, peak device memory {peak:.2f} GiB "
+            f"([dynamics] bernoulli depth 1: "
+            f"{dyn_peaks['bernoulli depth 1']:.2f}), launches {launches}, "
+            f"transfers {stats}")
+        check_run(f"cohort {label}", hist, launches, per_round,
+                  data.num_classes)
+        if peak > dyn_peaks["bernoulli depth 1"]:
+            raise RuntimeError(f"cohort {label}: peak {peak:.3f} GiB above "
+                               f"the full scan's")
+        out[f"cohort {label}"] = launches
+        rows[label] = hist.to_json()
+        if fl.cache_offload is not None:
+            mem = engine.server_step_memory()
+            row = engine.cache_store.row_bytes
+            log(f"[cohort] {label}: store {len(engine.cache_store)} rows "
+                f"({mem['cache_host_bytes']} bytes), {engine.cache_store.pruned}"
+                f" rows pruned; device cache {mem['cache_device_bytes']} "
+                f"bytes")
+            want = {"h2d_async": MAIN_ROUNDS, "d2h_async": 2 * MAIN_ROUNDS,
+                    "h2d_bytes": MAIN_ROUNDS * COHORT_X * row,
+                    "d2h_bytes": MAIN_ROUNDS * COHORT_X * (row + 24),
+                    "pre_issued_reads": 2 * MAIN_ROUNDS, "sync_copies": 0}
+            if stats != want:
+                raise RuntimeError(f"cohort {label}: transfers {stats}, "
+                                   f"expected {want}")
+            if fl.cache_offload == "discard" \
+                    and engine.cache_store.pruned == 0:
+                raise RuntimeError("cohort discard: the bound pruned no row")
+        if label in FULL_SCAN_TWIN:
+            twin = FULL_SCAN_TWIN[label]
+            ref = dyn_rows[twin]
+            same = [ref[k] == rows[label][k]
+                    for k in ("selected", "received", "comm_mb")]
+            acc = max(abs(a - b) for a, b in zip(ref["acc"],
+                                                 rows[label]["acc"]))
+            log(f"[cohort] {label} against [dynamics] {twin}: selected / "
+                f"received / comm equal {same}, max |acc difference| "
+                f"{acc:.6f}, History rows identical {ref == rows[label]}")
+            if not all(same) or acc > ACC_TOL:
+                raise RuntimeError(f"cohort {label} against the full scan: "
+                                   f"{rows[label]} vs {ref}")
+        if label == "resident depth 2":
+            if rows[label] != rows["resident depth 1"]:
+                raise RuntimeError(f"cohort: depth 1 and depth 2 rows "
+                                   f"differ: {rows['resident depth 1']} vs "
+                                   f"{rows[label]}")
+            log("[cohort] rows at depths 1 and 2 identical: True")
+            check_no_sync(engine, data.num_classes, "cohort",
+                          "resident, depth 2")
+            phase_profile(engine, "flude", "cohort profile resident depth 2")
+        if label == "host offload":
+            if rows[label] != rows["resident depth 1"]:
+                raise RuntimeError(f"cohort: host offload rows differ from "
+                                   f"resident rows: {rows[label]} vs "
+                                   f"{rows['resident depth 1']}")
+            log("[cohort] host offload rows identical to resident: True")
+            check_no_sync(engine, data.num_classes, "cohort",
+                          "host offload, depth 1")
+            if engine.transfer_stats.sync_copies:
+                raise RuntimeError("cohort: a synchronous copy")
+            # the timed run above was the engine's first: its store grew
+            # from empty.  A later run starts from a cleared store
+            again, _, ms2, _ = timed_run(engine, "flude", counters)
+            log(f"[cohort] host offload, a later run of the same engine: "
+                f"{ms2:.1f} ms/round over rounds 1-{MAIN_ROUNDS - 1}; rows "
+                f"identical {again.to_json() == rows[label]}")
+            phase_profile(engine, "flude", "cohort profile host offload")
+        del engine, hist
+    phase_cohort_card_vs_cpu()
+    return out
+
+
+def phase_cohort_card_vs_cpu():
+    """N = 32, X = 8, 4 rounds of flude under markov, resident and host
+    offload, on the card and on the CPU from the same uniforms drawn once
+    on the CPU: selected, received and comm identical, wall clock within
+    1e-5, accuracy within ACC_TOL."""
+    import repro_torch.fl as F
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.synthetic import federated_classification
+    from repro_torch.fleet import draw_noise, get_dynamics
+    n, rounds = 32, 4
+    data = federated_classification(n, seed=4, n_per_client=16)
+    sim = F.SimConfig(num_clients=n, rounds=rounds, seed=3, local_steps=2,
+                      batch_size=8)
+    proc = get_dynamics("markov")
+    gen = torch.Generator().manual_seed(0)
+    noise = {"init": draw_noise(proc.init_noise, n, gen, "cpu")}
+    for rnd in range(rounds):
+        noise[rnd] = draw_noise(proc.step_noise, n, gen, "cpu")
+    us = [torch.rand((n,), generator=gen) for _ in range(rounds)]
+    for offload in (None, "host"):
+        fl = FLConfig(num_clients=n, clients_per_round=8, dynamics="markov",
+                      cohort_size=8, cache_offload=offload)
+        cpu, card = (F.FleetEngine(data, sim, fl, device=d).run(
+            "flude", explore_uniforms=lambda r: us[r],
+            dynamics_noise=lambda r: noise[r]) for d in ("cpu", "cuda"))
+        wall = max(abs(a - b) for a, b in zip(cpu.wall_clock,
+                                               card.wall_clock))
+        acc = max(abs(a - b) for a, b in zip(cpu.acc, card.acc))
+        log(f"[cohort card vs CPU] offload {offload}, N={n}, X=8: cpu "
+            f"selected {cpu.selected} received {cpu.received}; card acc "
+            f"{card.acc}; max |card - cpu| wall clock {wall:.3e}, acc "
+            f"{acc:.6f}")
+        if (cpu.selected, cpu.received, cpu.comm_mb) != \
+                (card.selected, card.received, card.comm_mb):
+            raise RuntimeError(f"cohort card vs CPU: trajectories differ: "
+                               f"{card.to_json()} vs {cpu.to_json()}")
+        if wall > 1e-5 or acc > ACC_TOL:
+            raise RuntimeError(f"cohort card vs CPU: wall clock differs by "
+                               f"{wall}, accuracy by {acc}")
+
+
+def million_client_data(n, *, num_classes=2, dim=4, n_per_client=2,
+                        n_test=256, seed=0):
+    """The reference smoke's vectorised tiny task
+    (``benchmarks/bench_engine.py:391-405``): ``federated_classification``
+    loops over clients in Python, which at N = 1M would dwarf the run."""
+    import numpy as np
+    from repro_torch.data.synthetic import FederatedClassification
+    rng = np.random.RandomState(seed)
+    centers = (rng.randn(num_classes, dim) * 2.2).astype(np.float32)
+    y = rng.randint(0, num_classes, (n, n_per_client))
+    x = centers[y] + rng.randn(n, n_per_client, dim).astype(np.float32)
+    ty = rng.randint(0, num_classes, n_test)
+    tx = centers[ty] + rng.randn(n_test, dim).astype(np.float32)
+    return FederatedClassification(x, y.astype(np.int32), tx,
+                                   ty.astype(np.int32),
+                                   y[:, :1].astype(np.int32), num_classes)
+
+
+def phase_cohort_1m(counters):
+    """The reference's million-client smoke at full width: N = 1M, X =
+    512, the default classifier (D = 17,410), cache_offload="host".  A
+    one-round warm-up, then 3 timed rounds with the counts read across
+    them; the device cache must be (N,) metadata plus one (X, D) block.
+    The host store stays empty under FLUDE here (``check_1m_write_back``
+    shows the write-back at this N through SAFA).  Returns the FLUDE
+    run's launches."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl import FleetEngine, SimConfig
+    t0 = time.perf_counter()
+    data = million_client_data(N_1M, seed=8)
+    sim = SimConfig(num_clients=N_1M, rounds=ROUNDS_1M, local_steps=2,
+                    batch_size=2, seed=7)
+    fl = FLConfig(num_clients=N_1M, clients_per_round=COHORT_X,
+                  cohort_size=COHORT_X, dynamics="bernoulli",
+                  cache_offload="host", agg_impl="cuda")
+    engine = FleetEngine(data, sim, fl)
+    setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.run("flude", rounds=1, diagnostics=False)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    engine.transfer_stats.reset()
+    for c in counters.values():
+        c.reset()
+    ticks = {}
+
+    def progress(rnd, acc, comm, wall):
+        torch.cuda.synchronize()
+        ticks[rnd] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    hist = engine.run("flude", diagnostics=False, progress=progress)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    last = ROUNDS_1M - 1
+    ms = (ticks[last] - ticks[0]) * 1e3 / last
+    launches = {name: c.count for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    stats = engine.transfer_stats.snapshot()
+    mem = engine.server_step_memory()
+    row = engine.cache_store.row_bytes
+    want_dev = N_1M * 8 + COHORT_X * row
+    log(f"[cohort 1M] N={N_1M}, X={COHORT_X}, D={row // 4}: data + engine "
+        f"set-up {setup:.1f} s, warm-up round {warm:.2f} s; selected "
+        f"{hist.selected}; received {hist.received}; acc {hist.acc}")
+    log(f"[cohort 1M] {ms:.1f} ms/round over rounds 1-{last} ({run_s:.2f} s "
+        f"for the {ROUNDS_1M}-round run, its set-up included); cache on the device {mem['cache_device_bytes']}"
+        f" bytes, on the host {mem['cache_host_bytes']} bytes "
+        f"({len(engine.cache_store)} rows); resident equivalent "
+        f"{N_1M * row} bytes; max_memory_allocated {peak} bytes; "
+        f"server step peak_live_bytes {mem['peak_live_bytes']}; launches "
+        f"{launches}; transfers {stats}")
+    if row != D_1M * 4 or mem["cache_device_bytes"] != want_dev \
+            or want_dev != 43_655_680:
+        raise RuntimeError(f"cohort 1M: device cache "
+                           f"{mem['cache_device_bytes']} bytes, row {row}; "
+                           f"expected 43,655,680 and {D_1M * 4}")
+    if launches["fed_agg"] != ROUNDS_1M or stats["sync_copies"] \
+            or stats["h2d_bytes"] != ROUNDS_1M * COHORT_X * row:
+        raise RuntimeError(f"cohort 1M: launches {launches}, transfers "
+                           f"{stats}")
+    for s, r in zip(hist.selected, hist.received):
+        if not 1 <= r <= s <= COHORT_X:
+            raise RuntimeError(f"cohort 1M: received {r}, selected {s}")
+    if not all(math.isfinite(a) for a in hist.acc):
+        raise RuntimeError(f"cohort 1M: accuracy {hist.acc}")
+    if mem["cache_host_bytes"] != len(engine.cache_store) * row:
+        raise RuntimeError(f"cohort 1M: {mem['cache_host_bytes']} host "
+                           f"cache bytes for {len(engine.cache_store)} rows")
+    check_1m_write_back(engine)
+    del engine, data
+    gc.collect()
+    return launches
+
+
+def check_1m_write_back(engine):
+    """FLUDE writes no cache row at 2 local steps (its hints pick devices
+    whose cache interval is 3-4 steps), so the write-back at N = 1M is
+    shown by a SAFA run of the same engine (random online clients, some
+    with an interval of 1-2 steps): the store must hold rows, each
+    finite and non-zero, and the host bytes must count them."""
+    import numpy as np
+    store = engine.cache_store
+    hist = engine.run("safa", diagnostics=False)
+    torch.cuda.synchronize()
+    mem = engine.server_step_memory()
+    ids = np.array([i for i in range(store.num_clients)
+                    if store.stamp_of(i) is not None], np.int64)
+    block = store.pack(store.gather(ids)) if len(ids) else None
+    log(f"[cohort 1M] safa, {ROUNDS_1M} rounds: selected {hist.selected};"
+        f" received {hist.received}; store {len(store)} rows "
+        f"({mem['cache_host_bytes']} bytes on the host); transfers "
+        f"{engine.transfer_stats.snapshot()}")
+    if not len(ids) or len(ids) != len(store) \
+            or mem["cache_host_bytes"] != len(store) * store.row_bytes \
+            or not np.isfinite(block).all() \
+            or not np.abs(block).max(axis=1).all():
+        raise RuntimeError(f"cohort 1M: safa left {len(store)} rows "
+                           f"({len(ids)} stamped), host bytes "
+                           f"{mem['cache_host_bytes']}")
+    if engine.transfer_stats.sync_copies:
+        raise RuntimeError("cohort 1M: a synchronous copy")
+
+
 def phase_profile(engine, policy, tag, rounds=3, top=12):
     """Where a round's time goes: ``torch.profiler`` over a short
     run after the timed one, with spans around the engine's trainer,
@@ -1142,6 +1532,12 @@ def phase_profile(engine, policy, tag, rounds=3, top=12):
         return run
 
     spans = ("trainer", "server_step", "eval")
+    stream = getattr(engine, "_cache_stream", None)
+    if stream is not None:
+        # the offload stream's two calls a round, with their waits
+        stream.fetch = spanned("cache_fetch", stream.fetch)
+        stream.stage = spanned("cache_stage", stream.stage)
+        spans += ("cache_fetch", "cache_stage")
     engine._server_steps = {k: spanned("server_step", v)
                             for k, v in engine._server_steps.items()}
     if get_dynamics(engine.fl_cfg.dynamics).host_side:
@@ -1505,13 +1901,15 @@ def main():
                "ssm_scan": phase_ssm_scan(),
                "rwkv6_scan": phase_rwkv6_scan()}
     data, main = phase_main_path(counters)
-    paths = {"main": main, **phase_robust(data, counters),
-             **phase_dynamics(data, counters)}
+    dyn, dyn_rows, dyn_peaks = phase_dynamics(data, counters)
+    paths = {"main": main, **phase_robust(data, counters), **dyn,
+             **phase_cohort(data, counters, dyn_rows, dyn_peaks),
+             "cohort 1M": phase_cohort_1m(counters)}
     for run in SERVE_RUNS:
         paths[run[0]] = phase_serve(*run, counters)
     for k, entry in entries.items():
-        # launches over the driven paths: the FL main, robust and
-        # dynamics runs and the four serve runs
+        # launches over the driven paths: the FL main, robust, dynamics
+        # and cohort runs and the four serve runs
         by_path = {p: n[k] for p, n in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

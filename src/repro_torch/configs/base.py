@@ -255,7 +255,12 @@ class FLConfig:
     adversary_params: Tuple[Tuple[str, Any], ...] = ()
     mesh_shape: Optional[Tuple[int, ...]] = None
     donate_buffers: bool = False
+    # compact cohorts: a static X runs each device-loop round over the
+    # selected clients' (X, ...) rows instead of all N
     cohort_size: Optional[int] = None
+    # None | "host" (the (N, D) C3 cache params live in a host store, the
+    # card keeps (N,) metadata and the round's (X, D) block) | "discard"
+    # ("host", and rows older than cache_staleness_bound rounds dropped)
     cache_offload: Optional[str] = None
     cache_staleness_bound: int = 32
     dynamics: str = "bernoulli_host"
@@ -292,12 +297,30 @@ class FLConfig:
                 f"FLConfig.dynamics must be a registered dynamics "
                 f"process ({', '.join(available_dynamics())}), got "
                 f"{self.dynamics!r}")
+        if self.cache_offload not in (None, "host", "discard"):
+            raise ValueError(
+                f"FLConfig.cache_offload must be None, 'host' or "
+                f"'discard', got {self.cache_offload!r}")
+        if self.cache_offload is not None and self.cohort_size is None:
+            raise ValueError(
+                f"FLConfig.cache_offload={self.cache_offload!r} requires "
+                f"cohort_size — only the compact cohort path knows which "
+                f"(X, D) cache slots a round touches; set cohort_size or "
+                f"keep cache_offload=None for the resident pytree")
+        x = self.cohort_size
+        if x is not None:
+            if not isinstance(x, int) or isinstance(x, bool) or x < 1:
+                raise ValueError(
+                    f"FLConfig.cohort_size must be a positive int or None, "
+                    f"got {x!r}")
+            if x > self.num_clients:
+                raise ValueError(
+                    f"FLConfig.cohort_size ({x}) exceeds num_clients "
+                    f"({self.num_clients}) — a cohort cannot be larger "
+                    f"than the fleet; use cohort_size=None for the full "
+                    f"scan")
         if self.selection_mode != "mean":
             _not_ported("selection_mode", "#18 (Thompson selection)")
-        if self.cohort_size is not None:
-            _not_ported("cohort_size", "#10 (compact cohorts)")
-        if self.cache_offload is not None:
-            _not_ported("cache_offload", "#12 (host cache offload)")
         if self.telemetry is not None:
             _not_ported("telemetry", "#13 (telemetry)")
         if self.debug_checks:

@@ -14,8 +14,10 @@ write/clear.  ``host_round_cut`` is the numpy round termination (lines
 13–16) the host loop runs, ``make_round_cut`` its float32 device form for
 the device dynamics loop.
 
-The port runs the full-scan server step; the cohort and offload variants
-belong to ROADMAP Queue A #10 and #12.
+The server step and the device cut each have a compact-cohort variant
+(``cohort_size=`` / ``scatter_num_clients=``) over the round's (X,)
+selected rows, and the server step a host-offload variant
+(``cache_offload=``) whose caches carry metadata only.
 """
 from __future__ import annotations
 
@@ -138,8 +140,11 @@ def make_server_round_step(template_params, *, local_steps: int,
                            adversary_scale: Optional[float] = None,
                            staleness_discount: float = 1.0,
                            uses_cache: bool = True,
-                           block_c: int = 8, block_d: int = 2048):
-    """Build the per-round server step (full scan).
+                           block_c: int = 8, block_d: int = 2048,
+                           cohort_size: Optional[int] = None,
+                           cache_offload: Optional[str] = None):
+    """Build the per-round server step: the full scan, or with
+    ``cohort_size`` its compact-cohort variant.
 
     The returned callable runs everything the server does between "uploads
     arrived" and "next round plans": aggregation weights (sample-count ×
@@ -163,7 +168,24 @@ def make_server_round_step(template_params, *, local_steps: int,
     ``u' = g + adversary_scale * (u - g)`` — the model-poisoning channel
     of ``repro_torch.fleet.adversary``.  Trailing arguments after ``rnd``
     come in the order: malicious mask, then rule state.
+
+    ``cohort_size`` (X): the trainer outputs, ``fail`` and ``received``
+    are (X,)-leading cohort blocks and the step takes the (X,) cohort
+    index ``idx`` after ``cached_steps``; the (N,) plan masks, caches,
+    sample counts, weight multipliers, malicious mask and rule state are
+    gathered at ``idx`` inside, and the caches and the rule state
+    scattered back in place (their (N,) tensors must be ``spare_rows``
+    views).  ``cache_offload`` (needs ``cohort_size``): the caches carry
+    metadata only (an empty params dict), ``cache_params`` is not an
+    argument (the engine streams the trainer's cache block to the host
+    store itself), and the step returns ``(new_global, new_caches, write,
+    base_round[, rule_state])``: the (X,) write mask and round stamps the
+    write-back needs.  Both variants run the same weight, aggregation and
+    metadata ops, so offload rows equal resident rows bit for bit.
     """
+    if cache_offload is not None and cohort_size is None:
+        raise ValueError("cache_offload requires the cohort server-step "
+                         "variant (pass cohort_size)")
     layout = AGG.pack_layout(template_params)
     rule = None if agg_rule in (None, "mean") else \
         make_agg_rule(agg_rule, agg_rule_params)
@@ -218,6 +240,101 @@ def make_server_round_step(template_params, *, local_steps: int,
         malicious = extra[0] if has_adv else None
         rule_state = extra[-1] if stateful else None
         return malicious, rule_state
+
+    def cohort_step(global_params, caches, final_params, cache_params,
+                    cached_steps, idx, selected, fail, received, resume,
+                    n_samples, extra_weights, rnd, extra):
+        """The shared body of both cohort variants; ``cache_params`` is
+        None under offload.  Returns ``(new_global, caches, write,
+        base_round, rule_state)``."""
+        malicious, rule_state = split_extra(extra)
+        rnd = torch.full((), rnd, dtype=torch.int32, device=idx.device)
+
+        def take(a, fill):
+            return C.take_rows(a, idx, fill)
+
+        selected = take(selected, False)              # (X,)
+        resume = take(resume, False)
+        stamp = take(caches.round_stamp, -1)          # (X,)
+        base_stale = torch.where(resume & (stamp >= 0),
+                                 (rnd - stamp).clamp_min(0),
+                                 0).to(torch.float32)
+        w = AGG.aggregation_weights(
+            received, n_samples=take(n_samples, 0.0), staleness=base_stale,
+            staleness_discount=staleness_discount) \
+            * take(extra_weights, 0.0)
+        if has_adv:
+            final_params = poison(final_params, global_params,
+                                  take(malicious, False))
+        state_x = take(rule_state, 0.0) if stateful else None
+        new_global, state_x = aggregate(global_params, final_params, w,
+                                        state_x)
+        if stateful:
+            C.scatter_rows(rule_state, idx, state_x)
+        write = base_round = None
+        if uses_cache:
+            prior_steps = torch.round(take(caches.progress, 0.0)
+                                      * local_steps).to(torch.int32)
+            total_cached = torch.where(resume, prior_steps, 0) \
+                + cached_steps
+            write = selected & fail & (total_cached > 0)
+            base_round = torch.where(resume & (stamp >= 0), stamp, rnd)
+            # under offload the params dict is empty: the same writes
+            # touch only progress and round_stamp
+            caches = C.scatter_write_cache(
+                caches, idx, write,
+                caches.params if cache_params is None else cache_params,
+                (total_cached / max(local_steps, 1)).to(torch.float32),
+                base_round)
+            caches = C.scatter_clear_cache(caches, idx, received)
+        return new_global, caches, write, base_round, rule_state
+
+    if cohort_size is not None and cache_offload is not None:
+        def server_round_step_cohort_offload(
+                global_params, caches: C.ClientCaches, final_params,
+                cached_steps, idx, selected, fail, received, resume,
+                n_samples, extra_weights, rnd, *extra):
+            """-> (new_global, new_caches, write, base_round
+            [, new_rule_state]).  ``caches`` is metadata only; ``write``
+            and ``base_round`` are the (X,) cache-write mask and round
+            stamps the engine stages to the host store."""
+            new_global, caches, write, base_round, rule_state = \
+                cohort_step(global_params, caches, final_params, None,
+                            cached_steps, idx, selected, fail, received,
+                            resume, n_samples, extra_weights, rnd, extra)
+            if write is None:
+                write = torch.zeros((cohort_size,), dtype=torch.bool,
+                                    device=idx.device)
+                base_round = torch.full((cohort_size,), -1,
+                                        dtype=torch.int32,
+                                        device=idx.device)
+            if stateful:
+                return new_global, caches, write, base_round, rule_state
+            return new_global, caches, write, base_round
+
+        return server_round_step_cohort_offload
+
+    if cohort_size is not None:
+        def server_round_step_cohort(global_params, caches: C.ClientCaches,
+                                     final_params, cache_params,
+                                     cached_steps, idx, selected, fail,
+                                     received, resume, n_samples,
+                                     extra_weights, rnd, *extra):
+            """-> (new_global_params, new_caches[, new_rule_state]).
+
+            final_params / cache_params / cached_steps and ``fail`` /
+            ``received`` are (X,)-leading cohort blocks; ``idx`` is the
+            (X,) cohort index (sentinel-padded); ``selected`` / ``resume``
+            are the (N,) plan masks, gathered here."""
+            new_global, caches, _, _, rule_state = cohort_step(
+                global_params, caches, final_params, cache_params,
+                cached_steps, idx, selected, fail, received, resume,
+                n_samples, extra_weights, rnd, extra)
+            if stateful:
+                return new_global, caches, rule_state
+            return new_global, caches
+
+        return server_round_step_cohort
 
     def server_round_step(global_params, caches: C.ClientCaches,
                           final_params, cache_params, cached_steps,
@@ -292,8 +409,9 @@ def host_round_cut(times, quorum, round_deadline: float,
 
 
 def make_round_cut(num_clients: int, round_deadline: float,
-                   waits_for_stragglers: bool):
-    """Build the device round cut (Algorithm 2 lines 13–16), full scan.
+                   waits_for_stragglers: bool,
+                   scatter_num_clients: Optional[int] = None):
+    """Build the device round cut (Algorithm 2 lines 13–16).
 
     Semantically :func:`host_round_cut`, in float32 on the engine's
     device, as the reference's ``make_round_cut(..., with_counts=True)``.
@@ -316,6 +434,16 @@ def make_round_cut(num_clients: int, round_deadline: float,
     ``quorum`` is a 0-d tensor (a policy that plans on the device) or a
     python number.  Nothing is read back to the host: the order statistic
     is taken with ``index_select`` on a device index.
+
+    ``scatter_num_clients`` (N): the compact-cohort variant.
+    ``num_clients`` is then the cohort size X, ``times`` / ``success``
+    are (X,) blocks, the callable takes the (X,) cohort index after
+    ``success`` and returns ``(t_cut, received, received_full, capped,
+    counts...)`` with ``received_full`` the (N,) receive mask.  Every
+    finite time belongs to a selected client and selected ⊆ cohort, so
+    the cut over the X rows equals the cut over all N; the received
+    count of the (X,) block is the fleet's (sentinel rows never
+    receive).
     """
     deadline = float(round_deadline)
     # nearest float32: what a capped round's uploads are compared against
@@ -332,7 +460,7 @@ def make_round_cut(num_clients: int, round_deadline: float,
         return torch.index_select(order, 0,
                                   i.clamp(0, last).reshape(1).long())[0]
 
-    def round_cut(times, quorum, success, online, distribute, selected):
+    def cut_core(times, quorum, success):
         if isinstance(quorum, torch.Tensor):
             q = torch.ceil(quorum.to(torch.float32)).to(torch.int32)
         else:
@@ -349,10 +477,27 @@ def make_round_cut(num_clients: int, round_deadline: float,
         capped = t_raw > d_flag
         t_cut = torch.where(capped, d_cmp, t_raw)
         received = success & (times <= t_cut)
+        return t_cut, received, capped
+
+    def round_cut(times, quorum, success, online, distribute, selected):
+        t_cut, received, capped = cut_core(times, quorum, success)
         return (t_cut, received, capped, received.sum(),
                 (distribute & online).sum(), selected.sum())
 
-    return round_cut
+    if scatter_num_clients is None:
+        return round_cut
+    n = int(scatter_num_clients)
+
+    def round_cut_cohort(times, quorum, success, idx, online, distribute,
+                         selected):
+        t_cut, received, capped = cut_core(times, quorum, success)
+        received_full = C.scatter_rows(
+            C.spare_rows(n, (), False, torch.bool, idx.device), idx,
+            received)
+        return (t_cut, received, received_full, capped, received.sum(),
+                (distribute & online).sum(), selected.sum())
+
+    return round_cut_cohort
 
 
 def update_after_round(state: FludeState, plan: FludePlan,

@@ -34,7 +34,11 @@
  *     SM, and the partials add only 2 * n_chunks * D * 4 bytes of traffic
  *     (0.6% at the main-path shape).  On the H100 this measured faster
  *     than 2, 3 or 4 blocks an SM (more chunks, more partials) and than
- *     64 or 256 bytes in flight a thread;
+ *     64 or 256 bytes in flight a thread.  At the cohort shape C = 512
+ *     two or four times the chunks, or narrower column blocks, measured
+ *     within 10% of it (tools/fed_agg_probe.py), and summing the
+ *     partials in the last block of each column block, instead of in a
+ *     second launch, measured slower;
  *   - no padding: the ragged edges of C and D are masked, offsets are
  *     64-bit.
  *
@@ -44,9 +48,13 @@
  * is 0 are read like any other, so a NaN in one reaches the output as it
  * does in fed_agg_ref (0 * NaN).
  *
- * Not yet done (see ROADMAP): skipping rows whose weight is 0 (on the
- * full-scan path only the received clients, at most clients_per_round of C,
- * carry weight).
+ * Rows whose weight is 0 are not skipped.  The compact-cohort path
+ * (FLConfig.cohort_size = X) hands the kernel only the (X, D) rows it
+ * gathered for the round's selected clients, at most X of which carry
+ * weight: at the main path's X = 512 that is 45.1 MB, not the full scan's
+ * 361 MB, and the wrapper's split still gives whole block_c chunks (12 of
+ * 40-48 rows at D = 22,026).  On the full scan only the received clients,
+ * at most clients_per_round of C, carry weight (see ROADMAP).
  */
 #include <cuda_runtime.h>
 #include <stdint.h>

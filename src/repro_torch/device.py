@@ -1,6 +1,9 @@
 """The device rule shared by the port's entry points (``FleetEngine``,
-``run_fl``, ``launch.serve``)."""
+``run_fl``, ``launch.serve``), and the one seam through which the FL
+round loop waits for the card (``host_readback``)."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -15,3 +18,22 @@ def resolve_device(device) -> torch.device:
             "repro_torch runs on the CUDA card by default and this "
             "machine has none; pass device='cpu' to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def host_readback(device):
+    """A deliberate wait of the host for ``device``: lifts ``torch.cuda``'s
+    sync debug mode for its extent and restores it, so a run under
+    ``set_sync_debug_mode("error")`` fails on any other wait for the
+    card.  The FL round loop waits only through here: the round ledger's
+    resolve, the run-end read-back, and the offload stream's two reads a
+    round (``core/cache_store.py``)."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)

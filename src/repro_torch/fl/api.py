@@ -14,6 +14,8 @@ The server policy loop speaks three typed dataclasses:
 
 A ``Policy`` holds static configuration; its mutable state is explicit and
 threaded through ``plan``/``observe`` so the engine owns the loop.
+``cohort_index`` / ``cohort_overflow`` turn a plan's selection mask into
+the compact-cohort round's (X,) index.
 Policies register by name with ``@register_policy`` and are built with
 ``make_policy``.
 """
@@ -37,6 +39,31 @@ def to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def cohort_index(selected, cohort_size: int) -> torch.Tensor:
+    """Cohort index of a selection mask: the ascending ids of the
+    selected clients, padded to the static ``cohort_size`` with the
+    out-of-range sentinel N (= ``selected.shape[0]``); int64 on the
+    mask's device.
+
+    The reference's ``jnp.flatnonzero(sel, size=X, fill_value=N)`` with
+    fixed shapes and no read-back: entry k is the first position where
+    the running count of selected clients reaches k + 1
+    (``searchsorted`` on the cumulative sum), and N where it never
+    does.  Past ``cohort_size`` selections the index keeps the lowest
+    ids — pair with :func:`cohort_overflow`."""
+    sel = torch.as_tensor(selected).to(torch.bool)
+    counts = torch.cumsum(sel, 0)
+    want = torch.arange(1, cohort_size + 1, dtype=counts.dtype,
+                        device=counts.device)
+    return torch.searchsorted(counts, want)
+
+
+def cohort_overflow(selected, cohort_size: int) -> torch.Tensor:
+    """0-d bool tensor: did the plan select more clients than the static
+    cohort holds (did :func:`cohort_index` truncate)?"""
+    return torch.as_tensor(selected).sum() > cohort_size
 
 
 def _as_bool_mask(x):
@@ -186,6 +213,11 @@ class RoundPlan:
                     "RoundPlan.agg_weights must be finite and >= 0")
         return self
 
+    def cohort_index(self, cohort_size: int) -> torch.Tensor:
+        """This plan's cohort index (module-level :func:`cohort_index`):
+        ascending selected ids padded with the sentinel N."""
+        return cohort_index(self.selected, cohort_size)
+
 
 @dataclasses.dataclass(frozen=True)
 class RoundReport:
@@ -245,6 +277,10 @@ class Policy:
     name = "base"
     uses_cache = False            # wants the C3 client cache machinery
     waits_for_stragglers = True   # sync designs idle-wait to the deadline
+    # static trait: every plan selects at most FLConfig.clients_per_round
+    # clients (flude, random, oort, safa, fedsea); the select-all designs
+    # (mifa, asyncfeded) leave it False — their bound is the fleet
+    selects_at_most_clients_per_round = False
 
     def __init__(self, sim_cfg: SimConfig, fl_cfg: FLConfig,
                  fleet: Optional[Fleet] = None, device="cpu"):
@@ -256,6 +292,14 @@ class Policy:
 
     def init_state(self) -> Any:
         return None
+
+    def selection_bound(self) -> int:
+        """Static upper bound on any plan's selected count, which the
+        engine checks ``FLConfig.cohort_size`` against before a run."""
+        n = self.fl_cfg.num_clients
+        if self.selects_at_most_clients_per_round:
+            return min(self.fl_cfg.clients_per_round, n)
+        return n
 
     def plan(self, state: Any,
              obs: RoundObservation) -> Tuple[Any, RoundPlan]:

@@ -1,10 +1,10 @@
 """FleetEngine: the FL round loop behind the typed policy API.
 
-The port of ``repro.fl.engine``, full scan, one device.  The engine owns
-the all-fleet local trainer, the per-round server step (weights, the
-adversary's poison, packed aggregation under the configured rule through
-the hand-written ``fed_agg`` and ``residual_norms`` kernels, C3 cache
-bookkeeping) and the fleet simulator; policies are ``plan``/``observe``
+The port of ``repro.fl.engine`` on one device.  The engine owns the local
+trainer, the per-round server step (weights, the adversary's poison,
+packed aggregation under the configured rule through the hand-written
+``fed_agg`` and ``residual_norms`` kernels, C3 cache bookkeeping) and
+the fleet simulator; policies are ``plan``/``observe``
 transitions over ``RoundPlan``/``RoundReport``.
 
 ``FLConfig.dynamics`` picks the round loop.  ``bernoulli_host`` (the
@@ -15,7 +15,9 @@ draw, workload, failures, timing model and the round cut run on the
 engine's device, History bookkeeping is deferred through a
 ``_RoundLedger``, and ``FLConfig.pipeline_depth`` > 1 lets the host queue
 round k+1 while round k still runs on the card.  Rows are the same at
-every depth.
+every depth.  On that loop ``FLConfig.cohort_size`` runs each round over
+the selected clients' (X, ...) rows, and ``FLConfig.cache_offload`` keeps
+the C3 cache params on the host (``core/cache_store.py``).
 
 Global params and client caches stay on the engine's device across
 rounds.  The engine runs on the CUDA card unless the caller passes
@@ -23,7 +25,6 @@ rounds.  The engine runs on the CUDA card unless the caller passes
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, List, Optional, Union
@@ -31,16 +32,20 @@ from typing import Any, Callable, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.core import aggregation as AGG
 from repro_torch.core import caching as C
 from repro_torch.core import round as R
+from repro_torch.core.cache_store import (CohortCacheStream, HostCacheStore,
+                                          TransferStats)
 from repro_torch.core.agg_rules import make_agg_rule
 from repro_torch.configs.base import FLConfig
 from repro_torch.data.synthetic import FederatedClassification
-from repro_torch.device import resolve_device
+from repro_torch.device import host_readback, resolve_device
 from repro_torch.fl import classifier as CLF
 from repro_torch.fl import policies as _builtin_policies  # noqa: F401
 from repro_torch.fl.api import (Policy, RoundObservation, RoundReport,
-                                make_policy, to_host)
+                                cohort_index, cohort_overflow, make_policy,
+                                to_host)
 from repro_torch.fl.simulator import Fleet, SimConfig, place_per_client
 from repro_torch.fleet import (draw_noise, get_dynamics, make_adversary,
                                make_dynamics)
@@ -54,7 +59,8 @@ BIG = 1 << 20
 # ---------------------------------------------------------------------------
 
 def make_trainer(sim_cfg: SimConfig, data: FederatedClassification,
-                 device="cpu", dynamics_features=None):
+                 device="cpu", dynamics_features=None,
+                 cohort_size: Optional[int] = None):
     """Build the all-fleet local trainer over the client training set,
     placed once on ``device``.
 
@@ -71,9 +77,22 @@ def make_trainer(sim_cfg: SimConfig, data: FederatedClassification,
     interruption points (from the ``FleetDraw`` variates) and the
     per-device timing model run with the training on the device, so
     nothing is drawn on the host and nothing (N,)-sized is uploaded per
-    round.  The cohort and offload variants belong to ROADMAP Queue A #10
-    and #12.
+    round.
+
+    ``cohort_size`` (X, dynamics variant only): the compact-cohort round
+    body (``train_cohort_dyn``).  Given the cohort index (``cohort_index``
+    of the plan's selection mask), the clients' data, caches, draw and
+    plan rows are gathered into (X, ...) blocks, and the local steps run
+    over X rows instead of N.  Under host offload the caller hands in the
+    cohort's (X, ...) cache params, fetched from the host store, and
+    ``caches`` carry metadata only; every other op is the resident
+    path's, so its outputs are the same.  It returns the (X,) blocks the
+    cohort cut and server step take and (N,) report views for the
+    policies.
     """
+    if cohort_size is not None and dynamics_features is None:
+        raise ValueError("cohort_size requires the dynamics trainer "
+                         "variant (pass dynamics_features)")
     device = torch.device(device)
     x_all = torch.as_tensor(data.x, dtype=torch.float32, device=device)
     y_all = torch.as_tensor(data.y, device=device).long()
@@ -156,17 +175,12 @@ def make_trainer(sim_cfg: SimConfig, data: FederatedClassification,
     # float32 reciprocal of the constant
     inv_steps = float(np.float32(1.0) / np.float32(max(max_steps, 1)))
 
-    def train_all_dyn(global_params, caches, draw, selected, distribute,
-                      resume, base_steps, cache_every):
-        """Dynamics round body: workload + failures + training + timing.
-
-        draw:       ``repro_torch.fleet.FleetDraw`` of this round.
-        selected/distribute/resume: (N,) bool plan masks.
-        base_steps: (N,) int planned steps before resume credit.
-        Returns (final_params, cache_params, cached_steps, mean_loss,
-        steps_needed, fail, success, times) — times in simulated seconds,
-        inf where the device never uploads.
-        """
+    def round_body(x_arr, y_arr, steps_per_sec, global_params, caches,
+                   draw, selected, distribute, resume, base_steps,
+                   cache_every):
+        """Workload + failures + training + timing over one client axis:
+        the full fleet, or a gathered cohort block (every input aligned
+        along dim 0)."""
         # clamp to the scan length: an oversized steps_override would
         # otherwise charge un-run steps in the timing model below
         base_steps = base_steps.clamp_max(max_steps)
@@ -178,7 +192,7 @@ def make_trainer(sim_cfg: SimConfig, data: FederatedClassification,
         stop = torch.where(fail, draw.interruption_step(steps_needed), BIG)
         start_params = C.resume_params(caches, global_params, resume)
         params, cache, cached_steps, mean_loss = local_scan(
-            x_all, y_all, start_params, steps_needed, stop, cache_every)
+            x_arr, y_arr, start_params, steps_needed, stop, cache_every)
         # timing model (Algorithm 2 lines 13–16) on the round's bandwidth;
         # tensor / tensor divides exactly, as XLA does here (a python
         # number over a tensor is a reciprocal times the number in torch)
@@ -193,7 +207,67 @@ def make_trainer(sim_cfg: SimConfig, data: FederatedClassification,
         return (params, cache, cached_steps, mean_loss, steps_needed, fail,
                 success, times)
 
-    return train_all_dyn
+    if cohort_size is None:
+        def train_all_dyn(global_params, caches, draw, selected,
+                          distribute, resume, base_steps, cache_every):
+            """Dynamics round body: workload + failures + training +
+            timing.
+
+            draw:       ``repro_torch.fleet.FleetDraw`` of this round.
+            selected/distribute/resume: (N,) bool plan masks.
+            base_steps: (N,) int planned steps before resume credit.
+            Returns (final_params, cache_params, cached_steps, mean_loss,
+            steps_needed, fail, success, times) — times in simulated
+            seconds, inf where the device never uploads.
+            """
+            return round_body(x_all, y_all, steps_per_sec, global_params,
+                              caches, draw, selected, distribute, resume,
+                              base_steps, cache_every)
+
+        return train_all_dyn
+
+    X = int(cohort_size)
+    N = x_all.shape[0]
+
+    def train_cohort_dyn(global_params, caches, cache_params_x, idx, draw,
+                         selected, distribute, resume, base_steps,
+                         cache_every):
+        """Compact-cohort dynamics round body: gather → (X, ...) round
+        body → (N,) report views.  ``idx`` is the (X,) cohort index;
+        ``cache_params_x`` is None on the resident path (the cohort's
+        slots are gathered from the (N, ...) caches) or the fetched
+        (X, ...) block under offload; the other inputs are
+        ``train_all_dyn``'s (N,) ones.  Returns ``(final_params_x,
+        cache_params_x, cached_steps_x, mean_loss_x, steps_needed_x,
+        fail_x, success_x, times_x, losses_n, fail_n, times_n)``."""
+        def take(a, fill):
+            return C.take_rows(a, idx, fill)
+
+        def scatter_n(values, fill):
+            """An (N,) report view: the cohort rows at ``idx``, ``fill``
+            elsewhere (what the full scan computes for an idle
+            client)."""
+            out = C.spare_rows(N, (), fill, values.dtype, values.device)
+            return C.scatter_rows(out, idx, values)
+
+        if cache_params_x is None:
+            caches_x = C.gather_caches(caches, idx)
+        else:
+            caches_x = C.ClientCaches(cache_params_x,
+                                      take(caches.progress, 0.0),
+                                      take(caches.round_stamp, -1))
+        (params, cache, cached_steps, mean_loss, steps_needed, fail,
+         success, times) = round_body(
+            take(x_all, 0.0), take(y_all, 0), take(steps_per_sec, 1.0),
+            global_params, caches_x, draw.take(idx),
+            take(selected, False), take(distribute, False),
+            take(resume, False), take(base_steps, 0),
+            take(cache_every, 1))
+        return (params, cache, cached_steps, mean_loss, steps_needed, fail,
+                success, times, scatter_n(mean_loss, 0.0),
+                scatter_n(fail, False), scatter_n(times, math.inf))
+
+    return train_cohort_dyn
 
 
 # ---------------------------------------------------------------------------
@@ -270,24 +344,6 @@ class History:
         return float("inf")
 
 
-@contextlib.contextmanager
-def host_readback(device):
-    """A deliberate host read-back on ``device``: lifts
-    ``torch.cuda``'s sync debug mode for its extent and restores it, so a
-    run under ``set_sync_debug_mode("error")`` fails on any other wait for
-    the card.  The engine reads back only through here: the round
-    ledger's resolve and the run-end read-back."""
-    if torch.device(device).type != "cuda":
-        yield
-        return
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
-
-
 class _RoundLedger:
     """Deferred History bookkeeping of the device round loop.
 
@@ -305,11 +361,18 @@ class _RoundLedger:
     The float64 sums of comm and wall clock happen here on the host over
     exact values — a capped round bills the exact configured
     ``round_deadline`` — so rows are the same at every depth.
+
+    A compact-cohort round also pushes its overflow flag (more clients
+    selected than ``cohort_size``): it rides the same read-back, and
+    ``resolve`` raises a ``RuntimeError`` naming the policy when it is
+    set — under ``pipeline_depth`` d up to d - 1 rounds after the round.
     """
 
     def __init__(self, hist: History, model_mb: float, round_deadline: float,
-                 progress: Optional[Callable], n_rounds: int, device):
+                 progress: Optional[Callable], n_rounds: int, device,
+                 cohort_info: Optional[tuple] = None):
         self.hist = hist
+        self.cohort_info = cohort_info    # (policy name, cohort size)
         self.model_mb = model_mb
         self.round_deadline = round_deadline
         self.progress = progress
@@ -321,10 +384,12 @@ class _RoundLedger:
         self.acc = float("nan")
 
     def push(self, rnd, evaluated, duration, capped, received, downloads,
-             selected, acc=None):
+             selected, acc=None, overflow=None):
         """Queue one round's device scalars (``acc`` only when the round
-        was evaluated)."""
+        was evaluated, ``overflow`` only on a compact-cohort round)."""
         vals = [duration, capped, received, downloads, selected]
+        if overflow is not None:
+            vals.append(overflow)
         if evaluated:
             vals.append(acc)
         packed = torch.stack([v.to(torch.float64) for v in vals])
@@ -336,22 +401,31 @@ class _RoundLedger:
             event = torch.cuda.Event()
             event.record()
             packed = host
-        self.pending.append((rnd, evaluated, packed, event))
+        self.pending.append((rnd, evaluated, overflow is not None, packed,
+                             event))
 
     def resolve(self, keep: int = 0):
         """Read back all but the newest ``keep`` rounds."""
         while len(self.pending) > keep:
-            rnd, evaluated, packed, event = self.pending.pop(0)
+            rnd, evaluated, cohort, packed, event = self.pending.pop(0)
             with host_readback(self.device):
                 if event is not None:
                     event.synchronize()
                 vals = packed.tolist()
             duration, capped, received, downloads, selected = vals[:5]
+            if cohort and vals[5]:
+                name, x = self.cohort_info
+                raise RuntimeError(
+                    f"cohort overflow in round {rnd}: policy {name!r} "
+                    f"selected {int(selected)} clients but "
+                    f"FLConfig.cohort_size={x} — the compact round "
+                    f"trained a truncated cohort.  Raise cohort_size "
+                    f"(or set it to None for the full scan).")
             self.cum_comm += (int(downloads) + int(received)) \
                 * self.model_mb
             self.cum_time += self.round_deadline if capped else duration
             if evaluated:
-                self.acc = vals[5]
+                self.acc = vals[-1]
             hist = self.hist
             hist.acc.append(self.acc)
             hist.eval_mask.append(evaluated)
@@ -383,6 +457,12 @@ class FleetEngine:
     reference's parameters — a test hook).  Without one the engine draws
     the classifier from a ``torch.Generator`` seeded with
     ``sim_cfg.seed + 1``: the reference's law, not its numbers.
+
+    ``FLConfig.cohort_size`` (X) runs each device-loop round over the
+    selected clients' (X, ...) rows; ``FLConfig.cache_offload`` keeps the
+    C3 cache params in ``engine.cache_store`` on the host and streams the
+    cohort's (X, D) block each round (``engine.transfer_stats`` counts
+    the copies).  Neither changes a History row.
     """
 
     def __init__(self, data: FederatedClassification, sim_cfg: SimConfig,
@@ -422,6 +502,15 @@ class FleetEngine:
         self._server_steps = {}
         self._last_caches = None  # previous run's fleet caches (recycled)
         self.pipeline_depth = int(fl_cfg.pipeline_depth)
+        self.cohort = fl_cfg.cohort_size
+        self.offload = fl_cfg.cache_offload
+        if self.cohort is not None \
+                and get_dynamics(fl_cfg.dynamics).host_side:
+            raise ValueError(
+                f"FLConfig.cohort_size requires a device dynamics "
+                f"process, but {fl_cfg.dynamics!r} is host-side — the "
+                f"numpy round loop has no compact path (pick a device "
+                f"process, e.g. 'bernoulli', or set cohort_size=None)")
         # device dynamics (repro_torch.fleet): the process and its trainer
         # are memoized per (process, params), the per-run (N,) constants
         # and the round cut per policy trait — placed once and reused, so
@@ -451,6 +540,26 @@ class FleetEngine:
         self._n_samples = torch.full((fl_cfg.num_clients,),
                                      float(data.x.shape[1]),
                                      dtype=torch.float32, device=self.device)
+        # host-offloaded C3 caches: the (N, D) params live in a sparse host
+        # store, the card holds (N,) metadata and the round's (X, D) block
+        self.cache_store = None
+        self._cache_stream = None
+        self._zeros_x = None
+        self._transfer_stats = TransferStats()
+        if self.offload is not None:
+            bound = fl_cfg.cache_staleness_bound \
+                if self.offload == "discard" else None
+            self.cache_store = HostCacheStore(
+                self._template, fl_cfg.num_clients, staleness_bound=bound)
+            self._cache_stream = CohortCacheStream(
+                self.cache_store, self.cohort, self.device,
+                stats=self._transfer_stats)
+
+    @property
+    def transfer_stats(self) -> TransferStats:
+        """This engine's offload-stream transfer counters (all zero
+        without an offload stream)."""
+        return self._transfer_stats
 
     @property
     def trainer(self):
@@ -475,18 +584,24 @@ class FleetEngine:
     def _fresh_caches(self, template):
         """Empty (N, ...) C3 cache state for a new run.  The previous
         run's caches are reset in place: nothing outside the engine holds
-        them, and the fill reuses their O(N·D) buffers."""
+        them, and the fill reuses their O(N·D) buffers.  Under offload
+        the caches are (N,) metadata only, and the host store (with any
+        write-back still queued) is emptied."""
         spent, self._last_caches = self._last_caches, None
+        if self.offload is not None:
+            self._cache_stream.reset()
+            template = {}
         if spent is not None:
             return C.reset_caches(spent)
-        return C.init_caches(template, self.fl_cfg.num_clients)
+        return C.init_caches(template, self.fl_cfg.num_clients,
+                             device=self.device)
 
     def _server_step(self, uses_cache: bool):
         # keyed by everything that changes the step
         fl = self.fl_cfg
         key = (bool(uses_cache), fl.agg_impl, fl.agg_rule,
                fl.agg_rule_params, self._adv_scale, fl.staleness_discount,
-               fl.agg_block_c, fl.agg_block_d)
+               fl.agg_block_c, fl.agg_block_d, self.cohort, self.offload)
         if key not in self._server_steps:
             self._server_steps[key] = R.make_server_round_step(
                 self._template, local_steps=self.sim_cfg.local_steps,
@@ -495,18 +610,25 @@ class FleetEngine:
                 adversary_scale=self._adv_scale,
                 staleness_discount=fl.staleness_discount,
                 uses_cache=bool(uses_cache), block_c=fl.agg_block_c,
-                block_d=fl.agg_block_d)
+                block_d=fl.agg_block_d, cohort_size=self.cohort,
+                cache_offload=self.offload)
         return self._server_steps[key]
 
     # -- robust-aggregation state / adversary plumbing ----------------------
 
     def _init_rule_state(self):
         """Fresh per-run (N,) rule state (stateful rules only) on the
-        engine's device, threaded through the step like the caches."""
+        engine's device, threaded through the step like the caches.  With
+        a cohort it is a ``spare_rows`` view: the step scatters the
+        cohort's rows back in place."""
         if not self._agg_stateful:
             return None
-        return place_per_client(self._agg_rule.init_state(
-            self.fl_cfg.num_clients), self.device)
+        n = self.fl_cfg.num_clients
+        if self.cohort is None:
+            return place_per_client(self._agg_rule.init_state(n),
+                                    self.device)
+        return place_per_client(self._agg_rule.init_state(n + 1),
+                                self.device)[:n]
 
     def _step_extra(self, rule_state):
         """Trailing arguments of the server step: the malicious mask
@@ -517,6 +639,84 @@ class FleetEngine:
         if self._agg_stateful:
             extra += (rule_state,)
         return extra
+
+    def server_step_memory(self, uses_cache: bool = True) -> dict:
+        """Memory profile of the active server step (bytes).
+
+        With ``FLConfig.cohort_size`` the trainer outputs and the packed
+        aggregation buffer are (X, ...) blocks: ``packed_rows`` /
+        ``packed_buffer_bytes`` say which buffer the step packs.
+        ``rule_state_bytes`` is the stateful rule's (N,) vector (0 for
+        stateless rules).  ``cache_device_bytes`` / ``cache_host_bytes``
+        split the C3 caches: resident, all of the (N, ...) caches on the
+        device and none on the host; under ``cache_offload`` the device
+        holds (N,) metadata plus the round's (X, D) block, the host the
+        store's live rows.
+
+        ``peak_live_bytes``: no XLA memory analysis exists here, so it is
+        the bytes of the step's tensor inputs plus its outputs, each
+        storage counted once (the cohort steps write the caches in place
+        and return them), from one call of the step on representative
+        zero inputs — the same way on the CPU and on the card.  On the
+        card that call launches the step's kernels once."""
+        N = self.fl_cfg.num_clients
+        rows = N if self.cohort is None else int(self.cohort)
+        meta_only = self.offload is not None
+        dev = self.device
+        step = self._server_step(uses_cache)
+        caches = C.init_caches({} if meta_only else self._template, N,
+                               device=dev)
+        stacked = tree_map(lambda a: torch.zeros(
+            (rows,) + tuple(a.shape), dtype=a.dtype, device=dev),
+            self._template)
+        mask = torch.zeros((rows,), dtype=torch.bool, device=dev)
+        steps_i = torch.zeros((rows,), dtype=torch.int32, device=dev)
+        ones = torch.ones((N,), dtype=torch.float32, device=dev)
+        rule_state = self._init_rule_state()
+        if self.cohort is None:
+            args = (self._template, caches, stacked, stacked, steps_i, mask,
+                    mask, mask, mask, self._n_samples, ones, 0)
+        else:
+            idx = torch.arange(rows, device=dev)
+            mask_n = torch.zeros((N,), dtype=torch.bool, device=dev)
+            params = (stacked,) if meta_only else (stacked, stacked)
+            args = (self._template, caches, *params, steps_i, idx, mask_n,
+                    mask, mask, mask_n, self._n_samples, ones, 0)
+        args += self._step_extra(rule_state)
+        with torch.no_grad():
+            outs = step(*args)
+
+        def storages(tree, seen):
+            if isinstance(tree, torch.Tensor):
+                st = tree.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+            elif isinstance(tree, dict):
+                for v in tree.values():
+                    storages(v, seen)
+            elif isinstance(tree, (list, tuple)):
+                for v in tree:
+                    storages(v, seen)
+            return seen
+
+        def nbytes(t):
+            return t.numel() * t.element_size()
+
+        layout = AGG.pack_layout(self._template)
+        meta_bytes = nbytes(caches.progress) + nbytes(caches.round_stamp)
+        out = {"peak_live_bytes": sum(storages((args, outs), {}).values()),
+               "packed_rows": rows,
+               "packed_buffer_bytes": rows * layout.dim * 4,
+               "rule_state_bytes": 0 if rule_state is None
+               else nbytes(rule_state)}
+        if meta_only:
+            out["cache_device_bytes"] = meta_bytes \
+                + rows * self.cache_store.row_bytes
+            out["cache_host_bytes"] = self.cache_store.nbytes
+        else:
+            out["cache_device_bytes"] = meta_bytes + sum(
+                nbytes(l) for l in tree_leaves(caches.params))
+            out["cache_host_bytes"] = 0
+        return out
 
     def run(self, policy: Union[str, Policy], rounds: Optional[int] = None,
             time_budget: Optional[float] = None, eval_every: int = 1,
@@ -552,6 +752,16 @@ class FleetEngine:
         if isinstance(policy, str):
             policy = make_policy(policy, sim_cfg, fl_cfg, fleet,
                                  device=self.device)
+        if self.cohort is not None:
+            bound = policy.selection_bound()
+            if bound > self.cohort:
+                raise ValueError(
+                    f"policy {policy.name!r} can select up to {bound} "
+                    f"clients per round but FLConfig.cohort_size="
+                    f"{self.cohort} — the compact round path would "
+                    f"truncate its cohort.  Raise cohort_size to at "
+                    f"least {bound} (or set it to None for the full "
+                    f"scan).")
         host_side = get_dynamics(fl_cfg.dynamics).host_side
         if explore_uniforms is None and host_side:
             gen = torch.Generator().manual_seed(sim_cfg.seed)
@@ -779,8 +989,9 @@ class FleetEngine:
             process = make_dynamics(self.fl_cfg.dynamics, self.sim_cfg,
                                     features=feats, device=self.device,
                                     params=self.fl_cfg.dynamics_params)
-            trainer = make_trainer(self.sim_cfg, self.data, self.device,
-                                   dynamics_features=feats)
+            trainer = make_trainer(
+                self.sim_cfg, self.data, self.device,
+                dynamics_features=feats, cohort_size=self.cohort)
             self._dyn_cache[key] = (process, trainer)
         return self._dyn_cache[key]
 
@@ -812,11 +1023,19 @@ class FleetEngine:
                                 else np.asarray(arr, dtype), self.device)
 
     def _round_cut(self, waits_for_stragglers: bool):
-        """Memoized device round cut for one straggler trait."""
+        """Memoized device round cut for one straggler trait; with a
+        cohort it cuts the (X,) block and scatters the (N,) receive
+        mask."""
         key = bool(waits_for_stragglers)
         if key not in self._cut_fns:
-            self._cut_fns[key] = R.make_round_cut(
-                self.fl_cfg.num_clients, self.sim_cfg.round_deadline, key)
+            if self.cohort is None:
+                self._cut_fns[key] = R.make_round_cut(
+                    self.fl_cfg.num_clients, self.sim_cfg.round_deadline,
+                    key)
+            else:
+                self._cut_fns[key] = R.make_round_cut(
+                    self.cohort, self.sim_cfg.round_deadline, key,
+                    scatter_num_clients=self.fl_cfg.num_clients)
         return self._cut_fns[key]
 
     def _noise_sources(self, process, explore_uniforms, dynamics_noise):
@@ -853,27 +1072,112 @@ class FleetEngine:
                 return {k: place(v) for k, v in dynamics_noise(rnd).items()}
         return explore, noise
 
+    # -- compact cohort and host-offload round plumbing ---------------------
+
+    def _zero_cohort_block(self):
+        """An all-zero (X, ...) cache block, made once, for offload
+        policies that never cache: the resident path gathers the
+        never-written zero caches, so the trainer's inputs are the same
+        and no copy runs."""
+        if self._zeros_x is None:
+            X = int(self.cohort)
+            self._zeros_x = tree_map(
+                lambda a: torch.zeros((X,) + tuple(a.shape), dtype=a.dtype,
+                                      device=a.device), self._template)
+        return self._zeros_x
+
+    def _full_round(self, trainer, cut_fn, server_step, global_params,
+                    caches, rule_state, draw, plan, masks, rnd,
+                    uses_cache):
+        """One full-scan round: trainer, cut and server step over all N
+        rows."""
+        sel_d, dist_d, res_d, base_steps, cache_every, extra_w = masks
+        # workload + failure/interruption + masked local training +
+        # per-device timing
+        (final, cache_p, cached_steps, losses, _steps, fail, success,
+         times) = trainer(global_params, caches, draw, sel_d, dist_d, res_d,
+                          base_steps, cache_every)
+        # round termination on the device; a capped round comes back as a
+        # flag so the ledger bills the exact deadline
+        t_cut, received, capped, *counts = cut_fn(
+            times, plan.quorum, success, draw.online, dist_d, sel_d)
+        out = server_step(global_params, caches, final, cache_p,
+                          cached_steps, sel_d, fail, received, res_d,
+                          self._n_samples, extra_w, rnd,
+                          *self._step_extra(rule_state))
+        report = RoundReport(received=received, fail=fail, losses=losses,
+                             durations=times, duration=t_cut, rnd=rnd)
+        return out, report, t_cut, capped, counts, None
+
+    def _cohort_round(self, trainer, cut_fn, server_step, global_params,
+                      caches, rule_state, draw, plan, masks, rnd,
+                      uses_cache):
+        """One compact-cohort round: the trainer gathers the selected
+        rows into (X, ...) blocks and hands back (N,) report views; cut
+        and server step run over X rows.  Under offload the stream
+        fetches the cohort's cache rows by the index before the trainer
+        runs, and the round's write-back is queued after the server
+        step."""
+        sel_d, dist_d, res_d, base_steps, cache_every, extra_w = masks
+        idx = cohort_index(sel_d, self.cohort)
+        overflow = cohort_overflow(sel_d, self.cohort)
+        cache_x = None
+        if self.offload is not None:
+            cache_x = self._cache_stream.fetch(idx, rnd) if uses_cache \
+                else self._zero_cohort_block()
+        (final, cache_p, cached_steps, _losses_x, _steps_x, fail, success,
+         times, losses_n, fail_n, times_n) = trainer(
+            global_params, caches, cache_x, idx, draw, sel_d, dist_d, res_d,
+            base_steps, cache_every)
+        t_cut, received_x, received, capped, *counts = cut_fn(
+            times, plan.quorum, success, idx, draw.online, dist_d, sel_d)
+        if self.offload is None:
+            out = server_step(global_params, caches, final, cache_p,
+                              cached_steps, idx, sel_d, fail, received_x,
+                              res_d, self._n_samples, extra_w, rnd,
+                              *self._step_extra(rule_state))
+        else:
+            out = server_step(global_params, caches, final, cached_steps,
+                              idx, sel_d, fail, received_x, res_d,
+                              self._n_samples, extra_w, rnd,
+                              *self._step_extra(rule_state))
+            write_x, stamp_x = out[2], out[3]
+            out = out[:2] + out[4:]
+            if uses_cache:
+                # the write-back's copies start now; nothing waits for
+                # them until the next round's fetch
+                self._cache_stream.stage(idx, write_x, received_x, cache_p,
+                                         stamp_x)
+        report = RoundReport(received=received, fail=fail_n,
+                             losses=losses_n, durations=times_n,
+                             duration=t_cut, rnd=rnd)
+        return out, report, t_cut, capped, counts, overflow
+
     def _device_rounds(self, policy, state, fleet, hist, global_params,
                        caches, rule_state, explore_uniforms, dynamics_noise,
                        n_rounds, time_budget, eval_every, progress):
-        """The device round loop, the reference's ``_device_rounds`` (full
-        scan): the process step, the plan, the dynamics trainer, the round
-        cut and the server step run on the engine's device with no host
-        value between them.  History rows go through a ``_RoundLedger``,
-        read back when the pipeline depth, an eval-free ``progress`` tick,
-        a ``time_budget`` or the run end asks for them.  FLUDE plans on the
-        device; the host-side baselines read back at their own
-        boundary."""
+        """The device round loop, the reference's ``_device_rounds``: the
+        process step, the plan, the dynamics trainer, the round cut and
+        the server step run on the engine's device with no host value
+        between them — over all N rows, or with ``cohort_size`` over the
+        round's (X, ...) cohort (``_cohort_round``).  History rows go
+        through a ``_RoundLedger``, read back when the pipeline depth, an
+        eval-free ``progress`` tick, a ``time_budget`` or the run end asks
+        for them.  FLUDE plans on the device; the host-side baselines read
+        back at their own boundary."""
         sim_cfg = self.sim_cfg
+        uses_cache = policy.uses_cache
         process, trainer = self._dynamics_fns(fleet)
-        cache_every, ones_w, full_steps = self._dyn_consts(
-            fleet, policy.uses_cache)
-        server_step = self._server_step(policy.uses_cache)
+        cache_every, ones_w, full_steps = self._dyn_consts(fleet, uses_cache)
+        server_step = self._server_step(uses_cache)
         cut_fn = self._round_cut(policy.waits_for_stragglers)
+        round_fn = self._full_round if self.cohort is None \
+            else self._cohort_round
         explore, noise = self._noise_sources(process, explore_uniforms,
                                              dynamics_noise)
         ledger = _RoundLedger(hist, sim_cfg.model_mb, sim_cfg.round_deadline,
-                              progress, n_rounds, self.device)
+                              progress, n_rounds, self.device,
+                              cohort_info=(policy.name, self.cohort))
         fstate = process.init_state(noise("init"))
         draw = None
         for rnd in range(n_rounds):
@@ -883,49 +1187,45 @@ class FleetEngine:
                 if ledger.cum_time >= time_budget:
                     break
             fstate, draw = process.step(fstate, noise(rnd))
+            if self.offload == "discard" and uses_cache:
+                # the device half of the bound: stale metadata reset
+                # before planning reads it, as the store prunes its rows
+                caches = C.expire_caches(caches, rnd,
+                                         self.fl_cfg.cache_staleness_bound)
             state, plan = policy.plan(
                 state, RoundObservation(rnd, draw.online, caches,
                                         explore(rnd), draw=draw))
             self._validate_plan(plan)
-            sel_d = self._from_plan(plan.selected, bool)
-            dist_d = self._from_plan(plan.distribute, bool)
-            res_d = self._from_plan(plan.resume, bool)
-            base_steps = full_steps if plan.steps_override is None else \
-                self._from_plan(plan.steps_override, np.int32)
-            extra_w = ones_w if plan.agg_weights is None else \
-                self._from_plan(plan.agg_weights, np.float32)
-
-            # workload + failure/interruption + masked local training +
-            # per-device timing
-            (final, cache_p, cached_steps, losses, _steps, fail, success,
-             times) = trainer(global_params, caches, draw, sel_d, dist_d,
-                              res_d, base_steps, cache_every)
-            # round termination on the device; a capped round comes back
-            # as a flag so the ledger bills the exact deadline
-            t_cut, received, capped, recv_n, down_n, sel_n = cut_fn(
-                times, plan.quorum, success, draw.online, dist_d, sel_d)
-            out = server_step(
-                global_params, caches, final, cache_p, cached_steps, sel_d,
-                fail, received, res_d, self._n_samples, extra_w, rnd,
-                *self._step_extra(rule_state))
+            masks = (self._from_plan(plan.selected, bool),
+                     self._from_plan(plan.distribute, bool),
+                     self._from_plan(plan.resume, bool),
+                     full_steps if plan.steps_override is None else
+                     self._from_plan(plan.steps_override, np.int32),
+                     cache_every,
+                     ones_w if plan.agg_weights is None else
+                     self._from_plan(plan.agg_weights, np.float32))
+            out, report, t_cut, capped, counts, overflow = round_fn(
+                trainer, cut_fn, server_step, global_params, caches,
+                rule_state, draw, plan, masks, rnd, uses_cache)
             if self._agg_stateful:
                 global_params, caches, rule_state = out
             else:
                 global_params, caches = out
-            state = policy.observe(
-                state, plan,
-                RoundReport(received=received, fail=fail, losses=losses,
-                            durations=times, duration=t_cut, rnd=rnd))
+            state = policy.observe(state, plan, report)
 
             evaluated = rnd % eval_every == 0 or rnd == n_rounds - 1
-            ledger.push(rnd, evaluated, t_cut, capped, recv_n, down_n,
-                        sel_n, self._eval(global_params) if evaluated
-                        else None)
+            ledger.push(rnd, evaluated, t_cut, capped, *counts,
+                        acc=self._eval(global_params) if evaluated
+                        else None, overflow=overflow)
             if progress and rnd % 10 == 0:
                 ledger.resolve()        # live ticks resolve on schedule
             else:
                 ledger.resolve(keep=self.pipeline_depth - 1)
         ledger.resolve()
+        if self._cache_stream is not None:
+            # the last round's write-back into the store, so it holds the
+            # run's final caches
+            self._cache_stream.drain(n_rounds)
         self._last_fleet_state = fstate
         self._last_draw = draw
         return state, global_params, caches, rule_state

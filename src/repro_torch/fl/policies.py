@@ -38,6 +38,8 @@ class FludePolicy(Policy):
     adaptive staleness/quorum control (Alg. 2) and C3 cache resume,
     planned on the engine's device."""
     uses_cache = True
+    # Alg. 2 line 3 caps X at clients_per_round before budget shrinking
+    selects_at_most_clients_per_round = True
 
     def __init__(self, sim_cfg, fl_cfg, fleet=None, device="cpu"):
         super().__init__(sim_cfg, fl_cfg, fleet, device=device)
@@ -109,6 +111,7 @@ def _random_online(rs: np.random.RandomState, online, k: int,
 @register_policy("random")
 class RandomPolicy(Policy):
     """Vanilla FedAvg: uniform random selection, full distribution."""
+    selects_at_most_clients_per_round = True
 
     def init_state(self) -> np.random.RandomState:
         return np.random.RandomState(self.sim_cfg.seed + 17)
@@ -135,6 +138,7 @@ class OortPolicy(Policy):
     system-speed penalty, ε-greedy exploration.  The ranking reads the
     clients' float losses, so a near-tie can order differently from the
     reference (ROADMAP Queue C)."""
+    selects_at_most_clients_per_round = True
 
     def __init__(self, sim_cfg, fl_cfg, fleet=None, device="cpu"):
         super().__init__(sim_cfg, fl_cfg, fleet, device=device)
@@ -188,6 +192,7 @@ class SafaPolicy(Policy):
     their version lag exceeds τ.  Rounds close on SAFA's synchronization
     quota (a fraction of the selected set), not on the last arrival."""
     uses_cache = True
+    selects_at_most_clients_per_round = True
     quota = 0.75
 
     def __init__(self, sim_cfg, fl_cfg, fleet=None, device="cpu",
@@ -218,6 +223,7 @@ class FedSeaPolicy(Policy):
     """FedSEA [SenSys'22], simplified: balance completion times by scaling
     local steps with device speed; deadline-based aggregation."""
     waits_for_stragglers = False
+    selects_at_most_clients_per_round = True
 
     def __init__(self, sim_cfg, fl_cfg, fleet=None, device="cpu"):
         super().__init__(sim_cfg, fl_cfg, fleet, device=device)

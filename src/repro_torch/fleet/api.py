@@ -32,6 +32,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from repro_torch.core.caching import take_rows
+
 
 # ---------------------------------------------------------------------------
 # Static population features
@@ -115,6 +117,19 @@ class FleetDraw:
         """Downloads that actually happen: §4.4 transmits the fresh model
         only to reachable devices."""
         return distribute & self.online
+
+    def take(self, idx):
+        """The draw's rows at the cohort index ``idx`` as an (X,)
+        ``FleetDraw``.  Sentinel rows (index N) read benign values:
+        offline, failure impossible (p 0 against u 1), interruption at 0,
+        unit bandwidth (the timing model never divides by zero), battery
+        0 — what the full scan computes for a device never selected."""
+        return FleetDraw(online=take_rows(self.online, idx, False),
+                         fail_p=take_rows(self.fail_p, idx, 0.0),
+                         fail_u=take_rows(self.fail_u, idx, 1.0),
+                         stop_u=take_rows(self.stop_u, idx, 0.0),
+                         bandwidth=take_rows(self.bandwidth, idx, 1.0),
+                         battery=take_rows(self.battery, idx, 0.0))
 
 
 # ---------------------------------------------------------------------------

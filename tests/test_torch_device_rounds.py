@@ -258,10 +258,14 @@ def test_flconfig_accepts_what_the_slice_runs(change):
     FLConfig(num_clients=16, **change)
 
 
-@pytest.mark.parametrize("change", [dict(cohort_size=8),
-                                    dict(dynamics="markov", cohort_size=8)])
-def test_cohort_size_is_still_refused_naming_its_item(change):
-    with pytest.raises(NotImplementedError, match="#10"):
+@pytest.mark.parametrize("change,item", [
+    (dict(telemetry="basic"), "#13"), (dict(debug_checks=True), "#14"),
+    (dict(mesh_shape=(2,)), "#17"), (dict(donate_buffers=True), "#17"),
+    (dict(dynamics="markov", cohort_size=8, selection_mode="thompson"),
+     "#18")], ids=["telemetry", "debug_checks", "mesh_shape",
+                   "donate_buffers", "thompson"])
+def test_refusals_still_standing_name_their_items(change, item):
+    with pytest.raises(NotImplementedError, match=item):
         FLConfig(num_clients=16, **change)
 
 

@@ -142,10 +142,15 @@ def test_configs_copy_the_reference_field_for_field(ours, theirs):
     assert mine == ref
 
 
+# cohorts and offload run in the port (ROADMAP Queue A #10, #12): their
+# cases carry a value still outside it, the one the refusal names
 @pytest.mark.parametrize("override", [
-    dict(cache_offload="host"), dict(dynamics="sessions", cohort_size=8),
-    dict(mesh_shape=(2,)), dict(cohort_size=8), dict(telemetry="basic"),
-    dict(dynamics="markov", cache_offload="host"),
+    dict(cohort_size=8, cache_offload="host", debug_checks=True),
+    dict(dynamics="sessions", cohort_size=8, selection_mode="thompson"),
+    dict(mesh_shape=(2,)), dict(cohort_size=8, telemetry="basic"),
+    dict(telemetry="basic"),
+    dict(dynamics="markov", cohort_size=8, cache_offload="host",
+         donate_buffers=True),
     dict(selection_mode="thompson"),
     dict(pipeline_depth=2, telemetry="basic"), dict(donate_buffers=True),
     dict(debug_checks=True)])

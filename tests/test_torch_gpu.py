@@ -803,3 +803,84 @@ def test_dynamics_loop_launches_fed_agg_once_a_round(cuda):
     engine.run("flude", diagnostics=False)
     assert (K.launches.count - before[0], RK.launches.count - before[1]) \
         == (3, 0)
+
+
+# ---------------------------------------------------------------------------
+# Compact cohorts and host cache offload
+# ---------------------------------------------------------------------------
+
+def _cohort_engine(device, offload=None, depth=1, n=32, rounds=4, x=8,
+                   dynamics="bernoulli"):
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.synthetic import federated_classification
+    from repro_torch.fl import FleetEngine, SimConfig
+    fl = FLConfig(num_clients=n, clients_per_round=8, pipeline_depth=depth,
+                  dynamics=dynamics, cohort_size=x, cache_offload=offload)
+    return FleetEngine(federated_classification(n, seed=4, n_per_client=16),
+                       SimConfig(num_clients=n, rounds=rounds, seed=3,
+                                 local_steps=2, batch_size=8), fl,
+                       device=device)
+
+
+@pytest.mark.parametrize("offload", [None, "host"])
+def test_cohort_loop_card_matches_cpu(cuda, offload):
+    """N = 32, X = 8, 4 rounds under markov with the uniforms drawn once
+    on the CPU: the same integer trajectory and comm on the card as on
+    the CPU, wall clock within 1e-5, accuracy within 4 of 2048."""
+    from repro_torch.fleet import draw_noise, get_dynamics
+    proc = get_dynamics("markov")
+    gen = torch.Generator().manual_seed(0)
+    noise = {"init": draw_noise(proc.init_noise, 32, gen, "cpu")}
+    for rnd in range(4):
+        noise[rnd] = draw_noise(proc.step_noise, 32, gen, "cpu")
+    us = [torch.rand(32, generator=gen) for _ in range(4)]
+    cpu, card = (_cohort_engine(d, offload, dynamics="markov").run(
+        "flude", explore_uniforms=lambda r: us[r],
+        dynamics_noise=lambda r: noise[r]) for d in ("cpu", cuda))
+    assert (card.selected, card.received, card.comm_mb) == \
+        (cpu.selected, cpu.received, cpu.comm_mb)
+    np.testing.assert_allclose(card.wall_clock, cpu.wall_clock, rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(card.acc, cpu.acc, rtol=0, atol=4 / 2048)
+
+
+def test_offload_rows_equal_resident_rows_on_the_card(cuda):
+    rows = [_cohort_engine(cuda, mode).run("flude").to_json()
+            for mode in (None, "host")]
+    assert rows[0] == rows[1]
+
+
+@pytest.mark.parametrize("D", [22026, 17410])
+def test_fed_agg_at_the_cohort_shape(cuda, D):
+    """The kernel at C = 512, the cohort paths' shape: whole block_c
+    chunks, held to its plain version."""
+    g = K.geometry(512, D)
+    assert all((K.chunk_rows(g, 512, 8, i)[1]
+                - K.chunk_rows(g, 512, 8, i)[0]) % 8 == 0
+               for i in range(g.n_chunks))
+    u, w = _inputs(512, D, seed=D, device=cuda, zero_frac=0.5)
+    _check(K.fed_agg_cuda(u, w), u, w)
+
+
+@pytest.mark.parametrize("offload", [None, "host"])
+def test_cohort_loop_does_not_synchronise_outside_its_seams(cuda, offload):
+    """A flude run at depth 2 under sync debug mode "error": the round
+    ledger's resolve, the run-end read-back and the offload stream's two
+    reads a round wait for the card, all through ``host_readback``."""
+    engine = _cohort_engine(cuda, offload, depth=2, n=64, x=16)
+    engine.run("flude")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist = engine.run("flude", diagnostics=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(hist.acc) == 4
+    assert engine.transfer_stats.sync_copies == 0
+
+
+def test_cohort_loop_launches_fed_agg_once_a_round(cuda):
+    engine = _cohort_engine(cuda, "host", rounds=3)
+    before = K.launches.count
+    engine.run("flude", diagnostics=False)
+    assert K.launches.count - before == 3
