@@ -42,6 +42,18 @@ Phases, each of which raises on failure:
    (only the round ledger's resolve and the run-end read-back may wait
    for the card); N = 24 under churn on the card against the CPU with the
    same uniforms; a profiled short run of the depth-2 engine;
+5c. cohorts (``[cohort]``, ``[cohort 1M]``), then Thompson selection,
+   telemetry and the invariant checks on the device loop at N = 4096:
+   ``[thompson]`` ("mean" and "thompson" in turns with the CUDA sampler,
+   |S| = min(X, |online|), card = CPU with handed-in draws),
+   ``[telemetry]`` (off and "full" in turns, full scan and X = 512: rows
+   identical, ``update_norm``'s one ``fed_agg`` and two
+   ``residual_norms`` launches a round; a no-sync "full" run; card = CPU
+   for ``History.metrics``), ``[debug_checks]`` (checked and unchecked in
+   turns, a no-sync checked run with one guard read a round through
+   ``host_readback``, the guard on a card NaN).  Every profile is a
+   ``repro_torch.obs.Telemetry`` session: the port's span names, host
+   time from its tracer, device time from its profiler window;
 6. serve: ``qwen2-7b`` (batch 4, prompt 2048, 32 decode steps),
    ``h2o-danube-1.8b`` (batch 2, prompt 6144 past its 4096 window, 16
    steps), ``zamba2-1.2b`` (batch 4, prompt 4096, 32 steps: 38 Mamba2
@@ -975,10 +987,10 @@ def phase_rwkv6_scan():
             "variant": "mma", "simt_ms": simt_ms}
 
 
-def timed_run(engine, policy, counters):
-    """One run of ``engine`` with every kernel count set to 0 just before
-    it and read just after; returns (History, launches, ms per round over
-    rounds 1-5, peak device GiB).  Engines of earlier phases that a
+def timed_run(engine, policy, counters, **run_kw):
+    """One run of ``engine`` (``run_kw`` passed to ``run``) with every
+    kernel count set to 0 just before it and read just after; returns
+    (History, launches, ms per round over rounds 1-5, peak device GiB).  Engines of earlier phases that a
     profile's wrappers hold in reference cycles are collected first, so
     the peak is this run's own."""
     ticks = {}
@@ -991,7 +1003,7 @@ def timed_run(engine, policy, counters):
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.reset()
-    hist = engine.run(policy, progress=progress)
+    hist = engine.run(policy, progress=progress, **run_kw)
     launches = {name: c.count for name, c in counters.items()}
     torch.cuda.synchronize()
     last = MAIN_ROUNDS - 1
@@ -1154,16 +1166,17 @@ def phase_dynamics(data, counters):
     return out, rows, peaks
 
 
-def check_no_sync(engine, num_classes, tag, label):
+def check_no_sync(engine, num_classes, tag, label, **run_kw):
     """One flude run of a (warm) engine under ``torch.cuda`` sync debug
     mode "error": any wait for the card outside the ledger's resolve, the
-    run-end read-back and the offload stream's two reads a round (all
-    through ``host_readback``) raises."""
+    run-end read-back, the offload stream's two reads a round and the
+    ``debug_checks`` guard's read (all through ``host_readback``)
+    raises."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        hist = engine.run("flude", diagnostics=False)
+        hist = engine.run("flude", diagnostics=False, **run_kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -1386,6 +1399,345 @@ def phase_cohort_card_vs_cpu():
                                f"{wall}, accuracy by {acc}")
 
 
+# the telemetry="full" round on the device loop: the server step's mean
+# and update_norm's fed_agg, plus its two residual_norms passes
+TELEMETRY_FULL = {"fed_agg": 2, "residual_norms": 2, **SERVE_ONLY}
+# History.metrics of the card against the CPU on the same noise, stated
+# before the first run: counts exact; floats within METRIC_CARD_TOL of
+# max(1, |cpu value|), agg_residual_* within it of max(1,
+# update_norm_max) (the trainers' fp32 sums run in other orders)
+METRIC_CARD_TOL = 1e-4
+METRIC_INTS = ("selected_count", "received_count", "interrupted_count",
+               "online_count", "download_count", "cache_rows",
+               "cache_hit_count", "cache_expired_count", "staleness_hist")
+
+
+def _device_loop_fl(**changes):
+    from repro_torch.configs.base import FLConfig
+    return FLConfig(num_clients=MAIN_N, clients_per_round=MAIN_PER_ROUND,
+                    agg_impl="cuda", dynamics="bernoulli", **changes)
+
+
+def _rows_of(hist):
+    """A History's rows without its metric columns."""
+    d = hist.to_json()
+    d.pop("metrics", None)
+    return d
+
+
+def _handed_noise(process, n, rounds, seed=0):
+    """Dynamics and explore uniforms for a card-against-CPU run, drawn
+    once on the CPU."""
+    from repro_torch.fleet import draw_noise, get_dynamics
+    proc = get_dynamics(process)
+    gen = torch.Generator().manual_seed(seed)
+    noise = {"init": draw_noise(proc.init_noise, n, gen, "cpu")}
+    for rnd in range(rounds):
+        noise[rnd] = draw_noise(proc.step_noise, n, gen, "cpu")
+    us = [torch.rand((n,), generator=gen) for _ in range(rounds)]
+    return noise, us
+
+
+def _check_card_vs_cpu(tag, label, cpu, card):
+    """Selected, received and comm identical, wall clock within 1e-5,
+    accuracy within ACC_TOL."""
+    wall = max(abs(a - b) for a, b in zip(cpu.wall_clock, card.wall_clock))
+    acc = max(abs(a - b) for a, b in zip(cpu.acc, card.acc))
+    log(f"[{tag}] {label}: cpu selected {cpu.selected} received "
+        f"{cpu.received}; card acc {card.acc}; max |card - cpu| wall "
+        f"clock {wall:.3e}, acc {acc:.6f}")
+    if (cpu.selected, cpu.received, cpu.comm_mb) != \
+            (card.selected, card.received, card.comm_mb):
+        raise RuntimeError(f"{tag}: trajectories differ: "
+                           f"{card.to_json()} vs {cpu.to_json()}")
+    if wall > 1e-5 or acc > ACC_TOL:
+        raise RuntimeError(f"{tag}: wall clock differs by {wall}, "
+                           f"accuracy by {acc}")
+
+
+def phase_thompson(data, counters):
+    """Thompson selection on the device loop at the main path's fleet
+    (N = 4096, 512 a round, bernoulli) with the port's CUDA sampler:
+    ``"mean"`` and ``"thompson"`` engines timed in turns (mean, thompson,
+    thompson, mean), one fed_agg launch a round each; |S| = min(X,
+    |online|) every round (a ``telemetry="basic"`` run reads the online
+    count, its rows identical to the timed run's); the sampler's device
+    time at N; then N = 24 on the card against the CPU with handed-in
+    draws.  Returns the Thompson run's launches."""
+    from repro_torch.core.dependability import (BetaBelief,
+                                                sample_dependability)
+    from repro_torch.fl import FleetEngine, SimConfig
+    sim = SimConfig(num_clients=MAIN_N, rounds=MAIN_ROUNDS)
+    engines = {m: FleetEngine(data, sim, _device_loop_fl(selection_mode=m))
+               for m in ("mean", "thompson")}
+    ms = {"mean": [], "thompson": []}
+    hists = {}
+    for mode in ("mean", "thompson", "thompson", "mean"):
+        hist, launches, t, _ = timed_run(engines[mode], "flude", counters)
+        check_run(f"thompson {mode}", hist, launches, MEAN_ONLY,
+                  data.num_classes)
+        ms[mode].append(t)
+        hists[mode] = hist
+        if mode == "thompson":
+            th_launches = launches
+    th = hists["thompson"]
+    log(f"[thompson] N={MAIN_N}, {MAIN_PER_ROUND} a round, bernoulli, "
+        f"depth 1: ms/round mean {ms['mean']}, thompson {ms['thompson']} "
+        f"(in turns); thompson selected {th.selected}, received "
+        f"{th.received}, acc {th.acc}; launches {th_launches}")
+    basic = engines["thompson"].run("flude", telemetry="basic")
+    online = basic.metrics["online_count"]
+    log(f"[thompson] online {online}, selected {basic.selected}; "
+        f"part_count differs from the mean run's: "
+        f"{bool((th.part_count != hists['mean'].part_count).any())}")
+    for s, on in zip(basic.selected, online):
+        if s != min(MAIN_PER_ROUND, on):
+            raise RuntimeError(f"thompson: selected {s} of {on} online, "
+                               f"expected min({MAIN_PER_ROUND}, {on})")
+    if _rows_of(basic) != _rows_of(th):
+        raise RuntimeError("thompson: the telemetry run's rows differ from "
+                           "the timed run's")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ab = torch.rand((2, MAIN_N), generator=g, device="cuda") * 40 + 0.5
+    belief = BetaBelief(ab[0], ab[1])
+    sample_ms = cuda_ms(lambda: sample_dependability(belief, g))
+    log(f"[thompson] sampler at N={MAIN_N}: {sample_ms * 1e3:.1f} us of "
+        f"device time a draw")
+    del engines
+    phase_thompson_card_vs_cpu()
+    return {"thompson": th_launches}
+
+
+def phase_thompson_card_vs_cpu():
+    """N = 24, 5 rounds of flude under Thompson (markov) on the card and
+    on the CPU with the same handed-in dynamics noise, explore uniforms
+    and Beta draws (sampled on the CPU from each round's beliefs)."""
+    import repro_torch.fl as F
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.dependability import (BetaBelief,
+                                                sample_dependability)
+    from repro_torch.data.synthetic import federated_classification
+    n, rounds = 24, 5
+    data = federated_classification(n, seed=2, margin=1.3, noise=1.3,
+                                    n_per_client=32)
+    sim = F.SimConfig(num_clients=n, rounds=rounds, seed=3, local_steps=4)
+    fl = FLConfig(num_clients=n, clients_per_round=8, dynamics="markov",
+                  selection_mode="thompson")
+    noise, us = _handed_noise("markov", n, rounds)
+
+    def draws(rnd, alpha, beta):
+        gen = torch.Generator().manual_seed(100 + rnd)
+        return sample_dependability(BetaBelief(alpha.cpu(), beta.cpu()),
+                                    gen)
+    cpu, card = (F.FleetEngine(data, sim, fl, device=d).run(
+        "flude", explore_uniforms=lambda r: us[r],
+        dynamics_noise=lambda r: noise[r], thompson_draws=draws)
+        for d in ("cpu", "cuda"))
+    _check_card_vs_cpu("thompson card vs CPU", f"markov, N={n}, {rounds} "
+                       f"rounds, handed-in draws", cpu, card)
+
+
+def phase_telemetry(data, counters, dyn_rows):
+    """Telemetry on the device loop at the main path's fleet (N = 4096,
+    D = 22,026, bernoulli, depth 2, flude), full scan and a cohort of X =
+    512: ``telemetry=False`` and ``"full"`` runs in turns, three each,
+    rows identical (the full scan's also to ``[dynamics] bernoulli depth
+    2``), each full round one more fed_agg and two residual_norms
+    launches (update_norm at (512, 22,026)); the tracer's host time of
+    the metrics span; the metrics against an ``agg_impl="torch"`` twin
+    on the card; a ``"full"`` run under sync debug mode "error";
+    then N = 32 on the card against the CPU for History.metrics.
+    Returns each path's launches."""
+    from repro_torch.fl import FleetEngine, SimConfig
+    from repro_torch.obs import Telemetry
+    sim = SimConfig(num_clients=MAIN_N, rounds=MAIN_ROUNDS)
+    out = {}
+    for label, changes in (("full scan", {}),
+                           ("cohort", dict(cohort_size=COHORT_X))):
+        engine = FleetEngine(data, sim, _device_loop_fl(pipeline_depth=2,
+                                                        **changes))
+        ms, rows, spans = {"off": [], "full": []}, None, []
+        for level in ("off", "full") * 3:
+            tel = False if level == "off" else Telemetry(level="full")
+            hist, launches, t, _ = timed_run(engine, "flude", counters,
+                                             telemetry=tel)
+            check_run(f"telemetry {label} {level}", hist, launches,
+                      MEAN_ONLY if level == "off" else TELEMETRY_FULL,
+                      data.num_classes)
+            ms[level].append(t)
+            if rows is None:
+                rows = _rows_of(hist)
+            elif _rows_of(hist) != rows:
+                raise RuntimeError(f"telemetry {label}: {level} rows "
+                                   f"differ: {_rows_of(hist)} vs {rows}")
+            if level == "full":
+                full, full_launches = hist, launches
+                spans.append(tel.tracer.summary()["metrics"]["mean_s"])
+        if label == "full scan" and rows != dyn_rows["bernoulli depth 2"]:
+            raise RuntimeError("telemetry: rows differ from [dynamics] "
+                               "bernoulli depth 2")
+        m = full.metrics
+        if m["selected_count"] != full.selected \
+                or m["received_count"] != full.received \
+                or not all(math.isfinite(v) for v in
+                           m["update_norm_mean"] + m["agg_residual_max"]):
+            raise RuntimeError(f"telemetry {label}: metrics {m}")
+        log(f"[telemetry] {label}: ms/round off {ms['off']}, full "
+            f"{ms['full']} (in turns); rows identical off and on: True; "
+            f"metrics span host {[round(s * 1e3, 3) for s in spans]} "
+            f"ms/round; launches (full) {full_launches}")
+        log(f"[telemetry] {label}: update_norm_mean "
+            f"{[round(v, 5) for v in m['update_norm_mean']]}, "
+            f"agg_residual_mean "
+            f"{[round(v, 5) for v in m['agg_residual_mean']]}, "
+            f"local_loss_mean {[round(v, 4) for v in m['local_loss_mean']]}")
+        phase_telemetry_plain_twin(data, sim, engine.fl_cfg, label, full)
+        check_no_sync(engine, data.num_classes, "telemetry",
+                      f"{label}, depth 2, telemetry full",
+                      telemetry="full")
+        out[f"telemetry {label}"] = full_launches
+        del engine
+    phase_telemetry_card_vs_cpu()
+    return out
+
+
+def phase_telemetry_plain_twin(data, sim, fl, label, full):
+    """The same engine config with ``agg_impl="torch"`` on the card, one
+    ``"full"`` run: the same rows as the kernel run ``full`` (selected,
+    received, wall clock, comm exact) and History.metrics within the
+    bounds of ``metric_gaps`` — the received rows' gather (cohort_index,
+    take_rows, pack_stacked at rows_bound 512) held at full width, not
+    only the kernels."""
+    from repro_torch.fl import FleetEngine
+    plain = FleetEngine(data, sim, dataclasses.replace(
+        fl, agg_impl="torch")).run("flude", telemetry="full")
+    tag = f"telemetry {label} plain twin"
+    for key in ("selected", "received", "wall_clock", "comm_mb"):
+        if getattr(plain, key) != getattr(full, key):
+            raise RuntimeError(f"{tag}: {key} {getattr(full, key)} vs "
+                               f"plain {getattr(plain, key)}")
+    gaps = metric_gaps(plain.metrics, full.metrics)
+    log(f"[{tag}] {len(gaps)} metric columns against agg_impl=\"torch\" "
+        f"on the card, largest gap over its bound "
+        f"{max(gaps.values()):.3f} ({max(gaps, key=gaps.get)})")
+    if set(plain.metrics) != set(full.metrics) \
+            or max(gaps.values()) > 1.0:
+        raise RuntimeError(f"{tag}: metrics differ: {gaps}")
+
+
+def metric_gaps(cpu, card):
+    """Per column: the largest gap of the card's metric values to the
+    CPU's over its bound (<= 1 holds), counts exact."""
+    worst = {}
+    norm = [max(1.0, v) for v in cpu["update_norm_max"]] \
+        if "update_norm_max" in cpu else None
+    for name, want in cpu.items():
+        got = card[name]
+        if name in METRIC_INTS:
+            worst[name] = 0.0 if got == want else math.inf
+            continue
+        flat_w, flat_g, scale = [], [], []
+        for r, (w, g) in enumerate(zip(want, got)):
+            w = w if isinstance(w, list) else [w]
+            g = g if isinstance(g, list) else [g]
+            flat_w += w
+            flat_g += g
+            scale += [norm[r] if name.startswith("agg_residual")
+                      else max(1.0, abs(x)) for x in w]
+        worst[name] = max(abs(a - b) / (METRIC_CARD_TOL * s)
+                          for a, b, s in zip(flat_g, flat_w, scale))
+    return worst
+
+
+def phase_telemetry_card_vs_cpu():
+    """N = 32, 4 rounds of flude under markov with telemetry "full" on
+    the card and on the CPU from the same uniforms: the trajectories as
+    in ``[dynamics card vs CPU]``, History.metrics within the bounds of
+    ``metric_gaps``.  Full scan (mean) and a cohort of 8 under the trust
+    rule (trust quantiles)."""
+    import repro_torch.fl as F
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.synthetic import federated_classification
+    n, rounds = 32, 4
+    data = federated_classification(n, seed=4, n_per_client=16)
+    sim = F.SimConfig(num_clients=n, rounds=rounds, seed=3, local_steps=2,
+                      batch_size=8)
+    noise, us = _handed_noise("markov", n, rounds)
+    for label, changes in (("full scan", {}),
+                           ("cohort 8, trust", dict(cohort_size=8,
+                                                    agg_rule="trust"))):
+        fl = FLConfig(num_clients=n, clients_per_round=8, dynamics="markov",
+                      telemetry="full", **changes)
+        cpu, card = (F.FleetEngine(data, sim, fl, device=d).run(
+            "flude", explore_uniforms=lambda r: us[r],
+            dynamics_noise=lambda r: noise[r]) for d in ("cpu", "cuda"))
+        tag = "telemetry card vs CPU"
+        _check_card_vs_cpu(tag, f"{label}, N={n}", cpu, card)
+        gaps = metric_gaps(cpu.metrics, card.metrics)
+        log(f"[{tag}] {label}: {len(gaps)} metric columns, largest gap "
+            f"over its bound {max(gaps.values()):.3f} "
+            f"({max(gaps, key=gaps.get)})")
+        if set(card.metrics) != set(cpu.metrics) \
+                or max(gaps.values()) > 1.0:
+            raise RuntimeError(f"{tag}: metrics differ: {gaps}")
+
+
+def phase_debug_checks(data, counters, dyn_rows):
+    """``debug_checks`` on the device loop at the main path's fleet
+    (bernoulli, depth 2): checked and unchecked engines timed in turns,
+    rows identical to each other and to ``[dynamics] bernoulli depth 2``;
+    a checked run under sync debug mode "error" whose guard reads, one a
+    round, all go through ``host_readback``; the guard fired by a card
+    tensor holding a NaN.  Returns the checked run's launches."""
+    from repro_torch.analysis import runtime as RT
+    from repro_torch.fl import FleetEngine, SimConfig
+    sim = SimConfig(num_clients=MAIN_N, rounds=MAIN_ROUNDS)
+    engines = {c: FleetEngine(data, sim, _device_loop_fl(
+        pipeline_depth=2, debug_checks=c)) for c in (False, True)}
+    ms = {False: [], True: []}
+    for checked in (False, True, True, False):
+        hist, launches, t, _ = timed_run(engines[checked], "flude",
+                                         counters)
+        check_run(f"debug_checks {checked}", hist, launches, MEAN_ONLY,
+                  data.num_classes)
+        ms[checked].append(t)
+        if _rows_of(hist) != dyn_rows["bernoulli depth 2"]:
+            raise RuntimeError(f"debug_checks {checked}: rows differ from "
+                               f"[dynamics] bernoulli depth 2")
+        if checked:
+            checked_launches = launches
+    reads = []
+    real = RT.host_readback
+
+    def counting(device):
+        reads.append(1)
+        return real(device)
+
+    RT.host_readback = counting
+    try:
+        check_no_sync(engines[True], data.num_classes, "debug_checks",
+                      "depth 2, debug_checks")
+    finally:
+        RT.host_readback = real
+    log(f"[debug_checks] ms/round unchecked {ms[False]}, checked "
+        f"{ms[True]} (in turns); rows identical: True; guard reads in "
+        f"the no-sync run {len(reads)} (one a round, through "
+        f"host_readback)")
+    if len(reads) != MAIN_ROUNDS:
+        raise RuntimeError(f"debug_checks: {len(reads)} guard reads in "
+                           f"{MAIN_ROUNDS} rounds")
+    guard = RT.make_round_guard(MAIN_N, with_idx=False)
+    flags = guard({"w": torch.tensor([1.0, math.nan], device="cuda")},
+                  torch.zeros(4, device="cuda"))
+    try:
+        RT.check_round(flags, guard.messages, 7, "cuda")
+    except RT.RoundCheckError as e:
+        log(f"[debug_checks] guard on a card tensor holding a NaN: {e}")
+    else:
+        raise RuntimeError("debug_checks: the guard let a NaN through")
+    return {"debug_checks": checked_launches}
+
+
 def million_client_data(n, *, num_classes=2, dim=4, n_per_client=2,
                         n_test=256, seed=0):
     """The reference smoke's vectorised tiny task
@@ -1512,70 +1864,66 @@ def check_1m_write_back(engine):
         raise RuntimeError("cohort 1M: a synchronous copy")
 
 
+# the spans every profile of an FL loop must show (repro_torch.obs span
+# names); an offload engine adds the stream's two calls a round
+PROFILE_SPANS_HOST = ("plan", "trainer", "server_step", "observe",
+                      "eval_readback")
+PROFILE_SPANS_DEVICE = ("dynamics_step", "plan", "trainer", "round_cut",
+                        "server_step", "observe", "eval", "ledger_resolve")
+
+
 def phase_profile(engine, policy, tag, rounds=3, top=12):
-    """Where a round's time goes: ``torch.profiler`` over a short
-    run after the timed one, with spans around the engine's trainer,
-    server step and eval — on the device dynamics loop also around the
-    process step and the round cut (the rest of a round is planning, the
-    ledger and the host loop).  Prints host and device time per span, the
-    device's busy share of the wall clock and the operators with the most
-    device time.  The spans wrap this engine's instance attributes; it is
-    not used after."""
+    """Where a round's time goes: a ``Telemetry`` session with no metrics
+    (``level=None``) over a short run after the timed one — the port's
+    tracer spans every seam of the round (``repro_torch.obs`` span names)
+    and its ``torch.profiler`` window records them as ranges.  Prints
+    the rounds' wall clock (the tracer), host time (the tracer) and
+    kernel time (the profiler) per span, the device's busy share of the
+    wall clock and the operators with the most device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.fleet import get_dynamics
+    from repro_torch.obs import Telemetry
 
-    def spanned(name, fn):
-        def run(*args, **kw):
-            with record_function(name):
-                return fn(*args, **kw)
-        return run
-
-    spans = ("trainer", "server_step", "eval")
-    stream = getattr(engine, "_cache_stream", None)
-    if stream is not None:
-        # the offload stream's two calls a round, with their waits
-        stream.fetch = spanned("cache_fetch", stream.fetch)
-        stream.stage = spanned("cache_stage", stream.stage)
-        spans += ("cache_fetch", "cache_stage")
-    engine._server_steps = {k: spanned("server_step", v)
-                            for k, v in engine._server_steps.items()}
-    if get_dynamics(engine.fl_cfg.dynamics).host_side:
-        engine._trainer = spanned("trainer", engine.trainer)
-        engine._accuracy = spanned("eval", engine._accuracy)
-    else:
-        # the device loop: the eval is a device scalar the ledger reads
-        for key, (process, trainer) in engine._dyn_cache.items():
-            process.step = spanned("dynamics_step", process.step)
-            engine._dyn_cache[key] = (process, spanned("trainer", trainer))
-        engine._cut_fns = {k: spanned("round_cut", v)
-                           for k, v in engine._cut_fns.items()}
-        engine._eval = spanned("eval", engine._eval)
-        spans += ("dynamics_step", "round_cut")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.run(policy, rounds=rounds, diagnostics=False)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
-    events = prof.key_averages()
+    tel = Telemetry(level=None, profile_rounds=(0, rounds))
+    engine.run(policy, rounds=rounds, diagnostics=False, telemetry=tel)
+    # the wall clock of the rounds from the tracer: from round 0's first
+    # span (the profiler window opens just before it) to the end of the
+    # ``rounds`` span (the loop's last read-back; the window closes after
+    # it), so neither the profiler's start nor its stop is counted
+    starts = [ts for _, ts, dur, args in tel.tracer.events
+              if dur is not None and args and args.get("round") == 0]
+    loop = [ts + dur for name, ts, dur, _ in tel.tracer.events
+            if name == "rounds"]
+    wall_ms = (loop[-1] - min(starts)) / 1e3 / rounds
+    host_spans = tel.tracer.summary()
+    want = PROFILE_SPANS_HOST \
+        if get_dynamics(engine.fl_cfg.dynamics).host_side \
+        else PROFILE_SPANS_DEVICE
+    if getattr(engine, "_cache_stream", None) is not None:
+        want += ("cache_fetch", "cache_stage")
+    for span in want:
+        if span not in host_spans:
+            raise RuntimeError(f"{tag}: no {span!r} span recorded")
+    events = tel.last_profile.key_averages()
     host = {e.key: e for e in events if e.device_type == DeviceType.CPU}
-    # CUDA-side events are the kernels plus one annotation per span
-    # (the span's extent on the device timeline), kept out of the sum
+    # CUDA-side events are the kernels plus one annotation per span (the
+    # span's extent on the device timeline), kept out of the sum
     device = {e.key: e for e in events if e.device_type == DeviceType.CUDA}
     busy_ms = sum(e.self_device_time_total for k, e in device.items()
-                  if k not in spans) / 1e3 / rounds
-    log(f"[{tag}] {rounds} rounds at N={MAIN_N}: wall {wall_ms:.2f} "
-        f"ms/round, device busy {busy_ms:.2f} ms/round "
+                  if k not in host_spans) / 1e3 / rounds
+    log(f"[{tag}] {rounds} rounds at N={engine.fl_cfg.num_clients}: wall "
+        f"{wall_ms:.2f} ms/round, device busy {busy_ms:.2f} ms/round "
         f"(idle {1 - busy_ms / wall_ms:.1%})")
-    for span in spans:
-        if span not in host:
-            raise RuntimeError(f"{tag}: no {span!r} span recorded")
-        e = host[span]
-        log(f"[{tag}]   span {span:12s} host "
-            f"{e.cpu_time_total / 1e3 / rounds:7.2f} ms/round, kernels "
-            f"{e.device_time_total / 1e3 / rounds:7.2f} ms/round")
-    ops = [e for e in host.values() if e.key not in spans
+    for span, s in sorted(host_spans.items(), key=lambda kv: -kv[1][
+            "total_s"]):
+        if span == "rounds":
+            continue
+        kern = host[span].device_time_total / 1e3 / rounds \
+            if span in host else 0.0
+        log(f"[{tag}]   span {span:15s} x{s['count'] // rounds:<2d} host "
+            f"{s['total_s'] * 1e3 / rounds:7.2f} ms/round, kernels "
+            f"{kern:7.2f} ms/round")
+    ops = [e for e in host.values() if e.key not in host_spans
            and e.self_device_time_total > 0]
     ops += [e for k, e in device.items()
             if "fed_agg" in k or "residual_norms" in k]
@@ -1782,27 +2130,22 @@ KERNEL_NAMES = ("flash_fwd", "ssd_fwd", "wkv_fwd")
 
 def profile_serve(tag, model, params, tokens, steps=4, top=12):
     """``torch.profiler`` over one prefill and ``steps`` decode steps,
-    with spans around ``Model.prefill`` and ``Model.decode_step``: wall,
-    device busy and idle share, the hand-written kernels' share of the
-    device time, and the operators with the most device time."""
+    ``serve()`` spanning ``prefill`` and each ``decode_step`` with the
+    port's tracer: wall, device busy and idle share, the hand-written
+    kernels' share of the device time, and the operators with the most
+    device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import serve
+    from repro_torch.obs import Tracer
 
-    def spanned(name, fn):
-        def run(*args, **kw):
-            with record_function(name):
-                return fn(*args, **kw)
-        return run
-
-    model.prefill = spanned("prefill", model.prefill)
-    model.decode_step = spanned("decode_step", model.decode_step)
+    tracer = Tracer()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(model, params, tokens, steps, device="cuda")
+        serve(model, params, tokens, steps, device="cuda", tracer=tracer)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    del model.prefill, model.decode_step
+    host_spans = tracer.summary()
     # neither the spans' device-side extents nor the profiler's marker for
     # a full launch queue (the host running ahead) is an operator
     spans = ("prefill", "decode_step", "Command Buffer Full")
@@ -1821,11 +2164,11 @@ def profile_serve(tag, model, params, tokens, steps=4, top=12):
     # the kernels are launched through ctypes, outside any aten op: the
     # profiler does not count them in the prefill span's kernels
     for span in spans[:2]:
-        if span not in host:
+        if span not in host or span not in host_spans:
             raise RuntimeError(f"{tag} profile: no {span!r} span")
-        e = host[span]
-        log(f"[{tag} profile]   span {span:12s} x{e.count:<3d} host "
-            f"{e.cpu_time_total / 1e3:8.2f} ms, aten kernels "
+        e, s = host[span], host_spans[span]
+        log(f"[{tag} profile]   span {span:12s} x{s['count']:<3d} host "
+            f"{s['total_s'] * 1e3:8.2f} ms, aten kernels "
             f"{e.device_time_total / 1e3:8.2f} ms"
             + (f" (+ hand-written kernels {kern_ms:.2f} ms)"
                if span == "prefill" else ""))
@@ -1904,12 +2247,16 @@ def main():
     dyn, dyn_rows, dyn_peaks = phase_dynamics(data, counters)
     paths = {"main": main, **phase_robust(data, counters), **dyn,
              **phase_cohort(data, counters, dyn_rows, dyn_peaks),
+             **phase_thompson(data, counters),
+             **phase_telemetry(data, counters, dyn_rows),
+             **phase_debug_checks(data, counters, dyn_rows),
              "cohort 1M": phase_cohort_1m(counters)}
     for run in SERVE_RUNS:
         paths[run[0]] = phase_serve(*run, counters)
     for k, entry in entries.items():
-        # launches over the driven paths: the FL main, robust, dynamics
-        # and cohort runs and the four serve runs
+        # launches over the driven paths: the FL main, robust, dynamics,
+        # cohort, thompson, telemetry (update_norm's fed_agg and
+        # residual_norms) and debug_checks runs and the four serve runs
         by_path = {p: n[k] for p, n in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

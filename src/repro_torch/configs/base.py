@@ -267,9 +267,31 @@ class FLConfig:
     dynamics_params: Tuple[Tuple[str, Any], ...] = ()
     pipeline_depth: int = 1
     telemetry: Optional[str] = None
+    # ^ default device-metrics level of engine runs (repro_torch.obs).
+    #   None builds nothing: the round path runs the same ops and reads
+    #   as an uninstrumented engine.  "basic" adds the participation,
+    #   loss, time and cache counters; "full" also the update and
+    #   residual norms (through the fed_agg and residual_norms kernels),
+    #   the trust quantiles and the staleness histogram.  The values
+    #   ride the round ledger's read-back: no added wait for the card.
+    #   ``FleetEngine.run(telemetry=...)`` overrides it per run.
     debug_checks: bool = False
+    # ^ runtime sanitizers (repro_torch.analysis.runtime): after each
+    #   server step a guard checks that the global model and the losses
+    #   are finite and the cohort index in range, read once a round
+    #   through ``host_readback``; at run end a detector checks that no
+    #   memoised round function was rebuilt by a repeat run.  A
+    #   debugging mode: it waits for the card once a round.
 
     def __post_init__(self):
+        if self.telemetry not in (None, "basic", "full"):
+            raise ValueError(
+                f"FLConfig.telemetry must be None, 'basic' or 'full', "
+                f"got {self.telemetry!r}")
+        if self.selection_mode not in ("mean", "thompson"):
+            raise ValueError(
+                f"FLConfig.selection_mode must be 'mean' or 'thompson', "
+                f"got {self.selection_mode!r}")
         if self.agg_impl not in ("cuda", "torch"):
             raise ValueError(f"FLConfig.agg_impl must be 'cuda' or 'torch', "
                              f"got {self.agg_impl!r}")
@@ -319,12 +341,6 @@ class FLConfig:
                     f"({self.num_clients}) — a cohort cannot be larger "
                     f"than the fleet; use cohort_size=None for the full "
                     f"scan")
-        if self.selection_mode != "mean":
-            _not_ported("selection_mode", "#18 (Thompson selection)")
-        if self.telemetry is not None:
-            _not_ported("telemetry", "#13 (telemetry)")
-        if self.debug_checks:
-            _not_ported("debug_checks", "#14 (invariant checks)")
         if self.mesh_shape is not None:
             _not_ported("mesh_shape", "#17 (multi-device)")
         if self.donate_buffers:

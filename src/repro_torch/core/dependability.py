@@ -10,7 +10,7 @@ The fleet posterior is a pair of (N,) float32 tensors.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,3 +41,17 @@ def dependability(belief: BetaBelief) -> torch.Tensor:
     """E[R(i)] = α / (α + β)  — the per-device dependability estimate."""
     return belief.alpha / (belief.alpha + belief.beta)
 
+
+
+def sample_dependability(belief: BetaBelief,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """Thompson sample R(i) ~ Beta(α_i, β_i) on the belief's device (the
+    optional selection variant).
+
+    Beta(α, β) = Ga(α) / (Ga(α) + Ga(β)) from two standard Gamma draws of
+    ``generator`` (``torch.distributions.Beta`` takes none), so a seeded
+    generator on the card reproduces its draws."""
+    ga = torch._standard_gamma(belief.alpha, generator=generator)
+    gb = torch._standard_gamma(belief.beta, generator=generator)
+    return ga / (ga + gb)

@@ -82,11 +82,11 @@ def init_state(cfg: FLConfig, device="cpu") -> FludeState:
 
 def _plan_once(state: FludeState, caches: C.ClientCaches,
                online: torch.Tensor, X, cfg: FLConfig, uniforms,
-               explore_hints=None) -> FludePlan:
+               explore_hints=None, thompson_draws=None) -> FludePlan:
     sel = SEL.select_participants(
         state.belief, state.part_count, state.explored, online,
         state.total_selected, X, state.epsilon, cfg.sigma, uniforms,
-        explore_hints=explore_hints)
+        explore_hints=explore_hints, thompson_draws=thompson_draws)
     stale = C.staleness(caches, state.round)
     plan = D.plan_distribution(
         state.distributor, sel.selected, state.in_v, C.has_cache(caches),
@@ -95,8 +95,12 @@ def _plan_once(state: FludeState, caches: C.ClientCaches,
     r_sel = torch.where(sel.selected, dependability(state.belief), 0.0)
     n_sel = sel.selected.sum().clamp_min(1)
     # exact sum, rounded once: the floor below must not depend on the
-    # device's summation order (the card and the CPU agree bit for bit)
-    r_bar = r_sel.sum(dtype=torch.float64).to(torch.float32) / n_sel
+    # device's summation order (the card and the CPU agree bit for bit).
+    # In int64 units of 2^-40, where every R(i) >= 2^-17 is a whole
+    # number and integer sums are exact in any order, so the round path
+    # holds no float64 (a smaller R(i) drops its bits below 2^-40)
+    units = (r_sel * 2.0 ** 40).to(torch.int64).sum()
+    r_bar = units.to(torch.float32) * 2.0 ** -40 / n_sel
     cost = D.predicted_comm_cost(plan.distribute, sel.selected, r_bar)
     # floor: with quorum = ceil(|S|·R̄), ~half the rounds have fewer
     # successes than the quorum and idle-wait the full deadline T —
@@ -109,16 +113,22 @@ def _plan_once(state: FludeState, caches: C.ClientCaches,
 def plan_round(state: FludeState, caches: C.ClientCaches,
                online: torch.Tensor, cfg: FLConfig, uniforms,
                max_budget_iters: int = 8,
-               explore_hints=None) -> FludePlan:
+               explore_hints=None, thompson_draws=None) -> FludePlan:
     """Algorithm 2 lines 3–11: shrink X until B_pred ≤ B_max.
 
-    ``uniforms``: the round's (N,) explore noise in [0, 1); every budget
-    iteration reuses it, as the reference reuses the round's key.
+    ``uniforms``: the round's (N,) explore noise in [0, 1);
+    ``thompson_draws``: under ``cfg.selection_mode="thompson"`` the
+    round's (N,) Beta sample of the beliefs.  Every budget iteration
+    reuses both, as the reference reuses the round's key.
     ``explore_hints``: optional (N,) device-status scores (battery ×
     stability) biasing exploration order — §4.1's optional heuristic."""
+    if (cfg.selection_mode == "thompson") != (thompson_draws is not None):
+        raise ValueError(
+            f"plan_round: selection_mode={cfg.selection_mode!r} takes "
+            f"thompson_draws exactly under 'thompson'")
     X = torch.clamp_max(online.sum(), cfg.clients_per_round)
     plan = _plan_once(state, caches, online, X, cfg, uniforms,
-                      explore_hints)
+                      explore_hints, thompson_draws)
     if cfg.comm_budget == float("inf"):
         return plan
     b_max = cfg.comm_budget
@@ -129,7 +139,7 @@ def plan_round(state: FludeState, caches: C.ClientCaches,
              ).to(torch.int32).clamp_min(1),
             X)
         plan = _plan_once(state, caches, online, X, cfg, uniforms,
-                          explore_hints)
+                          explore_hints, thompson_draws)
     return plan
 
 

@@ -7,9 +7,10 @@ Threshold: Q = Σ_k |S_k| / |A|                            (Eq. 3)
 ε·X among never-explored devices.  Fixed-shape tensor code: the dynamic
 counts are rank thresholds, so nothing is read back to the host.
 
-Randomness: the reference draws the explore noise inside the selector
-(``jax.random.uniform(rng, (N,))``); here the caller passes the round's
-(N,) uniforms in, so a test can feed both packages the same numbers.
+Randomness: the reference draws the explore noise and the Thompson
+sample inside the selector (``jax.random.uniform`` / ``jax.random.beta``
+of the round's key); here the caller passes the round's (N,) uniforms and
+Thompson draws in, so a test can feed both packages the same numbers.
 """
 from __future__ import annotations
 
@@ -34,10 +35,11 @@ def freq_threshold(total_selected, num_devices) -> torch.Tensor:
     return total_selected / max(num_devices, 1)
 
 
-def priority(belief: BetaBelief, part_count: torch.Tensor, Q,
+def priority(R: torch.Tensor, part_count: torch.Tensor, Q,
              sigma: float) -> torch.Tensor:
-    """Eq. (2).  part_count q_i == 0 never exceeds Q, so the factor is 1."""
-    R = dependability(belief)
+    """Eq. (2) on the dependabilities ``R`` (the posterior mean, or a
+    Thompson sample of it).  part_count q_i == 0 never exceeds Q, so the
+    factor is 1."""
     q = part_count.to(torch.float32)
     ratio = torch.where(q > 0, Q / q.clamp_min(1e-9), 1.0)
     exceeds = (q > Q).to(torch.float32)
@@ -60,7 +62,8 @@ def select_participants(belief: BetaBelief, part_count: torch.Tensor,
                         explored: torch.Tensor, online: torch.Tensor,
                         total_selected, X, epsilon, sigma: float,
                         uniforms: torch.Tensor,
-                        explore_hints: Optional[torch.Tensor] = None
+                        explore_hints: Optional[torch.Tensor] = None,
+                        thompson_draws: Optional[torch.Tensor] = None
                         ) -> SelectionResult:
     """Algorithm 1.  ``X`` may be a 0-d tensor (budget-adapted by Alg. 2).
 
@@ -68,12 +71,18 @@ def select_participants(belief: BetaBelief, part_count: torch.Tensor,
     - explore ε·X among (not explored) ∩ online — by the round's
       ``uniforms``, or biased by ``explore_hints`` (paper §4.1: higher
       hint ⇒ explored earlier; the uniforms then only break ties)
+    - ``thompson_draws``, when given, replace the posterior MEAN in
+      Eq. 2 by the round's Thompson sample R(i) ~ Beta(α_i, β_i)
+      (``dependability.sample_dependability``) — a beyond-paper variant
+      that keeps probing uncertain devices after ε decays
     - if the explore pool is too small, the exploit share absorbs the rest
       (and vice versa), so |S| == min(X, |online|).
     """
     N = online.shape[0]
     Q = freq_threshold(total_selected, N)
-    P = priority(belief, part_count, Q, sigma)
+    R = dependability(belief) if thompson_draws is None else \
+        thompson_draws.to(device=online.device, dtype=torch.float32)
+    P = priority(R, part_count, Q, sigma)
 
     X = torch.minimum(torch.as_tensor(X, device=online.device),
                       online.sum()).to(torch.int32)

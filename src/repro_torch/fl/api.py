@@ -22,7 +22,7 @@ Policies register by name with ``@register_policy`` and are built with
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Type
+from typing import Any, Callable, Dict, Optional, Tuple, Type
 
 import numpy as np
 import torch
@@ -258,12 +258,19 @@ class RoundObservation:
     ``uniforms`` a device tensor: a policy that plans on the device reads
     them in place, a host-side policy converts with ``to_host`` at its own
     sync point.  On the host-RNG loop ``online`` is a numpy mask.
+
+    ``thompson`` maps the policy's beliefs ``(alpha, beta)`` to the
+    round's (N,) float32 Thompson draws on the engine's device (the
+    reference samples them from the round's key inside the selector); a
+    policy under ``FLConfig.selection_mode="thompson"`` calls it once a
+    round with the beliefs it plans from.
     """
     rnd: int
     online: Any
     caches: ClientCaches
     uniforms: Any = None
     draw: Optional[Any] = None
+    thompson: Optional[Callable] = None
 
 
 class Policy:
@@ -281,6 +288,10 @@ class Policy:
     # clients (flude, random, oort, safa, fedsea); the select-all designs
     # (mifa, asyncfeded) leave it False — their bound is the fleet
     selects_at_most_clients_per_round = False
+    # static trait: plans and observes on the engine's device without
+    # reading anything back (flude); the host-side baselines read the
+    # observation and the report back at their own boundary
+    plans_on_device = False
 
     def __init__(self, sim_cfg: SimConfig, fl_cfg: FLConfig,
                  fleet: Optional[Fleet] = None, device="cpu"):

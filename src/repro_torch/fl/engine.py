@@ -19,6 +19,11 @@ every depth.  On that loop ``FLConfig.cohort_size`` runs each round over
 the selected clients' (X, ...) rows, and ``FLConfig.cache_offload`` keeps
 the C3 cache params on the host (``core/cache_store.py``).
 
+``run(telemetry=...)`` (or ``FLConfig.telemetry``) adds the device
+metrics of ``repro_torch.obs`` to the ledger's read-back row and host
+spans around each seam of the round; ``FLConfig.debug_checks`` adds the
+round guard and the rebuild detector of ``repro_torch.analysis.runtime``.
+
 Global params and client caches stay on the engine's device across
 rounds.  The engine runs on the CUDA card unless the caller passes
 ``device="cpu"``.
@@ -26,18 +31,21 @@ rounds.  The engine runs on the CUDA card unless the caller passes
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, List, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import aggregation as AGG
 from repro_torch.core import caching as C
 from repro_torch.core import round as R
 from repro_torch.core.cache_store import (CohortCacheStream, HostCacheStore,
                                           TransferStats)
 from repro_torch.core.agg_rules import make_agg_rule
+from repro_torch.core.dependability import BetaBelief, sample_dependability
 from repro_torch.configs.base import FLConfig
 from repro_torch.data.synthetic import FederatedClassification
 from repro_torch.device import host_readback, resolve_device
@@ -49,9 +57,12 @@ from repro_torch.fl.api import (Policy, RoundObservation, RoundReport,
 from repro_torch.fl.simulator import Fleet, SimConfig, place_per_client
 from repro_torch.fleet import (draw_noise, get_dynamics, make_adversary,
                                make_dynamics)
+from repro_torch.obs import metrics as OM
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 BIG = 1 << 20
+# the default Thompson generator's seed is sim_cfg.seed + this
+THOMPSON_SALT = 0x7B5
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +301,8 @@ class History:
     final_params: Any = None
     # final per-client trust scores (stateful robust rules)
     trust: Optional[np.ndarray] = None
+    # telemetry: metric column -> per-round values (None with it off)
+    metrics: Optional[dict] = None
 
     _ARRAY_EXTRAS = ("part_count", "per_class_acc", "per_client_acc",
                      "trust")
@@ -307,6 +320,8 @@ class History:
             v = getattr(self, name, None)
             if v is not None:
                 d[name] = np.asarray(v).tolist()
+        if self.metrics is not None:
+            d["metrics"] = {k: list(v) for k, v in self.metrics.items()}
         return d
 
     @classmethod
@@ -322,6 +337,8 @@ class History:
         for name in cls._ARRAY_EXTRAS:
             if d.get(name) is not None:
                 setattr(h, name, np.asarray(d[name]))
+        if d.get("metrics") is not None:
+            h.metrics = {k: list(v) for k, v in d["metrics"].items()}
         return h
 
     def _evaluated(self):
@@ -344,14 +361,53 @@ class History:
         return float("inf")
 
 
+def metric_layout(metrics: dict) -> tuple:
+    """The column layout of one round's metric values in the ledger's
+    row: ``(name, numel, is_vector, is_int)`` per column, from shapes and
+    dtypes alone (the same for every round of one metrics function)."""
+    return tuple((k, v.numel(), v.dim() > 0, not v.is_floating_point())
+                 for k, v in metrics.items())
+
+
+def unpack_metrics(layout: tuple, vals: list) -> dict:
+    """Python values of one round's metrics from their row slice:
+    counts as ints, the rest as floats, vectors as lists."""
+    out, i = {}, 0
+    for name, n, vector, is_int in layout:
+        got = [int(v) if is_int else float(v) for v in vals[i:i + n]]
+        out[name] = got if vector else got[0]
+        i += n
+    return out
+
+
+def _record_metrics(hist: History, telemetry, rnd: int, evaluated: bool,
+                    acc: float, duration: float, cum_comm: float,
+                    cum_time: float, received: int, downloads: int,
+                    selected: int, mvals: dict) -> None:
+    """One round's metric values onto ``hist.metrics`` and, with a
+    telemetry session, its ``round`` event — the one event format of
+    both round loops."""
+    for k, v in mvals.items():
+        hist.metrics.setdefault(k, []).append(v)
+    if telemetry is not None:
+        telemetry.record_round({
+            "round": rnd, "evaluated": evaluated,
+            "acc": None if acc != acc else acc,
+            "duration": duration, "comm_mb": cum_comm,
+            "wall_clock": cum_time, "received": received,
+            "downloads": downloads, "selected": selected, **mvals})
+
+
 class _RoundLedger:
     """Deferred History bookkeeping of the device round loop.
 
     Each round the loop hands over the device scalars one History row
     needs — the round cut and its capped flag, the received / download /
-    selected counts and, at eval boundaries, the test accuracy.  ``push``
-    packs them into one float64 tensor (every value is exact there) and,
-    on a card, starts its copy into pinned host memory without waiting,
+    selected counts and, at eval boundaries, the test accuracy — and,
+    with telemetry on, the round's metric values.  ``push`` packs them
+    into one float64 tensor (every count and float32 value is exact
+    there, vectors flattened in the metrics' fixed column order) and, on
+    a card, starts its copy into pinned host memory without waiting,
     recording an event behind it.  ``resolve(keep)`` reads rows back
     oldest first until ``keep`` remain in flight, waiting only for each
     row's own event — the work queued after it keeps running.  The loop
@@ -366,11 +422,14 @@ class _RoundLedger:
     selected than ``cohort_size``): it rides the same read-back, and
     ``resolve`` raises a ``RuntimeError`` naming the policy when it is
     set — under ``pipeline_depth`` d up to d - 1 rounds after the round.
+    Metric values land on ``History.metrics`` and, with a telemetry
+    session, in its ``round`` events.
     """
 
     def __init__(self, hist: History, model_mb: float, round_deadline: float,
                  progress: Optional[Callable], n_rounds: int, device,
-                 cohort_info: Optional[tuple] = None):
+                 cohort_info: Optional[tuple] = None, telemetry=None,
+                 tracer=obs.NULL_TRACER):
         self.hist = hist
         self.cohort_info = cohort_info    # (policy name, cohort size)
         self.model_mb = model_mb
@@ -378,21 +437,29 @@ class _RoundLedger:
         self.progress = progress
         self.n_rounds = n_rounds
         self.device = torch.device(device)
+        self.telemetry = telemetry        # repro_torch.obs.Telemetry | None
+        self.tracer = tracer
         self.pending: List[tuple] = []
         self.cum_comm = 0.0
         self.cum_time = 0.0
         self.acc = float("nan")
 
     def push(self, rnd, evaluated, duration, capped, received, downloads,
-             selected, acc=None, overflow=None):
+             selected, acc=None, overflow=None, metrics=None):
         """Queue one round's device scalars (``acc`` only when the round
-        was evaluated, ``overflow`` only on a compact-cohort round)."""
+        was evaluated, ``overflow`` only on a compact-cohort round,
+        ``metrics`` only with telemetry on)."""
         vals = [duration, capped, received, downloads, selected]
         if overflow is not None:
             vals.append(overflow)
         if evaluated:
             vals.append(acc)
         packed = torch.stack([v.to(torch.float64) for v in vals])
+        layout = None
+        if metrics is not None:
+            layout = metric_layout(metrics)
+            packed = torch.cat([packed] + [v.reshape(-1).to(torch.float64)
+                                           for v in metrics.values()])
         event = None
         if packed.is_cuda:
             host = torch.empty(packed.shape, dtype=packed.dtype,
@@ -402,16 +469,19 @@ class _RoundLedger:
             event.record()
             packed = host
         self.pending.append((rnd, evaluated, overflow is not None, packed,
-                             event))
+                             event, layout))
 
     def resolve(self, keep: int = 0):
         """Read back all but the newest ``keep`` rounds."""
         while len(self.pending) > keep:
-            rnd, evaluated, cohort, packed, event = self.pending.pop(0)
-            with host_readback(self.device):
+            rnd, evaluated, cohort, packed, event, layout = \
+                self.pending.pop(0)
+            with self.tracer.span("ledger_resolve", round=rnd), \
+                    host_readback(self.device):
                 if event is not None:
                     event.synchronize()
                 vals = packed.tolist()
+            head = 5 + cohort + evaluated
             duration, capped, received, downloads, selected = vals[:5]
             if cohort and vals[5]:
                 name, x = self.cohort_info
@@ -423,9 +493,10 @@ class _RoundLedger:
                     f"(or set it to None for the full scan).")
             self.cum_comm += (int(downloads) + int(received)) \
                 * self.model_mb
-            self.cum_time += self.round_deadline if capped else duration
+            billed = self.round_deadline if capped else duration
+            self.cum_time += billed
             if evaluated:
-                self.acc = vals[-1]
+                self.acc = vals[head - 1]
             hist = self.hist
             hist.acc.append(self.acc)
             hist.eval_mask.append(evaluated)
@@ -433,6 +504,12 @@ class _RoundLedger:
             hist.wall_clock.append(self.cum_time)
             hist.received.append(int(received))
             hist.selected.append(int(selected))
+            _record_metrics(
+                hist, self.telemetry, rnd, evaluated, self.acc, billed,
+                self.cum_comm, self.cum_time, int(received),
+                int(downloads), int(selected),
+                {} if layout is None else unpack_metrics(layout,
+                                                         vals[head:]))
             if self.progress and (rnd % 10 == 0
                                   or rnd == self.n_rounds - 1):
                 self.progress(rnd, self.acc, self.cum_comm, self.cum_time)
@@ -500,6 +577,14 @@ class FleetEngine:
         self._fleet = fleet
         self._trainer = None      # built on first run
         self._server_steps = {}
+        # telemetry (repro_torch.obs): metrics functions memoised per
+        # (level, round path); the run's tracer, NULL_TRACER with it off
+        self._metrics_fns = {}
+        self._tracer = obs.NULL_TRACER
+        # debug_checks (repro_torch.analysis.runtime), built on first use
+        self.debug_checks = bool(fl_cfg.debug_checks)
+        self._round_guards = {}
+        self._rebuild_detector = None
         self._last_caches = None  # previous run's fleet caches (recycled)
         self.pipeline_depth = int(fl_cfg.pipeline_depth)
         self.cohort = fl_cfg.cohort_size
@@ -577,9 +662,6 @@ class FleetEngine:
     def _eval(self, params) -> torch.Tensor:
         """Test accuracy as a 0-d tensor on the engine's device."""
         return CLF.clf_accuracy(params, self._test_x, self._test_y)
-
-    def _accuracy(self, params) -> float:
-        return float(self._eval(params))
 
     def _fresh_caches(self, template):
         """Empty (N, ...) C3 cache state for a new run.  The previous
@@ -722,7 +804,9 @@ class FleetEngine:
             time_budget: Optional[float] = None, eval_every: int = 1,
             progress: Optional[Callable] = None, diagnostics: bool = True,
             explore_uniforms: Optional[Callable] = None,
-            dynamics_noise: Optional[Callable] = None) -> History:
+            dynamics_noise: Optional[Callable] = None,
+            thompson_draws: Optional[Callable] = None,
+            telemetry=None) -> History:
         """Run FL rounds.  ``time_budget`` (simulated seconds) caps the run
         by wall clock instead of round count; ``rounds`` (default
         ``sim_cfg.rounds``) remains the hard round cap.
@@ -745,7 +829,21 @@ class FleetEngine:
         optional callable mapping ``"init"`` and then each round index to
         a dict of the (N,) float32 uniforms the process names
         (``init_noise`` / ``step_noise``).  By default they come from a
-        generator on the engine's device seeded from ``sim_cfg.seed``."""
+        generator on the engine's device seeded from ``sim_cfg.seed``.
+
+        ``thompson_draws``: under ``FLConfig.selection_mode="thompson"``,
+        an optional ``(rnd, alpha, beta) -> (N,) float32`` callable giving
+        each round's Beta sample of the beliefs the policy plans from.  By
+        default both loops sample on the engine's device from a generator
+        seeded with ``sim_cfg.seed + THOMPSON_SALT``.  (Under Thompson
+        the reference splits the round key first, ``(k', k_ts) =
+        split(k)``, and draws the explore uniforms from ``k'``.)
+
+        ``telemetry``: None defers to ``FLConfig.telemetry``; False turns
+        it off for this run; "basic" / "full" runs a bare session at that
+        level; a ``repro_torch.obs.Telemetry`` is used as it is (sinks,
+        trace file and profiler window included).  Metric values land on
+        ``History.metrics``."""
         sim_cfg, fl_cfg = self.sim_cfg, self.fl_cfg
         N = fl_cfg.num_clients
         fleet = self._fleet if self._fleet is not None else Fleet(sim_cfg)
@@ -772,24 +870,52 @@ class FleetEngine:
         state = policy.init_state()
         n_rounds = sim_cfg.rounds if rounds is None else rounds
         hist = History()
+        tel = self._resolve_telemetry(telemetry)
+        tracer = obs.NULL_TRACER if tel is None else tel.tracer
+        self._tracer = tracer
+        if tel is not None:
+            tel.open_run({"policy": policy.name, "num_clients": N,
+                          "rounds": n_rounds, "dynamics": fl_cfg.dynamics,
+                          "cohort_size": fl_cfg.cohort_size,
+                          "cache_offload": fl_cfg.cache_offload,
+                          "pipeline_depth": fl_cfg.pipeline_depth,
+                          "selection_mode": fl_cfg.selection_mode})
+            hist.metrics = {}
+        thompson = self._thompson_source(thompson_draws)
         with torch.no_grad():
             global_params = self._template
             caches = self._fresh_caches(global_params)
-            if host_side:
-                state, global_params, caches, rule_state = \
-                    self._host_rounds(
-                        policy, state, fleet, hist, global_params, caches,
-                        self._init_rule_state(), explore_uniforms,
-                        n_rounds, time_budget, eval_every, progress)
-            else:
-                state, global_params, caches, rule_state = \
-                    self._device_rounds(
-                        policy, state, fleet, hist, global_params, caches,
-                        self._init_rule_state(), explore_uniforms,
-                        dynamics_noise, n_rounds, time_budget, eval_every,
-                        progress)
+            with tracer.span("rounds"):
+                if host_side:
+                    state, global_params, caches, rule_state = \
+                        self._host_rounds(
+                            policy, state, fleet, hist, global_params,
+                            caches, self._init_rule_state(),
+                            explore_uniforms, thompson, n_rounds,
+                            time_budget, eval_every, progress, tel)
+                else:
+                    state, global_params, caches, rule_state = \
+                        self._device_rounds(
+                            policy, state, fleet, hist, global_params,
+                            caches, self._init_rule_state(),
+                            explore_uniforms, dynamics_noise, thompson,
+                            n_rounds, time_budget, eval_every, progress,
+                            tel)
+            if self.debug_checks:
+                self._debug_rebuild_check(policy, tel)
             hist = self._run_end(policy, state, hist, global_params,
                                  rule_state, time_budget, diagnostics)
+        if tel is not None:
+            final_acc = hist.acc[-1] if hist.acc else None
+            tel.close_run({
+                "policy": policy.name, "rounds": len(hist.acc),
+                "final_acc": None if final_acc is None
+                or final_acc != final_acc else final_acc,
+                "comm_mb": hist.comm_mb[-1] if hist.comm_mb else 0.0,
+                "wall_clock": hist.wall_clock[-1] if hist.wall_clock
+                else 0.0,
+                "transfer_stats": self._transfer_stats.snapshot()})
+            self._tracer = obs.NULL_TRACER
         hist.final_params = global_params
         self._last_caches = caches
         return hist
@@ -804,28 +930,150 @@ class FleetEngine:
             # a measurement on the final global model
             if time_budget is not None and hist.eval_mask \
                     and not hist.eval_mask[-1]:
-                hist.acc[-1] = self._accuracy(global_params)
+                hist.acc[-1] = float(self._eval(global_params))
                 hist.eval_mask[-1] = True
 
             # final diagnostics (paper Fig. 1(b)(c))
             if diagnostics:
-                hist.per_class_acc = to_host(CLF.clf_per_class_accuracy(
-                    global_params, self._test_x, self._test_y,
-                    self.data.num_classes))
-                n = min(N, self.data.x.shape[0])
-                x = torch.as_tensor(self.data.x[:n], dtype=torch.float32,
-                                    device=self.device)
-                y = torch.as_tensor(self.data.y[:n],
-                                    device=self.device).long()
-                hist.per_client_acc = to_host(
-                    CLF.clf_accuracy(global_params, x, y)).astype(
-                        np.float64)
+                with self._tracer.span("diagnostics"):
+                    hist.per_class_acc = to_host(
+                        CLF.clf_per_class_accuracy(
+                            global_params, self._test_x, self._test_y,
+                            self.data.num_classes))
+                    n = min(N, self.data.x.shape[0])
+                    x = torch.as_tensor(self.data.x[:n],
+                                        dtype=torch.float32,
+                                        device=self.device)
+                    y = torch.as_tensor(self.data.y[:n],
+                                        device=self.device).long()
+                    hist.per_client_acc = to_host(
+                        CLF.clf_accuracy(global_params, x, y)).astype(
+                            np.float64)
             for k, v in policy.history_extras(state).items():
                 setattr(hist, k, v)
             if rule_state is not None:
                 # the one read-back of the trust scores, at run end
                 hist.trust = to_host(rule_state)
         return hist
+
+    # -- telemetry (repro_torch.obs) ----------------------------------------
+
+    def _resolve_telemetry(self, arg):
+        """``run(telemetry=...)`` -> ``Telemetry | None``: None defers to
+        ``FLConfig.telemetry`` (a bare session at that level), False turns
+        it off, a level string builds a bare session, a ``Telemetry`` is
+        used as it is."""
+        if arg is False:
+            return None
+        if arg is None:
+            lvl = self.fl_cfg.telemetry
+            return None if lvl is None else obs.Telemetry(level=lvl)
+        if isinstance(arg, str):
+            return obs.Telemetry(level=arg)
+        return arg
+
+    def _metrics_fn(self, level: str, uses_cache: bool,
+                    rows_bound: Optional[int] = None):
+        """Memoised metrics function of the active round path: ``(fn,
+        needed ctx keys)``, ``(None, ())`` when nothing applies.  The
+        availability set says exactly what the path produces, so a
+        registered metric with unmet needs is never run.  ``rows_bound``
+        is the policy's selection bound on the full scan, where the rows
+        are the fleet-sized (N, ...) stack: ``update_norm`` gathers the
+        received rows into a (rows_bound, D) block before its kernels."""
+        key = (level, self.cohort, self.offload, self._agg_stateful,
+               bool(uses_cache), rows_bound)
+        if key not in self._metrics_fns:
+            avail = {"selected", "distribute", "resume", "online",
+                     "received", "fail", "losses", "times", "progress",
+                     "stamp", "rnd", "rows", "rows_mask", "global"}
+            if self.cohort is not None:
+                avail.add("cohort_size")
+            if self._agg_stateful:
+                avail.add("rule_state")
+            if self.offload == "discard" and uses_cache:
+                avail.add("stamp_pre_expire")
+            static = {"num_clients": self.fl_cfg.num_clients,
+                      "cohort_size": self.cohort,
+                      "local_steps": self.sim_cfg.local_steps,
+                      "staleness_edges": OM.STALENESS_EDGES,
+                      "rows_bound": rows_bound,
+                      "agg_impl": self.fl_cfg.agg_impl,
+                      "pack_layout": AGG.pack_layout(self._template)}
+            self._metrics_fns[key] = OM.make_metrics_fn(level, avail,
+                                                        static)
+        return self._metrics_fns[key]
+
+    def _metrics_hook(self, tel, uses_cache, rows_bound):
+        """The round loops' metrics call, or None with telemetry off:
+        ``hook(rnd, global_params, caches, rule_state, stamp_pre_expire,
+        **cand) -> {column: device value}``.  It runs before the round's
+        server step, which writes the cohort caches in place."""
+        if tel is None or tel.level is None:
+            return None
+        fn, keys = self._metrics_fn(tel.level, uses_cache, rows_bound)
+        if fn is None:
+            return None
+
+        def hook(rnd, global_params, caches, rule_state, stamp_pre_expire,
+                 **cand):
+            cand.update(progress=caches.progress, stamp=caches.round_stamp,
+                        rnd=rnd, rule_state=rule_state,
+                        stamp_pre_expire=stamp_pre_expire)
+            cand["global"] = global_params
+            with self._tracer.span("metrics", round=rnd):
+                return fn({k: cand[k] for k in keys})
+        return hook
+
+    def _thompson_source(self, thompson_draws):
+        """``rnd -> (alpha, beta) -> (N,) draws`` for the round's
+        ``RoundObservation.thompson`` (None under ``selection_mode=
+        "mean"``): handed-in draws placed on the engine's device, or by
+        default Beta samples of a generator there."""
+        if self.fl_cfg.selection_mode != "thompson":
+            return lambda rnd: None
+        device = self.device
+        if thompson_draws is None:
+            gen = torch.Generator(device=device).manual_seed(
+                self.sim_cfg.seed + THOMPSON_SALT)
+            sampler = lambda a, b: sample_dependability(  # noqa: E731
+                BetaBelief(a, b), gen)
+            return lambda rnd: sampler
+
+        def source(rnd):
+            def draws(alpha, beta):
+                d = thompson_draws(rnd, alpha, beta)
+                if isinstance(d, torch.Tensor):
+                    return d.to(device=device, dtype=torch.float32)
+                return place_per_client(d, device).to(torch.float32)
+            return draws
+        return source
+
+    # -- debug_checks (repro_torch.analysis.runtime) ------------------------
+
+    def _debug_round_check(self, global_params, losses, idx, rnd):
+        """``FLConfig.debug_checks``: the round guard over the post-step
+        global model, the losses and the cohort index, read once through
+        ``host_readback`` — the sanitiser's one wait a round."""
+        from repro_torch.analysis import runtime as RT
+        with_idx = idx is not None
+        if with_idx not in self._round_guards:
+            self._round_guards[with_idx] = RT.make_round_guard(
+                self.fl_cfg.num_clients, with_idx=with_idx)
+        guard = self._round_guards[with_idx]
+        flags = guard(global_params, losses) if idx is None \
+            else guard(global_params, losses, idx)
+        RT.check_round(flags, guard.messages, rnd, self.device)
+
+    def _debug_rebuild_check(self, policy, tel):
+        """``FLConfig.debug_checks`` at run end: no memoised round
+        function was rebuilt by a repeat of a run."""
+        from repro_torch.analysis import runtime as RT
+        if self._rebuild_detector is None:
+            self._rebuild_detector = RT.RebuildDetector(self)
+        self._rebuild_detector.check(
+            (policy.name, policy.uses_cache, policy.waits_for_stragglers,
+             None if tel is None else tel.level))
 
     # -- host-side round closing / bookkeeping ------------------------------
 
@@ -869,7 +1117,8 @@ class FleetEngine:
         cum_time += duration
         evaluated = rnd % eval_every == 0 or rnd == n_rounds - 1
         if evaluated:
-            acc = self._accuracy(global_params)
+            with self._tracer.span("eval_readback", round=rnd):
+                acc = float(self._eval(global_params))
         hist.acc.append(acc)
         hist.eval_mask.append(evaluated)
         hist.comm_mb.append(cum_comm)
@@ -883,12 +1132,17 @@ class FleetEngine:
     # -- host-RNG round loop (bernoulli_host) -------------------------------
 
     def _host_rounds(self, policy, state, fleet, hist, global_params,
-                     caches, rule_state, explore_uniforms, n_rounds,
-                     time_budget, eval_every, progress):
+                     caches, rule_state, explore_uniforms, thompson,
+                     n_rounds, time_budget, eval_every, progress, tel):
         """The seed simulator's numpy round loop, draw for draw the
-        reference's ``_host_rounds``."""
+        reference's ``_host_rounds``.  With telemetry on, the round's
+        metrics are read back within the round, as the loop reads
+        everything else."""
         sim_cfg, fl_cfg = self.sim_cfg, self.fl_cfg
         N = fl_cfg.num_clients
+        tracer = self._tracer
+        measure = self._metrics_hook(tel, policy.uses_cache,
+                                     policy.selection_bound())
         # adaptive cache frequency (C3): steps between cache writes
         cache_every_np = np.clip(np.round(to_host(
             C.adaptive_cache_interval(2.0, fleet.battery,
@@ -907,10 +1161,14 @@ class FleetEngine:
         for rnd in range(n_rounds):
             if time_budget is not None and cum_time >= time_budget:
                 break
+            if tel is not None:
+                tel.maybe_profile(rnd)
             online = fleet.online_mask()
-            state, plan = policy.plan(
-                state, RoundObservation(rnd, online, caches,
-                                        explore_uniforms(rnd)))
+            with tracer.span("plan", round=rnd):
+                state, plan = policy.plan(
+                    state, RoundObservation(rnd, online, caches,
+                                            explore_uniforms(rnd),
+                                            thompson=thompson(rnd)))
             self._validate_plan(plan)
             selected = to_host(plan.selected)
             distribute = to_host(plan.distribute)
@@ -936,9 +1194,10 @@ class FleetEngine:
 
             # local training; the start state (fresh global vs cached
             # local) is picked on the device inside the trainer
-            final, cache_p, cached_steps, losses = self.trainer(
-                global_params, caches, self._put(resume),
-                self._put(steps_needed), self._put(stop), cache_every)
+            with tracer.span("trainer", round=rnd):
+                final, cache_p, cached_steps, losses = self.trainer(
+                    global_params, caches, self._put(resume),
+                    self._put(steps_needed), self._put(stop), cache_every)
 
             # timing + round termination
             success = selected & ~fail & (steps_needed > 0)
@@ -954,26 +1213,50 @@ class FleetEngine:
             # fed_agg launch for the mean), C3 cache write/clear
             extra_w = ones_w if plan.agg_weights is None else \
                 self._put(to_host(plan.agg_weights).astype(np.float32))
-            out = server_step(
-                global_params, caches, final, cache_p, cached_steps,
-                self._put(selected), self._put(fail), self._put(received),
-                self._put(resume), self._n_samples, extra_w, rnd,
-                *self._step_extra(rule_state))
+            mx = None
+            if measure is not None:
+                recv_d = self._put(received)
+                mx = measure(
+                    rnd, global_params, caches, rule_state, None,
+                    selected=self._put(selected),
+                    distribute=self._put(distribute),
+                    resume=self._put(resume), online=self._put(online),
+                    received=recv_d, fail=self._put(fail), losses=losses,
+                    times=self._put(times.astype(np.float32)), rows=final,
+                    rows_mask=recv_d)
+            with tracer.span("server_step", round=rnd):
+                out = server_step(
+                    global_params, caches, final, cache_p, cached_steps,
+                    self._put(selected), self._put(fail),
+                    self._put(received), self._put(resume),
+                    self._n_samples, extra_w, rnd,
+                    *self._step_extra(rule_state))
             if self._agg_stateful:
                 global_params, caches, rule_state = out
             else:
                 global_params, caches = out
 
-            state = policy.observe(
-                state, plan,
-                RoundReport(received=received, fail=fail,
-                            losses=to_host(losses), durations=times,
-                            duration=duration, rnd=rnd))
+            if self.debug_checks:
+                self._debug_round_check(global_params, losses, None, rnd)
+            with tracer.span("observe", round=rnd):
+                state = policy.observe(
+                    state, plan,
+                    RoundReport(received=received, fail=fail,
+                                losses=to_host(losses), durations=times,
+                                duration=duration, rnd=rnd))
 
             cum_comm, cum_time, acc = self._book_round(
                 hist, rnd, n_rounds, eval_every, global_params,
                 distribute & online, received, selected, duration,
                 cum_comm, cum_time, acc, progress)
+            if tel is not None:
+                _record_metrics(
+                    hist, tel, rnd, bool(hist.eval_mask[-1]), acc,
+                    float(duration), cum_comm, cum_time,
+                    int(received.sum()), int((distribute & online).sum()),
+                    int(selected.sum()),
+                    {} if mx is None else
+                    {k: v.tolist() for k, v in mx.items()})
         return state, global_params, caches, rule_state
 
     # -- device dynamics round loop (repro_torch.fleet) ---------------------
@@ -1019,8 +1302,10 @@ class FleetEngine:
         arrays cost one upload."""
         if isinstance(arr, torch.Tensor):
             return arr.to(self.device)
-        return place_per_client(np.asarray(arr) if dtype is None
-                                else np.asarray(arr, dtype), self.device)
+        with self._tracer.span("place_per_client"):
+            return place_per_client(np.asarray(arr) if dtype is None
+                                    else np.asarray(arr, dtype),
+                                    self.device)
 
     def _round_cut(self, waits_for_stragglers: bool):
         """Memoized device round cut for one straggler trait; with a
@@ -1048,7 +1333,7 @@ class FleetEngine:
         def place(u):
             if isinstance(u, torch.Tensor):
                 return u.to(device=device, dtype=torch.float32)
-            return place_per_client(np.asarray(u, np.float32), device)
+            return place_per_client(u, device).to(torch.float32)
 
         if explore_uniforms is None:
             gen = torch.Generator(device=device).manual_seed(seed)
@@ -1088,74 +1373,98 @@ class FleetEngine:
 
     def _full_round(self, trainer, cut_fn, server_step, global_params,
                     caches, rule_state, draw, plan, masks, rnd,
-                    uses_cache):
+                    uses_cache, measure):
         """One full-scan round: trainer, cut and server step over all N
-        rows."""
+        rows.  Returns ``(step outputs, report, t_cut, capped, counts,
+        overflow, metrics, cohort index)``."""
         sel_d, dist_d, res_d, base_steps, cache_every, extra_w = masks
+        tracer = self._tracer
         # workload + failure/interruption + masked local training +
         # per-device timing
-        (final, cache_p, cached_steps, losses, _steps, fail, success,
-         times) = trainer(global_params, caches, draw, sel_d, dist_d, res_d,
-                          base_steps, cache_every)
+        with tracer.span("trainer", round=rnd):
+            (final, cache_p, cached_steps, losses, _steps, fail, success,
+             times) = trainer(global_params, caches, draw, sel_d, dist_d,
+                              res_d, base_steps, cache_every)
         # round termination on the device; a capped round comes back as a
         # flag so the ledger bills the exact deadline
-        t_cut, received, capped, *counts = cut_fn(
-            times, plan.quorum, success, draw.online, dist_d, sel_d)
-        out = server_step(global_params, caches, final, cache_p,
-                          cached_steps, sel_d, fail, received, res_d,
-                          self._n_samples, extra_w, rnd,
-                          *self._step_extra(rule_state))
+        with tracer.span("round_cut", round=rnd):
+            t_cut, received, capped, *counts = cut_fn(
+                times, plan.quorum, success, draw.online, dist_d, sel_d)
+        mx = None if measure is None else measure(
+            received=received, fail=fail, losses=losses, times=times,
+            rows=final, rows_mask=received)
+        with tracer.span("server_step", round=rnd):
+            out = server_step(global_params, caches, final, cache_p,
+                              cached_steps, sel_d, fail, received, res_d,
+                              self._n_samples, extra_w, rnd,
+                              *self._step_extra(rule_state))
         report = RoundReport(received=received, fail=fail, losses=losses,
                              durations=times, duration=t_cut, rnd=rnd)
-        return out, report, t_cut, capped, counts, None
+        return out, report, t_cut, capped, counts, None, mx, None
 
     def _cohort_round(self, trainer, cut_fn, server_step, global_params,
                       caches, rule_state, draw, plan, masks, rnd,
-                      uses_cache):
+                      uses_cache, measure):
         """One compact-cohort round: the trainer gathers the selected
         rows into (X, ...) blocks and hands back (N,) report views; cut
         and server step run over X rows.  Under offload the stream
         fetches the cohort's cache rows by the index before the trainer
         runs, and the round's write-back is queued after the server
-        step."""
+        step.  Returns what ``_full_round`` returns."""
         sel_d, dist_d, res_d, base_steps, cache_every, extra_w = masks
+        tracer = self._tracer
         idx = cohort_index(sel_d, self.cohort)
         overflow = cohort_overflow(sel_d, self.cohort)
         cache_x = None
         if self.offload is not None:
-            cache_x = self._cache_stream.fetch(idx, rnd) if uses_cache \
-                else self._zero_cohort_block()
-        (final, cache_p, cached_steps, _losses_x, _steps_x, fail, success,
-         times, losses_n, fail_n, times_n) = trainer(
-            global_params, caches, cache_x, idx, draw, sel_d, dist_d, res_d,
-            base_steps, cache_every)
-        t_cut, received_x, received, capped, *counts = cut_fn(
-            times, plan.quorum, success, idx, draw.online, dist_d, sel_d)
-        if self.offload is None:
-            out = server_step(global_params, caches, final, cache_p,
-                              cached_steps, idx, sel_d, fail, received_x,
-                              res_d, self._n_samples, extra_w, rnd,
-                              *self._step_extra(rule_state))
-        else:
-            out = server_step(global_params, caches, final, cached_steps,
-                              idx, sel_d, fail, received_x, res_d,
-                              self._n_samples, extra_w, rnd,
-                              *self._step_extra(rule_state))
+            if uses_cache:
+                with tracer.span("cache_fetch", round=rnd):
+                    cache_x = self._cache_stream.fetch(idx, rnd)
+            else:
+                cache_x = self._zero_cohort_block()
+        with tracer.span("trainer", round=rnd):
+            (final, cache_p, cached_steps, _losses_x, _steps_x, fail,
+             success, times, losses_n, fail_n, times_n) = trainer(
+                global_params, caches, cache_x, idx, draw, sel_d, dist_d,
+                res_d, base_steps, cache_every)
+        with tracer.span("round_cut", round=rnd):
+            t_cut, received_x, received, capped, *counts = cut_fn(
+                times, plan.quorum, success, idx, draw.online, dist_d,
+                sel_d)
+        mx = None if measure is None else measure(
+            received=received, fail=fail_n, losses=losses_n, times=times_n,
+            rows=final, rows_mask=received_x)
+        with tracer.span("server_step", round=rnd):
+            if self.offload is None:
+                out = server_step(global_params, caches, final, cache_p,
+                                  cached_steps, idx, sel_d, fail,
+                                  received_x, res_d, self._n_samples,
+                                  extra_w, rnd,
+                                  *self._step_extra(rule_state))
+            else:
+                out = server_step(global_params, caches, final,
+                                  cached_steps, idx, sel_d, fail,
+                                  received_x, res_d, self._n_samples,
+                                  extra_w, rnd,
+                                  *self._step_extra(rule_state))
+        if self.offload is not None:
             write_x, stamp_x = out[2], out[3]
             out = out[:2] + out[4:]
             if uses_cache:
                 # the write-back's copies start now; nothing waits for
                 # them until the next round's fetch
-                self._cache_stream.stage(idx, write_x, received_x, cache_p,
-                                         stamp_x)
+                with tracer.span("cache_stage", round=rnd):
+                    self._cache_stream.stage(idx, write_x, received_x,
+                                             cache_p, stamp_x)
         report = RoundReport(received=received, fail=fail_n,
                              losses=losses_n, durations=times_n,
                              duration=t_cut, rnd=rnd)
-        return out, report, t_cut, capped, counts, overflow
+        return out, report, t_cut, capped, counts, overflow, mx, idx
 
     def _device_rounds(self, policy, state, fleet, hist, global_params,
                        caches, rule_state, explore_uniforms, dynamics_noise,
-                       n_rounds, time_budget, eval_every, progress):
+                       thompson, n_rounds, time_budget, eval_every,
+                       progress, tel):
         """The device round loop, the reference's ``_device_rounds``: the
         process step, the plan, the dynamics trainer, the round cut and
         the server step run on the engine's device with no host value
@@ -1163,21 +1472,32 @@ class FleetEngine:
         round's (X, ...) cohort (``_cohort_round``).  History rows go
         through a ``_RoundLedger``, read back when the pipeline depth, an
         eval-free ``progress`` tick, a ``time_budget`` or the run end asks
-        for them.  FLUDE plans on the device; the host-side baselines read
-        back at their own boundary."""
+        for them; with telemetry on, the round's metric values ride in
+        the same row.  FLUDE plans on the device; the host-side baselines
+        read back at their own boundary."""
         sim_cfg = self.sim_cfg
         uses_cache = policy.uses_cache
+        tracer = self._tracer
         process, trainer = self._dynamics_fns(fleet)
         cache_every, ones_w, full_steps = self._dyn_consts(fleet, uses_cache)
         server_step = self._server_step(uses_cache)
         cut_fn = self._round_cut(policy.waits_for_stragglers)
         round_fn = self._full_round if self.cohort is None \
             else self._cohort_round
+        # cohort rows are the compact (X, ...) block already; the full
+        # scan gives the policy's selection bound, so update_norm gathers
+        # the received rows instead of reading all N
+        hook = self._metrics_hook(
+            tel, uses_cache,
+            None if self.cohort is not None else policy.selection_bound())
+        expire_metrics = hook is not None and self.offload == "discard" \
+            and uses_cache
         explore, noise = self._noise_sources(process, explore_uniforms,
                                              dynamics_noise)
         ledger = _RoundLedger(hist, sim_cfg.model_mb, sim_cfg.round_deadline,
                               progress, n_rounds, self.device,
-                              cohort_info=(policy.name, self.cohort))
+                              cohort_info=(policy.name, self.cohort),
+                              telemetry=tel, tracer=tracer)
         fstate = process.init_state(noise("init"))
         draw = None
         for rnd in range(n_rounds):
@@ -1186,15 +1506,25 @@ class FleetEngine:
                 ledger.resolve()
                 if ledger.cum_time >= time_budget:
                     break
-            fstate, draw = process.step(fstate, noise(rnd))
+            if tel is not None:
+                tel.maybe_profile(rnd)
+            with tracer.span("dynamics_step", round=rnd):
+                fstate, draw = process.step(fstate, noise(rnd))
+            stamp_pre_expire = None
             if self.offload == "discard" and uses_cache:
                 # the device half of the bound: stale metadata reset
                 # before planning reads it, as the store prunes its rows
-                caches = C.expire_caches(caches, rnd,
-                                         self.fl_cfg.cache_staleness_bound)
-            state, plan = policy.plan(
-                state, RoundObservation(rnd, draw.online, caches,
-                                        explore(rnd), draw=draw))
+                # (in place: the metrics keep a copy of the stamps)
+                if expire_metrics:
+                    stamp_pre_expire = caches.round_stamp.clone()
+                with tracer.span("cache_expire", round=rnd):
+                    caches = C.expire_caches(
+                        caches, rnd, self.fl_cfg.cache_staleness_bound)
+            with tracer.span("plan", round=rnd):
+                state, plan = policy.plan(
+                    state, RoundObservation(rnd, draw.online, caches,
+                                            explore(rnd), draw=draw,
+                                            thompson=thompson(rnd)))
             self._validate_plan(plan)
             masks = (self._from_plan(plan.selected, bool),
                      self._from_plan(plan.distribute, bool),
@@ -1204,19 +1534,34 @@ class FleetEngine:
                      cache_every,
                      ones_w if plan.agg_weights is None else
                      self._from_plan(plan.agg_weights, np.float32))
-            out, report, t_cut, capped, counts, overflow = round_fn(
-                trainer, cut_fn, server_step, global_params, caches,
-                rule_state, draw, plan, masks, rnd, uses_cache)
+            measure = None
+            if hook is not None:
+                measure = functools.partial(
+                    hook, rnd, global_params, caches, rule_state,
+                    stamp_pre_expire, selected=masks[0],
+                    distribute=masks[1], resume=masks[2],
+                    online=draw.online)
+            out, report, t_cut, capped, counts, overflow, mx, idx = \
+                round_fn(trainer, cut_fn, server_step, global_params,
+                         caches, rule_state, draw, plan, masks, rnd,
+                         uses_cache, measure)
             if self._agg_stateful:
                 global_params, caches, rule_state = out
             else:
                 global_params, caches = out
-            state = policy.observe(state, plan, report)
+            if self.debug_checks:
+                self._debug_round_check(global_params, report.losses, idx,
+                                        rnd)
+            with tracer.span("observe", round=rnd):
+                state = policy.observe(state, plan, report)
 
             evaluated = rnd % eval_every == 0 or rnd == n_rounds - 1
-            ledger.push(rnd, evaluated, t_cut, capped, *counts,
-                        acc=self._eval(global_params) if evaluated
-                        else None, overflow=overflow)
+            acc = None
+            if evaluated:
+                with tracer.span("eval", round=rnd):
+                    acc = self._eval(global_params)
+            ledger.push(rnd, evaluated, t_cut, capped, *counts, acc=acc,
+                        overflow=overflow, metrics=mx)
             if progress and rnd % 10 == 0:
                 ledger.resolve()        # live ticks resolve on schedule
             else:
@@ -1225,7 +1570,8 @@ class FleetEngine:
         if self._cache_stream is not None:
             # the last round's write-back into the store, so it holds the
             # run's final caches
-            self._cache_stream.drain(n_rounds)
+            with tracer.span("cache_flush"):
+                self._cache_stream.drain(n_rounds)
         self._last_fleet_state = fstate
         self._last_draw = draw
         return state, global_params, caches, rule_state

@@ -40,6 +40,7 @@ class FludePolicy(Policy):
     uses_cache = True
     # Alg. 2 line 3 caps X at clients_per_round before budget shrinking
     selects_at_most_clients_per_round = True
+    plans_on_device = True
 
     def __init__(self, sim_cfg, fl_cfg, fleet=None, device="cpu"):
         super().__init__(sim_cfg, fl_cfg, fleet, device=device)
@@ -65,8 +66,13 @@ class FludePolicy(Policy):
                                       ).to(self.device)
             uniforms = torch.tensor(np.asarray(obs.uniforms, np.float32),
                                     device=self.device)
+        draws = None
+        if self.fl_cfg.selection_mode == "thompson":
+            belief = state.core.belief
+            draws = obs.thompson(belief.alpha, belief.beta)
         p = R.plan_round(state.core, obs.caches, online, self.fl_cfg,
-                         uniforms, explore_hints=self._hints)
+                         uniforms, explore_hints=self._hints,
+                         thompson_draws=draws)
         # quorum clamp: can't wait for more receipts than selections
         p = p._replace(quorum=torch.minimum(
             p.quorum, p.selected.sum().to(torch.float32)))

@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import ExecConfig, build_model
+from repro_torch.obs.trace import NULL_TRACER
 
 
 class ServeResult(NamedTuple):
@@ -42,13 +43,15 @@ def _sync(device: torch.device):
 
 def serve(model, params, tokens: torch.Tensor, decode_tokens: int, *,
           exec_cfg: ExecConfig = ExecConfig(),
-          device="cuda") -> ServeResult:
+          device="cuda", tracer=NULL_TRACER) -> ServeResult:
     """Prefill ``tokens`` (B, S), then ``decode_tokens`` greedy steps.
 
     The cache holds ``S + decode_tokens + 1`` positions (less for a
     sliding window) and step k decodes position ``S + k``, as the
     reference's serve loop does.  ``params`` must already lie on ``device``;
-    ``device`` defaults to the CUDA card and raises where there is none."""
+    ``device`` defaults to the CUDA card and raises where there is none.
+    ``tracer`` (``repro_torch.obs.Tracer``) spans the ``prefill`` and
+    each ``decode_step``."""
     device = resolve_device(device)
     tokens = tokens.to(device)
     B, S = tokens.shape
@@ -56,8 +59,9 @@ def serve(model, params, tokens: torch.Tensor, decode_tokens: int, *,
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens}, exec_cfg,
-                                      max_len=cap)
+        with tracer.span("prefill"):
+            logits, cache = model.prefill(params, {"tokens": tokens},
+                                          exec_cfg, max_len=cap)
         _sync(device)
         prefill_s = time.perf_counter() - t0
 
@@ -66,7 +70,8 @@ def serve(model, params, tokens: torch.Tensor, decode_tokens: int, *,
         t0 = time.perf_counter()
         for k in range(decode_tokens):
             pos = torch.full((B, 1), S + k, dtype=torch.int32, device=device)
-            logits, cache = model.decode_step(params, tok, pos, cache)
+            with tracer.span("decode_step", step=k):
+                logits, cache = model.decode_step(params, tok, pos, cache)
             tok = logits[:, -1].argmax(-1)[:, None]
             out_tokens.append(tok)
             out_logits.append(logits[:, -1])

@@ -142,21 +142,32 @@ def test_configs_copy_the_reference_field_for_field(ours, theirs):
     assert mine == ref
 
 
-# cohorts and offload run in the port (ROADMAP Queue A #10, #12): their
-# cases carry a value still outside it, the one the refusal names
+# cohorts, offload, Thompson selection, telemetry and the invariant
+# checks run in the port (ROADMAP Queue A #10, #12, #18, #13, #14); the
+# mesh and buffer donation are still outside it, and their refusal names
+# #17
+@pytest.mark.parametrize("override", [
+    dict(mesh_shape=(2,)),
+    dict(dynamics="markov", cohort_size=8, cache_offload="host",
+         donate_buffers=True),
+    dict(donate_buffers=True)])
+def test_config_values_outside_the_slice_name_their_queue_item(override):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A #17"):
+        FLConfig(num_clients=16, **override)
+
+
 @pytest.mark.parametrize("override", [
     dict(cohort_size=8, cache_offload="host", debug_checks=True),
     dict(dynamics="sessions", cohort_size=8, selection_mode="thompson"),
-    dict(mesh_shape=(2,)), dict(cohort_size=8, telemetry="basic"),
+    dict(cohort_size=8, telemetry="basic"),
     dict(telemetry="basic"),
-    dict(dynamics="markov", cohort_size=8, cache_offload="host",
-         donate_buffers=True),
     dict(selection_mode="thompson"),
-    dict(pipeline_depth=2, telemetry="basic"), dict(donate_buffers=True),
+    dict(pipeline_depth=2, telemetry="basic"),
     dict(debug_checks=True)])
-def test_config_values_outside_the_slice_name_their_queue_item(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A #"):
-        FLConfig(num_clients=16, **override)
+def test_config_values_of_the_slice_are_accepted(override):
+    fl = FLConfig(num_clients=16, **override)
+    for k, v in override.items():
+        assert getattr(fl, k) == v
 
 
 def test_agg_impl_takes_the_port_backends_only():

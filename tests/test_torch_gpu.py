@@ -884,3 +884,116 @@ def test_cohort_loop_launches_fed_agg_once_a_round(cuda):
     before = K.launches.count
     engine.run("flude", diagnostics=False)
     assert K.launches.count - before == 3
+
+
+# ---------------------------------------------------------------------------
+# Thompson selection, telemetry and the invariant checks
+# ---------------------------------------------------------------------------
+
+def _slice_engine(device, n=64, rounds=3, **changes):
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.synthetic import federated_classification
+    from repro_torch.fl import FleetEngine, SimConfig
+    fl = FLConfig(num_clients=n, clients_per_round=16, dynamics="bernoulli",
+                  **changes)
+    return FleetEngine(federated_classification(n, seed=1, n_per_client=32),
+                       SimConfig(num_clients=n, rounds=rounds, seed=2,
+                                 local_steps=2), fl, device=device)
+
+
+def _history_rows(h):
+    return (h.acc, h.wall_clock, h.comm_mb, h.received, h.selected,
+            h.eval_mask)
+
+
+@pytest.mark.parametrize("alpha,beta", [(2.0, 2.0), (0.7, 3.5)])
+def test_thompson_sampler_on_the_card_is_beta_distributed(cuda, alpha,
+                                                          beta):
+    from scipy import stats
+    from repro_torch.core.dependability import (BetaBelief,
+                                                sample_dependability)
+    n = 20_000
+    belief = BetaBelief(torch.full((n,), alpha, device=cuda),
+                        torch.full((n,), beta, device=cuda))
+    draws = sample_dependability(
+        belief, torch.Generator(device=cuda).manual_seed(3))
+    again = sample_dependability(
+        belief, torch.Generator(device=cuda).manual_seed(3))
+    assert draws.device.type == "cuda" and torch.equal(draws, again)
+    res = stats.kstest(draws.cpu().numpy(), stats.beta(alpha, beta).cdf)
+    assert res.pvalue > 1e-3, res
+
+
+@pytest.mark.parametrize("changes", [dict(), dict(cohort_size=16),
+                                     dict(cohort_size=16,
+                                          cache_offload="host")],
+                         ids=["full_scan", "cohort", "offload"])
+def test_full_telemetry_rows_and_update_norm_launches(cuda, changes):
+    """telemetry="full" leaves the rows as they are and adds update_norm's
+    kernels: one fed_agg and two residual_norms launches a round."""
+    engine = _slice_engine(cuda, pipeline_depth=2, **changes)
+    counts = []
+    for level in (False, "full"):
+        before = (K.launches.count, RK.launches.count)
+        hist = engine.run("flude", diagnostics=False, telemetry=level)
+        counts.append((K.launches.count - before[0],
+                        RK.launches.count - before[1]))
+        if level is False:
+            off = hist
+    assert _history_rows(hist) == _history_rows(off)
+    assert counts == [(3, 0), (6, 6)]
+    assert hist.metrics["selected_count"] == hist.selected
+    assert all(np.isfinite(hist.metrics["agg_residual_max"]))
+
+
+@pytest.mark.parametrize("changes", [dict(telemetry="full"),
+                                     dict(debug_checks=True),
+                                     dict(telemetry="full", cohort_size=16,
+                                          cache_offload="host",
+                                          debug_checks=True),
+                                     dict(selection_mode="thompson")],
+                         ids=["telemetry", "debug_checks", "all_offload",
+                              "thompson"])
+def test_slice_runs_do_not_synchronise_outside_host_readback(cuda,
+                                                             changes):
+    """Telemetry, the round guard and the Thompson sampler under sync
+    debug mode "error": the only waits are through ``host_readback``,
+    and the rows equal an unchecked, uninstrumented run's."""
+    plain = _slice_engine(cuda, pipeline_depth=2, **{
+        k: v for k, v in changes.items()
+        if k in ("cohort_size", "cache_offload", "selection_mode")})
+    engine = _slice_engine(cuda, pipeline_depth=2, **changes)
+    want = plain.run("flude", diagnostics=False, telemetry=False)
+    engine.run("flude")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist = engine.run("flude", diagnostics=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _history_rows(hist) == _history_rows(want)
+
+
+def test_round_guard_fires_on_a_card_nan(cuda):
+    from repro_torch.analysis import runtime as RT
+    guard = RT.make_round_guard(8, with_idx=True)
+    ok = guard({"w": torch.ones(3, device=cuda)},
+               torch.zeros(4, device=cuda), torch.tensor([0, 8], device=cuda))
+    RT.check_round(ok, guard.messages, 1, cuda)
+    bad = guard({"w": torch.tensor([1.0, float("nan")], device=cuda)},
+                torch.zeros(4, device=cuda), torch.tensor([0, 8],
+                                                          device=cuda))
+    with pytest.raises(RT.RoundCheckError, match="round 2: non-finite"):
+        RT.check_round(bad, guard.messages, 2, cuda)
+
+
+@pytest.mark.parametrize("policy", ["flude", "random"])
+@pytest.mark.parametrize("mode", ["full", "cohort", "offload"])
+def test_audit_engine_clean_on_the_card(cuda, policy, mode):
+    """The op checks on the card: no blocking device-to-host copy, no
+    value read back, no float64 outside the ledger's row and in-place
+    cohort writes over two rounds of each round path."""
+    from repro_torch.analysis.audit import audit_engine, build_audited
+    engine, pol, fleet = build_audited(policy, mode, device=cuda)
+    report = audit_engine(engine, pol, fleet)
+    assert report.ok(), report.summary()
