@@ -63,6 +63,25 @@ Phases, each of which raises on failure:
    launch of the bf16 prefill a tensor-core variant), the prefill checked
    against the plain attention and scans, then a profiled prefill + 4
    decode steps;
+6b. training (``python -m repro_torch.launch.train``, fp32 at full
+   width): ``[flash_bwd]`` the backward kernel against autograd through
+   the plain attention at the training shapes (flude-paper, 100m at S
+   128 and at S 2048 with and without a window of 1024) and ragged ones,
+   dq, dk and dv within 1e-4 of max(1, max |g|), reruns bit-identical,
+   timed beside SDPA's fp32 backward, the plain backward and the bound;
+   ``[train flude-paper]``, ``[train 100m]`` and ``[train 100m S2048]``:
+   the driver's rounds with every kernel count read across the run (the
+   flash forward twice a layer a step under remat, the backward once), a
+   loss that falls from round 0, ms/round, tok/s and peak memory;
+   ``[train 100m grads]`` one step's gradients of ``Model.loss`` at the
+   100m shape through the kernels against the plain attention, on the
+   card; a profiled 100m window (flash forward and backward against
+   cuBLAS and the optimizer's passes, idle share); ``[train card vs
+   CPU]`` (a 4-silo run, trajectories identical, loss within 1e-4);
+   ``[serve ckpt]`` the 100m checkpoint the training run saved, restored
+   bit for bit and served, and a small one served on both devices:
+   logits teacher-forced on the CPU's ids held together, ids compared
+   with each step's top-2 margin;
 7. card against CPU: the golden FL setup (N = 24, 5 rounds) for FLUDE
    and three robust rule / attack / policy combinations, and the four
    reduced serve configs in fp32.
@@ -169,13 +188,46 @@ SERVE_F32_FULL_TOL = 5e-3
 # should be alike; stated before the first such run
 SERVE_BF16_RATIO = 2.0
 SERVE_F32_TOL = 1e-4            # fp32 logits, card against CPU
+# the flash backward (flash_attention_bwd_cuda) against autograd through
+# attention_ref, both fp32, other summation orders over up to Sk keys and
+# G heads: dq, dk and dv each within 1e-4 of max(1, max |g|) of its own
+# tensor (stated in PERF.md before its first run on the card)
+FLASH_BWD_TOL = 1e-4
+# the training shapes of the backward: (label, B, Hq, Hkv, S, D, window),
+# causal: flude-paper (8 silos x 4, S 128), 100m (the same batch), 100m
+# at S 2048 (8 x 1), with and without a window of 1024
+FLASH_BWD_SHAPES = [
+    ("flude-paper", 32, 8, 4, 128, 32, None),
+    ("100m", 32, 12, 4, 128, 64, None),
+    ("100m S2048", 8, 12, 4, 2048, 64, None),
+    ("100m S2048 window 1024", 8, 12, 4, 2048, 64, 1024),
+]
+# the training runs of launch.train: (path label, arguments, rounds).
+# The loss must fall: the mean of the last quarter of the rounds' losses
+# below round 0's
+TRAIN_RUNS = [
+    ("train flude-paper", [], 40),
+    ("train 100m", ["--scale", "100m"], 30),
+    ("train 100m S2048", ["--scale", "100m", "--seq-len", "2048",
+                          "--batch-per-silo", "1"], 16),
+]
+TRAIN_F32_TOL = 1e-4            # the driver's loss, card against CPU
+# one step's gradients of Model.loss at the 100m training shape, the
+# flash kernels against the plain attention, both fp32 on the card:
+# every leaf within FLASH_BWD_TOL of max(1, max |g|); wq, wk and wv
+# also within 1e-3 of their own max |g| (their gradients are far below
+# 1, where the first gate is all but absolute; a wrong or missing dq,
+# dk or dv is off by the order of the gradient itself).  Stated before
+# the check's first run on the card
+GRAD_ATTN_REL_TOL = 1e-3
 # the robust runs: (label, policy, FLConfig overrides, launches per round
 # of each kernel).  The attack and the trim follow the reference's robust
 # benchmark (benchmarks/bench_robust.py); the geometric median runs 6
 # Weiszfeld steps, each one norm and one weighted sum, after the mean
 ATTACK = dict(adversary="sign_flip",
               adversary_params=(("malicious_frac", 0.2),))
-SERVE_ONLY = {"flash_attention": 0, "ssm_scan": 0, "rwkv6_scan": 0}
+SERVE_ONLY = {"flash_attention": 0, "ssm_scan": 0, "rwkv6_scan": 0,
+              "flash_attention_bwd": 0}
 ROBUST_RUNS = [
     ("geometric_median", "flude", dict(agg_rule="geometric_median"),
      {"fed_agg": 7, "residual_norms": 6, **SERVE_ONLY}),
@@ -261,10 +313,11 @@ def phase_build():
         for line in _build.ptxas_warnings(b.report):
             log(f"[build]   {line}")
     check_flash_build(builds["flash_attention"].report)
-    for name in ("ssm_scan", "rwkv6_scan"):
+    for name in ("ssm_scan", "rwkv6_scan", "flash_attention_bwd"):
         for kernel, k in sorted(_build.ptxas_kernels(
                 builds[name].report).items()):
-            short = re.search(r"(ssd|wkv)_fwd_\w+?E(?=vN)", kernel)
+            short = re.search(r"(ssd|wkv)_fwd_\w+?E(?=vN)|flash_bwd_\w+?"
+                              r"(ILi\d+E|E)(?=N|v)", kernel)
             log(f"[build] {short.group(0) if short else kernel}: "
                 f"{k.registers} registers at launch, spills "
                 f"{k.spill_stores} / {k.spill_loads} bytes")
@@ -2214,6 +2267,471 @@ def phase_serve_card_vs_cpu():
                                f"differ by {rel:.3e} or ids differ")
 
 
+def flash_bwd_bounds(B, Hq, Hkv, S, D, window):
+    """(bytes, flops, bytes ms, fp32 ms) of one backward: q, k, v, o, dO
+    and lse read once, dq, dk and dv written once; the five products
+    (S and dP recomputed, dV, dK, dQ) over the visible pairs, 10·pairs·D
+    flops, at the 67 TFLOP/s fp32 rate."""
+    nbytes = 4 * (4 * B * Hq * S * D + 4 * B * Hkv * S * D + B * Hq * S)
+    flops = 10 * B * Hq * D * visible_pairs(S, S, 0, True, window)
+    return (nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3,
+            flops / H100_FP32_FLOPS * 1e3)
+
+
+def check_flash_bwd(label, got, want):
+    """Raise unless each of dq, dk, dv is finite and within FLASH_BWD_TOL
+    of max(1, max |g|); returns the largest absolute error."""
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"flash_bwd {label}: {name} "
+                               f"{tuple(g.shape)} or non-finite")
+        err = float((g - w).abs().max())
+        bound = FLASH_BWD_TOL * max(1.0, float(w.abs().max()))
+        if err > bound:
+            raise RuntimeError(f"flash_bwd {label}: {name} error {err:.3e} "
+                               f"above {bound:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_flash_bwd():
+    """The backward kernel against autograd through the plain version at
+    the training shapes and at ragged ones (GQA, q_offset, windows,
+    non-causal, every head dim), reruns bit-identical; timings at the
+    training shapes beside SDPA's fp32 backward, the plain backward and
+    the bound.  Returns its kernels-line entry (``launches`` filled in
+    by the training runs)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    f32 = torch.float32
+    # (label, B, Hq, Hkv, Sq, Sk, D, q_offset, causal, window)
+    cases = [(label, B, Hq, Hkv, S, S, D, 0, True, window)
+             for label, B, Hq, Hkv, S, D, window in FLASH_BWD_SHAPES] + [
+        ("ragged, q_offset 60, window 50, group 7", 1, 7, 1, 130, 190, 64,
+         60, True, 50),
+        ("ragged D 80, window 40", 2, 4, 2, 97, 97, 80, 0, True, 40),
+        ("non-causal D 80", 1, 4, 2, 65, 128, 80, 0, False, None),
+        ("one query, D 128", 1, 4, 4, 1, 77, 128, 76, True, None),
+        ("ragged D 192, window 64, group 3", 1, 6, 2, 150, 150, 192, 0, True,
+         64),
+    ]
+    max_err = 0.0
+    for label, B, Hq, Hkv, Sq, Sk, D, off, causal, window in cases:
+        q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, f32, seed=Sq + D)
+        dout = torch.randn_like(q)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        got = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        again = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        err = check_flash_bwd(label, got, attention_bwd_ref(q, k, v, dout,
+                                                            **kw))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        max_err = max(max_err, err)
+        log(f"[flash_bwd] {label} (B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Sk{Sk} D{D} "
+            f"q_offset {off} causal {causal} window {window}): max abs err "
+            f"{err:.3e}; reruns bit-identical {same}")
+        if not same:
+            raise RuntimeError(f"flash_bwd {label}: two launches differ")
+        del q, k, v, dout, out, lse, got, again
+
+    timings = {}
+    for label, B, Hq, Hkv, S, D, window in FLASH_BWD_SHAPES:
+        q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, f32, seed=2)
+        dout = torch.randn_like(q)
+        kw = dict(causal=True, window=window)
+        out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        if window is None:
+            what = "sdpa(is_causal, enable_gqa) backward"
+            ref_out = F.scaled_dot_product_attention(
+                *leaves, is_causal=True, enable_gqa=True)
+        else:
+            what = "sdpa(boolean window mask, enable_gqa) backward"
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None] <= pos[:, None]) & \
+                (pos[None] > pos[:, None] - window)
+            ref_out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(ref_out, leaves, dout,
+                                       retain_graph=True)
+
+        def kernel():
+            return FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+
+        reps = 20 if S <= 128 else 5
+        # in turns: library, kernel, kernel, library
+        lib = [cuda_ms(library, reps=reps, warmup=2)]
+        kern = [cuda_ms(kernel, reps=reps, warmup=2) for _ in range(2)]
+        lib.append(cuda_ms(library, reps=reps, warmup=2))
+        ms, library_ms = sum(kern) / 2, sum(lib) / 2
+        plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, dout, **kw),
+                           reps=3, warmup=1)
+        nbytes, flops, bytes_ms, fp32_ms = flash_bwd_bounds(B, Hq, Hkv, S, D,
+                                                            window)
+        bound_ms = max(bytes_ms, fp32_ms)
+        log(f"[flash_bwd] {label} timing (B{B} Hq{Hq}/{Hkv} S{S} D{D} "
+            f"window {window}): kernel {ms:.4f} ms ({kern[0]:.4f} / "
+            f"{kern[1]:.4f}), plain {plain_ms:.3f} ms, {what} "
+            f"{library_ms:.4f} ms ({lib[0]:.4f} / {lib[1]:.4f}); bound "
+            f"{bound_ms * 1e3:.1f} us ({flops:.4e} flops at 67 TFLOP/s "
+            f"fp32 take {fp32_ms * 1e3:.1f} us; {nbytes} bytes take "
+            f"{bytes_ms * 1e3:.1f} us at 3.35 TB/s); kernel at "
+            f"{bound_ms / ms:.1%} of the bound ({flops / ms / 1e9:.2f} "
+            f"TFLOP/s of the counted work), sdpa at "
+            f"{bound_ms / library_ms:.1%}; kernel / sdpa "
+            f"{ms / library_ms:.3f}")
+        timings[label] = dict(ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms,
+                              bound_by="bytes" if bytes_ms >= fp32_ms
+                              else "operations")
+        del q, k, v, dout, out, lse, leaves, ref_out
+        torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+            "replaces_note": "the gradient of flash_attention_pallas; the "
+            "JAX package has no backward kernel (it trains through plain "
+            "JAX attention and autodiff)",
+            "launches": None, "max_abs_err": max_err, **timings["100m"],
+            "at": "100m training shape (B 32, Hq 12 / Hkv 4, S 128, D 64, "
+            "causal)", "by_shape": timings}
+
+
+def phase_train(label, extra, rounds, counters, ckpt=None):
+    """``python -m repro_torch.launch.train`` on the card (``main``), with
+    every kernel count set to 0 just before it and read just after: a
+    finite loss that falls (the last quarter's mean below round 0's),
+    the flash forward twice a layer a step (remat recomputes it) and the
+    backward once, every launch fp32 SIMT; ms/round over rounds 1 to
+    rounds - 2 (host clock; each round's plan read-back waits for the
+    previous round's step), tokens/s, peak device memory.  Returns the
+    launches, the by-variant launches, the final state and ms/round."""
+    from repro_torch.configs import scaled_config
+    from repro_torch.launch import train as T
+    args = T.parse_args(extra)
+    cfg = scaled_config(args.arch, args.scale)
+    argv = extra + ["--device", "cuda", "--rounds", str(rounds),
+                    "--log-every", str(rounds)]
+    if ckpt:
+        argv += ["--ckpt", ckpt]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    state, rows = T.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    variants = {name: dict(c.by_variant) for name, c in counters.items()
+                if c.by_variant}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in rows]
+    ms = (rows[-1]["t"] - rows[1]["t"]) * 1e3 / (rounds - 2)
+    tokens = args.silos * args.batch_per_silo * args.seq_len
+    L = cfg.num_layers
+    log(f"[{label}] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, fp32; "
+        f"{args.silos} silos x {args.batch_per_silo} x {args.seq_len} "
+        f"tokens a round; {rounds} rounds in {wall:.1f} s (set-up and "
+        f"data included)")
+    log(f"[{label}] loss by round {[round(x, 4) for x in losses]}")
+    log(f"[{label}] selected {[r['selected'] for r in rows]} received "
+        f"{[r['received'] for r in rows]}")
+    log(f"[{label}] {ms:.2f} ms/round over rounds 1-{rounds - 2}, "
+        f"{tokens / ms * 1e3:.0f} tok/s; peak device memory {peak:.2f} "
+        f"GiB; launches {launches}; by variant {variants}")
+    want = {name: 0 for name in counters}
+    want.update(flash_attention=2 * L * rounds,
+                flash_attention_bwd=L * rounds)
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, expected {want}")
+    if variants["flash_attention"]["wgmma"]:
+        raise RuntimeError(f"{label}: an fp32 step launched the bf16 "
+                           f"variant")
+    tail = losses[-max(rounds // 4, 1):]
+    if not all(math.isfinite(x) for x in losses) or \
+            not sum(tail) / len(tail) < losses[0]:
+        raise RuntimeError(f"{label}: the loss did not fall from round 0 "
+                           f"({losses[0]:.4f}) or is not finite: {losses}")
+    return launches, variants, state, ms
+
+
+def phase_train_grads(params, extra):
+    """One step's gradients of ``Model.loss`` at the shape of the run
+    ``extra`` (the 100m model, B = silos x batch per silo, S = seq len),
+    from that run's trained ``params``: ``ExecConfig(attn_impl="cuda")``
+    (the flash forward under remat and the backward kernel, through
+    ``FlashAttentionFn``) against ``attn_impl="torch"`` (the plain
+    attention by autograd) on the card, leaf by leaf.  Launches here
+    compare the kernels with the plain version and count for no path."""
+    from repro_torch.configs import scaled_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import train as T
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    args = T.parse_args(extra)
+    cfg = scaled_config(args.arch, args.scale)
+    model = build_model(cfg)
+    B, S = args.silos * args.batch_per_silo, args.seq_len
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                        device="cuda")
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    grads, losses = {}, {}
+    for impl in ("cuda", "torch"):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        fwd, bwd = FK.launches.count, FK.bwd_launches.count
+        loss, _ = model.loss(tree_unflatten(params, leaves), batch,
+                             ExecConfig(attn_impl=impl))
+        g = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        launched = (FK.launches.count - fwd, FK.bwd_launches.count - bwd)
+        want = (2 * cfg.num_layers, cfg.num_layers) if impl == "cuda" \
+            else (0, 0)
+        if launched != want:
+            raise RuntimeError(f"train grads {impl}: flash launches "
+                               f"{launched}, expected {want}")
+        grads[impl], losses[impl] = tree_unflatten(params, list(g)), \
+            float(loss.detach())
+        del leaves, loss, g
+    worst_abs, worst_attn, smallest_attn = 0.0, 0.0, math.inf
+    for g, w in zip(tree_leaves(grads["cuda"]), tree_leaves(grads["torch"])):
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError("train grads: a kernel gradient is not "
+                               "finite")
+        err = float((g - w).abs().max())
+        bound = FLASH_BWD_TOL * max(1.0, float(w.abs().max()))
+        worst_abs = max(worst_abs, err / max(1.0, float(w.abs().max())))
+        if err > bound:
+            raise RuntimeError(f"train grads: a leaf differs by {err:.3e}, "
+                               f"above {bound:.3e}")
+    for lc, lt in zip(grads["cuda"]["blocks"], grads["torch"]["blocks"]):
+        for name in ("wq", "wk", "wv"):
+            g, w = lc["attn"][name], lt["attn"][name]
+            scale = float(w.abs().max())
+            rel = float((g - w).abs().max()) / scale
+            smallest_attn = min(smallest_attn, scale)
+            worst_attn = max(worst_attn, rel)
+            if not scale > 0 or rel > GRAD_ATTN_REL_TOL:
+                raise RuntimeError(f"train grads: attention {name} gradient "
+                                   f"off by {rel:.3e} of its max "
+                                   f"{scale:.3e}")
+    log(f"[train 100m grads] {cfg.name}, B {B} x S {S}, one step of "
+        f"Model.loss from the trained parameters: loss kernel "
+        f"{losses['cuda']:.6f} / plain {losses['torch']:.6f}; every leaf "
+        f"within {worst_abs:.3e} of max(1, max|g|) (gate "
+        f"{FLASH_BWD_TOL:.0e}); wq/wk/wv within {worst_attn:.3e} of their "
+        f"own max|g| (gate {GRAD_ATTN_REL_TOL:.0e}; smallest max|g| "
+        f"{smallest_attn:.3e})")
+    del grads
+    torch.cuda.empty_cache()
+
+
+def phase_train_profile(timed_ms, rounds=7, active=(3, 6), top=12):
+    """``torch.profiler`` over rounds 3-5 of a 100m run (the profiler
+    stepped once a round through ``main``'s ``progress``): wall, device
+    busy and idle share (against the profiled rounds' wall, which the
+    profiler's host overhead inflates, and against ``timed_ms``, the
+    unprofiled run's ms/round), and the device time of the flash forward
+    and backward kernels, cuBLAS's products, the optimizer's multi-tensor
+    passes and the other operators."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.launch import train as T
+    lo, hi = active
+    sched = schedule(wait=lo - 1, warmup=1, active=hi - lo, repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        _, rows = T.main(["--scale", "100m", "--device", "cuda", "--rounds",
+                          str(rounds), "--log-every", str(rounds)],
+                         progress=lambda rnd, rec: prof.step())
+    n = hi - lo
+    wall_ms = (rows[hi]["t"] - rows[lo]["t"]) * 1e3 / n
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")]
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / n
+    groups = {"flash forward": ("flash_fwd",),
+              "flash backward": ("flash_bwd",),
+              "cuBLAS products": ("gemm", "xmma", "cutlass", "sm90_"),
+              "optimizer multi-tensor": ("multi_tensor", "foreach")}
+    by_group = {g: 0.0 for g in list(groups) + ["other"]}
+    for e in device:
+        g = next((g for g, keys in groups.items()
+                  if any(key in e.key for key in keys)), "other")
+        by_group[g] += e.self_device_time_total / 1e3 / n
+    log(f"[train 100m profile] rounds {lo}-{hi - 1}: wall {wall_ms:.2f} "
+        f"ms/round under the profiler, device busy {busy:.2f} ms/round "
+        f"(idle {1 - busy / wall_ms:.1%}; against the unprofiled "
+        f"{timed_ms:.2f} ms/round of [train 100m], idle "
+        f"{1 - busy / timed_ms:.1%})")
+    for g, ms in by_group.items():
+        log(f"[train 100m profile]   {g:24s} {ms:8.2f} ms/round "
+            f"({ms / busy:.1%} of device time)")
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and not e.key.startswith("ProfilerStep")]
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3 / n
+        log(f"[train 100m profile]   {ms:8.3f} ms/round {ms / busy:6.1%} "
+            f"x{e.count // n:<5d} {e.key[:70]}")
+    cpu_ms = sum(e.self_cpu_time_total for e in host) / 1e3 / n
+    log(f"[train 100m profile]   host operators' self time {cpu_ms:.2f} "
+        f"ms/round over {sum(e.count for e in host) // n} operator calls")
+
+
+def phase_train_card_vs_cpu(ckpt):
+    """The driver at 4 silos x 4 x 32 (flude-paper) on both devices from
+    one set of parameters and explore uniforms: selected, received and ε
+    identical, the loss within TRAIN_F32_TOL relative; the card's run
+    saves ``ckpt``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    argv = ["--rounds", "4", "--silos", "4", "--seq-len", "32",
+            "--log-every", "100"]
+    params = build_model(get_config("flude-paper")).init(
+        torch.Generator().manual_seed(0))
+    u = torch.rand((4, 4), generator=torch.Generator().manual_seed(1))
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        _, rows[dev] = T.main(
+            argv + ["--device", dev] + (["--ckpt", ckpt] if dev == "cuda"
+                                        else []),
+            params=tree_map(lambda t: t.to(dev), params),
+            explore_uniforms=lambda rnd: u[rnd])
+    cpu, card = rows["cpu"], rows["cuda"]
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(card, cpu))
+    same = all(a[k] == b[k] for a, b in zip(card, cpu)
+               for k in ("selected", "received", "epsilon"))
+    log(f"[train card vs CPU] flude-paper, 4 silos x 4 x 32, 4 rounds: "
+        f"selected {[r['selected'] for r in card]} received "
+        f"{[r['received'] for r in card]}, identical with ε {same}; loss "
+        f"{[round(r['loss'], 5) for r in card]}, max relative gap {rel:.3e}")
+    if not same or rel > TRAIN_F32_TOL:
+        raise RuntimeError(f"train card vs CPU: trajectories differ or the "
+                           f"loss differs by {rel:.3e}")
+
+
+def phase_serve_ckpt(ckpt_100m, state_100m):
+    """``serve --ckpt``: the 100m checkpoint the training run saved,
+    restored bit for bit and served on the card."""
+    from repro_torch.checkpoint.checkpointer import restore_like
+    from repro_torch.launch import serve as S
+    from repro_torch.tree import tree_leaves
+    back = restore_like(ckpt_100m, state_100m.params)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(back), tree_leaves(state_100m.params)))
+    res = S.main(["--arch", "flude-paper", "--scale", "100m", "--ckpt",
+                  ckpt_100m, "--device", "cuda", "--batch", "4",
+                  "--prompt-len", "128", "--decode-tokens", "16"])
+    ok = res.ids.shape == (4, 17) and bool(torch.isfinite(res.logits).all())
+    log(f"[serve ckpt] 100m checkpoint ({os.path.getsize(ckpt_100m)} bytes) "
+        f"restored bit for bit {same}; served 4 x 128 + 16 steps, ids "
+        f"{res.ids[0].tolist()}")
+    if not (same and ok):
+        raise RuntimeError("serve ckpt: the 100m checkpoint did not restore "
+                           "or serve")
+
+
+def phase_serve_ckpt_card_vs_cpu(ckpt_small):
+    """The small checkpoint (the card-vs-CPU training run's) restored and
+    served on both devices, one prompt.  Its logits are compared
+    teacher-forced on the CPU's ids, within SERVE_F32_TOL of max(1,
+    |logit|); its free-running ids are reported beside each step's top-2
+    margin and may differ only from a near tie on (a step whose top two
+    lie within twice that gate), since fp32 summation orders differ
+    between the devices in the last bits."""
+    from repro_torch.checkpoint.checkpointer import restore_like
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    model = build_model(get_config("flude-paper"))
+    like = model.init(torch.Generator().manual_seed(0))
+    params = {"cpu": restore_like(ckpt_small, like),
+              "cuda": restore_like(ckpt_small, tree_map(
+                  lambda t: t.to("cuda"), like))}
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(1))
+    cpu, card = (S.serve(model, params[dev], tokens, 20, device=dev)
+                 for dev in ("cpu", "cuda"))
+    # both devices teacher-forced on the CPU's ids: the logits of the
+    # same inputs at every step, whatever the free-running ids did
+    forced = {dev: teacher_forced_logits(model, params[dev], tokens,
+                                         cpu.ids, dev).cpu()
+              for dev in ("cpu", "cuda")}
+    scale = forced["cpu"].abs().clamp_min(1.0)
+    rel = float(((forced["cuda"] - forced["cpu"]).abs() / scale).max())
+    # each step's top-2 margin of the CPU's logits, and the gap within
+    # which the logits gate lets the card's argmax differ from the CPU's
+    top = forced["cpu"].topk(2, -1)
+    margin = top.values[..., 0] - top.values[..., 1]         # (B, steps)
+    tie = 2 * SERVE_F32_TOL * top.values[..., 0].abs().clamp_min(1.0)
+    diff = card.ids.cpu() != cpu.ids
+    same = not bool(diff.any())
+    # reruns of one device: the CPU's forced run is its free run again;
+    # the card's equals its free run where the ids agreed
+    cpu_again = torch.equal(forced["cpu"], cpu.logits)
+    card_again = torch.equal(forced["cuda"], card.logits.cpu()) if same \
+        else None
+    # a free-running id may differ from the CPU's only where its first
+    # difference in a row falls on a step whose top two lie within the
+    # gate (a near tie); the later steps decode other inputs
+    first = [int(row.nonzero()[0]) if bool(row.any()) else None
+             for row in diff]
+    flips = [(b, t, float(margin[b, t]), float(tie[b, t]))
+             for b, t in enumerate(first) if t is not None]
+    log(f"[serve ckpt] flude-paper checkpoint of the card's training run, "
+        f"2 x 32 + 20 steps: logits teacher-forced on the CPU's ids, card "
+        f"vs CPU within {rel:.3e} of max(1, |logit|) (gate "
+        f"{SERVE_F32_TOL:.0e}); free-running ids equal {same}; reruns "
+        f"bit-identical: CPU {cpu_again}, card {card_again}"
+        + (f", first differences (row, step, margin, near-tie gap) {flips}"
+           if flips else ""))
+    for b in range(margin.shape[0]):
+        log(f"[serve ckpt]   row {b} top-2 margin by step "
+            f"{[float(f'{m:.3e}') for m in margin[b].tolist()]}; smallest "
+            f"{float(margin[b].min()):.3e} (near-tie gap "
+            f"{float(tie[b].max()):.1e})")
+    if rel > SERVE_F32_TOL:
+        raise RuntimeError(f"serve ckpt: teacher-forced logits differ by "
+                           f"{rel:.3e} of max(1, |logit|)")
+    if any(m > t for _, _, m, t in flips):
+        raise RuntimeError(f"serve ckpt: free-running ids differ at a step "
+                           f"that is no near tie: {flips}")
+
+
+def teacher_forced_logits(model, params, tokens, ids, device):
+    """``serve``'s prefill and decode loop with the decode inputs taken
+    from ``ids`` (B, 1 + steps) in place of each step's argmax: the
+    prefill's last logits, then each step's, (B, 1 + steps, vocab)."""
+    tokens, ids = tokens.to(device), ids.to(device)
+    B, S = tokens.shape
+    steps = ids.shape[1] - 1
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": tokens},
+                                      max_len=S + steps + 1)
+        out = [logits[:, -1]]
+        for k in range(steps):
+            pos = torch.full((B, 1), S + k, dtype=torch.int32,
+                             device=device)
+            logits, cache = model.decode_step(params, ids[:, k:k + 1], pos,
+                                              cache)
+            out.append(logits[:, -1])
+    return torch.stack(out, 1)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing was run",
@@ -2233,7 +2751,8 @@ def main():
                 "residual_norms": robust_kernel.launches,
                 "flash_attention": flash_kernel.launches,
                 "ssm_scan": ssd_kernel.launches,
-                "rwkv6_scan": wkv_kernel.launches}
+                "rwkv6_scan": wkv_kernel.launches,
+                "flash_attention_bwd": flash_kernel.bwd_launches}
     torch.backends.cuda.matmul.allow_tf32 = False    # fp32 card vs CPU
 
     name, count, smi = phase_device()
@@ -2242,7 +2761,8 @@ def main():
                "residual_norms": phase_residual_norms(),
                "flash_attention": phase_flash_attention(),
                "ssm_scan": phase_ssm_scan(),
-               "rwkv6_scan": phase_rwkv6_scan()}
+               "rwkv6_scan": phase_rwkv6_scan(),
+               "flash_attention_bwd": phase_flash_bwd()}
     data, main = phase_main_path(counters)
     dyn, dyn_rows, dyn_peaks = phase_dynamics(data, counters)
     paths = {"main": main, **phase_robust(data, counters), **dyn,
@@ -2253,14 +2773,33 @@ def main():
              "cohort 1M": phase_cohort_1m(counters)}
     for run in SERVE_RUNS:
         paths[run[0]] = phase_serve(*run, counters)
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    ckpt_100m = os.path.join(ckpt_dir, "flude-paper-100m.msgpack")
+    for label, extra, rounds in TRAIN_RUNS:
+        keep = label == "train 100m"
+        paths[label], VARIANT_LAUNCHES[label], state, ms = phase_train(
+            label, extra, rounds, counters, ckpt=ckpt_100m if keep else None)
+        if keep:
+            state_100m, ms_100m = state, ms
+            phase_train_grads(state.params, extra)
+        del state
+    phase_train_profile(ms_100m)
+    ckpt_small = os.path.join(ckpt_dir, "flude-paper.msgpack")
+    phase_train_card_vs_cpu(ckpt_small)
+    phase_serve_ckpt(ckpt_100m, state_100m)
+    phase_serve_ckpt_card_vs_cpu(ckpt_small)
+    del state_100m
     for k, entry in entries.items():
         # launches over the driven paths: the FL main, robust, dynamics,
         # cohort, thompson, telemetry (update_norm's fed_agg and
-        # residual_norms) and debug_checks runs and the four serve runs
+        # residual_norms) and debug_checks runs, the four serve runs and
+        # the three training runs
         by_path = {p: n[k] for p, n in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-    for k in ("flash_attention", "ssm_scan", "rwkv6_scan"):
+    for k in ("flash_attention", "ssm_scan", "rwkv6_scan",
+              "flash_attention_bwd"):
         entries[k]["launches_by_variant"] = {
             v: sum(n[k][v] for n in VARIANT_LAUNCHES.values())
             for v in counters[k].by_variant}

@@ -4,6 +4,8 @@ The port of ``repro.configs``: the same 11 configurations, kept as the
 port's own copies of the reference's data files."""
 from __future__ import annotations
 
+import dataclasses
+
 from repro_torch.configs.base import (
     EncDecConfig,
     FLConfig,
@@ -15,6 +17,7 @@ from repro_torch.configs.base import (
     MoEConfig,
     RWKVConfig,
     SSMConfig,
+    TrainConfig,
     VisionStubConfig,
 )
 
@@ -55,9 +58,31 @@ def list_configs():
     return sorted(_REGISTRY)
 
 
+# the training driver's scales (repro/launch/train.py SCALES): a scale
+# replaces an arch's widths and trains it in fp32
+SCALES = {
+    # ~100M-param config for the end-to-end driver (paper kind: training)
+    "100m": dict(num_layers=12, d_model=768, num_heads=12, num_kv_heads=4,
+                 d_ff=3072, vocab_size=32000, head_dim=64),
+    "10m": dict(num_layers=6, d_model=384, num_heads=6, num_kv_heads=2,
+                d_ff=1536, vocab_size=8192, head_dim=64),
+}
+
+
+def scaled_config(name: str, scale=None) -> ModelConfig:
+    """``get_config(name)``, at one of ``SCALES`` if ``scale`` names it, as
+    the training driver builds its model (``--arch``, ``--scale``)."""
+    cfg = get_config(name)
+    if scale:
+        cfg = dataclasses.replace(
+            cfg, name=f"{cfg.name}-{scale}", param_dtype="float32",
+            compute_dtype="float32", **SCALES[scale])
+    return cfg
+
+
 __all__ = [
     "ASSIGNED_ARCHS", "EncDecConfig", "FLConfig", "HybridConfig",
     "INPUT_SHAPES", "InputShape", "MLAConfig", "ModelConfig", "MoEConfig",
-    "RWKVConfig", "SSMConfig", "VisionStubConfig", "get_config",
-    "list_configs",
+    "RWKVConfig", "SSMConfig", "TrainConfig", "VisionStubConfig",
+    "SCALES", "get_config", "list_configs", "scaled_config",
 ]

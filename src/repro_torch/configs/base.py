@@ -1,8 +1,8 @@
 """Configs of the port, field for field as ``repro.configs.base``.
 
-``ModelConfig`` with its sub-configs, ``InputShape`` / ``INPUT_SHAPES``
-and ``FLConfig``; ``TrainConfig`` and ``MeshConfig`` come with the
-training and multi-device slices (ROADMAP Queue A #15e, #17).
+``ModelConfig`` with its sub-configs, ``InputShape`` / ``INPUT_SHAPES``,
+``TrainConfig`` and ``FLConfig``; ``MeshConfig`` comes with the
+multi-device slice (ROADMAP Queue A #17).
 
 ``FLConfig`` has one documented exception: ``agg_impl`` takes ``"cuda"``
 (the default, the hand-written Hopper kernel) or ``"torch"`` (its plain
@@ -207,8 +207,24 @@ INPUT_SHAPES = {
 
 
 # ---------------------------------------------------------------------------
-# FL config
+# Train / FL configs
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    optimizer: str = "adamw"           # sgd | momentum | adam | adamw
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"      # Adam m/v dtype (bf16 for >=200B)
+    accum_dtype: str = "float32"       # microbatch grad accumulator dtype
+    microbatch_size: Optional[int] = None   # per-silo microbatch for grad accum
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    seed: int = 0
+
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(

@@ -1,8 +1,11 @@
-"""Carry parameters over from the JAX reference.
+"""Carry parameters between the JAX reference's layout and the port's.
 
-A test hook: the reference draws its initial parameters from threefry
-bits that the port does not reproduce, so a parity test hands the
-reference's parameters (as numpy) to the port.
+The reference draws its initial parameters from threefry bits that the
+port does not reproduce, so a parity test hands the reference's
+parameters (as numpy) to the port.  The other way, ``lm_params_to_jax``
+stacks the port's per-layer lists back into the reference's layout, in
+which a language model's checkpoint is written, so each package
+restores the other's files.
 """
 from __future__ import annotations
 
@@ -47,3 +50,30 @@ def lm_params_from_jax(tree, num_layers: int, device="cpu"):
         if k in tree:
             out[k] = [layer(tree[k], i) for i in range(num_layers)]
     return out
+
+
+def _host(t: torch.Tensor):
+    """A tensor as numpy, or as a CPU tensor where numpy has no such
+    dtype (bfloat16)."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def lm_params_to_jax(params):
+    """The inverse of :func:`lm_params_from_jax`: the port's language-model
+    parameters -> the reference's layout on the host, each layered list
+    stacked back onto a leading layer axis; leaves are numpy arrays
+    (bfloat16 ones CPU tensors, as numpy has no bfloat16)."""
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([l[k] for l in layers]) for k in first}
+        return _host(torch.stack(layers))
+
+    def host(t):
+        if isinstance(t, dict):
+            return {k: host(v) for k, v in t.items()}
+        return _host(t)
+
+    return {k: stack(v) if k in LAYERED else host(v)
+            for k, v in params.items()}

@@ -129,6 +129,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                    // (B, Hq, Sq) fp32 or null; SIMT only
   int64_t sqb, sqh, sqs;         // strides in elements: batch, head, seq
   int64_t skb, skh, sks;
   int64_t svb, svh, svs;
@@ -362,6 +363,10 @@ flash_fwd_simt(const Params p) {
       float* orow = og + row * p.sos;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) store1(orow + tx + 16 * j, acc[i][j] / li);
+      // the row's log-sum-exp of the scaled, masked scores, for the
+      // backward kernel (csrc/flash_attention_bwd.cu): P = exp(S - lse)
+      if (p.lse != nullptr && tx == 0)
+        p.lse[(b * gridDim.y + h) * p.Sq + row] = m[i] + logf(li);
     }
   }
 }
@@ -1101,10 +1106,12 @@ int launch_wgmma_d(const Params& p, int D, int64_t B, int64_t Hq,
 // 16-byte aligned (TMA).  window <= 0 means none.  Returns 0 on success, a
 // CUDA runtime error code, or 10000 (no tensor-map encoder in the driver)
 // / 20000 + a CUresult (a tensor map was refused).  The caller handles
-// Sq == 0 and Sk == 0 without a launch.
+// Sq == 0 and Sk == 0 without a launch.  lse: null, or for fp32 a
+// contiguous (B, Hq, Sq) fp32 output of each row's log-sum-exp (the
+// wgmma variant writes none and refuses a non-null lse).
 extern "C" int flash_attention_fwd(int dtype, int D, const void* q,
                                    const void* k, const void* v, void* o,
-                                   const int64_t* strides, int64_t B,
+                                   float* lse, const int64_t* strides, int64_t B,
                                    int64_t Hq, int64_t Hkv, int64_t Sq,
                                    int64_t Sk, int64_t q_offset,
                                    int64_t window, int causal, float scale,
@@ -1117,6 +1124,7 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.sqb = strides[0]; p.sqh = strides[1]; p.sqs = strides[2];
   p.skb = strides[3]; p.skh = strides[4]; p.sks = strides[5];
   p.svb = strides[6]; p.svh = strides[7]; p.svs = strides[8];
@@ -1132,6 +1140,7 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch_simt(p, D, B, Hq, s);
   if (dtype == 1) {
+    if (lse != nullptr) return (int)cudaErrorInvalidValue;
     if ((Sq + kWgRows - 1) / kWgRows > 65535)        // grid.y
       return (int)cudaErrorInvalidValue;
     return launch_wgmma_d(p, D, B, Hq, Hkv, s);

@@ -1,5 +1,5 @@
-"""Synthetic federated classification data, a numpy copy of
-``repro.data.synthetic.federated_classification``.
+"""Synthetic federated data, numpy copies of
+``repro.data.synthetic.federated_classification`` and ``lm_dataset``.
 
 A Gaussian-mixture multi-class task with label-shard non-IID partitioning
 (each client holds ``classes_per_client`` classes, paper §2.2).  The draws
@@ -65,3 +65,33 @@ def federated_classification(num_clients: int, *, num_classes: int = 10,
     return FederatedClassification(
         np.stack(xs), np.stack(ys).astype(np.int32),
         tx, ty.astype(np.int32), np.stack(ccls), num_classes)
+
+
+class LMData(NamedTuple):
+    tokens: np.ndarray       # (N_clients, n_seq, seq_len + 1)
+    vocab_size: int
+
+
+def lm_dataset(num_clients: int, *, vocab_size: int = 4096,
+               seq_len: int = 128, n_seq: int = 32,
+               shard_frac: float = 0.25, seed: int = 0) -> LMData:
+    """Bigram-structured token streams; client i only emits tokens from its
+    vocabulary shard (non-IID).  The reference's draws, one by one."""
+    rng = np.random.RandomState(seed)
+    # global bigram successor table: tok -> 4 plausible next tokens
+    succ = rng.randint(0, vocab_size, size=(vocab_size, 4))
+    shard = max(int(vocab_size * shard_frac), 64)
+    out = np.zeros((num_clients, n_seq, seq_len + 1), np.int32)
+    for i in range(num_clients):
+        lo = rng.randint(0, vocab_size - shard)
+        for j in range(n_seq):
+            t = rng.randint(lo, lo + shard)
+            seq = [t]
+            for _ in range(seq_len):
+                if rng.rand() < 0.8:
+                    t = succ[t, rng.randint(4)]
+                else:
+                    t = rng.randint(lo, lo + shard)
+                seq.append(t)
+            out[i, j] = seq
+    return LMData(out, vocab_size)

@@ -25,6 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"fed_agg": "fed_agg.cu", "robust_agg": "robust_agg.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
            "ssm_scan": "ssm_scan.cu", "rwkv6_scan": "rwkv6_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -171,3 +172,4 @@ class LaunchCounter:
         self.count = 0
         for v in self.by_variant:
             self.by_variant[v] = 0
+

@@ -10,6 +10,12 @@ one bf16 ulp of ``attention_ref``'s fp32 result plus a small floor, see
 ``ref.bf16_excess``).  Both take strided (B, H, S, D) views whose last
 axis is contiguous, so the model's (B, S, H, D) projections go in
 without a transpose; see the source for the design and its bound.
+
+The fp32 variant can also write each row's log-sum-exp (``with_lse``),
+which ``flash_attention_bwd_cuda`` (``csrc/flash_attention_bwd.cu``)
+takes to form dq, dk and dv: the backward of the fp32 training forward.
+The JAX package has no backward kernel (its model trains through plain
+JAX attention); ``bwd_launches`` counts this one's calls.
 """
 from __future__ import annotations
 
@@ -30,6 +36,9 @@ VARIANTS = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 
 launches = _build.LaunchCounter(variants=("wgmma", "simt"))
 launches_by_variant = launches.by_variant
+# one count a call of flash_attention_bwd_cuda (its three kernels: delta,
+# dk/dv, dq), by variant: fp32 SIMT is the only one so far
+bwd_launches = _build.LaunchCounter(variants=("simt",))
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,10 +46,21 @@ def _entry():
     fn = _build.load("flash_attention").flash_attention_fwd
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                   ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+        ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 7 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -56,6 +76,13 @@ def smem_bytes(variant: str, D: int) -> int:
     boxes = -(-D // 64)
     keys = {1: 128, 2: 64}.get(boxes, 32)
     return 1024 + boxes * 128 * 128 + 3 * 2 * boxes * keys * 128 + 8 * 7
+
+
+def bwd_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one block of either backward kernel, as
+    ``csrc/flash_attention_bwd.cu`` sizes it: two 64 x D row tiles, two
+    D x 68 transposed tiles, a 64 x 68 tile of P or dS, lse and delta."""
+    return (2 * 64 * D + 2 * D * 68 + 64 * 68 + 2 * 64) * 4
 
 
 def tma_layout_error(shape, strides, data_ptr: int,
@@ -100,16 +127,9 @@ def _check_layout(name: str, x: torch.Tensor):
                          f"strides and base, got strides {strides}")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: Optional[int] = None,
-                         scale: Optional[float] = None,
-                         q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) on one CUDA device ->
-    (B, Hq, Sq, D) in q's dtype, laid out like q (``empty_like``).
-
-    fp32 launches the SIMT variant, bf16 the wgmma one.  Launches on the
-    current stream and does not synchronise."""
+def _check_inputs(q, k, v, window):
+    """The checks the forward and the backward share; returns (B, Hq,
+    Hkv, Sq, Sk, D)."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention cuda: q, k and v must lie on "
@@ -140,11 +160,40 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f">= 1, got {window}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, x)
+    return B, Hq, Hkv, Sq, Sk, D
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         scale: Optional[float] = None,
+                         q_offset: int = 0, with_lse: bool = False):
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) on one CUDA device ->
+    (B, Hq, Sq, D) in q's dtype, laid out like q (``empty_like``); with
+    ``with_lse`` (fp32 only) also each row's log-sum-exp of the scaled,
+    masked scores, a contiguous (B, Hq, Sq) fp32 tensor, as a pair.
+
+    fp32 launches the SIMT variant, bf16 the wgmma one.  Launches on the
+    current stream and does not synchronise."""
+    B, Hq, Hkv, Sq, Sk, D = _check_inputs(q, k, v, window)
+    if with_lse and q.dtype != torch.float32:
+        raise TypeError(f"flash_attention cuda: the log-sum-exp output "
+                        f"exists for float32 only, got {q.dtype}")
+    dev = q.device
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) \
+        if with_lse else None
+
+    def result():
+        return (out, lse) if with_lse else out
+
     if B == 0 or Hq == 0 or Sq == 0:
-        return out
+        return result()
     if Sk == 0:               # an empty softmax: the plain version's zeros
-        return out.zero_()
+        out.zero_()
+        if with_lse:
+            lse.fill_(float("-inf"))
+        return result()
     _check_layout("out", out)
     if scale is None:
         scale = D ** -0.5
@@ -153,7 +202,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), out.data_ptr(), strides, B, Hq, Hkv,
+                       v.data_ptr(), out.data_ptr(),
+                       None if lse is None else lse.data_ptr(), strides,
+                       B, Hq, Hkv,
                        Sq, Sk, int(q_offset),
                        0 if window is None else int(window), int(causal),
                        float(scale), stream)
@@ -165,4 +216,80 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{tuple(q.shape)}, k {tuple(k.shape)}, "
                            f"{q.dtype}")
     launches.add(VARIANTS[q.dtype])
-    return out
+    return result()
+
+
+def rows_without_keys(Sq: int, Sk: int, q_offset: int, causal: bool,
+                      window: Optional[int]) -> bool:
+    """Does some query row qp = q_offset + i (i < Sq) see no key of
+    [0, Sk)?  Causal hides every key from qp < 0; a window W hides them
+    from qp >= Sk + W - 1."""
+    if Sq == 0:
+        return False
+    if Sk == 0 or (causal and q_offset < 0):
+        return True
+    return window is not None and q_offset + Sq - 1 >= Sk + window - 1
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None,
+                             q_offset: int = 0):
+    """The gradient of ``flash_attention_cuda`` for fp32: q, out, dout
+    (B, Hq, Sq, D), k, v (B, Hkv, Sk, D) and ``lse`` (B, Hq, Sq), the
+    forward's ``with_lse`` output, on one CUDA device -> (dq, dk, dv),
+    each laid out like its input (``empty_like``).
+
+    It computes what autodiff of ``ref.attention_ref`` computes, except
+    for a query row that sees no key, where the plain version averages V
+    over every key: such calls (``rows_without_keys``) are refused with a
+    ``ValueError``; training never makes one.  Launches three kernels on
+    the current stream (delta, dk/dv, dq) and does not synchronise."""
+    B, Hq, Hkv, Sq, Sk, D = _check_inputs(q, k, v, window)
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd cuda: float32 only, got "
+                        f"{q.dtype}")
+    for name, x in (("out", out), ("dout", dout)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash_attention_bwd cuda: {name} must be "
+                             f"like q {tuple(q.shape)} {q.dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+        _check_layout(name, x)
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd cuda: lse must be a "
+                         f"contiguous ({B}, {Hq}, {Sq}) float32 tensor on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype}")
+    if rows_without_keys(Sq, Sk, q_offset, causal, window):
+        raise ValueError(f"flash_attention_bwd cuda: some query row sees "
+                         f"no key (Sq {Sq}, Sk {Sk}, q_offset {q_offset}, "
+                         f"causal {causal}, window {window}); the kernel "
+                         f"does not take the plain version's mean of V "
+                         f"over every key")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if B == 0 or Hq == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    for name, x in (("dq", dq), ("dk", dk), ("dv", dv)):
+        _check_layout(name, x)
+    if scale is None:
+        scale = D ** -0.5
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 24)(*(st for x in (q, k, v, out, dout, dq,
+                                                   dk, dv)
+                                      for st in x.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_entry()(D, *(x.data_ptr() for x in (
+            q, k, v, out, dout, lse, delta, dq, dk, dv)), strides, B, Hq,
+            Hkv, Sq, Sk, int(q_offset),
+            0 if window is None else int(window), int(causal),
+            float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd cuda: launch failed with "
+                           f"CUDA error {err} at q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}")
+    bwd_launches.add("simt")
+    return dq, dk, dv

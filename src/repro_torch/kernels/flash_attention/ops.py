@@ -7,6 +7,14 @@ the CPU has no kernel to run and takes the plain version.
 masks the ragged ends of Sq and Sk itself, so nothing is padded here;
 ``block_k`` is the reference's kv tile knob and only decides, as there,
 which non-causal calls are refused.
+
+Gradients.  On a CUDA tensor under grad, fp32 goes through
+``FlashAttentionFn``: the forward kernel, which also writes each row's
+log-sum-exp, and the hand-written backward kernel
+(``kernel.flash_attention_bwd_cuda``).  bf16 has no backward kernel yet
+and raises ``NotImplementedError`` (ROADMAP Queue A #15g) rather than
+return an output with no gradient.  ``impl="torch"`` and CPU tensors
+differentiate the plain version by autograd.
 """
 from __future__ import annotations
 
@@ -14,10 +22,37 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_cuda, flash_attention_cuda, rows_without_keys)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.grad import needs_grad, refuse_grad
 
 IMPLS = ("cuda", "torch")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """fp32 flash attention on the card with a hand-written backward: the
+    forward kernel (``flash_fwd_simt``, with the rows' log-sum-exp) saves
+    q, k, v, o and lse; the backward kernel forms dq, dk and dv from them
+    (``csrc/flash_attention_bwd.cu``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        kw = dict(causal=causal, window=window, scale=scale,
+                  q_offset=q_offset)
+        out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # the incoming gradient may be any view (expanded, transposed); a
+        # copy of it costs a few us against the kernel's hundreds
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse,
+                                              dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -36,9 +71,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             # hide them (repro/kernels/flash_attention/ops.py:51)
             raise ValueError("non-causal flash requires Sk % block_k == 0")
         if q.device.type != "cpu":
-            return flash_attention_cuda(q, k, v, causal=causal,
-                                        window=window, scale=scale,
-                                        q_offset=q_offset)
+            if not needs_grad(q, k, v):
+                return flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, scale=scale,
+                                            q_offset=q_offset)
+            if q.dtype != torch.float32:
+                refuse_grad(f"flash_attention cuda ({q.dtype})", q, k, v)
+            if rows_without_keys(q.shape[2], k.shape[2], q_offset, causal,
+                                 window):
+                raise ValueError(
+                    "flash_attention cuda: under grad every query row must "
+                    "see a key (the backward kernel does not take the "
+                    "plain version's mean of V over every key)")
+            return FlashAttentionFn.apply(q, k, v, causal, window, scale,
+                                          q_offset)
     return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
                          q_offset=q_offset)
 

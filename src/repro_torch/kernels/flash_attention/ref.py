@@ -46,6 +46,21 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      dout: torch.Tensor, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      scale: Optional[float] = None, q_offset: int = 0):
+    """The plain backward of :func:`attention_ref`: (dq, dk, dv) for the
+    output gradient ``dout``, by autograd through it, each in its input's
+    dtype.  The yardstick of ``flash_attention_bwd_cuda`` in the tests
+    and ``chip_smoke.py``; the port's model never calls it."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = attention_ref(*leaves, causal=causal, window=window,
+                          scale=scale, q_offset=q_offset)
+        return torch.autograd.grad(o, leaves, dout)
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp of each element of ``x`` (fp32; 0 where ``x`` is 0):
     2^(e - 7) for 2^e <= |x| < 2^(e + 1)."""

@@ -3,7 +3,10 @@ model-layout adapter.
 
 The port of ``repro.kernels.rwkv6_scan.ops``.  ``impl="cuda"`` (the
 default) launches the hand-written kernel on a CUDA tensor; a tensor on
-the CPU has no kernel to run and takes the plain version.
+the CPU has no kernel to run and takes the plain version.  The kernel has no
+backward yet: on a CUDA tensor under grad, with an input that requires
+it, ``impl="cuda"`` raises ``NotImplementedError`` (ROADMAP Queue A
+#15g) rather than return an output with no gradient.
 ``impl="torch"`` is the plain version (the per-step oracle
 ``rwkv6_scan_ref``) on either device.  The kernel's variant follows the
 dtype of r, k and v (``kernel.VARIANTS``: fp32 SIMT, bf16 tensor cores).
@@ -20,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.grad import refuse_grad
 from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
@@ -35,6 +39,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unknown rwkv6_scan impl: {impl!r} (expected one "
                          f"of {IMPLS})")
     if impl == "cuda" and r.device.type != "cpu":
+        refuse_grad("rwkv6_scan cuda", r, k, v, logw, u, s0)
         return rwkv6_scan_cuda(r, k, v, logw, u, s0)
     return rwkv6_scan_ref(r, k, v, logw, u, s0)
 

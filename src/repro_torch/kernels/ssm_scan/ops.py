@@ -2,7 +2,10 @@
 
 The port of ``repro.kernels.ssm_scan.ops``.  ``impl="cuda"`` (the
 default) launches the hand-written kernel on a CUDA tensor; a tensor on
-the CPU has no kernel to run and takes the plain version.
+the CPU has no kernel to run and takes the plain version.  The kernel has no
+backward yet: on a CUDA tensor under grad, with an input that requires
+it, ``impl="cuda"`` raises ``NotImplementedError`` (ROADMAP Queue A
+#15g) rather than return an output with no gradient.
 ``impl="torch"`` is the plain version (the per-step oracle
 ``ssm_scan_ref``) on either device.  The kernel's variant follows the
 dtype of x, B and C (``kernel.VARIANTS``: fp32 SIMT, bf16 tensor cores).
@@ -17,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.grad import refuse_grad
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan_cuda
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -36,6 +40,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     xk, dtk = x.transpose(1, 2), dt.transpose(1, 2)
     Bk, Ck = Bm.transpose(1, 2), Cm.transpose(1, 2)
     if impl == "cuda" and x.device.type != "cpu":
+        refuse_grad("ssm_scan cuda", x, dt, A, Bm, Cm, h0)
         y, hf = ssm_scan_cuda(xk, dtk, A, Bk, Ck, h0)
     else:
         rep = x.shape[2] // Bm.shape[2]

@@ -11,8 +11,10 @@ and on the CPU at a reduced size:
       --reduced --device cpu
 
 Weights are drawn at random from ``--seed`` by the reference's init laws
-(``Model.init``); loading a checkpoint (``--ckpt``) waits for the
-checkpoint module, ROADMAP Queue A #15e.
+(``Model.init``), or restored from a checkpoint with ``--ckpt`` (one
+that ``repro_torch.launch.train --ckpt`` or the reference's driver
+saved, in the reference's stacked layout), as the reference's serve
+does.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.checkpoint.checkpointer import restore_like
+from repro_torch.configs import SCALES, scaled_config
 from repro_torch.device import resolve_device
 from repro_torch.models import ExecConfig, build_model
 from repro_torch.obs.trace import NULL_TRACER
@@ -84,6 +87,7 @@ def serve(model, params, tokens: torch.Tensor, decode_tokens: int, *,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="flude-paper")
+    ap.add_argument("--scale", default=None, choices=[None, *SCALES])
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -92,18 +96,16 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: checkpoint loading is not ported to repro_torch yet "
-            "(ROADMAP Queue A #15e)")
     device = resolve_device(args.device)
 
-    cfg = get_config(args.arch)
+    cfg = scaled_config(args.arch, args.scale)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(
         args.seed))
+    if args.ckpt:
+        params = restore_like(args.ckpt, params)
     print(f"serving {cfg.name}: {model.param_count() / 1e6:.1f}M params, "
           f"batch={args.batch}")
 

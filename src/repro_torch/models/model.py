@@ -43,6 +43,11 @@ class Model:
                        for s in L.spec_leaves(self.specs)))
 
     # -- steps ---------------------------------------------------------------
+    def loss(self, params, batch, exec_cfg=T.ExecConfig(),
+             per_example: bool = False):
+        return T.lm_loss(params, batch, self.cfg, exec_cfg,
+                         per_example=per_example)
+
     def logits(self, params, batch, exec_cfg=T.ExecConfig()):
         return T.forward(params, batch, self.cfg, exec_cfg)[0]
 

@@ -6,9 +6,13 @@ The port of the dense, hybrid and RWKV paths of
 reference's keys, except that each tree the reference stacks on a leading
 layer axis (``blocks``; the hybrid's ``mamba`` and ``mamba_norm``) is a
 list with one dict per layer (``repro_torch.convert`` unstacks them).
-The layers run in a Python loop, eagerly; there is no remat (the slice
-serves, it does not train).  MoE, MLA, vision and encoder-decoder configs
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The layers run in a Python loop, eagerly; under remat (``cfg.remat``,
+or ``ExecConfig.remat``) each block of the training forward runs under
+``torch.utils.checkpoint``, so its activations are recomputed in the
+backward, as the reference's ``jax.remat`` does.  ``lm_loss`` is the
+next-token cross entropy the training step differentiates.  MoE, MLA,
+vision and encoder-decoder configs raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import dataclasses
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
 from repro_torch.models import attention as A
@@ -46,11 +51,13 @@ class ExecConfig:
     scan forms, ``_ssd_chunked`` at ``cfg.ssm.chunk_size`` and
     ``wkv_chunked`` (S > 64) or ``wkv_recurrence``.  Decode steps are
     plain PyTorch under both, as the reference's are plain JAX.  Every
-    other knob keeps its default or raises ``NotImplementedError``: the
-    kernel's tiles are fixed (``q_chunk``, ``k_chunk``,
-    ``unroll_causal``), the layers run in a Python loop with no remat, as
-    the slice serves and does not train (``scan_layers``, ``remat``:
-    ROADMAP Queue A #15e), and sharding and MoE dispatch are not ported
+    other knob is read as the reference reads it, keeps its default or
+    raises ``NotImplementedError``: ``remat`` (None: ``cfg.remat``) runs
+    each block of the training forward under
+    ``torch.utils.checkpoint(use_reentrant=False)``; ``scan_layers`` is
+    taken and changes no number, as the port's layers are a Python loop
+    either way; the kernel's tiles are fixed (``q_chunk``, ``k_chunk``,
+    ``unroll_causal``), and sharding and MoE dispatch are not ported
     (#17, #15d)."""
     attn_impl: str = "cuda"          # cuda | torch
     q_chunk: int = 512
@@ -76,11 +83,6 @@ class ExecConfig:
                 "has fixed tiles (128 query rows in the bf16 wgmma "
                 "variant, 64 in the fp32 SIMT one) and takes no chunk "
                 "sizes (ROADMAP Queue B #3)")
-        if self.scan_layers is not None or self.remat is not None:
-            raise NotImplementedError(
-                "ExecConfig scan_layers and remat shape the training "
-                "forward; repro_torch runs the layers in a Python loop and "
-                "does not train yet (ROADMAP Queue A #15e)")
         if self.mesh is not None or self.rules is not None \
                 or self.seq_shard_resid:
             raise NotImplementedError(
@@ -265,9 +267,23 @@ def forward(params, batch, cfg, exec_cfg=ExecConfig()):
     return lm_head(params, x, cfg), 0.0
 
 
+def _remat(cfg, exec_cfg) -> bool:
+    return cfg.remat if exec_cfg.remat is None else exec_cfg.remat
+
+
+def _run(fn, *args, remat: bool):
+    """``fn(*args)``, under activation checkpointing when ``remat`` and a
+    gradient is being recorded (the reference's ``jax.remat``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _dense_forward(params, x, positions, cfg, exec_cfg):
+    remat = _remat(cfg, exec_cfg)
     for p_l in params["blocks"]:
-        x = block_forward(p_l, x, positions, cfg, exec_cfg)
+        x = _run(block_forward, p_l, x, positions, cfg, exec_cfg,
+                 remat=remat)
     return x
 
 
@@ -288,24 +304,57 @@ def _shared_attn_block(p, x, positions, cfg, exec_cfg):
     return x + L.apply_mlp(p["mlp"], h, cfg)
 
 
+def _mamba_layer(p, norm, x, cfg, exec_cfg):
+    h = L.apply_norm(norm, x, cfg)
+    return x + SSM.ssm_forward(p, h, cfg, impl=exec_cfg.attn_impl)
+
+
 def _hybrid_forward(params, x, positions, cfg, exec_cfg):
+    remat = _remat(cfg, exec_cfg)
     for lo, hi in _hybrid_segments(cfg):
-        x = _shared_attn_block(params["shared_attn"], x, positions, cfg,
-                               exec_cfg)
+        x = _run(_shared_attn_block, params["shared_attn"], x, positions,
+                 cfg, exec_cfg, remat=remat)
         for i in range(lo, hi):
-            h = L.apply_norm(params["mamba_norm"][i], x, cfg)
-            x = x + SSM.ssm_forward(params["mamba"][i], h, cfg,
-                                    impl=exec_cfg.attn_impl)
+            x = _run(_mamba_layer, params["mamba"][i],
+                     params["mamba_norm"][i], x, cfg, exec_cfg, remat=remat)
     return x
 
 
 def _rwkv_forward(params, x, cfg, exec_cfg):
     x = L.apply_norm(params["ln0"], x, cfg)
     kernel = _wkv_kernel(exec_cfg, x)
+    remat = _remat(cfg, exec_cfg)
     for p_l in params["blocks"]:
-        x = R.rwkv_block(p_l["rwkv"], x, cfg, p_l["norm1"], p_l["norm2"],
-                         kernel=kernel)
+        x = _run(lambda p, x: R.rwkv_block(p["rwkv"], x, cfg, p["norm1"],
+                                           p["norm2"], kernel=kernel),
+                 p_l, x, remat=remat)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(params, batch, cfg, exec_cfg=ExecConfig(),
+            per_example: bool = False):
+    """Next-token CE.  labels < 0 are masked.  Returns (loss, metrics).
+
+    The log-softmax is fp32; the label's log-probability is picked with a
+    gather (the reference's iota-compare serves a vocab axis sharded over
+    a mesh, which the port has not)."""
+    logits, aux = forward(params, batch, cfg, exec_cfg)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    ll = lp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    if per_example:
+        tok = mask.sum(-1).clamp_min(1.0)
+        ce = -(ll * mask).sum(-1) / tok                  # (B,)
+        return ce.mean() + aux, {"ce_per_example": ce, "aux": aux}
+    denom = mask.sum().clamp_min(1.0)
+    ce = -(ll * mask).sum() / denom
+    acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+    return ce + aux, {"ce": ce, "aux": aux, "acc": acc}
 
 
 # ---------------------------------------------------------------------------

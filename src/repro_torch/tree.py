@@ -1,6 +1,7 @@
 """Nested-dict helpers: the port's models and caches are plain dicts of
-tensors, walked in sorted key order (the reference's tree order, which
-fixes the packed layout)."""
+tensors (a language model's layered trees lists of per-layer dicts),
+walked in sorted key order (the reference's tree order, which fixes the
+packed layout)."""
 from __future__ import annotations
 
 
@@ -17,9 +18,12 @@ def tree_map(fn, *trees):
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of a nested dict in sorted key order."""
+    """Leaves of a nested dict in sorted key order (a list, as the
+    per-layer ``blocks``, in its own order)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
 
 
@@ -35,4 +39,6 @@ def _build(node, it):
     # collection (on the card, gigabytes of stale gradients)
     if isinstance(node, dict):
         return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, list):
+        return [_build(t, it) for t in node]
     return next(it)

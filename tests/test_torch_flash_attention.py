@@ -329,3 +329,100 @@ def test_ptxas_report_is_read_per_kernel():
     assert len(_build.wgmma_serialised(PTXAS_REPORT)) == 1
     assert _build.wgmma_serialised(PTXAS_REPORT + info) == [
         warnings[0], info]
+
+
+# attention_bwd_ref against jax.grad of the reference's attention_ref: the
+# gradients in fp32, differing in summation order only; within 1e-5 of
+# max(1, max |g|) of each tensor
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset", [
+    (2, 4, 2, 100, 100, 64, True, None, 0),     # group 2, ragged
+    (1, 7, 1, 77, 77, 80, True, None, 0),       # group 7
+    (2, 4, 2, 128, 128, 64, True, 16, 0),       # window
+    (1, 14, 2, 45, 131, 80, True, 40, 86),      # q_offset, Sq < Sk, window
+    (2, 4, 2, 96, 96, 32, False, None, 0),      # non-causal
+])
+def test_plain_backward_matches_jax_grad(B, Hq, Hkv, Sq, Sk, D, causal,
+                                         window, q_offset):
+    import jax
+    q, k, v = _inputs(B, Hq, Hkv, Sq, Sk, D, seed=Sq + D)
+    dout = np.random.RandomState(Sk).randn(B, Hq, Sq, D).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    _, vjp = jax.vjp(lambda a, b, c: jax_ref(a, b, c, **kw),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    got = _ref.attention_bwd_ref(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 torch.from_numpy(dout), **kw)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        bound = 1e-5 * max(1.0, float(np.abs(w).max()))
+        assert float(np.abs(g.numpy() - w).max()) <= bound
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset,causal,window,empty", [
+    (64, 64, 0, True, None, False),
+    (64, 64, 0, True, 8, False),          # the window follows the diagonal
+    (64, 64, 0, False, None, False),
+    (160, 200, 200, False, 30, True),     # rows past Sk + W - 1
+    (10, 20, -3, True, None, True),       # causal rows before key 0
+    (1, 77, 76, True, None, False),
+    (40, 0, 0, True, None, True),         # no keys at all
+    (0, 10, 0, True, None, False),
+])
+def test_rows_without_keys_finds_the_rows_the_backward_refuses(
+        Sq, Sk, q_offset, causal, window, empty):
+    assert K.rows_without_keys(Sq, Sk, q_offset, causal, window) == empty
+    if Sq and Sk:                  # the masks, row by row
+        qp = q_offset + torch.arange(Sq)[:, None]
+        kp = torch.arange(Sk)[None]
+        ok = torch.ones(Sq, Sk, dtype=torch.bool)
+        if causal:
+            ok &= kp <= qp
+        if window is not None:
+            ok &= kp > qp - window
+        assert bool((~ok.any(1)).any()) == empty
+
+
+def test_backward_kernels_fit_shared_memory():
+    """Both backward kernels' dynamic shared memory fits a block's 227 KB
+    at every head dim (220,672 bytes at D 192)."""
+    for D in K.HEAD_DIMS:
+        assert 0 < K.bwd_smem_bytes(D) <= 232_448
+    assert K.bwd_smem_bytes(192) == 220_672
+
+
+def test_cpu_tensors_under_grad_differentiate_the_plain_version():
+    """On the CPU ``impl="cuda"`` takes the plain version, so a gradient
+    flows by autograd, the same as ``impl="torch"``'s."""
+    q, k, v = (torch.from_numpy(x).requires_grad_(True)
+               for x in _inputs(1, 4, 2, 40, 40, 32, seed=0))
+    grads = []
+    for impl in ("cuda", "torch"):
+        out = ops.flash_attention(q, k, v, impl=impl)
+        grads.append(torch.autograd.grad(out.sum(), (q, k, v)))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.flash_attention_bwd_cuda(q, k, v, q, torch.zeros(1, 4, 40), q)
+
+
+# the one rule every wrapper without a backward kernel keeps under grad
+# (kernels/grad.py); it reads only grad mode and requires_grad, so the
+# CPU shows it
+@pytest.mark.parametrize("grad_mode,requires,refused", [
+    (True, (True, False, None), True),     # one input requires grad
+    (True, (False, False, None), False),   # none does
+    (False, (True, True, None), False),    # under torch.no_grad()
+    (True, (None, None, True), True),      # None skipped, the last counts
+])
+def test_refuse_grad_rule(grad_mode, requires, refused):
+    from repro_torch.kernels.grad import needs_grad, refuse_grad
+    tensors = [None if r is None else torch.zeros(2, requires_grad=r)
+               for r in requires]
+    with torch.set_grad_enabled(grad_mode):
+        assert needs_grad(*tensors) == refused
+        if refused:
+            with pytest.raises(NotImplementedError,
+                               match=r"ssm_scan cuda: .*Queue A #15g"):
+                refuse_grad("ssm_scan cuda", *tensors)
+        else:
+            refuse_grad("ssm_scan cuda", *tensors)

@@ -997,3 +997,185 @@ def test_audit_engine_clean_on_the_card(cuda, policy, mode):
     engine, pol, fleet = build_audited(policy, mode, device=cuda)
     report = audit_engine(engine, pol, fleet)
     assert report.ok(), report.summary()
+
+
+# ---------------------------------------------------------------------------
+# flash attention's backward kernel (fp32) and the refusals under grad
+# ---------------------------------------------------------------------------
+
+# dq, dk and dv against autograd through the plain version, both fp32:
+# other summation orders over up to Sk keys and G query heads; each
+# gradient within 1e-4 of max(1, max |g|) of its own tensor
+FLASH_BWD_TOL = 1e-4
+
+
+def _flash_grads(q, k, v, dout, impl, **kw):
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = FO.flash_attention(*leaves, impl=impl, **kw)
+    return out, torch.autograd.grad(out, leaves, dout)
+
+
+def _check_grads(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        bound = FLASH_BWD_TOL * max(1.0, float(w.abs().max()))
+        err = float((g - w).abs().max())
+        assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,q_offset,causal,window", [
+    (32, 8, 4, 128, 128, 32, 0, True, None),     # flude-paper training
+    (4, 12, 4, 128, 128, 64, 0, True, None),     # 100m training
+    (1, 12, 4, 700, 700, 64, 0, True, 256),      # window, ragged S
+    (2, 3, 3, 100, 100, 64, 0, True, None),
+    (2, 14, 2, 70, 107, 64, 37, True, None),     # q_offset, Sq < Sk
+    (1, 7, 1, 130, 190, 64, 60, True, 50),
+    (1, 4, 2, 65, 64, 80, 0, False, None),       # non-causal, ragged
+    (2, 4, 2, 97, 97, 80, 0, True, 40),
+    (1, 4, 4, 1, 77, 128, 76, True, None),       # one query
+    (1, 8, 2, 200, 200, 128, 0, True, None),
+    (1, 6, 2, 150, 150, 192, 0, True, 64),
+    (1, 4, 1, 256, 256, 32, 0, False, 30),      # non-causal window
+])
+def test_flash_backward_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D,
+                                             q_offset, causal, window):
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Sk, D, torch.float32, cuda,
+                   seed=Sq + D)
+    dout = torch.randn_like(q)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = FK.bwd_launches.count
+    out, got = _flash_grads(q, k, v, dout, "cuda", **kw)
+    torch.cuda.synchronize()
+    assert FK.bwd_launches.count == before + 1
+    _check_flash(out, q, k, v, **kw)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    _check_grads(got, attention_bwd_ref(q, k, v, dout, **kw))
+
+
+def test_flash_backward_kernel_is_deterministic(cuda):
+    q, k, v = _qkv(2, 12, 4, 300, 300, 64, torch.float32, cuda)
+    dout = torch.randn_like(q)
+    one = _flash_grads(q, k, v, dout, "cuda")[1]
+    two = _flash_grads(q, k, v, dout, "cuda")[1]
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_flash_backward_through_the_model_layout(cuda):
+    """The training forward's call: strided (B, H, S, D) views of the
+    (B, S, Hk, G, D) projections, gradients laid out as they are, against
+    the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 130, 4, 3, 64), generator=gen, device=cuda)
+    k = torch.randn((2, 130, 4, 64), generator=gen, device=cuda)
+    v = torch.randn((2, 130, 4, 64), generator=gen, device=cuda)
+    dout = torch.randn_like(q)
+    grads = {}
+    for impl in ("cuda", "torch"):
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = FO.flash_attention_model_layout(*leaves, causal=True,
+                                              impl=impl)
+        grads[impl] = torch.autograd.grad(out, leaves, dout)
+    _check_grads(grads["cuda"], grads["torch"])
+
+
+def test_flash_backward_refuses_rows_without_keys(cuda):
+    """Rows at positions 285 and on see none of the 256 keys (window
+    30): the forward averages V there, the backward kernel refuses."""
+    q, k, v = _qkv(1, 4, 2, 160, 256, 64, torch.float32, cuda)
+    q.requires_grad_(True)
+    with pytest.raises(ValueError, match="see a key"):
+        FO.flash_attention(q, k, v, causal=False, window=30, q_offset=200)
+    with torch.no_grad():        # without grad the forward takes them
+        FO.flash_attention(q, k, v, causal=False, window=30, q_offset=200)
+
+
+def test_kernels_without_a_backward_refuse_grad(cuda):
+    """bf16 flash, ssm_scan and rwkv6_scan have no backward kernel: under
+    grad they raise naming #15g rather than return an output with no
+    gradient; without grad, or with the plain version, they run."""
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="#15g"):
+        FO.flash_attention(q, k, v)
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 64, 4, 32, 16, 1, torch.float32,
+                                      cuda)
+    x.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="#15g"):
+        ssm_scan(x, dt, A, Bm, Cm)
+    ssm_scan(x, dt, A, Bm, Cm, impl="torch")[0].sum().backward()
+    assert x.grad is not None
+    with torch.no_grad():
+        ssm_scan(x, dt, A, Bm, Cm)
+    args = _wkv_inputs(1, 64, 2, 32, torch.float32, cuda)
+    args[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="#15g"):
+        wkv_kernel_adapter("cuda")(*args)
+    with torch.no_grad():
+        wkv_kernel_adapter("cuda")(*args)
+
+
+def test_training_forward_gives_attention_weights_a_gradient(cuda):
+    """The fault this guards against: the flash kernel's output, filled
+    through ctypes, carried no ``grad_fn``, so a loss through it gave
+    wq, wk and wv no gradient and raised nothing.  Now the backward
+    kernel gives every attention weight a finite, non-zero gradient that
+    matches the plain attention's; under remat the forward runs twice a
+    layer, the backward once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    cfg = get_config("flude-paper")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (8, 129), generator=gen,
+                        device=cuda)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    grads = {}
+    for impl in ("cuda", "torch"):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        fwd, bwd = FK.launches.count, FK.bwd_launches.count
+        loss, _ = model.loss(tree_unflatten(params, leaves), batch,
+                             ExecConfig(attn_impl=impl))
+        g = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        launched = (FK.launches.count - fwd, FK.bwd_launches.count - bwd)
+        assert launched == ((2 * cfg.num_layers, cfg.num_layers)
+                            if impl == "cuda" else (0, 0))
+        grads[impl] = tree_unflatten(params, list(g))
+    for layer in grads["cuda"]["blocks"]:
+        for w in ("wq", "wk", "wv"):
+            g = layer["attn"][w]
+            assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    for g, w in zip(tree_leaves(grads["cuda"]), tree_leaves(grads["torch"])):
+        bound = FLASH_BWD_TOL * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= bound
+
+
+def test_train_driver_on_the_card_matches_cpu(cuda):
+    """The driver at 4 silos x 4 x 32 from one set of parameters and one
+    set of explore uniforms: selected and received identical, the loss
+    within 1e-4 relative (fp32, other summation orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    argv = ["--rounds", "4", "--silos", "4", "--seq-len", "32",
+            "--log-every", "100"]
+    params = build_model(get_config("flude-paper")).init(
+        torch.Generator().manual_seed(0))
+    u = torch.rand((4, 4), generator=torch.Generator().manual_seed(1))
+    logs = {}
+    for dev in ("cpu", "cuda"):
+        _, logs[dev] = T.main(argv + ["--device", dev],
+                              params=tree_map(lambda t: t.to(dev), params),
+                              explore_uniforms=lambda rnd: u[rnd])
+    for key in ("selected", "received", "epsilon"):
+        assert [r[key] for r in logs["cuda"]] == [r[key] for r in
+                                                  logs["cpu"]]
+    np.testing.assert_allclose([r["loss"] for r in logs["cuda"]],
+                               [r["loss"] for r in logs["cpu"]], rtol=1e-4)

@@ -342,7 +342,7 @@ def test_exec_config_takes_cuda_or_torch_only():
 @pytest.mark.parametrize("knob,item", [
     (dict(q_chunk=128), "Queue B #3"), (dict(k_chunk=256), "Queue B #3"),
     (dict(unroll_causal=True), "Queue B #3"),
-    (dict(scan_layers=False), "#15e"), (dict(remat=True), "#15e"),
+    (dict(rules=object()), "#17"), (dict(moe_dispatch="einsum"), "#15d"),
     (dict(seq_shard_resid=True), "#17"), (dict(moe_groups=2), "#15d"),
 ])
 def test_exec_config_rejects_knobs_the_port_does_not_read(knob, item):

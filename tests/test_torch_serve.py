@@ -7,7 +7,7 @@
   ``h2o-danube-1.8b.reduced()`` (window 16, prompt 32: the ring prefill,
   then decode steps past the wrap);
 * the device rule: ``serve`` and ``main`` raise where there is no card unless
-  asked for the CPU; ``--ckpt`` raises naming its ROADMAP item;
+  asked for the CPU; ``--ckpt`` restores a saved checkpoint;
 * ``zamba2-1.2b.reduced()`` and ``rwkv6-7b.reduced()`` (prompt 72, 12
   steps) under both scan impls: ids equal, logits within 1e-4, and the
   entry point on the CPU;
@@ -147,10 +147,23 @@ def test_serving_does_not_import_the_fl_stack():
     assert out.strip() == "[]"
 
 
-def test_ckpt_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="#15e"):
-        S.main(["--arch", "qwen2-7b", "--reduced", "--device", "cpu",
-                "--ckpt", "/nonexistent"])
+def test_ckpt_restores_what_the_port_saved(tmp_path):
+    """``--ckpt`` restores a checkpoint into the model's tree (the
+    checkpointer's own tests hold it against the reference's files)."""
+    from repro_torch.checkpoint.checkpointer import save
+    from repro_torch.convert import lm_params_to_jax
+    cfg = get_config("qwen2-7b").reduced()
+    params = build_model(cfg).init(torch.Generator().manual_seed(5))
+    path = str(tmp_path / "ck.msgpack")
+    save(path, lm_params_to_jax(params))
+    argv = ["--arch", "qwen2-7b", "--reduced", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "8", "--decode-tokens", "3"]
+    res = S.main(argv + ["--ckpt", path])
+    want = S.serve(build_model(cfg), params, torch.randint(
+        0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(
+            1)), 3, device="cpu")
+    assert torch.equal(res.ids, want.ids)
+    assert not torch.equal(S.main(argv).ids, res.ids)
 
 
 @pytest.mark.parametrize("cfg,item", [
