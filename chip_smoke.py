@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure:
 
-1. device: the card's name, the device count and its power limit;
+1. device: the card's name, the device count and its power limit, and
+   one SHA-256 of the tree the run executes (``[provenance]``);
 2. build: every CUDA kernel of the port, compiled from ``src/repro_torch/
    csrc`` by ``nvcc`` (seconds and the ``-Xptxas -v`` report; each
    flash_attention variant's registers, shared memory and spills, and a
@@ -69,19 +70,32 @@ Phases, each of which raises on failure:
    128 and at S 2048 with and without a window of 1024) and ragged ones,
    dq, dk and dv within 1e-4 of max(1, max |g|), reruns bit-identical,
    timed beside SDPA's fp32 backward, the plain backward and the bound;
-   ``[train flude-paper]``, ``[train 100m]`` and ``[train 100m S2048]``:
-   the driver's rounds with every kernel count read across the run (the
-   flash forward twice a layer a step under remat, the backward once), a
-   loss that falls from round 0, ms/round, tok/s and peak memory;
-   ``[train 100m grads]`` one step's gradients of ``Model.loss`` at the
-   100m shape through the kernels against the plain attention, on the
-   card; a profiled 100m window (flash forward and backward against
-   cuBLAS and the optimizer's passes, idle share); ``[train card vs
-   CPU]`` (a 4-silo run, trajectories identical, loss within 1e-4);
-   ``[serve ckpt]`` the 100m checkpoint the training run saved, restored
-   bit for bit and served, and a small one served on both devices:
-   logits teacher-forced on the CPU's ids held together, ids compared
-   with each step's top-2 margin;
+   ``[ssm_scan_bwd]`` and ``[rwkv6_scan_bwd]`` the scans' backward
+   kernels against autograd through their per-step oracles at the 10m
+   and 100m training shapes, ragged S, states set and null, P 32 / N 16
+   and D 32, and one full-width zamba2-1.2b / rwkv6-7b layer (per
+   gradient within 2e-4 / 1e-4 of max(1, max |g|) and 1e-3 of its own
+   max |g|), reruns bit-identical, timed beside the plain autograd
+   backward and the bound;
+   ``[train flude-paper]``, ``[train 100m]``, ``[train 100m S2048]``,
+   ``[train zamba2 10m]``, ``[train zamba2 100m]``, ``[train rwkv6
+   10m]`` and ``[train rwkv6 100m]``: the driver's rounds with every
+   kernel count read across the run (each block's kernel forward twice a
+   step under remat, its backward once: ``train_step_launches``), a loss
+   that falls from round 0, ms/round, tok/s and peak memory;
+   ``[train 100m grads]``, ``[train grads zamba2 full]`` (zamba2-1.2b,
+   full width and depth, 2 x 1024) and ``[train grads rwkv6 full]``
+   (rwkv6-7b, full width, 4 layers, 1 x 1024): one step's gradients of
+   ``Model.loss`` through the kernels against the plain attention and
+   scans, on the card; a profiled 100m window (flash forward and
+   backward against cuBLAS and the optimizer's passes, idle share);
+   ``[train card vs CPU]`` (4-silo runs of flude-paper and of both
+   recurrent stacks at --scale 10m, trajectories identical, loss within
+   1e-4); ``[serve ckpt]`` the 100m checkpoint the training run saved,
+   restored bit for bit and served, and a small one served on both
+   devices: logits teacher-forced on the CPU's ids held together, ids
+   compared with each step's top-2 margin, each checkpoint's SHA-256
+   logged;
 7. card against CPU: the golden FL setup (N = 24, 5 rounds) for FLUDE
    and three robust rule / attack / policy combinations, and the four
    reduced serve configs in fp32.
@@ -91,6 +105,7 @@ Before the last line it prints a ``{"kernels": [...]}`` JSON line and the
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 port's sources beside it, it exits non-zero and prints no result.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -202,6 +217,41 @@ FLASH_BWD_SHAPES = [
     ("100m S2048", 8, 12, 4, 2048, 64, None),
     ("100m S2048 window 1024", 8, 12, 4, 2048, 64, 1024),
 ]
+# the scans' backward kernels (ssm_scan_bwd_cuda, rwkv6_scan_bwd_cuda)
+# against autograd through the per-step oracles, fp32 on the card, per
+# gradient tensor: the SSD within SSM_BWD_TOL of max(1, max |g|) (the
+# forward's SSM_REL: the chunked form's exp of within-chunk cumsums
+# against a product of per-step exps; the fp32 mirror read 2.4e-6 to
+# 9e-6 at S 1024-4096 on the CPU), the WKV within WKV_BWD_TOL (the
+# per-step form in another order; its dlogw identity cancels to 1.6e-6
+# of max |dlogw| at S 2048 on the CPU); both also within
+# GRAD_ATTN_REL_TOL of the tensor's own max |g|, which a zero or lost
+# gradient fails.  Stated in PERF.md before the first run on the card
+SSM_BWD_TOL = 2e-4
+WKV_BWD_TOL = 1e-4
+# (label, B, S, H, P, N, G, h0, dh_f): the 10m and 100m training shapes
+# (zamba2 at --scale: d_inner 2 x d_model, heads of 64, N 64, one group),
+# ragged S, states set and null, P 32 / N 16, and one full-width
+# zamba2-1.2b layer
+SSD_BWD_CASES = [
+    ("10m training", 32, 128, 12, 64, 64, 1, False, False),
+    ("100m training", 32, 128, 24, 64, 64, 1, False, False),
+    ("ragged S 1000, G 2, P 32 / N 16, h0, dh_f", 2, 1000, 4, 32, 16, 2,
+     True, True),
+    ("ragged S 77, P 64 / N 16, G 4, h0", 1, 77, 8, 64, 16, 4, True, False),
+    ("S 1, P 32 / N 64, h0, dh_f", 3, 1, 2, 32, 64, 1, True, True),
+    ("zamba2-1.2b layer", 4, 4096, 64, 64, 64, 1, False, False),
+]
+# (label, B, S, H, D, s0, dS_f): rwkv6 at --scale (heads of 64), ragged
+# S, states, D 32, one full-width rwkv6-7b layer
+WKV_BWD_CASES = [
+    ("10m training", 32, 128, 6, 64, False, False),
+    ("100m training", 32, 128, 12, 64, False, False),
+    ("ragged S 1000, D 32, s0, dS_f", 2, 1000, 8, 32, True, True),
+    ("ragged S 77, D 32, s0", 1, 77, 3, 32, True, False),
+    ("S 1, D 64, s0, dS_f", 3, 1, 2, 64, True, True),
+    ("rwkv6-7b layer", 4, 2048, 64, 64, False, False),
+]
 # the training runs of launch.train: (path label, arguments, rounds).
 # The loss must fall: the mean of the last quarter of the rounds' losses
 # below round 0's
@@ -210,6 +260,21 @@ TRAIN_RUNS = [
     ("train 100m", ["--scale", "100m"], 30),
     ("train 100m S2048", ["--scale", "100m", "--seq-len", "2048",
                           "--batch-per-silo", "1"], 16),
+    ("train zamba2 10m", ["--arch", "zamba2-1.2b", "--scale", "10m"], 30),
+    ("train zamba2 100m", ["--arch", "zamba2-1.2b", "--scale", "100m"], 30),
+    ("train rwkv6 10m", ["--arch", "rwkv6-7b", "--scale", "10m"], 30),
+    ("train rwkv6 100m", ["--arch", "rwkv6-7b", "--scale", "100m"], 30),
+]
+# one step's gradients of Model.loss at full width, the kernels against
+# the plain path, fp32 on the card: (label, arch, layers or None for the
+# full depth, B, S, the leaves also held to GRAD_ATTN_REL_TOL of their own
+# max |g|).  rwkv6-7b's depth is cut to 4: two fp32 gradient sets of its
+# 7.6B parameters do not fit in 80 GB
+TRAIN_GRADS_FULL = [
+    ("train grads zamba2 full", "zamba2-1.2b", None, 2, 1024,
+     ("a_log", "dt_bias", "w_in")),
+    ("train grads rwkv6 full", "rwkv6-7b", 4, 1, 1024,
+     ("w_r", "w_k", "w_v", "w0", "w_lora_a", "w_lora_b", "u_bonus")),
 ]
 TRAIN_F32_TOL = 1e-4            # the driver's loss, card against CPU
 # one step's gradients of Model.loss at the 100m training shape, the
@@ -227,7 +292,8 @@ GRAD_ATTN_REL_TOL = 1e-3
 ATTACK = dict(adversary="sign_flip",
               adversary_params=(("malicious_frac", 0.2),))
 SERVE_ONLY = {"flash_attention": 0, "ssm_scan": 0, "rwkv6_scan": 0,
-              "flash_attention_bwd": 0}
+              "flash_attention_bwd": 0, "ssm_scan_bwd": 0,
+              "rwkv6_scan_bwd": 0}
 ROBUST_RUNS = [
     ("geometric_median", "flude", dict(agg_rule="geometric_median"),
      {"fed_agg": 7, "residual_norms": 6, **SERVE_ONLY}),
@@ -313,11 +379,12 @@ def phase_build():
         for line in _build.ptxas_warnings(b.report):
             log(f"[build]   {line}")
     check_flash_build(builds["flash_attention"].report)
-    for name in ("ssm_scan", "rwkv6_scan", "flash_attention_bwd"):
+    for name in ("ssm_scan", "rwkv6_scan", "flash_attention_bwd",
+                 "ssm_scan_bwd", "rwkv6_scan_bwd"):
         for kernel, k in sorted(_build.ptxas_kernels(
                 builds[name].report).items()):
-            short = re.search(r"(ssd|wkv)_fwd_\w+?E(?=vN)|flash_bwd_\w+?"
-                              r"(ILi\d+E|E)(?=N|v)", kernel)
+            short = re.search(r"(ssd|wkv)_(fwd|bwd)_\w+?E(?=vN)|flash_bwd_"
+                              r"\w+?(ILi\d+E|E)(?=N|v)", kernel)
             log(f"[build] {short.group(0) if short else kernel}: "
                 f"{k.registers} registers at launch, spills "
                 f"{k.spill_stores} / {k.spill_loads} bytes")
@@ -2402,17 +2469,262 @@ def phase_flash_bwd():
             "causal)", "by_shape": timings}
 
 
+def ssd_bwd_bounds(B, S, H, P, N, G):
+    """(bytes, flops, bytes ms, fp32 ms) of one ssm_scan backward with no
+    h0 and no dh_f: x, dt, A, B, C and dy read once, dx, ddt, dA, dB and
+    dC written once; the chunked form's products at chunk 64 (the last
+    chunk ragged), per chunk of L rows over the L(L+1)/2 pairs l <= t:
+    C.B^T, dY.X^T, M^T.dY, Q^T.C and Q.(dt B), 3N + 2P multiply-adds a
+    pair; and five L x P x N products (B.Gc^T, X.Gc, dY.h_s, the Gc update
+    and the forward walk's state update), 2 flops a multiply-add, at
+    fp32's 67 TFLOP/s."""
+    nbytes = 4 * (3 * B * S * H * P + 2 * B * S * H + 2 * H
+                  + 4 * B * S * G * N)
+    flops = 0
+    for c0 in range(0, S, 64):
+        L = min(64, S - c0)
+        tri = L * (L + 1) // 2
+        flops += 2 * (tri * (3 * N + 2 * P) + 5 * L * P * N)
+    flops *= B * H
+    return (nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3,
+            flops / H100_FP32_FLOPS * 1e3)
+
+
+def wkv_bwd_bounds(B, S, H, D):
+    """(bytes, flops, bytes ms, fp32 ms) of one rwkv6_scan backward with
+    no s0 and no dS_f: r, k, v, logw, dy and u read once, dr, dk, dv,
+    dlogw and du written once; the per-step form's least work, 5 D^2
+    multiply-adds a step and head (S.dy and the S update walking forward,
+    G.v, G^T.k and the G update walking back), 2 flops each, at fp32's
+    67 TFLOP/s."""
+    nbytes = 4 * (9 * B * S * H * D + 2 * H * D)
+    flops = 10 * D * D * B * H * S
+    return (nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3,
+            flops / H100_FP32_FLOPS * 1e3)
+
+
+def _grads(fn, leaves, dy, dlast):
+    """Gradients of <fn(*leaves)[0], dy> + <fn(*leaves)[1], dlast> with
+    respect to every non-None leaf (None where the leaf is)."""
+    leaves = [None if t is None else t.detach().requires_grad_(True)
+              for t in leaves]
+    y, last = fn(*leaves)
+    loss = (y * dy).sum() + ((last * dlast).sum() if dlast is not None
+                             else 0.0)
+    live = [t for t in leaves if t is not None]
+    got = iter(torch.autograd.grad(loss, live))
+    return [None if t is None else next(got) for t in leaves]
+
+
+def check_scan_grads(tag, label, names, got, want, tol):
+    """Raise unless each gradient is finite and within ``tol`` of max(1,
+    max |g|) and within GRAD_ATTN_REL_TOL of its own max |g| (a plain
+    gradient that is exactly 0 must be 0); returns the largest absolute
+    error and the largest error relative to max(1, max |g|)."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            continue
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{tag} {label}: {name} {tuple(g.shape)} or "
+                               f"non-finite")
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / max(1.0, scale))
+        if err > tol * max(1.0, scale) or err > GRAD_ATTN_REL_TOL * scale:
+            raise RuntimeError(f"{tag} {label}: {name} off by {err:.3e}, "
+                               f"max |g| {scale:.3e} (gates {tol:.0e} of "
+                               f"max(1, max |g|), {GRAD_ATTN_REL_TOL:.0e} of "
+                               f"max |g|)")
+    return worst_abs, worst_rel
+
+
+def _time_bwd(tag, label, kernel, plain, bounds):
+    """Device times of the backward kernel and of the plain autograd
+    backward (``plain`` None: not timed), beside the bound; the
+    kernels-line numbers."""
+    nbytes, flops, bytes_ms, fp32_ms = bounds
+    bound_ms = max(bytes_ms, fp32_ms)
+    kern = [cuda_ms(kernel, reps=10, warmup=2) for _ in range(2)]
+    ms = sum(kern) / 2
+    plain_ms = cuda_ms(plain, reps=1, warmup=1) if plain else None
+    log(f"[{tag}] {label} timing: kernel {ms:.4f} ms ({kern[0]:.4f} / "
+        f"{kern[1]:.4f}), plain autograd backward "
+        + (f"{plain_ms:.3f} ms" if plain_ms else "not timed")
+        + f", no library call; bound {bound_ms * 1e3:.1f} us ({flops:.4e} "
+        f"flops take {fp32_ms * 1e3:.1f} us at fp32's 67 TFLOP/s; {nbytes} "
+        f"bytes take {bytes_ms * 1e3:.1f} us at 3.35 TB/s); kernel at "
+        f"{bound_ms / ms:.1%} of the bound")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= fp32_ms else "operations")
+
+
+def phase_ssm_scan_bwd():
+    """The SSD backward kernel (``ssd_bwd_simt``, through ``SSDScanFn``
+    under autograd in the model's layout) against autograd through the
+    per-step oracle at SSD_BWD_CASES, reruns bit-identical; the kernel
+    timed at the 100m training shape and at zamba2's full layer, beside
+    the bound and (at 100m) the plain autograd backward.  Returns its
+    kernels-line entry (``launches`` filled in by the training runs)."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    max_err, timings = 0.0, {}
+    for label, B, S, H, P, N, G, with_h0, with_dhf in SSD_BWD_CASES:
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, G, torch.float32,
+                                           seed=S + H, with_h0=with_h0)
+        gen = torch.Generator(device="cuda").manual_seed(S)
+        dy = torch.randn(x.shape, generator=gen, device="cuda")
+        dhf = torch.randn((B, H, P, N), generator=gen, device="cuda") \
+            if with_dhf else None
+        args = [x, dt, A, Bm, Cm, h0]
+        before = SK.bwd_launches.count
+        got = _grads(ssm_scan, args, dy, dhf)
+        again = _grads(ssm_scan, args, dy, dhf)
+        torch.cuda.synchronize()
+        if SK.bwd_launches.count != before + 2:
+            raise RuntimeError(f"ssm_scan_bwd {label}: the backward kernel "
+                               f"did not launch once a call")
+        want = _grads(lambda *a: ssm_scan(*a, impl="torch"), args, dy, dhf)
+        err, rel = check_scan_grads("ssm_scan_bwd", label, names, got, want,
+                                    SSM_BWD_TOL)
+        same = all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+        max_err = max(max_err, err)
+        log(f"[ssm_scan_bwd] {label} (B{B} S{S} H{H} P{P} N{N} G{G}, h0 "
+            f"{with_h0}, dh_f {with_dhf}): max abs err {err:.3e} ({rel:.3e} "
+            f"of max(1, max |g|)); reruns bit-identical {same}")
+        if not same:
+            raise RuntimeError(f"ssm_scan_bwd {label}: two launches differ")
+        del got, again, want
+        if label in ("100m training", "zamba2-1.2b layer"):
+            xk, dtk = x.transpose(1, 2), dt.transpose(1, 2)
+            Bk, Ck, dyk = Bm.transpose(1, 2), Cm.transpose(1, 2), \
+                dy.transpose(1, 2)
+            plain = None
+            if label == "100m training":
+                leaves = [t.detach().requires_grad_(True) for t in args[:5]]
+                y_plain = ssm_scan(*leaves, impl="torch")[0]
+
+                def plain():
+                    return torch.autograd.grad(y_plain, leaves, dy,
+                                               retain_graph=True)
+            timings[label] = _time_bwd(
+                "ssm_scan_bwd", label,
+                lambda: SK.ssm_scan_bwd_cuda(xk, dtk, A, Bk, Ck, None, dyk),
+                plain, ssd_bwd_bounds(B, S, H, P, N, G))
+            del plain
+        del x, dt, A, Bm, Cm, h0, dy, dhf, args
+        torch.cuda.empty_cache()
+    return {"name": "ssm_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssm_scan/kernel.py:66",
+            "replaces_note": "the gradient of ssm_scan_pallas; the JAX "
+            "package has no backward kernel (it trains through plain JAX "
+            "and autodiff)",
+            "launches": None, "max_abs_err": max_err,
+            **timings["100m training"], "library_ms": None,
+            "at": "zamba2 100m training shape (B 32, S 128, H 24, P 64, "
+            "N 64, G 1)", "by_shape": timings}
+
+
+def phase_rwkv6_scan_bwd():
+    """The WKV backward kernel (``wkv_bwd_simt``, through ``WKV6ScanFn``
+    under autograd via the model's kernel hook) against autograd through
+    the per-step oracle at WKV_BWD_CASES, reruns bit-identical; timed as
+    ``phase_ssm_scan_bwd`` times the SSD's."""
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    kern, plain_fn = wkv_kernel_adapter("cuda"), wkv_kernel_adapter("torch")
+    names = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+    max_err, timings = 0.0, {}
+    for label, B, S, H, D, with_s0, with_dsf in WKV_BWD_CASES:
+        args = list(_wkv_inputs(B, S, H, D, torch.float32, seed=S + H,
+                                with_s0=with_s0))
+        gen = torch.Generator(device="cuda").manual_seed(S)
+        dy = torch.randn(args[0].shape, generator=gen, device="cuda")
+        dsf = torch.randn((B, H, D, D), generator=gen, device="cuda") \
+            if with_dsf else None
+        before = WK.bwd_launches.count
+        got = _grads(kern, args, dy, dsf)
+        again = _grads(kern, args, dy, dsf)
+        torch.cuda.synchronize()
+        if WK.bwd_launches.count != before + 2:
+            raise RuntimeError(f"rwkv6_scan_bwd {label}: the backward "
+                               f"kernel did not launch once a call")
+        want = _grads(plain_fn, args, dy, dsf)
+        err, rel = check_scan_grads("rwkv6_scan_bwd", label, names, got,
+                                    want, WKV_BWD_TOL)
+        same = all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+        max_err = max(max_err, err)
+        log(f"[rwkv6_scan_bwd] {label} (B{B} S{S} H{H} D{D}, s0 {with_s0}, "
+            f"dS_f {with_dsf}): max abs err {err:.3e} ({rel:.3e} of max(1, "
+            f"max |g|)); reruns bit-identical {same}")
+        if not same:
+            raise RuntimeError(f"rwkv6_scan_bwd {label}: two launches "
+                               f"differ")
+        del got, again, want
+        if label in ("100m training", "rwkv6-7b layer"):
+            r, k, v, lw = (t.transpose(1, 2) for t in args[:4])
+            dyk = dy.transpose(1, 2)
+            u = args[4]
+            plain = None
+            if label == "100m training":
+                leaves = [t.detach().requires_grad_(True) for t in args[:5]]
+                y_plain = plain_fn(*leaves, None)[0]
+
+                def plain():
+                    return torch.autograd.grad(y_plain, leaves, dy,
+                                               retain_graph=True)
+            timings[label] = _time_bwd(
+                "rwkv6_scan_bwd", label,
+                lambda: WK.rwkv6_scan_bwd_cuda(r, k, v, lw, u, None, dyk),
+                plain, wkv_bwd_bounds(B, S, H, D))
+            del plain
+        del args, dy, dsf
+        torch.cuda.empty_cache()
+    return {"name": "rwkv6_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:55",
+            "replaces_note": "the gradient of rwkv6_scan_pallas; the JAX "
+            "package has no backward kernel (it trains through plain JAX "
+            "and autodiff)",
+            "launches": None, "max_abs_err": max_err,
+            **timings["100m training"], "library_ms": None,
+            "at": "rwkv6 100m training shape (B 32, S 128, H 12, D 64)",
+            "by_shape": timings}
+
+
+def train_step_launches(cfg):
+    """The kernel launches of one training step of ``cfg`` that the code
+    predicts: each block's forward runs twice under remat (the step, then
+    its recompute in the backward) and its backward once.  The dense
+    stack launches the flash kernels a layer; zamba2 the SSD kernels a
+    Mamba2 layer and the flash kernels a shared-attention application;
+    RWKV6 the WKV kernels a layer."""
+    from repro_torch.models.transformer import _hybrid_segments
+    fwd = 2 if cfg.remat else 1
+    L = cfg.num_layers
+    if cfg.arch_type == "hybrid":
+        apps = len(_hybrid_segments(cfg))
+        return {"ssm_scan": fwd * L, "ssm_scan_bwd": L,
+                "flash_attention": fwd * apps, "flash_attention_bwd": apps}
+    if cfg.rwkv is not None:
+        return {"rwkv6_scan": fwd * L, "rwkv6_scan_bwd": L}
+    return {"flash_attention": fwd * L, "flash_attention_bwd": L}
+
+
 def phase_train(label, extra, rounds, counters, ckpt=None):
     """``python -m repro_torch.launch.train`` on the card (``main``), with
     every kernel count set to 0 just before it and read just after: a
     finite loss that falls (the last quarter's mean below round 0's),
-    the flash forward twice a layer a step (remat recomputes it) and the
-    backward once, every launch fp32 SIMT; ms/round over rounds 1 to
-    rounds - 2 (host clock; each round's plan read-back waits for the
-    previous round's step), tokens/s, peak device memory.  Returns the
-    launches, the by-variant launches, the final state and ms/round."""
+    ``train_step_launches`` a round, every launch fp32 SIMT; ms/round
+    over rounds 1 to rounds - 2 (host clock; each round's plan read-back
+    waits for the previous round's step), tokens/s, peak device memory.
+    Returns the launches, the by-variant launches, the final state and
+    ms/round."""
     from repro_torch.configs import scaled_config
     from repro_torch.launch import train as T
+    from repro_torch.models import build_model
     args = T.parse_args(extra)
     cfg = scaled_config(args.arch, args.scale)
     argv = extra + ["--device", "cuda", "--rounds", str(rounds),
@@ -2438,7 +2750,8 @@ def phase_train(label, extra, rounds, counters, ckpt=None):
     L = cfg.num_layers
     log(f"[{label}] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
-        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, fp32; "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+        f"{build_model(cfg).param_count():,} parameters, fp32; "
         f"{args.silos} silos x {args.batch_per_silo} x {args.seq_len} "
         f"tokens a round; {rounds} rounds in {wall:.1f} s (set-up and "
         f"data included)")
@@ -2449,13 +2762,13 @@ def phase_train(label, extra, rounds, counters, ckpt=None):
         f"{tokens / ms * 1e3:.0f} tok/s; peak device memory {peak:.2f} "
         f"GiB; launches {launches}; by variant {variants}")
     want = {name: 0 for name in counters}
-    want.update(flash_attention=2 * L * rounds,
-                flash_attention_bwd=L * rounds)
+    want.update({k: n * rounds for k, n in train_step_launches(cfg).items()})
     if launches != want:
         raise RuntimeError(f"{label}: launches {launches}, expected {want}")
-    if variants["flash_attention"]["wgmma"]:
-        raise RuntimeError(f"{label}: an fp32 step launched the bf16 "
-                           f"variant")
+    if any(n for by in variants.values() for v, n in by.items()
+           if v != "simt"):
+        raise RuntimeError(f"{label}: an fp32 step launched a bf16 variant: "
+                           f"{variants}")
     tail = losses[-max(rounds // 4, 1):]
     if not all(math.isfinite(x) for x in losses) or \
             not sum(tail) / len(tail) < losses[0]:
@@ -2464,75 +2777,184 @@ def phase_train(label, extra, rounds, counters, ckpt=None):
     return launches, variants, state, ms
 
 
-def phase_train_grads(params, extra):
-    """One step's gradients of ``Model.loss`` at the shape of the run
-    ``extra`` (the 100m model, B = silos x batch per silo, S = seq len),
-    from that run's trained ``params``: ``ExecConfig(attn_impl="cuda")``
-    (the flash forward under remat and the backward kernel, through
-    ``FlashAttentionFn``) against ``attn_impl="torch"`` (the plain
-    attention by autograd) on the card, leaf by leaf.  Launches here
-    compare the kernels with the plain version and count for no path."""
-    from repro_torch.configs import scaled_config
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.launch import train as T
+def named_leaves(tree, path=""):
+    """(path, leaf) of a parameter tree in ``tree_leaves`` order: dict
+    keys sorted, per-layer lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, t in enumerate(tree)
+                for x in named_leaves(t, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def phase_train_grads(label, cfg, params, B, S, relative, counters,
+                      full=False):
+    """One step's gradients of ``Model.loss`` of ``cfg`` at B x S from
+    ``params``, fp32 on the card: ``ExecConfig(attn_impl="cuda")`` (the
+    kernels forward under remat and their backward kernels, through
+    ``FlashAttentionFn`` / ``SSDScanFn`` / ``WKV6ScanFn``) against
+    ``attn_impl="torch"`` (the plain attention and scans by autograd),
+    leaf by leaf: every leaf within FLASH_BWD_TOL of max(1, max |g|);
+    the leaves whose last name is in ``relative`` also within
+    GRAD_ATTN_REL_TOL of their own max |g| (a plain gradient that is
+    exactly 0 must stay 0).  The kernel step's launches must be
+    ``train_step_launches(cfg)``; launches here compare the kernels with
+    the plain version and count for no path.
+
+    With ``full`` (the recurrent stacks at full width) the plain side
+    runs each scan's per-step oracle (``per_step_scans``), and where the
+    stack has attention (zamba2) the gates above hold the scan kernels
+    with the plain attention on both sides (``plain_attention``); the
+    whole kernel path, flash kernels too, is then held to
+    GRAD_ATTN_REL_TOL of their own max |g| on the kernels' input leaves
+    (``relative`` and wq/wk/wv), which a lost gradient fails, and its
+    distance in FLASH_BWD_TOL's terms is logged (PERF.md: at 38 layers
+    the fp32 flash kernels' drift passes 1e-4 of max(1, max |g|))."""
     from repro_torch.models import ExecConfig, build_model
     from repro_torch.tree import tree_leaves, tree_unflatten
-    args = T.parse_args(extra)
-    cfg = scaled_config(args.arch, args.scale)
     model = build_model(cfg)
-    B, S = args.silos * args.batch_per_silo, args.seq_len
     gen = torch.Generator(device="cuda").manual_seed(3)
     tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                         device="cuda")
     batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    null = contextlib.nullcontext
+    steps = train_step_launches(cfg)
+    # (pass, attn_impl, plain forms, launches): the kernel passes first
+    passes = [("kernels", "cuda", null, steps)]
+    if full and "flash_attention" in steps and any(
+            k in steps for k in ("ssm_scan", "rwkv6_scan")):
+        passes.append(("scan kernels", "cuda", plain_attention,
+                       {k: n for k, n in steps.items()
+                        if not k.startswith("flash")}))
+    passes.append(("plain", "torch", per_step_scans if full else null, {}))
     grads, losses = {}, {}
-    for impl in ("cuda", "torch"):
+    for name, impl, forms, expect in passes:
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
-        fwd, bwd = FK.launches.count, FK.bwd_launches.count
-        loss, _ = model.loss(tree_unflatten(params, leaves), batch,
-                             ExecConfig(attn_impl=impl))
-        g = torch.autograd.grad(loss, leaves)
+        before = {k: c.count for k, c in counters.items()}
+        with forms():
+            loss, _ = model.loss(tree_unflatten(params, leaves), batch,
+                                 ExecConfig(attn_impl=impl))
+            g = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
-        launched = (FK.launches.count - fwd, FK.bwd_launches.count - bwd)
-        want = (2 * cfg.num_layers, cfg.num_layers) if impl == "cuda" \
-            else (0, 0)
+        launched = {k: c.count - before[k] for k, c in counters.items()}
+        want = {k: expect.get(k, 0) for k in counters}
         if launched != want:
-            raise RuntimeError(f"train grads {impl}: flash launches "
-                               f"{launched}, expected {want}")
-        grads[impl], losses[impl] = tree_unflatten(params, list(g)), \
-            float(loss.detach())
+            raise RuntimeError(f"{label} {name}: launches {launched}, "
+                               f"expected {want}")
+        grads[name], losses[name] = list(g), float(loss.detach())
         del leaves, loss, g
-    worst_abs, worst_attn, smallest_attn = 0.0, 0.0, math.inf
-    for g, w in zip(tree_leaves(grads["cuda"]), tree_leaves(grads["torch"])):
-        if not bool(torch.isfinite(g).all()):
-            raise RuntimeError("train grads: a kernel gradient is not "
-                               "finite")
-        err = float((g - w).abs().max())
-        bound = FLASH_BWD_TOL * max(1.0, float(w.abs().max()))
-        worst_abs = max(worst_abs, err / max(1.0, float(w.abs().max())))
-        if err > bound:
-            raise RuntimeError(f"train grads: a leaf differs by {err:.3e}, "
-                               f"above {bound:.3e}")
-    for lc, lt in zip(grads["cuda"]["blocks"], grads["torch"]["blocks"]):
-        for name in ("wq", "wk", "wv"):
-            g, w = lc["attn"][name], lt["attn"][name]
-            scale = float(w.abs().max())
-            rel = float((g - w).abs().max()) / scale
-            smallest_attn = min(smallest_attn, scale)
-            worst_attn = max(worst_attn, rel)
-            if not scale > 0 or rel > GRAD_ATTN_REL_TOL:
-                raise RuntimeError(f"train grads: attention {name} gradient "
-                                   f"off by {rel:.3e} of its max "
+    names = [path for path, _ in named_leaves(params)]
+    gated = passes[1][0] if len(passes) == 3 else "kernels"
+    plain = "the per-step scans" if full else "plain"
+    for name, *_ in passes[:-1]:
+        # the whole kernel path beside the gated scan kernels: the inputs
+        # of every kernel held to their own max |g|
+        rel = relative if name == gated else relative + ("wq", "wk", "wv")
+        worst_abs, worst_rel, smallest = 0.0, 0.0, math.inf
+        for path, g, w in zip(names, grads[name], grads["plain"]):
+            if not bool(torch.isfinite(g).all()):
+                raise RuntimeError(f"{label} {name}: the gradient of {path} "
+                                   f"is not finite")
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            worst_abs = max(worst_abs, err / max(1.0, scale))
+            if name == gated and err > FLASH_BWD_TOL * max(1.0, scale):
+                raise RuntimeError(f"{label} {name}: {path} differs by "
+                                   f"{err:.3e}, above "
+                                   f"{FLASH_BWD_TOL * max(1.0, scale):.3e}")
+            if path.rsplit("/", 1)[-1] not in rel:
+                continue
+            if scale == 0.0:
+                if err:
+                    raise RuntimeError(f"{label} {name}: {path} has a "
+                                       f"gradient where the plain one is 0")
+                continue
+            smallest = min(smallest, scale)
+            worst_rel = max(worst_rel, err / scale)
+            if err > GRAD_ATTN_REL_TOL * scale:
+                raise RuntimeError(f"{label} {name}: {path} gradient off by "
+                                   f"{err / scale:.3e} of its max "
                                    f"{scale:.3e}")
-    log(f"[train 100m grads] {cfg.name}, B {B} x S {S}, one step of "
-        f"Model.loss from the trained parameters: loss kernel "
-        f"{losses['cuda']:.6f} / plain {losses['torch']:.6f}; every leaf "
-        f"within {worst_abs:.3e} of max(1, max|g|) (gate "
-        f"{FLASH_BWD_TOL:.0e}); wq/wk/wv within {worst_attn:.3e} of their "
-        f"own max|g| (gate {GRAD_ATTN_REL_TOL:.0e}; smallest max|g| "
-        f"{smallest_attn:.3e})")
+        log(f"[{label}] {cfg.name}, {cfg.num_layers} layers, "
+            f"{model.param_count():,} parameters, B {B} x S {S}, one step "
+            f"of Model.loss, {name} against {plain}: loss "
+            f"{losses[name]:.6f} / {losses['plain']:.6f}; every leaf within "
+            f"{worst_abs:.3e} of max(1, max|g|) (gate "
+            + (f"{FLASH_BWD_TOL:.0e}" if name == gated else "none: logged")
+            + f"); {'/'.join(rel)} within {worst_rel:.3e} of their own max|g| "
+            f"(gate "
+            f"{GRAD_ATTN_REL_TOL:.0e}; smallest max|g| {smallest:.3e})")
     del grads
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention through the plain version, whatever its
+    ``attn_impl`` (the scans keep theirs)."""
+    from repro_torch.models import attention as ATT
+    flash = ATT.flash_attention_model_layout
+    ATT.flash_attention_model_layout = lambda *a, **kw: flash(
+        *a, **{**kw, "impl": "torch"})
+    try:
+        yield
+    finally:
+        ATT.flash_attention_model_layout = flash
+
+
+@contextlib.contextmanager
+def per_step_scans():
+    """The model's plain scans (``attn_impl="torch"``) replaced by the
+    per-step oracles ``ssm_scan_ref`` / ``rwkv6_scan_ref`` (through
+    ``ops.ssm_scan`` / ``wkv_kernel_adapter`` with ``impl="torch"``), as
+    the kernel phases hold the kernels to them.  The model's own chunked
+    SSD takes exp of within-chunk cumsums near -180 over its chunk of 256:
+    at 38 layers its gradients are 1.8e-4 of max(1, max |g|) from
+    float64 (measured on the CPU at zamba2's 10m width, S 1024), above
+    the gate, where the per-step oracle's are 1.2e-6 and the kernels'
+    algorithm's 1.6e-6."""
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TR
+
+    def ssd(xh, dtv, A, Bm, Cm, h0=None, chunk=None):
+        y, hf = ssm_scan(xh, dtv, A, Bm, Cm, h0, impl="torch")
+        return y.to(xh.dtype), hf
+    chunked, hook = SSM._ssd_chunked, TR._wkv_kernel
+    SSM._ssd_chunked = ssd
+    TR._wkv_kernel = lambda exec_cfg, x: wkv_kernel_adapter(
+        exec_cfg.attn_impl)
+    try:
+        yield
+    finally:
+        SSM._ssd_chunked, TR._wkv_kernel = chunked, hook
+
+
+def phase_train_grads_full(label, arch, layers, B, S, relative, counters):
+    """``phase_train_grads`` at ``arch``'s full width in fp32 (its depth
+    cut to ``layers`` where given), from random weights drawn on the card
+    by the model's init laws, seed 0 (``full=True``: the per-step scans
+    on the plain side)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
+                              compute_dtype="float32",
+                              **({"num_layers": layers} if layers else {}))
+    if layers:
+        log(f"[{label}] {arch}'s depth cut from "
+            f"{get_config(arch).num_layers} to {layers} layers: two fp32 "
+            f"gradient sets of the full stack do not fit in 80 GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    phase_train_grads(label, cfg, params, B, S, relative, counters,
+                      full=True)
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -2588,25 +3010,26 @@ def phase_train_profile(timed_ms, rounds=7, active=(3, 6), top=12):
         f"ms/round over {sum(e.count for e in host) // n} operator calls")
 
 
-def phase_train_card_vs_cpu(ckpt):
-    """The driver at 4 silos x 4 x 32 (flude-paper) on both devices from
-    one set of parameters and explore uniforms: selected, received and ε
-    identical, the loss within TRAIN_F32_TOL relative; the card's run
-    saves ``ckpt``."""
-    from repro_torch.configs import get_config
+def phase_train_card_vs_cpu(arch="flude-paper", scale=None, ckpt=None):
+    """The driver at 4 silos x 4 x 32 (``arch`` at ``scale``) on both
+    devices from one set of parameters and explore uniforms: selected,
+    received and ε identical, the loss within TRAIN_F32_TOL relative; the
+    card's run saves ``ckpt`` where given."""
+    from repro_torch.configs import scaled_config
     from repro_torch.launch import train as T
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
-    argv = ["--rounds", "4", "--silos", "4", "--seq-len", "32",
-            "--log-every", "100"]
-    params = build_model(get_config("flude-paper")).init(
-        torch.Generator().manual_seed(0))
+    argv = ["--arch", arch, "--rounds", "4", "--silos", "4", "--seq-len",
+            "32", "--log-every", "100"] + (["--scale", scale] if scale
+                                           else [])
+    cfg = scaled_config(arch, scale)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
     u = torch.rand((4, 4), generator=torch.Generator().manual_seed(1))
     rows = {}
     for dev in ("cpu", "cuda"):
         _, rows[dev] = T.main(
-            argv + ["--device", dev] + (["--ckpt", ckpt] if dev == "cuda"
-                                        else []),
+            argv + ["--device", dev] + (["--ckpt", ckpt]
+                                        if dev == "cuda" and ckpt else []),
             params=tree_map(lambda t: t.to(dev), params),
             explore_uniforms=lambda rnd: u[rnd])
     cpu, card = rows["cpu"], rows["cuda"]
@@ -2614,13 +3037,38 @@ def phase_train_card_vs_cpu(ckpt):
               for a, b in zip(card, cpu))
     same = all(a[k] == b[k] for a, b in zip(card, cpu)
                for k in ("selected", "received", "epsilon"))
-    log(f"[train card vs CPU] flude-paper, 4 silos x 4 x 32, 4 rounds: "
+    log(f"[train card vs CPU] {cfg.name}, 4 silos x 4 x 32, 4 rounds: "
         f"selected {[r['selected'] for r in card]} received "
         f"{[r['received'] for r in card]}, identical with ε {same}; loss "
         f"{[round(r['loss'], 5) for r in card]}, max relative gap {rel:.3e}")
     if not same or rel > TRAIN_F32_TOL:
-        raise RuntimeError(f"train card vs CPU: trajectories differ or the "
-                           f"loss differs by {rel:.3e}")
+        raise RuntimeError(f"train card vs CPU {cfg.name}: trajectories "
+                           f"differ or the loss differs by {rel:.3e}")
+
+
+def sha256_file(path):
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def phase_provenance():
+    """One SHA-256 of the tree this run executes: over
+    ``src/repro_torch/**`` (no bytecode caches) and this script, in sorted
+    path order, each file's path and bytes."""
+    import hashlib
+    root = os.path.join(ROOT, "src", "repro_torch")
+    files = sorted(os.path.relpath(os.path.join(d, f), ROOT)
+                   for d, dirs, names in os.walk(root)
+                   if "__pycache__" not in d for f in names
+                   if not f.endswith(".pyc")) + ["chip_smoke.py"]
+    h = hashlib.sha256()
+    for rel in files:
+        h.update(rel.encode() + b"\0")
+        with open(os.path.join(ROOT, rel), "rb") as f:
+            h.update(f.read())
+    log(f"[provenance] tree sha256 {h.hexdigest()} over {len(files)} files "
+        f"(src/repro_torch/** and chip_smoke.py, sorted paths)")
 
 
 def phase_serve_ckpt(ckpt_100m, state_100m):
@@ -2636,7 +3084,8 @@ def phase_serve_ckpt(ckpt_100m, state_100m):
                   ckpt_100m, "--device", "cuda", "--batch", "4",
                   "--prompt-len", "128", "--decode-tokens", "16"])
     ok = res.ids.shape == (4, 17) and bool(torch.isfinite(res.logits).all())
-    log(f"[serve ckpt] 100m checkpoint ({os.path.getsize(ckpt_100m)} bytes) "
+    log(f"[serve ckpt] 100m checkpoint ({os.path.getsize(ckpt_100m)} bytes, "
+        f"sha256 {sha256_file(ckpt_100m)}) "
         f"restored bit for bit {same}; served 4 x 128 + 16 steps, ids "
         f"{res.ids[0].tolist()}")
     if not (same and ok):
@@ -2657,6 +3106,8 @@ def phase_serve_ckpt_card_vs_cpu(ckpt_small):
     from repro_torch.launch import serve as S
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
+    log(f"[serve ckpt] small checkpoint ({os.path.getsize(ckpt_small)} "
+        f"bytes) sha256 {sha256_file(ckpt_small)}")
     model = build_model(get_config("flude-paper"))
     like = model.init(torch.Generator().manual_seed(0))
     params = {"cpu": restore_like(ckpt_small, like),
@@ -2742,27 +3193,34 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import scaled_config
     from repro_torch.kernels.fed_agg import kernel as fed_agg_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.robust_agg import kernel as robust_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.kernels.ssm_scan import kernel as ssd_kernel
+    from repro_torch.launch import train as train_driver
     counters = {"fed_agg": fed_agg_kernel.launches,
                 "residual_norms": robust_kernel.launches,
                 "flash_attention": flash_kernel.launches,
                 "ssm_scan": ssd_kernel.launches,
                 "rwkv6_scan": wkv_kernel.launches,
-                "flash_attention_bwd": flash_kernel.bwd_launches}
+                "flash_attention_bwd": flash_kernel.bwd_launches,
+                "ssm_scan_bwd": ssd_kernel.bwd_launches,
+                "rwkv6_scan_bwd": wkv_kernel.bwd_launches}
     torch.backends.cuda.matmul.allow_tf32 = False    # fp32 card vs CPU
 
     name, count, smi = phase_device()
+    phase_provenance()
     phase_build()
     entries = {"fed_agg": phase_fed_agg(),
                "residual_norms": phase_residual_norms(),
                "flash_attention": phase_flash_attention(),
                "ssm_scan": phase_ssm_scan(),
                "rwkv6_scan": phase_rwkv6_scan(),
-               "flash_attention_bwd": phase_flash_bwd()}
+               "flash_attention_bwd": phase_flash_bwd(),
+               "ssm_scan_bwd": phase_ssm_scan_bwd(),
+               "rwkv6_scan_bwd": phase_rwkv6_scan_bwd()}
     data, main = phase_main_path(counters)
     dyn, dyn_rows, dyn_peaks = phase_dynamics(data, counters)
     paths = {"main": main, **phase_robust(data, counters), **dyn,
@@ -2782,11 +3240,19 @@ def main():
             label, extra, rounds, counters, ckpt=ckpt_100m if keep else None)
         if keep:
             state_100m, ms_100m = state, ms
-            phase_train_grads(state.params, extra)
+            args = train_driver.parse_args(extra)
+            phase_train_grads(
+                "train 100m grads", scaled_config(args.arch, args.scale),
+                state.params, args.silos * args.batch_per_silo,
+                args.seq_len, ("wq", "wk", "wv"), counters)
         del state
+    for run in TRAIN_GRADS_FULL:
+        phase_train_grads_full(*run, counters)
     phase_train_profile(ms_100m)
     ckpt_small = os.path.join(ckpt_dir, "flude-paper.msgpack")
-    phase_train_card_vs_cpu(ckpt_small)
+    phase_train_card_vs_cpu(ckpt=ckpt_small)
+    phase_train_card_vs_cpu("zamba2-1.2b", "10m")
+    phase_train_card_vs_cpu("rwkv6-7b", "10m")
     phase_serve_ckpt(ckpt_100m, state_100m)
     phase_serve_ckpt_card_vs_cpu(ckpt_small)
     del state_100m
@@ -2794,12 +3260,12 @@ def main():
         # launches over the driven paths: the FL main, robust, dynamics,
         # cohort, thompson, telemetry (update_norm's fed_agg and
         # residual_norms) and debug_checks runs, the four serve runs and
-        # the three training runs
+        # the seven training runs
         by_path = {p: n[k] for p, n in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
     for k in ("flash_attention", "ssm_scan", "rwkv6_scan",
-              "flash_attention_bwd"):
+              "flash_attention_bwd", "ssm_scan_bwd", "rwkv6_scan_bwd"):
         entries[k]["launches_by_variant"] = {
             v: sum(n[k][v] for n in VARIANT_LAUNCHES.values())
             for v in counters[k].by_variant}

@@ -26,7 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"fed_agg": "fed_agg.cu", "robust_agg": "robust_agg.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
-           "ssm_scan": "ssm_scan.cu", "rwkv6_scan": "rwkv6_scan.cu"}
+           "ssm_scan": "ssm_scan.cu", "ssm_scan_bwd": "ssm_scan_bwd.cu",
+           "rwkv6_scan": "rwkv6_scan.cu",
+           "rwkv6_scan_bwd": "rwkv6_scan_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

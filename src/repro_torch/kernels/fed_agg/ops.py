@@ -3,7 +3,9 @@
 ``impl="cuda"`` launches the hand-written Hopper kernel on a CUDA tensor;
 a tensor on the CPU has no kernel to run and takes the plain version.
 ``impl="torch"`` is the plain version on either device, the reference the
-kernel is held to.  The client-sharded variant
+kernel is held to.  The kernel has no backward: on a CUDA tensor under
+grad, with an input that requires it, ``impl="cuda"`` raises
+``NotImplementedError`` (``kernels/grad.py``).  The client-sharded variant
 (``fed_agg_packed_sharded``) belongs to ROADMAP Queue A #17 (multi-device).
 """
 from __future__ import annotations
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch.kernels.fed_agg.kernel import fed_agg_cuda
 from repro_torch.kernels.fed_agg.ref import fed_agg_ref
+from repro_torch.kernels.grad import SERVER_STEP_ONLY, refuse_grad
 
 IMPLS = ("cuda", "torch")
 
@@ -29,6 +32,7 @@ def fed_agg_packed(updates: torch.Tensor, weights: torch.Tensor, *,
                          f"(expected one of {IMPLS})")
     if impl == "torch" or updates.device.type == "cpu":
         return fed_agg_ref(updates, weights)
+    refuse_grad("fed_agg cuda", updates, weights, why=SERVER_STEP_ONLY)
     return fed_agg_cuda(updates, weights, block_c=block_c, block_d=block_d)
 
 

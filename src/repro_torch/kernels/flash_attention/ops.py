@@ -12,8 +12,8 @@ Gradients.  On a CUDA tensor under grad, fp32 goes through
 ``FlashAttentionFn``: the forward kernel, which also writes each row's
 log-sum-exp, and the hand-written backward kernel
 (``kernel.flash_attention_bwd_cuda``).  bf16 has no backward kernel yet
-and raises ``NotImplementedError`` (ROADMAP Queue A #15g) rather than
-return an output with no gradient.  ``impl="torch"`` and CPU tensors
+and raises ``NotImplementedError`` (ROADMAP Queue A #15g step 2) rather
+than return an output with no gradient.  ``impl="torch"`` and CPU tensors
 differentiate the plain version by autograd.
 """
 from __future__ import annotations

@@ -17,13 +17,20 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def refuse_grad(name: str, *tensors):
-    """Raise ``NotImplementedError`` naming ROADMAP Queue A #15g where
-    ``needs_grad(*tensors)``; ``name`` says which kernel (and variant)
-    has no backward."""
+# the bf16 backward kernels of flash_attention, ssm_scan and rwkv6_scan
+BF16_BACKWARD = "ROADMAP Queue A #15g step 2"
+# fed_agg and residual_norms: no caller differentiates them
+SERVER_STEP_ONLY = ("no backward is planned: the FL server step runs "
+                    "under torch.no_grad()")
+
+
+def refuse_grad(name: str, *tensors, why: str = BF16_BACKWARD):
+    """Raise ``NotImplementedError`` where ``needs_grad(*tensors)``;
+    ``name`` says which kernel (and variant) has no backward, ``why``
+    which ROADMAP item brings one (or why none is planned)."""
     if needs_grad(*tensors):
         raise NotImplementedError(
-            f"{name}: no backward kernel yet; its output would carry no "
+            f"{name}: no backward kernel; its output would carry no "
             f"gradient.  Run under torch.no_grad(), or pass impl='torch' / "
             f"ExecConfig(attn_impl='torch') to train through the plain "
-            f"version (ROADMAP Queue A #15g)")
+            f"version ({why})")

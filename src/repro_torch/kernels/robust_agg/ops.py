@@ -6,7 +6,8 @@ per-client residual norms (``residual_norms``) and the weighted sum
 (``repro_torch.kernels.fed_agg``).  On a CUDA tensor under
 ``impl="cuda"`` each is one launch of its hand-written kernel; a tensor on
 the CPU has no kernel to run and takes the plain versions.
-``impl="torch"`` is the plain version on either device.  The iteration
+``impl="torch"`` is the plain version on either device.  Neither kernel
+has a backward: under grad they raise (``kernels/grad.py``).  The iteration
 count is fixed: no convergence test, nothing read back to the host.
 
 The client-sharded variants (``*_sharded``) belong to ROADMAP Queue A #17
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.fed_agg.ops import fed_agg_packed
+from repro_torch.kernels.grad import SERVER_STEP_ONLY, refuse_grad
 from repro_torch.kernels.robust_agg.kernel import residual_norms_cuda
 from repro_torch.kernels.robust_agg.ref import (residual_norms_ref,
                                                 trimmed_mean)
@@ -36,6 +38,7 @@ def residual_norms(updates: torch.Tensor, center: torch.Tensor, *,
                          f"(expected one of {IMPLS})")
     if impl == "torch" or updates.device.type == "cpu":
         return residual_norms_ref(updates, center)
+    refuse_grad("residual_norms cuda", updates, center, why=SERVER_STEP_ONLY)
     return residual_norms_cuda(updates, center)
 
 

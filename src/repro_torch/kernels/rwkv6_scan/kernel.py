@@ -14,6 +14,12 @@ partial y by st.async; bound by the bytes it moves, held back by the
 latency of its SIMT parts).  Every tensor is read through its strides,
 so the model's (B, S, H, D) layout goes in without a transpose.  See the
 source for the design and its bound.
+
+``rwkv6_scan_bwd_cuda`` launches ``wkv_bwd_simt``
+(``csrc/rwkv6_scan_bwd.cu``), the gradient of the fp32 variant: the
+backward of the fp32 training forward.  The JAX package has no backward
+kernel (its model trains through plain JAX); ``bwd_launches`` counts
+this one's calls.
 """
 from __future__ import annotations
 
@@ -33,6 +39,9 @@ SUB = 16                        # steps of a sub-chunk (mma)
 STAGED = 32                     # steps staged at once (SIMT)
 
 launches = _build.LaunchCounter(variants=("mma", "simt"))
+# one count a call of rwkv6_scan_bwd_cuda, by variant: fp32 SIMT is the
+# only one so far (the bf16 backward is ROADMAP Queue A #15g step 2)
+bwd_launches = _build.LaunchCounter(variants=("simt",))
 
 
 def smem_bytes(variant: str, D: int, w_dtype=torch.float32) -> int:
@@ -52,6 +61,13 @@ def smem_bytes(variant: str, D: int, w_dtype=torch.float32) -> int:
     return (2 * stage + SUB * DH * 4 + 3 * (2 * SUB * DH * 2 + DH * D * 2)
             + 2 * SUB * DH * 4 + SUB * SUB * 4 + 2 * DH * 4
             + 2 * 8 * (DH + 4) * 4 + 2 * 8)
+
+
+def bwd_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one ``wkv_bwd_simt`` block, as
+    ``csrc/rwkv6_scan_bwd.cu`` sizes it: r, k, w, v, dy and rho of 32
+    steps, two values a step (v.dy and the bonus term) and u, fp32."""
+    return 4 * (6 * STAGED * D + 2 * STAGED + D)
 
 
 def launch_shape(variant: str, B: int, H: int, D: int):
@@ -159,3 +175,98 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{tuple(r.shape)}, {r.dtype}")
     launches.add(VARIANTS[r.dtype])
     return y, sf
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    fn = _build.load("rwkv6_scan_bwd").rwkv6_scan_bwd
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 + [
+        ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        logw: torch.Tensor, u: torch.Tensor,
+                        s0: Optional[torch.Tensor], dy: torch.Tensor,
+                        dsf: Optional[torch.Tensor] = None):
+    """The gradient of ``rwkv6_scan_cuda`` for fp32: the forward's inputs
+    (r, k, v, logw (B, H, S, D), u (H, D), s0 or None), ``dy`` (B, H, S,
+    D) and ``dsf`` (B, H, D, D) or None (zeros), all float32 on one CUDA
+    device -> (dr, dk, dv, dlogw, du, ds0), each shaped like its input
+    (ds0 None when s0 is), the four (B, H, S, D) ones views of the
+    model's (B, S, H, D) memory as y is.
+
+    The kernel writes du per (batch, head); the batch is then summed here
+    by ``torch.sum``, whose reduction order is fixed (no atomics
+    anywhere), so reruns are bit-identical.  Launches one kernel on the
+    current stream (plus that sum) and does not synchronise."""
+    dev = r.device
+    tensors = (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u),
+               ("dy", dy)) + ((("s0", s0),) if s0 is not None else ()) + \
+        ((("dsf", dsf),) if dsf is not None else ())
+    if dev.type != "cuda" or any(t.device != dev for _, t in tensors):
+        raise ValueError("rwkv6_scan_bwd cuda: every tensor must lie on one "
+                         "CUDA device, got " + ", ".join(
+                             f"{n} {t.device}" for n, t in tensors))
+    if any(t.dtype != torch.float32 for _, t in tensors):
+        raise TypeError("rwkv6_scan_bwd cuda: float32 only (the bf16 "
+                        "backward is ROADMAP Queue A #15g step 2), got "
+                        + ", ".join(f"{n} {t.dtype}" for n, t in tensors))
+    if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, logw, dy)):
+        raise ValueError(f"rwkv6_scan_bwd cuda: needs r, k, v, logw, dy of "
+                         f"one shape (B, H, S, D), got {tuple(r.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(logw.shape)}, {tuple(dy.shape)}")
+    B, H, S, D = r.shape
+    if tuple(u.shape) != (H, D) or any(
+            t is not None and tuple(t.shape) != (B, H, D, D)
+            for t in (s0, dsf)):
+        raise ValueError(f"rwkv6_scan_bwd cuda: u {tuple(u.shape)}, s0 or "
+                         f"dsf does not agree with r {tuple(r.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan_bwd cuda: head size {D} has no "
+                         f"kernel variant (one of {HEAD_DIMS})")
+    if B > 65535:
+        raise ValueError(f"rwkv6_scan_bwd cuda: B ({B}) must be at most "
+                         f"65535 (grid limit)")
+    for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw),
+                    ("dy", dy)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"rwkv6_scan_bwd cuda: {name} must have a "
+                             f"contiguous last axis, got strides "
+                             f"{t.stride()}")
+    dr, dk, dv, dlogw = (torch.empty((B, S, H, D), dtype=torch.float32,
+                                     device=dev).transpose(1, 2)
+                         for _ in range(4))
+    ds0 = None if s0 is None else torch.empty((B, H, D, D),
+                                              dtype=torch.float32,
+                                              device=dev)
+    if S == 0 or B == 0 or H == 0:
+        if ds0 is not None:
+            ds0 = dsf.clone() if dsf is not None else torch.zeros_like(s0)
+        return dr, dk, dv, dlogw, torch.zeros_like(u), ds0
+    du = torch.empty((B, H, D), dtype=torch.float32, device=dev)
+    u32 = u.contiguous()
+    s0c = None if s0 is None else s0.contiguous()
+    dsfc = None if dsf is None else dsf.contiguous()
+    strides = (ctypes.c_int64 * 27)(*(s for t in (r, k, v, logw, dy, dr, dk,
+                                                  dv, dlogw)
+                                      for s in t.stride()[:3]))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_entry()(D, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           logw.data_ptr(), u32.data_ptr(),
+                           None if s0c is None else s0c.data_ptr(),
+                           dy.data_ptr(),
+                           None if dsfc is None else dsfc.data_ptr(),
+                           dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                           dlogw.data_ptr(), du.data_ptr(),
+                           None if ds0 is None else ds0.data_ptr(),
+                           strides, B, H, S, stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_bwd cuda: launch failed with CUDA "
+                           f"error {err} at r {tuple(r.shape)}")
+    bwd_launches.add("simt")
+    return dr, dk, dv, dlogw, du.sum(0), ds0

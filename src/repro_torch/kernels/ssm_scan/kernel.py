@@ -12,6 +12,11 @@ with the (P, N) fp32 state on the SM, read B and C per group (no
 ``repeat`` copy) and every tensor through its strides, so the model's
 (B, S, H, P) layout goes in without a transpose.  See the source for the
 design and its bound.
+
+``ssm_scan_bwd_cuda`` launches ``ssd_bwd_simt`` (``csrc/ssm_scan_bwd.cu``),
+the gradient of the fp32 variant: the backward of the fp32 training
+forward.  The JAX package has no backward kernel (its model trains
+through plain JAX); ``bwd_launches`` counts this one's calls.
 """
 from __future__ import annotations
 
@@ -31,6 +36,9 @@ VARIANTS = {torch.float32: "simt", torch.bfloat16: "mma"}
 CHUNK = 64                      # rows of a chunk inside the kernel
 
 launches = _build.LaunchCounter(variants=("mma", "simt"))
+# one count a call of ssm_scan_bwd_cuda, by variant: fp32 SIMT is the
+# only one so far (the bf16 backward is ROADMAP Queue A #15g step 2)
+bwd_launches = _build.LaunchCounter(variants=("simt",))
 
 
 def smem_bytes(variant: str, P: int, N: int) -> int:
@@ -47,6 +55,17 @@ def smem_bytes(variant: str, P: int, N: int) -> int:
     PB = P // 2
     stage = L * PB * 2 + 2 * L * N * 2 + L * 4
     return 2 * stage + 2 * PB * N * 2 + 4 * L * 4
+
+
+def bwd_smem_bytes(P: int, N: int) -> int:
+    """Dynamic shared memory of one ``ssd_bwd_simt`` block, as
+    ``csrc/ssm_scan_bwd.cu`` sizes it: x and dy, B and C, Gc and the
+    chunk's start state, M and Q, rows padded by one float, six rows of
+    64 (dt, seg, exp(seg), exp(seg_last - seg), q, r) and eight
+    partials, fp32."""
+    L = CHUNK
+    return 4 * (2 * L * (P + 1) + 2 * L * (N + 1) + 2 * P * (N + 1)
+                + 2 * L * (L + 1) + 6 * L + 8)
 
 
 def launch_shape(variant: str, B: int, H: int):
@@ -162,3 +181,115 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            f"{x.dtype}")
     launches.add(VARIANTS[x.dtype])
     return y, hf
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    fn = _build.load("ssm_scan_bwd").ssm_scan_bwd
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 15 + [
+        ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      Bm: torch.Tensor, Cm: torch.Tensor,
+                      h0: Optional[torch.Tensor], dy: torch.Tensor,
+                      dhf: Optional[torch.Tensor] = None):
+    """The gradient of ``ssm_scan_cuda`` for fp32: the forward's inputs
+    (x (B, H, S, P), dt (B, H, S), A (H,), Bm, Cm (B, G, S, N), h0 or
+    None), ``dy`` (B, H, S, P) and ``dhf`` (B, H, P, N) or None (zeros),
+    all float32 on one CUDA device -> (dx, ddt, dA, dB, dC, dh0), each
+    shaped like its input (dh0 None when h0 is), dx, ddt, dB and dC views
+    of the model's (B, S, ·) memory as y is.
+
+    The kernel writes dB and dC per head and dA per (batch, head); the
+    heads of a group and the batch are then summed here by
+    ``torch.sum``, whose reduction order is fixed (no atomics anywhere),
+    so reruns are bit-identical.  Launches one kernel on the current
+    stream (plus those sums) and does not synchronise."""
+    dev = x.device
+    tensors = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
+               ("dy", dy)) + ((("h0", h0),) if h0 is not None else ()) + \
+        ((("dhf", dhf),) if dhf is not None else ())
+    if dev.type != "cuda" or any(t.device != dev for _, t in tensors):
+        raise ValueError("ssm_scan_bwd cuda: every tensor must lie on one "
+                         "CUDA device, got " + ", ".join(
+                             f"{n} {t.device}" for n, t in tensors))
+    if any(t.dtype != torch.float32 for _, t in tensors):
+        raise TypeError("ssm_scan_bwd cuda: float32 only (the bf16 backward "
+                        "is ROADMAP Queue A #15g step 2), got " + ", ".join(
+                            f"{n} {t.dtype}" for n, t in tensors))
+    if x.ndim != 4 or Bm.ndim != 4 or Bm.shape != Cm.shape:
+        raise ValueError(f"ssm_scan_bwd cuda: needs x (B, H, S, P) and Bm, "
+                         f"Cm (B, G, S, N), got {tuple(x.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    B, H, S, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[3]
+    if tuple(dt.shape) != (B, H, S) or tuple(A.shape) != (H,) \
+            or dy.shape != x.shape or Bm.shape[0] != B or Bm.shape[2] != S \
+            or G == 0 or H % G \
+            or any(t is not None and tuple(t.shape) != (B, H, P, N)
+                   for t in (h0, dhf)):
+        raise ValueError(f"ssm_scan_bwd cuda: shapes do not agree: x "
+                         f"{tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, Bm {tuple(Bm.shape)}, dy "
+                         f"{tuple(dy.shape)} (H must be a multiple of G)")
+    if (P, N) not in SIZES:
+        raise ValueError(f"ssm_scan_bwd cuda: (head_dim P, d_state N) = "
+                         f"{(P, N)} has no kernel variant (one of {SIZES})")
+    if B > 65535:
+        raise ValueError(f"ssm_scan_bwd cuda: B ({B}) must be at most "
+                         f"65535 (grid limit)")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm), ("dy", dy)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"ssm_scan_bwd cuda: {name} must have a "
+                             f"contiguous last axis, got strides "
+                             f"{t.stride()}")
+    dx = torch.empty((B, S, H, P), dtype=torch.float32,
+                     device=dev).transpose(1, 2)
+    ddt = torch.empty((B, S, H), dtype=torch.float32,
+                      device=dev).transpose(1, 2)
+    dBh, dCh = (torch.empty((B, S, H, N), dtype=torch.float32,
+                            device=dev).transpose(1, 2) for _ in range(2))
+    dA = torch.empty((B, H), dtype=torch.float32, device=dev)
+    dh0 = None if h0 is None else torch.empty((B, H, P, N),
+                                              dtype=torch.float32,
+                                              device=dev)
+    if S == 0 or B == 0 or H == 0:
+        zero = dBh.new_zeros(Bm.shape)
+        if dh0 is not None:
+            dh0 = dhf.clone() if dhf is not None else torch.zeros_like(h0)
+        return dx, ddt, A.new_zeros(A.shape), zero, zero.clone(), dh0
+    ws = torch.empty((B, H, -(-S // CHUNK), P, N), dtype=torch.float32,
+                     device=dev)
+    h0c = None if h0 is None else h0.contiguous()
+    dhfc = None if dhf is None else dhf.contiguous()
+    A32 = A.contiguous()
+    strides = (ctypes.c_int64 * 27)(*(s for t in (x, dt, Bm, Cm, dy, dx,
+                                                  ddt, dBh, dCh)
+                                      for s in t.stride()[:3]))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_entry()(P, N, x.data_ptr(), dt.data_ptr(),
+                           A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                           None if h0c is None else h0c.data_ptr(),
+                           dy.data_ptr(),
+                           None if dhfc is None else dhfc.data_ptr(),
+                           dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                           dBh.data_ptr(), dCh.data_ptr(),
+                           None if dh0 is None else dh0.data_ptr(),
+                           ws.data_ptr(), strides, B, H, G, S, stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan_bwd cuda: launch failed with CUDA "
+                           f"error {err} at x {tuple(x.shape)}, Bm "
+                           f"{tuple(Bm.shape)}")
+    bwd_launches.add("simt")
+    rep = H // G
+    if rep == 1:
+        dB, dC = dBh, dCh
+    else:       # the heads of each group, summed by torch in a fixed order
+        dB, dC = (t.transpose(1, 2).reshape(B, S, G, rep, N).sum(3)
+                  .transpose(1, 2) for t in (dBh, dCh))
+    return dx, ddt, dA.sum(0), dB, dC, dh0

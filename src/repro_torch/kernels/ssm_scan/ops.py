@@ -2,10 +2,16 @@
 
 The port of ``repro.kernels.ssm_scan.ops``.  ``impl="cuda"`` (the
 default) launches the hand-written kernel on a CUDA tensor; a tensor on
-the CPU has no kernel to run and takes the plain version.  The kernel has no
-backward yet: on a CUDA tensor under grad, with an input that requires
-it, ``impl="cuda"`` raises ``NotImplementedError`` (ROADMAP Queue A
-#15g) rather than return an output with no gradient.
+the CPU has no kernel to run and takes the plain version.
+
+Gradients.  On a CUDA tensor under grad, with an input that requires it,
+fp32 goes through ``SSDScanFn``: the forward kernel (``ssd_fwd_simt``)
+and the hand-written backward kernel (``kernel.ssm_scan_bwd_cuda``,
+``csrc/ssm_scan_bwd.cu``).  bf16 has no backward kernel yet and raises
+``NotImplementedError`` (ROADMAP Queue A #15g step 2) rather than return
+an output with no gradient.  ``impl="torch"`` and CPU tensors
+differentiate the plain version by autograd.
+
 ``impl="torch"`` is the plain version (the per-step oracle
 ``ssm_scan_ref``) on either device.  The kernel's variant follows the
 dtype of x, B and C (``kernel.VARIANTS``: fp32 SIMT, bf16 tensor cores).
@@ -20,11 +26,35 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.grad import refuse_grad
-from repro_torch.kernels.ssm_scan.kernel import ssm_scan_cuda
+from repro_torch.kernels.grad import needs_grad, refuse_grad
+from repro_torch.kernels.ssm_scan.kernel import (ssm_scan_bwd_cuda,
+                                                 ssm_scan_cuda)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 IMPLS = ("cuda", "torch")
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The fp32 SSD scan on the card with a hand-written backward, in the
+    kernel layout: the forward kernel (``ssd_fwd_simt``) saves its
+    inputs; the backward kernel (``csrc/ssm_scan_bwd.cu``) rebuilds the
+    chunk-start states from them and forms every input's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0):
+        y, hf = ssm_scan_cuda(x, dt, A, Bm, Cm, h0)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0)
+        ctx.set_materialize_grads(False)
+        return y, hf
+
+    @staticmethod
+    def backward(ctx, dy, dhf):
+        x, dt, A, Bm, Cm, h0 = ctx.saved_tensors
+        # the incoming gradient may be any view (expanded, transposed) or
+        # None (y unused); a copy costs a few us against the kernel
+        dy = torch.zeros_like(x) if dy is None else \
+            dy if dy.stride(-1) == 1 else dy.contiguous()
+        return ssm_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dhf)
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -40,8 +70,13 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     xk, dtk = x.transpose(1, 2), dt.transpose(1, 2)
     Bk, Ck = Bm.transpose(1, 2), Cm.transpose(1, 2)
     if impl == "cuda" and x.device.type != "cpu":
-        refuse_grad("ssm_scan cuda", x, dt, A, Bm, Cm, h0)
-        y, hf = ssm_scan_cuda(xk, dtk, A, Bk, Ck, h0)
+        if not needs_grad(x, dt, A, Bm, Cm, h0):
+            y, hf = ssm_scan_cuda(xk, dtk, A, Bk, Ck, h0)
+        else:
+            if any(t.dtype != torch.float32 for t in (x, dt, A, Bm, Cm)):
+                refuse_grad(f"ssm_scan cuda ({x.dtype})", x, dt, A, Bm, Cm,
+                            h0)
+            y, hf = SSDScanFn.apply(xk, dtk, A, Bk, Ck, h0)
     else:
         rep = x.shape[2] // Bm.shape[2]
         y, hf = ssm_scan_ref(xk, dtk, A, Bk.repeat_interleave(rep, dim=1),

@@ -17,7 +17,13 @@ The explore uniforms of each round's selection come from a
 ``torch.Generator`` on the device seeded ``seed + 1`` (the reference
 splits ``key(seed + 1)``: the two give other numbers, so a parity test
 hands the reference's in through ``explore_uniforms``).  On the card the
-attention runs the flash kernel forward and its hand-written backward.
+attention, the SSD scan (zamba2) and the WKV6 scan (rwkv6) run their
+hand-written kernels forward and backward (fp32: every ``--scale``):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --scale 100m
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --scale 100m
 """
 from __future__ import annotations
 

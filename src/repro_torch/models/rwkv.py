@@ -6,7 +6,8 @@ depends on the input.  ``time_mix`` runs the WKV recurrence through its
 ``kernel=`` hook when one is given (the model passes
 ``repro_torch.kernels.rwkv6_scan.ops.wkv_kernel_adapter()``, the
 hand-written Hopper kernel, on a prefill or forward of a CUDA tensor
-under ``attn_impl="cuda"``), and otherwise the
+under ``attn_impl="cuda"``; under grad in fp32 through ``WKV6ScanFn``,
+whose backward is a hand-written kernel too), and otherwise the
 reference's own plain forms: ``wkv_chunked`` for S > 64, the exact
 per-step ``wkv_recurrence`` for shorter inputs (a decode step among
 them).

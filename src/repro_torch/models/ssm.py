@@ -6,7 +6,9 @@ full-sequence scan runs under one of two impls:
 
 * ``"cuda"`` (the default): on a CUDA tensor,
   ``repro_torch.kernels.ssm_scan.ops.ssm_scan``, the hand-written Hopper
-  kernel; on a CPU tensor, which has no kernel to run, as ``"torch"``;
+  kernel (under grad in fp32 through ``SSDScanFn``, whose backward is a
+  hand-written kernel too); on a CPU tensor, which has no kernel to run,
+  as ``"torch"``;
 * ``"torch"``: ``_ssd_chunked``, the reference model's own chunked form
   (intra-chunk masked products, the (H, P, N) state carried across chunks
   in a Python loop), at ``cfg.ssm.chunk_size``.
@@ -128,11 +130,16 @@ def _ssd_chunked(xh, dtv, A, Bm, Cm, h0=None, chunk=256):
         # expand groups over heads
         Bh = Bc[:, k].repeat_interleave(rep, dim=2).float()   # (B,c,H,N)
         Ch = Cc[:, k].repeat_interleave(rep, dim=2).float()
-        # intra-chunk: M[i,j] = (C_i . B_j) exp(seg_i - seg_j) [j <= i]
+        # intra-chunk: M[i,j] = (C_i . B_j) exp(seg_i - seg_j) [j <= i].
+        # The exponent is masked before exp: above the diagonal seg_i -
+        # seg_j > 0 and exp of a chunk's decay span past ~88 is inf, whose
+        # product with the masked zero makes the gradient NaN (the
+        # reference, repro/models/ssm.py:124, masks after exp and has
+        # that NaN); the forward values are the same
         cb = torch.einsum("bihn,bjhn->bhij", Ch, Bh)
         dseg = segk[:, :, None, :] - segk[:, None, :, :]     # (B,i,j,H)
         dseg = dseg.permute(0, 3, 1, 2)                      # (B,H,i,j)
-        M = torch.where(mask, cb * torch.exp(dseg), 0.0)
+        M = cb * torch.exp(torch.where(mask, dseg, -torch.inf))
         xdt = xk.float() * dtk[..., None]                    # (B,c,H,P)
         y_intra = torch.einsum("bhij,bjhp->bihp", M, xdt)
         # inter-chunk: contribution of the carried state

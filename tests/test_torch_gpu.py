@@ -1092,29 +1092,136 @@ def test_flash_backward_refuses_rows_without_keys(cuda):
 
 def test_kernels_without_a_backward_refuse_grad(cuda):
     """bf16 flash, ssm_scan and rwkv6_scan have no backward kernel: under
-    grad they raise naming #15g rather than return an output with no
-    gradient; without grad, or with the plain version, they run."""
+    grad they raise naming #15g step 2 rather than return an output with
+    no gradient; without grad, or with the plain version, they run.
+    fed_agg and residual_norms have none either (the FL server step runs
+    under no_grad) and raise too."""
     from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="#15g"):
+    with pytest.raises(NotImplementedError, match="#15g step 2"):
         FO.flash_attention(q, k, v)
-    x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 64, 4, 32, 16, 1, torch.float32,
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 64, 4, 32, 16, 1, torch.bfloat16,
                                       cuda)
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="#15g"):
+    with pytest.raises(NotImplementedError, match="#15g step 2"):
         ssm_scan(x, dt, A, Bm, Cm)
     ssm_scan(x, dt, A, Bm, Cm, impl="torch")[0].sum().backward()
     assert x.grad is not None
     with torch.no_grad():
         ssm_scan(x, dt, A, Bm, Cm)
-    args = _wkv_inputs(1, 64, 2, 32, torch.float32, cuda)
+    args = _wkv_inputs(1, 64, 2, 32, torch.bfloat16, cuda)
     args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="#15g"):
+    with pytest.raises(NotImplementedError, match="#15g step 2"):
         wkv_kernel_adapter("cuda")(*args)
     with torch.no_grad():
         wkv_kernel_adapter("cuda")(*args)
+    u, w = _inputs(64, 1000, 0, cuda)
+    u.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="fed_agg cuda"):
+        fed_agg_packed(u, w)
+    with pytest.raises(NotImplementedError, match="residual_norms cuda"):
+        RO.residual_norms(u, u[0].detach())
+    with torch.no_grad():
+        fed_agg_packed(u, w)
+        RO.residual_norms(u, u[0])
+    assert fed_agg_packed(u, w, impl="torch").requires_grad
+
+
+# the scans' backward kernels against autograd through the per-step
+# oracles: per gradient tensor within 2e-4 (SSD) / 1e-4 (WKV) of max(1,
+# max |g|) and within 1e-3 of its own max |g| (a zero gradient fails it),
+# as chip_smoke.py gates them
+SSD_BWD_TOL, WKV_BWD_TOL, OWN_MAX_TOL = 2e-4, 1e-4, 1e-3
+
+
+def _check_scan_grads(got, want, tol):
+    """A plain gradient that is exactly 0 (dA at one step from a zero
+    state, dlogw with no final-state gradient) has no own max to hold
+    the kernel's to: only the first gate applies there."""
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        assert err <= tol * max(1.0, scale)
+        assert scale == 0.0 or err <= OWN_MAX_TOL * scale
+
+
+def _scan_grads(fn, leaves, dy, dlast):
+    leaves = [None if t is None else t.detach().requires_grad_(True)
+              for t in leaves]
+    y, last = fn(*leaves)
+    loss = (y * dy).sum() + ((last * dlast).sum() if dlast is not None
+                             else 0.0)
+    live = [t for t in leaves if t is not None]
+    # an input the loss does not reach (logw at one step with no final-
+    # state gradient) has gradient 0
+    got = iter(torch.autograd.grad(loss, live, allow_unused=True,
+                                   materialize_grads=True))
+    return [None if t is None else next(got) for t in leaves]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,h0,dhf", [
+    (2, 130, 4, 32, 16, 2, True, True),             # ragged, G 2, states
+    (4, 128, 6, 64, 64, 1, False, False),           # a training shape
+    (1, 77, 4, 64, 16, 4, True, False),
+    (2, 1, 2, 32, 64, 1, False, True),              # one step
+    (1, 1000, 2, 64, 64, 1, False, False),          # ragged S 1000
+])
+def test_ssm_scan_backward_kernel_matches_plain(cuda, B, S, H, P, N, G, h0,
+                                               dhf):
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    x, dt, A, Bm, Cm, hh = _ssd_inputs(B, S, H, P, N, G, torch.float32, cuda,
+                                       seed=S + H, h0=h0)
+    dy = torch.randn_like(x)
+    dh = torch.randn((B, H, P, N), device=cuda) if dhf else None
+    before = (SK.launches.count, SK.bwd_launches.count)
+    got = _scan_grads(ssm_scan, [x, dt, A, Bm, Cm, hh], dy, dh)
+    torch.cuda.synchronize()
+    assert (SK.launches.count, SK.bwd_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    want = _scan_grads(_ssd_plain, [x, dt, A, Bm, Cm, hh], dy, dh)
+    _check_scan_grads(got, want, SSD_BWD_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,D,s0,dsf", [
+    (1, 100, 4, 32, True, True),                    # ragged, D 32, states
+    (4, 128, 3, 64, False, False),                  # a training shape
+    (2, 1, 2, 64, True, False),                     # one step
+    (1, 1000, 2, 32, False, True),                  # ragged S 1000
+])
+def test_rwkv6_scan_backward_kernel_matches_plain(cuda, B, S, H, D, s0, dsf):
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    args = list(_wkv_inputs(B, S, H, D, torch.float32, cuda, seed=S + D,
+                            s0=s0))
+    dy = torch.randn_like(args[0])
+    ds = torch.randn((B, H, D, D), device=cuda) if dsf else None
+    before = (WK.launches.count, WK.bwd_launches.count)
+    got = _scan_grads(wkv_kernel_adapter("cuda"), args, dy, ds)
+    torch.cuda.synchronize()
+    assert (WK.launches.count, WK.bwd_launches.count) == (
+        before[0] + 1, before[1] + 1)
+    want = _scan_grads(wkv_kernel_adapter("torch"), args, dy, ds)
+    _check_scan_grads(got, want, WKV_BWD_TOL)
+
+
+def test_scan_backward_kernels_are_deterministic(cuda):
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    ssd = _ssd_inputs(2, 300, 4, 64, 64, 2, torch.float32, cuda, h0=True)
+    dy = torch.randn_like(ssd[0])
+    one, two = (_scan_grads(ssm_scan, list(ssd), dy, None) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    wkv = _wkv_inputs(2, 300, 4, 64, torch.float32, cuda, s0=True)
+    dy = torch.randn_like(wkv[0])
+    one, two = (_scan_grads(wkv_kernel_adapter("cuda"), list(wkv), dy, None)
+                for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 def test_training_forward_gives_attention_weights_a_gradient(cuda):
@@ -1174,6 +1281,38 @@ def test_train_driver_on_the_card_matches_cpu(cuda):
         _, logs[dev] = T.main(argv + ["--device", dev],
                               params=tree_map(lambda t: t.to(dev), params),
                               explore_uniforms=lambda rnd: u[rnd])
+    for key in ("selected", "received", "epsilon"):
+        assert [r[key] for r in logs["cuda"]] == [r[key] for r in
+                                                  logs["cpu"]]
+    np.testing.assert_allclose([r["loss"] for r in logs["cuda"]],
+                               [r["loss"] for r in logs["cpu"]], rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
+def test_recurrent_train_driver_on_the_card_matches_cpu(cuda, arch):
+    """The recurrent stacks at --scale 10m, 4 silos x 4 x 32, 2 rounds,
+    from one set of parameters and explore uniforms: the card's kernels
+    and backward kernels against the CPU's plain forms, trajectories
+    identical, the loss within 1e-4 relative."""
+    from repro_torch.configs import scaled_config
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    argv = ["--arch", arch, "--scale", "10m", "--rounds", "2", "--silos",
+            "4", "--seq-len", "32", "--log-every", "100"]
+    params = build_model(scaled_config(arch, "10m")).init(
+        torch.Generator().manual_seed(0))
+    u = torch.rand((2, 4), generator=torch.Generator().manual_seed(1))
+    bwd = SK.bwd_launches if arch.startswith("zamba2") else WK.bwd_launches
+    before = bwd.count
+    logs = {}
+    for dev in ("cpu", "cuda"):
+        _, logs[dev] = T.main(argv + ["--device", dev],
+                              params=tree_map(lambda t: t.to(dev), params),
+                              explore_uniforms=lambda rnd: u[rnd])
+    assert bwd.count == before + 2 * 6            # 6 layers, 2 steps
     for key in ("selected", "received", "epsilon"):
         assert [r[key] for r in logs["cuda"]] == [r[key] for r in
                                                   logs["cpu"]]

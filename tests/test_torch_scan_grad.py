@@ -1,0 +1,348 @@
+"""The gradients of the two scans, on the CPU.
+
+* The port's plain scans (``ssm_scan_ref``, ``rwkv6_scan_ref``) under
+  autograd against ``jax.grad`` through the JAX package's
+  ``repro.kernels.{ssm_scan,rwkv6_scan}.ref`` on the same numpy inputs,
+  with and without an initial state and a final-state gradient: within
+  1e-5 of max(1, max |g|) (fp32 both sides, other summation orders).
+* The plain mirrors of the backward kernels' walks
+  (``ssm_scan_bwd_ref``, ``rwkv6_scan_bwd_ref``) against autograd through
+  the per-step oracles in float64: within 1e-10 of max(1, max |g|)
+  (the algebra, with rounding out of the way).
+* The mirrors in fp32 against float64 at long S (SSD 2048, WKV 2048):
+  the cancellation the kernels' sums could suffer.  Measured: the SSD's
+  within-chunk λ 2.4e-6–9e-6 of max(1, max |g|) at S 1024–4096, the
+  WKV's dlogw identity 1.6e-6; held to 2e-5, a tenth of the card's 2e-4
+  / 1e-4 gates.
+* ``SSDScanFn`` / ``WKV6ScanFn``'s plumbing (argument order, model-layout
+  views, the group sum, a missing final-state gradient) with the two
+  launch wrappers replaced by CPU stand-ins: the Function's gradient
+  equals autograd through the plain version.
+
+The kernels themselves are held to autograd through the oracles on the
+card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref as jax_wkv_ref
+from repro.kernels.ssm_scan.ref import ssm_scan_ref as jax_ssd_ref
+
+from repro_torch.kernels.rwkv6_scan import ops as WO
+from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_scan_bwd_ref,
+                                                rwkv6_scan_ref)
+from repro_torch.kernels.ssm_scan import ops as SO
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+
+GRAD_TOL = 1e-5        # fp32 autograd against jax.grad
+ALGEBRA_TOL = 1e-10    # float64 mirror against float64 autograd
+LONG_TOL = 2e-5        # fp32 mirror against float64 at long S
+
+
+def _ssd_inputs(B, H, S, P, N, seed, h0=True, dhf=True):
+    """numpy float64: x, dt (softplus), A < 0, B, C (groups expanded), h0,
+    dy, dh_f (None where not asked for)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, H, S, P) * 0.5
+    dt = np.log1p(np.exp(rng.randn(B, H, S)))
+    A = -np.exp(rng.rand(H) * 2.8)
+    Bm, Cm = rng.randn(B, H, S, N) * 0.5, rng.randn(B, H, S, N) * 0.5
+    hh = rng.randn(B, H, P, N) if h0 else None
+    dy = rng.randn(B, H, S, P)
+    dh = rng.randn(B, H, P, N) if dhf else None
+    return x, dt, A, Bm, Cm, hh, dy, dh
+
+
+def _wkv_inputs(B, H, S, D, seed, s0=True, dsf=True, lo=-1.0):
+    """numpy float64: r, k, v, logw = -exp(U(lo, 0)) (decays down to
+    exp(-exp(lo)), long memory for lo far below 0), u, s0, dy, dS_f."""
+    rng = np.random.RandomState(seed)
+    r, k, v = (rng.randn(B, H, S, D) * 0.5 for _ in range(3))
+    logw = -np.exp(rng.uniform(lo, 0.0, (B, H, S, D)))
+    u = rng.randn(H, D) * 0.5
+    ss = rng.randn(B, H, D, D) * 0.5 if s0 else None
+    dy = rng.randn(B, H, S, D)
+    ds = rng.randn(B, H, D, D) if dsf else None
+    return r, k, v, logw, u, ss, dy, ds
+
+
+def _t(a, dtype=torch.float64):
+    return None if a is None else torch.tensor(a, dtype=dtype)
+
+
+def _autograd(fn, args, dy, dlast):
+    """Gradients of <fn(*args)[0], dy> + <fn(*args)[1], dlast> with
+    respect to every non-None argument (None where the argument is)."""
+    leaves = [None if a is None else a.detach().clone().requires_grad_(True)
+              for a in args]
+    y, last = fn(*leaves)
+    loss = (y * dy).sum() + ((last * dlast).sum() if dlast is not None
+                             else 0.0)
+    live = [a for a in leaves if a is not None]
+    got = iter(torch.autograd.grad(loss, live))
+    return [None if a is None else next(got) for a in leaves]
+
+
+def _jax_grads(fn, args, dy, dlast):
+    live = [i for i, a in enumerate(args) if a is not None]
+
+    def loss(*xs):
+        full = list(args)
+        for i, x in zip(live, xs):
+            full[i] = x
+        y, last = fn(*full)
+        out = jnp.sum(y * dy)
+        return out + (jnp.sum(last * dlast) if dlast is not None else 0.0)
+    grads = jax.grad(loss, argnums=tuple(range(len(live))))(
+        *(jnp.asarray(args[i]) for i in live))
+    out = [None] * len(args)
+    for i, g in zip(live, grads):
+        out[i] = np.asarray(g)
+    return out
+
+
+def _assert_close(got, want, tol, names):
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        assert g.shape == w.shape, name
+        err = np.abs(g - w).max() / max(1.0, np.abs(w).max())
+        assert err <= tol, f"{name}: {err:.3e} of max(1, max |g|)"
+
+
+SSD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+WKV_NAMES = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+
+
+@pytest.mark.parametrize("S,P,N,h0,dhf", [
+    (37, 8, 4, True, True), (20, 4, 6, False, False),
+    (33, 8, 4, False, True), (9, 4, 4, True, False)])
+def test_ssd_plain_gradient_matches_jax_grad(S, P, N, h0, dhf):
+    x, dt, A, Bm, Cm, hh, dy, dh = (
+        a if a is None else a.astype(np.float32)
+        for a in _ssd_inputs(2, 3, S, P, N, seed=S, h0=h0, dhf=dhf))
+    got = _autograd(ssm_scan_ref, [_t(a, torch.float32) for a in
+                                   (x, dt, A, Bm, Cm, hh)],
+                    _t(dy, torch.float32), _t(dh, torch.float32))
+    want = _jax_grads(jax_ssd_ref, [x, dt, A, Bm, Cm, hh], jnp.asarray(dy),
+                      None if dh is None else jnp.asarray(dh))
+    _assert_close(got, want, GRAD_TOL, SSD_NAMES)
+
+
+@pytest.mark.parametrize("S,D,s0,dsf", [
+    (29, 8, True, True), (17, 4, False, False), (40, 8, False, True),
+    (6, 4, True, False)])
+def test_wkv_plain_gradient_matches_jax_grad(S, D, s0, dsf):
+    r, k, v, lw, u, ss, dy, ds = (
+        a if a is None else a.astype(np.float32)
+        for a in _wkv_inputs(2, 3, S, D, seed=S, s0=s0, dsf=dsf))
+    got = _autograd(rwkv6_scan_ref, [_t(a, torch.float32) for a in
+                                     (r, k, v, lw, u, ss)],
+                    _t(dy, torch.float32), _t(ds, torch.float32))
+    want = _jax_grads(jax_wkv_ref, [r, k, v, lw, u, ss], jnp.asarray(dy),
+                      None if ds is None else jnp.asarray(ds))
+    _assert_close(got, want, GRAD_TOL, WKV_NAMES)
+
+
+# (S, P, N, chunk): ragged and whole chunks, a single row, P 32 / N 16
+@pytest.mark.parametrize("S,P,N,chunk,h0,dhf", [
+    (150, 8, 4, 64, True, True), (64, 4, 4, 64, False, False),
+    (7, 4, 3, 64, True, False), (130, 4, 4, 64, False, True),
+    (1, 4, 4, 64, True, True), (70, 32, 16, 32, True, True)])
+def test_ssd_mirror_matches_autograd_in_float64(S, P, N, chunk, h0, dhf):
+    x, dt, A, Bm, Cm, hh, dy, dh = (
+        _t(a) for a in _ssd_inputs(2, 2, S, P, N, seed=S + P, h0=h0,
+                                   dhf=dhf))
+    want = _autograd(ssm_scan_ref, [x, dt, A, Bm, Cm, hh], dy, dh)
+    got = ssm_scan_bwd_ref(x, dt, A, Bm, Cm, hh, dy, dh, chunk=chunk)
+    if hh is None:
+        got = list(got[:5]) + [None]
+    _assert_close(got, want, ALGEBRA_TOL, SSD_NAMES)
+
+
+@pytest.mark.parametrize("S,D,s0,dsf", [
+    (40, 8, True, True), (17, 4, False, False), (5, 4, True, False),
+    (1, 8, False, True), (33, 32, True, True)])
+def test_wkv_mirror_matches_autograd_in_float64(S, D, s0, dsf):
+    r, k, v, lw, u, ss, dy, ds = (
+        _t(a) for a in _wkv_inputs(2, 2, S, D, seed=S + D, s0=s0, dsf=dsf))
+    want = _autograd(rwkv6_scan_ref, [r, k, v, lw, u, ss], dy, ds)
+    got = rwkv6_scan_bwd_ref(r, k, v, lw, u, ss, dy, ds)
+    if ss is None:
+        got = list(got[:5]) + [None]
+    _assert_close(got, want, ALGEBRA_TOL, WKV_NAMES)
+
+
+def _long_errors(names, got, want):
+    """Each gradient's error relative to max(1, max |g|), by name."""
+    return {n: float((g.double() - w).abs().max()
+                     / max(1.0, float(w.abs().max())))
+            for n, g, w in zip(names, got, want) if w is not None}
+
+
+def test_ssd_mirror_in_fp32_at_long_s():
+    """fp32 against float64 at S 2048, P = N = 64: λ's sums stay within a
+    chunk, so dA (a sum of dt λ over all of S) keeps fp32's accuracy;
+    the identity that sums λ over all of S left it 1.2e-3 off."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        args = [_t(a) for a in _ssd_inputs(1, 2, 2048, 64, 64, seed=5,
+                                           h0=False, dhf=False)]
+        want = ssm_scan_bwd_ref(*args)
+        got = ssm_scan_bwd_ref(*[None if a is None else a.float()
+                                 for a in args])
+    finally:
+        torch.set_num_threads(threads)
+    errors = _long_errors(SSD_NAMES, got, want)
+    assert max(errors.values()) <= LONG_TOL, errors
+
+
+@pytest.mark.parametrize("lo", [-1.0, -9.0])
+def test_wkv_mirror_in_fp32_at_long_s(lo):
+    """fp32 against float64 at S 2048, D 64, decays down to exp(-exp(lo)):
+    dlogw is a difference of two reverse cumulative sums; its
+    cancellation stays near fp32's own rounding (1.6e-6 of max |dlogw|
+    measured)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        args = [_t(a) for a in _wkv_inputs(1, 1, 2048, 64, seed=7,
+                                           s0=False, dsf=True, lo=lo)]
+        want = rwkv6_scan_bwd_ref(*args)
+        got = rwkv6_scan_bwd_ref(*[None if a is None else a.float()
+                                   for a in args])
+    finally:
+        torch.set_num_threads(threads)
+    errors = _long_errors(WKV_NAMES, got, want)
+    assert max(errors.values()) <= LONG_TOL, errors
+
+
+def test_ssd_chunked_gradient_is_finite_past_exp_overflow():
+    """The model's plain chunked SSD (``models.ssm._ssd_chunked``, the CPU
+    and ``attn_impl="torch"`` path) at decay spans past exp's range (dt
+    ~4, A -2: a span of ~250 over a chunk of 32): its gradient is finite
+    and equals the per-step oracle's.  The reference's chunked form takes
+    exp above the diagonal before it masks, and its gradient is NaN
+    there."""
+    from repro_torch.models.ssm import _ssd_chunked
+    rng = np.random.RandomState(11)
+    B, S, H, P, N = 2, 80, 2, 4, 4
+    base = [torch.tensor(rng.randn(B, S, H, P), dtype=torch.float32),
+            torch.tensor(np.log1p(np.exp(rng.randn(B, S, H) + 4.0)),
+                         dtype=torch.float32),
+            torch.tensor([-2.0, -1.5], dtype=torch.float32),
+            torch.tensor(rng.randn(B, S, 1, N), dtype=torch.float32),
+            torch.tensor(rng.randn(B, S, 1, N), dtype=torch.float32)]
+    dy = torch.tensor(rng.randn(B, S, H, P), dtype=torch.float32)
+    grads = []
+    for form in ("chunked", "per-step"):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        if form == "chunked":
+            y, _ = _ssd_chunked(*leaves, chunk=32)
+        else:
+            y, _ = SO.ssm_scan(*leaves, impl="torch")
+        grads.append(torch.autograd.grad((y * dy).sum(), leaves))
+    span = float((base[1] * base[2]).abs()[:, :32].sum(1).max())
+    assert span > 88.0
+    # dA within 2e-3: the chunked form's exponents are differences of
+    # within-chunk cumsums near -250, and their backward cancels (8.3e-4 of
+    # max(1, |dA|) from float64 measured, the per-step form 3.5e-7); the
+    # other gradients within the forward's 2e-4
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), *grads):
+        assert bool(torch.isfinite(g).all()), name
+        tol = 2e-3 if name == "dA" else 2e-4
+        assert float((g - w).abs().max()) <= tol * max(
+            1.0, float(w.abs().max())), name
+
+
+def _ssd_stand_ins(monkeypatch):
+    """The two launch wrappers replaced by CPU stand-ins with their
+    contracts: the forward by the oracle (groups expanded), the backward
+    by the mirror with the heads of each group summed."""
+    def fwd(x, dt, A, Bm, Cm, h0=None):
+        rep = x.shape[1] // Bm.shape[1]
+        return ssm_scan_ref(x, dt, A, Bm.repeat_interleave(rep, 1),
+                            Cm.repeat_interleave(rep, 1), h0)
+
+    def bwd(x, dt, A, Bm, Cm, h0, dy, dhf):
+        B, H, S, _ = x.shape
+        G, N = Bm.shape[1], Bm.shape[3]
+        out = ssm_scan_bwd_ref(x, dt, A, Bm.repeat_interleave(H // G, 1),
+                               Cm.repeat_interleave(H // G, 1), h0, dy, dhf)
+        dB, dC = (t.reshape(B, G, H // G, S, N).sum(2) for t in out[3:5])
+        return out[0], out[1], out[2], dB, dC, out[5] if h0 is not None \
+            else None
+    monkeypatch.setattr(SO, "ssm_scan_cuda", fwd)
+    monkeypatch.setattr(SO, "ssm_scan_bwd_cuda", bwd)
+
+
+@pytest.mark.parametrize("h0", [False, True])
+def test_ssd_function_plumbing(monkeypatch, h0):
+    """Model layout in (views of one projection, as ``ssm_forward`` makes
+    them), G 2 with H 4, the final state unused: the Function's gradients
+    equal autograd through the plain version."""
+    _ssd_stand_ins(monkeypatch)
+    rng = np.random.RandomState(3)
+    B, S, H, P, N, G = 2, 70, 4, 8, 4, 2
+    xbc = torch.tensor(rng.randn(B, S, H * P + 2 * G * N) * 0.5)
+    dtv = torch.tensor(np.log1p(np.exp(rng.randn(B, S, H))))
+    A = torch.tensor(-np.exp(rng.rand(H)))
+    hh = torch.tensor(rng.randn(B, H, P, N)) if h0 else None
+    dy = torch.tensor(rng.randn(B, S, H, P))
+    grads = []
+    for fn in ("function", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (xbc, dtv, A)] + \
+            ([hh.clone().requires_grad_(True)] if h0 else [])
+        x, Bm, Cm = torch.split(leaves[0], [H * P, G * N, G * N], -1)
+        x, Bm, Cm = (x.reshape(B, S, H, P), Bm.reshape(B, S, G, N),
+                     Cm.reshape(B, S, G, N))
+        h = leaves[3] if h0 else None
+        if fn == "function":
+            y, _ = SO.SSDScanFn.apply(x.transpose(1, 2),
+                                      leaves[1].transpose(1, 2), leaves[2],
+                                      Bm.transpose(1, 2), Cm.transpose(1, 2),
+                                      h)
+            y = y.transpose(1, 2)
+        else:
+            y, _ = SO.ssm_scan(x, leaves[1], leaves[2], Bm, Cm, h,
+                               impl="torch")
+        grads.append(torch.autograd.grad((y * dy).sum(), leaves))
+    for g, w in zip(*grads):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= ALGEBRA_TOL * max(
+            1.0, float(w.abs().max()))
+
+
+def test_wkv_function_plumbing(monkeypatch):
+    """Model layout in through ``wkv_kernel_adapter`` with the launch
+    wrappers replaced by the oracle and the mirror: the same gradients as
+    the adapter's plain version, s0 set, the final state unused."""
+    monkeypatch.setattr(WO, "rwkv6_scan_cuda", rwkv6_scan_ref)
+    monkeypatch.setattr(WO, "rwkv6_scan_bwd_cuda", rwkv6_scan_bwd_ref)
+    rng = np.random.RandomState(4)
+    B, S, H, D = 2, 45, 3, 8
+    base = [torch.tensor(rng.randn(B, S, H, D) * 0.5) for _ in range(3)] + [
+        torch.tensor(-np.exp(rng.randn(B, S, H, D) * 0.5)),
+        torch.tensor(rng.randn(H, D) * 0.3),
+        torch.tensor(rng.randn(B, H, D, D) * 0.5)]
+    dy = torch.tensor(rng.randn(B, S, H, D))
+    grads = []
+    for fn in ("function", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        if fn == "function":
+            r, k, v, lw = (t.transpose(1, 2) for t in leaves[:4])
+            y, _ = WO.WKV6ScanFn.apply(r, k, v, lw, leaves[4], leaves[5])
+            y = y.transpose(1, 2)
+        else:
+            y, _ = WO.wkv_kernel_adapter("torch")(*leaves)
+        grads.append(torch.autograd.grad((y * dy).sum(), leaves))
+    for g, w in zip(*grads):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= ALGEBRA_TOL * max(
+            1.0, float(w.abs().max()))
