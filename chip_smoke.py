@@ -69,14 +69,24 @@ Phases, each of which raises on failure:
    the plain attention at the training shapes (flude-paper, 100m at S
    128 and at S 2048 with and without a window of 1024) and ragged ones,
    dq, dk and dv within 1e-4 of max(1, max |g|), reruns bit-identical,
-   timed beside SDPA's fp32 backward, the plain backward and the bound;
+   timed beside SDPA's fp32 backward, the plain backward and the bound,
+   and the fp32 kernels' and the plain fp32 attention's distances from a
+   float64 truth (out, lse, dq, dk, dv) at zamba2's training and serve
+   shapes; ``[flash_bwd bf16]`` the backward on bf16 inputs after the
+   wgmma forward with its lse (the lse held to the SIMT forward's),
+   against autograd through the plain attention in fp32 on the same
+   values, each gradient within one bf16 ulp plus 1e-4 of max(1, max
+   |g|), at zamba2-1.2b's training shape, Danube's and Qwen2's heads and
+   ragged ones, timed beside SDPA's bf16 backward and the bf16 bound;
    ``[ssm_scan_bwd]`` and ``[rwkv6_scan_bwd]`` the scans' backward
    kernels against autograd through their per-step oracles at the 10m
    and 100m training shapes, ragged S, states set and null, P 32 / N 16
    and D 32, and one full-width zamba2-1.2b / rwkv6-7b layer (per
    gradient within 2e-4 / 1e-4 of max(1, max |g|) and 1e-3 of its own
    max |g|), reruns bit-identical, timed beside the plain autograd
-   backward and the bound;
+   backward and the bound; ``[ssm_scan_bwd bf16]`` the SSD backward on
+   bf16 x, B and C the same way (one bf16 ulp plus 2e-4) at zamba2-1.2b's
+   training shape and full layer;
    ``[train flude-paper]``, ``[train 100m]``, ``[train 100m S2048]``,
    ``[train zamba2 10m]``, ``[train zamba2 100m]``, ``[train rwkv6
    10m]`` and ``[train rwkv6 100m]``: the driver's rounds with every
@@ -89,6 +99,12 @@ Phases, each of which raises on failure:
    ``Model.loss`` through the kernels against the plain attention and
    scans, on the card; a profiled 100m window (flash forward and
    backward against cuBLAS and the optimizer's passes, idle share);
+   ``[train zamba2-1.2b bf16]`` (no ``--scale``: 38 Mamba2 layers and 7
+   shared-attention applications at full width in bf16, fp32 moments,
+   the bf16 kernels' launches a step exact) and ``[train grads zamba2
+   full bf16]`` (one step three ways: the kernels in bf16, the plain path
+   in bf16, the per-step plain path in fp32 as the oracle; per leaf the
+   kernels no further from the oracle than 2x the bf16 plain path);
    ``[train card vs CPU]`` (4-silo runs of flude-paper and of both
    recurrent stacks at --scale 10m, trajectories identical, loss within
    1e-4); ``[serve ckpt]`` the 100m checkpoint the training run saved,
@@ -217,6 +233,15 @@ FLASH_BWD_SHAPES = [
     ("100m S2048", 8, 12, 4, 2048, 64, None),
     ("100m S2048 window 1024", 8, 12, 4, 2048, 64, 1024),
 ]
+# the fp32 flash kernels (flash_fwd_simt with its lse, the three kernels
+# of csrc/flash_attention_bwd.cu) and the plain fp32 attention, each held
+# to a float64 truth on the same fp32 inputs (attention_ref and its
+# autograd in float64 on the card): zamba2-1.2b's training shape and its
+# serve shape at B 1, causal.  (label, B, Hq, Hkv, S, D)
+FLASH_F64_SHAPES = [
+    ("zamba2 training", 32, 32, 32, 128, 64),
+    ("zamba2 serve B 1", 1, 32, 32, 4096, 64),
+]
 # the scans' backward kernels (ssm_scan_bwd_cuda, rwkv6_scan_bwd_cuda)
 # against autograd through the per-step oracles, fp32 on the card, per
 # gradient tensor: the SSD within SSM_BWD_TOL of max(1, max |g|) (the
@@ -277,6 +302,61 @@ TRAIN_GRADS_FULL = [
      ("w_r", "w_k", "w_v", "w0", "w_lora_a", "w_lora_b", "u_bonus")),
 ]
 TRAIN_F32_TOL = 1e-4            # the driver's loss, card against CPU
+# The bf16 backward kernels (the SIMT kernels on bf16 values widened as
+# they load, each gradient rounded once to bf16) against autograd through
+# the plain version in fp32 on the same bf16 values, upcast, element by
+# element: |g - truth| within one bf16 ulp of the truth (ref.bf16_ulp)
+# plus the fp32 kernel's gate (FLASH_BWD_TOL, SSM_BWD_TOL) of max(1, max
+# |truth|); that excess beyond one ulp also within BF16_BWD_OWN_TOL of the
+# tensor's own max |truth|, which a zero gradient fails; fp32 outputs (dA,
+# dh0) without the ulp.  Stated here before the first run on the card
+BF16_BWD_OWN_TOL = 1e-3
+# flash_fwd_wgmma's lse against flash_fwd_simt's on the same bf16 values
+# upcast, row by row: both sum l from the fp32 P (ex2.approx against expf,
+# the tensor cores' order against FMAs): within 1e-5 of max(1, |lse|).
+# Stated here before the first run on the card
+FLASH_LSE_TOL = 1e-5
+# the bf16 backwards' shapes: (label, B, Hq, Hkv, S, D, window), causal:
+# zamba2-1.2b's training step (8 silos x 4, S 128), h2o-danube-1.8b's
+# heads past its window, qwen2-7b's heads
+FLASH_BWD_BF16_SHAPES = [
+    ("zamba2-1.2b training", 32, 32, 32, 128, 64, None),
+    ("danube heads S 6144", 1, 32, 8, 6144, 80, 4096),
+    ("qwen2 heads S 2048", 1, 28, 4, 2048, 128, None),
+]
+# (label, B, S, H, P, N, G, h0, dh_f, dt dtype), x, B and C bf16
+SSD_BWD_BF16_CASES = [
+    ("zamba2-1.2b training", 32, 128, 64, 64, 64, 1, False, False,
+     torch.float32),
+    ("ragged S 1000, G 2, P 32 / N 16, h0, dh_f, bf16 dt", 2, 1000, 4, 32,
+     16, 2, True, True, torch.bfloat16),
+    ("zamba2-1.2b layer", 4, 4096, 64, 64, 64, 1, False, False,
+     torch.float32),
+]
+# zamba2-1.2b in its own bf16 (no --scale): 38 Mamba2 layers and 7
+# shared-attention applications at full width, fp32 Adam moments, 8 silos
+# x 4 x 128: (path label, arguments, rounds).  At launch.train's default
+# lr 1e-3 the 1.15B stack spikes once warm (11.76 at round 23) and its
+# last quarter stays above round 0, through the kernels and through the
+# plain path alike (PERF.md section 6); at 3e-4 the loss falls
+TRAIN_BF16 = ("train zamba2-1.2b bf16", ["--arch", "zamba2-1.2b", "--lr",
+                                         "3e-4"], 40)
+# one step's gradients at full width and depth in bf16, 2 x 1024, three
+# ways: the kernels in bf16, the plain path in bf16 and the per-step
+# oracles in fp32 on the same weights upcast.  Per leaf, the kernel path
+# no further from the fp32 oracle than BF16_GRAD_RATIO times the bf16
+# plain path is (the serve gates' rule, PERF.md section 2)
+TRAIN_GRADS_BF16 = ("train grads zamba2 full bf16", "zamba2-1.2b", 2, 1024,
+                    ("a_log", "dt_bias", "w_in"))
+BF16_GRAD_RATIO = 2.0
+# The kernels' input leaves (a_log, dt_bias, w_in, wq, wk, wv) also by the
+# ratio in L2 (the distance's norm over the oracle's), and not zero.  No
+# distance from the fp32 oracle tells a lost gradient from bf16's
+# rounding at this depth from random init: the bf16 plain path itself is
+# 0.38-1.05 of the oracle's norm from it on these leaves, so the own-max
+# (0.5) and L2 (0.5) gates first stated failed it as much as the kernels
+# (PERF.md section 6); the per-kernel bf16 phases, on identical inputs, hold
+# each gradient to 1e-3 of its own max
 # one step's gradients of Model.loss at the 100m training shape, the
 # flash kernels against the plain attention, both fp32 on the card:
 # every leaf within FLASH_BWD_TOL of max(1, max |g|); wq, wk and wv
@@ -291,8 +371,8 @@ GRAD_ATTN_REL_TOL = 1e-3
 # Weiszfeld steps, each one norm and one weighted sum, after the mean
 ATTACK = dict(adversary="sign_flip",
               adversary_params=(("malicious_frac", 0.2),))
-SERVE_ONLY = {"flash_attention": 0, "ssm_scan": 0, "rwkv6_scan": 0,
-              "flash_attention_bwd": 0, "ssm_scan_bwd": 0,
+SERVE_ONLY = {"flash_attention": 0, "flash_attention_lse": 0, "ssm_scan": 0,
+              "rwkv6_scan": 0, "flash_attention_bwd": 0, "ssm_scan_bwd": 0,
               "rwkv6_scan_bwd": 0}
 ROBUST_RUNS = [
     ("geometric_median", "flude", dict(agg_rule="geometric_median"),
@@ -2334,15 +2414,79 @@ def phase_serve_card_vs_cpu():
                                f"differ by {rel:.3e} or ids differ")
 
 
-def flash_bwd_bounds(B, Hq, Hkv, S, D, window):
-    """(bytes, flops, bytes ms, fp32 ms) of one backward: q, k, v, o, dO
-    and lse read once, dq, dk and dv written once; the five products
-    (S and dP recomputed, dV, dK, dQ) over the visible pairs, 10·pairs·D
-    flops, at the 67 TFLOP/s fp32 rate."""
-    nbytes = 4 * (4 * B * Hq * S * D + 4 * B * Hkv * S * D + B * Hq * S)
+def flash_bwd_bounds(B, Hq, Hkv, S, D, window, dtype=torch.float32):
+    """(bytes, flops, bytes ms, ops ms) of one backward: fp32, q, k, v, o,
+    dO and lse read once, dq, dk and dv written once; bf16, q, k, v, dO
+    (bf16) and lse (fp32) read, dq, dk, dv (bf16) written (the bf16
+    kernels read no o); the five products (S and dP recomputed, dV, dK,
+    dQ) over the visible pairs, 10·pairs·D flops, at the input type's
+    rate (fp32's 67 TFLOP/s, bf16 tensor cores' 989)."""
+    if dtype == torch.bfloat16:
+        nbytes = 2 * (3 * B * Hq * S * D + 4 * B * Hkv * S * D) \
+            + 4 * B * Hq * S
+    else:
+        nbytes = 4 * (4 * B * Hq * S * D + 4 * B * Hkv * S * D + B * Hq * S)
     flops = 10 * B * Hq * D * visible_pairs(S, S, 0, True, window)
+    rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     return (nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3,
-            flops / H100_FP32_FLOPS * 1e3)
+            flops / rate * 1e3)
+
+
+def time_flash_bwd(tag, label, B, Hq, Hkv, S, D, window, dtype):
+    """The backward kernel at one training shape (causal), timed in turns
+    with SDPA's backward of the same dtype (library, kernel, kernel,
+    library), beside the plain backward and the bound; the kernels-line
+    numbers."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, dtype, seed=2)
+    dout = torch.randn(q.shape, device="cuda").to(dtype)
+    kw = dict(causal=True, window=window)
+    out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    if window is None:
+        what = "sdpa(is_causal, enable_gqa)"
+        ref_out = F.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=True)
+    else:
+        what = "sdpa(boolean window mask, enable_gqa)"
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None] <= pos[:, None]) & \
+            (pos[None] > pos[:, None] - window)
+        ref_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, enable_gqa=True)
+
+    def library():
+        return torch.autograd.grad(ref_out, leaves, dout, retain_graph=True)
+
+    def kernel():
+        return FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+
+    reps = 20 if S <= 128 else 5
+    lib = [cuda_ms(library, reps=reps, warmup=2)]
+    kern = [cuda_ms(kernel, reps=reps, warmup=2) for _ in range(2)]
+    lib.append(cuda_ms(library, reps=reps, warmup=2))
+    ms, library_ms = sum(kern) / 2, sum(lib) / 2
+    plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, dout, **kw),
+                       reps=3, warmup=1)
+    nbytes, flops, bytes_ms, ops_ms = flash_bwd_bounds(B, Hq, Hkv, S, D,
+                                                       window, dtype)
+    bound_ms = max(bytes_ms, ops_ms)
+    rate = "989 TFLOP/s bf16" if dtype == torch.bfloat16 \
+        else "67 TFLOP/s fp32"
+    log(f"[{tag}] {label} timing (B{B} Hq{Hq}/{Hkv} S{S} D{D} window "
+        f"{window}): kernel {ms:.4f} ms ({kern[0]:.4f} / {kern[1]:.4f}), "
+        f"plain {plain_ms:.3f} ms, {what} {str(dtype)[6:]} backward "
+        f"{library_ms:.4f} ms ({lib[0]:.4f} / {lib[1]:.4f}); bound "
+        f"{bound_ms * 1e3:.1f} us ({flops:.4e} flops at {rate} take "
+        f"{ops_ms * 1e3:.1f} us; {nbytes} bytes take {bytes_ms * 1e3:.1f} us "
+        f"at 3.35 TB/s); kernel at {bound_ms / ms:.1%} of the bound "
+        f"({flops / ms / 1e9:.2f} TFLOP/s of the counted work), sdpa at "
+        f"{bound_ms / library_ms:.1%}; kernel / sdpa {ms / library_ms:.3f}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def check_flash_bwd(label, got, want):
@@ -2362,6 +2506,69 @@ def check_flash_bwd(label, got, want):
     return worst
 
 
+def f64_share(x, truth):
+    """max |x - truth| over max(1, max |truth|), in float64."""
+    return float((x.double() - truth).abs().max()) / max(
+        1.0, float(truth.abs().max()))
+
+
+def flash_f64_distances():
+    """Each output of the fp32 flash path (out, lse, dq, dk, dv) from a
+    float64 truth at FLASH_F64_SHAPES, as a share of max(1, max |x|), for
+    the kernels and for the plain fp32 attention; and the backward kernels
+    alone, fed the truth's out and lse rounded to fp32.  Logs which
+    kernel output lies more than 2x as far as the plain version's (ROADMAP
+    Queue C).  Returns {shape: {way: {output: share}}}."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                         attention_ref)
+    names = ("out", "lse", "dq", "dk", "dv")
+    found = {}
+    for label, B, Hq, Hkv, S, D in FLASH_F64_SHAPES:
+        q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, torch.float32,
+                                seed=S + 7)
+        gen = torch.Generator(device="cuda").manual_seed(S)
+        dout = torch.randn(q.shape, generator=gen, device="cuda")
+        ways = {}
+        for way, f in (("float64", torch.float64),
+                       ("plain fp32", torch.float32)):
+            leaves = [x.detach().to(f).requires_grad_(True)
+                      for x in (q, k, v)]
+            o = attention_ref(*leaves)
+            grads = torch.autograd.grad(o, leaves, dout.to(f))
+            ways[way] = (o.detach(), attention_lse_ref(q.to(f), k.to(f)),
+                         *grads)
+            del leaves, o, grads
+        truth = ways.pop("float64")
+        o, lse = FK.flash_attention_cuda(q, k, v, with_lse=True)
+        ways["kernels"] = (o, lse, *FK.flash_attention_bwd_cuda(
+            q, k, v, o, lse, dout))
+        o32, lse32 = truth[0].float(), truth[1].float()
+        ways["bwd kernels on the truth's out, lse"] = (
+            o32, lse32, *FK.flash_attention_bwd_cuda(q, k, v, o32, lse32,
+                                                     dout))
+        torch.cuda.synchronize()
+        dist = {way: {n: f64_share(x, t) for n, x, t in zip(names, xs, truth)}
+                for way, xs in ways.items()}
+        found[label] = dist
+        for way, d in dist.items():
+            log(f"[flash_bwd] float64 truth, {label} (B{B} Hq{Hq}/{Hkv} S{S} "
+                f"D{D} causal), {way}: "
+                + ", ".join(f"{n} {x:.3e}" for n, x in d.items())
+                + " of max(1, max |x|)")
+        worse = {n: dist["kernels"][n] / max(dist["plain fp32"][n], 1e-300)
+                 for n in names if dist["kernels"][n]
+                 > 2 * dist["plain fp32"][n]}
+        log(f"[flash_bwd] float64 truth, {label}: kernel outputs more than "
+            f"2x as far as the plain fp32 version's: "
+            + (", ".join(f"{n} ({r:.2f}x)" for n, r in worse.items())
+               if worse else "none"))
+        del q, k, v, dout, ways, truth, o, lse, o32, lse32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return found
+
+
 def phase_flash_bwd():
     """The backward kernel against autograd through the plain version at
     the training shapes and at ragged ones (GQA, q_offset, windows,
@@ -2369,7 +2576,6 @@ def phase_flash_bwd():
     training shapes beside SDPA's fp32 backward, the plain backward and
     the bound.  Returns its kernels-line entry (``launches`` filled in
     by the training runs)."""
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     f32 = torch.float32
@@ -2406,57 +2612,8 @@ def phase_flash_bwd():
 
     timings = {}
     for label, B, Hq, Hkv, S, D, window in FLASH_BWD_SHAPES:
-        q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, f32, seed=2)
-        dout = torch.randn_like(q)
-        kw = dict(causal=True, window=window)
-        out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
-        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        if window is None:
-            what = "sdpa(is_causal, enable_gqa) backward"
-            ref_out = F.scaled_dot_product_attention(
-                *leaves, is_causal=True, enable_gqa=True)
-        else:
-            what = "sdpa(boolean window mask, enable_gqa) backward"
-            pos = torch.arange(S, device="cuda")
-            mask = (pos[None] <= pos[:, None]) & \
-                (pos[None] > pos[:, None] - window)
-            ref_out = F.scaled_dot_product_attention(
-                *leaves, attn_mask=mask, enable_gqa=True)
-
-        def library():
-            return torch.autograd.grad(ref_out, leaves, dout,
-                                       retain_graph=True)
-
-        def kernel():
-            return FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-
-        reps = 20 if S <= 128 else 5
-        # in turns: library, kernel, kernel, library
-        lib = [cuda_ms(library, reps=reps, warmup=2)]
-        kern = [cuda_ms(kernel, reps=reps, warmup=2) for _ in range(2)]
-        lib.append(cuda_ms(library, reps=reps, warmup=2))
-        ms, library_ms = sum(kern) / 2, sum(lib) / 2
-        plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, dout, **kw),
-                           reps=3, warmup=1)
-        nbytes, flops, bytes_ms, fp32_ms = flash_bwd_bounds(B, Hq, Hkv, S, D,
-                                                            window)
-        bound_ms = max(bytes_ms, fp32_ms)
-        log(f"[flash_bwd] {label} timing (B{B} Hq{Hq}/{Hkv} S{S} D{D} "
-            f"window {window}): kernel {ms:.4f} ms ({kern[0]:.4f} / "
-            f"{kern[1]:.4f}), plain {plain_ms:.3f} ms, {what} "
-            f"{library_ms:.4f} ms ({lib[0]:.4f} / {lib[1]:.4f}); bound "
-            f"{bound_ms * 1e3:.1f} us ({flops:.4e} flops at 67 TFLOP/s "
-            f"fp32 take {fp32_ms * 1e3:.1f} us; {nbytes} bytes take "
-            f"{bytes_ms * 1e3:.1f} us at 3.35 TB/s); kernel at "
-            f"{bound_ms / ms:.1%} of the bound ({flops / ms / 1e9:.2f} "
-            f"TFLOP/s of the counted work), sdpa at "
-            f"{bound_ms / library_ms:.1%}; kernel / sdpa "
-            f"{ms / library_ms:.3f}")
-        timings[label] = dict(ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms, bound_ms=bound_ms,
-                              bound_by="bytes" if bytes_ms >= fp32_ms
-                              else "operations")
-        del q, k, v, dout, out, lse, leaves, ref_out
+        timings[label] = time_flash_bwd("flash_bwd", label, B, Hq, Hkv, S, D,
+                                        window, f32)
         torch.cuda.empty_cache()
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2464,22 +2621,27 @@ def phase_flash_bwd():
             "replaces_note": "the gradient of flash_attention_pallas; the "
             "JAX package has no backward kernel (it trains through plain "
             "JAX attention and autodiff)",
+            "counted_variant": "simt",
             "launches": None, "max_abs_err": max_err, **timings["100m"],
             "at": "100m training shape (B 32, Hq 12 / Hkv 4, S 128, D 64, "
-            "causal)", "by_shape": timings}
+            "causal)", "by_shape": timings,
+            "float64_distances": flash_f64_distances()}
 
 
-def ssd_bwd_bounds(B, S, H, P, N, G):
-    """(bytes, flops, bytes ms, fp32 ms) of one ssm_scan backward with no
-    h0 and no dh_f: x, dt, A, B, C and dy read once, dx, ddt, dA, dB and
-    dC written once; the chunked form's products at chunk 64 (the last
-    chunk ragged), per chunk of L rows over the L(L+1)/2 pairs l <= t:
-    C.B^T, dY.X^T, M^T.dY, Q^T.C and Q.(dt B), 3N + 2P multiply-adds a
-    pair; and five L x P x N products (B.Gc^T, X.Gc, dY.h_s, the Gc update
-    and the forward walk's state update), 2 flops a multiply-add, at
-    fp32's 67 TFLOP/s."""
-    nbytes = 4 * (3 * B * S * H * P + 2 * B * S * H + 2 * H
-                  + 4 * B * S * G * N)
+def ssd_bwd_bounds(B, S, H, P, N, G, esize=4, dt_esize=4,
+                   rate=H100_FP32_FLOPS):
+    """(bytes, flops, bytes ms, ops ms) of one ssm_scan backward with no
+    h0 and no dh_f: x, dt, A, B, C and dy (fp32) read once, dx, ddt, dA,
+    dB and dC written once, x, B, C and their gradients ``esize`` bytes an
+    element, dt and ddt ``dt_esize``; the chunked form's products at chunk
+    64 (the last chunk ragged), per chunk of L rows over the L(L+1)/2
+    pairs l <= t: C.B^T, dY.X^T, M^T.dY, Q^T.C and Q.(dt B), 3N + 2P
+    multiply-adds a pair; and five L x P x N products (B.Gc^T, X.Gc,
+    dY.h_s, the Gc update and the forward walk's state update), 2 flops a
+    multiply-add, at ``rate`` (fp32's 67 TFLOP/s; for bf16 inputs the
+    tensor cores' 989)."""
+    nbytes = (esize * (2 * B * S * H * P + 4 * B * S * G * N)
+              + 4 * B * S * H * P + dt_esize * 2 * B * S * H + 4 * 2 * H)
     flops = 0
     for c0 in range(0, S, 64):
         L = min(64, S - c0)
@@ -2487,7 +2649,7 @@ def ssd_bwd_bounds(B, S, H, P, N, G):
         flops += 2 * (tri * (3 * N + 2 * P) + 5 * L * P * N)
     flops *= B * H
     return (nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3,
-            flops / H100_FP32_FLOPS * 1e3)
+            flops / rate * 1e3)
 
 
 def wkv_bwd_bounds(B, S, H, D):
@@ -2539,10 +2701,11 @@ def check_scan_grads(tag, label, names, got, want, tol):
     return worst_abs, worst_rel
 
 
-def _time_bwd(tag, label, kernel, plain, bounds):
+def _time_bwd(tag, label, kernel, plain, bounds,
+              rate_name="fp32's 67 TFLOP/s"):
     """Device times of the backward kernel and of the plain autograd
-    backward (``plain`` None: not timed), beside the bound; the
-    kernels-line numbers."""
+    backward (``plain`` None: not timed), beside the bound (its operations
+    at ``rate_name``); the kernels-line numbers."""
     nbytes, flops, bytes_ms, fp32_ms = bounds
     bound_ms = max(bytes_ms, fp32_ms)
     kern = [cuda_ms(kernel, reps=10, warmup=2) for _ in range(2)]
@@ -2552,7 +2715,7 @@ def _time_bwd(tag, label, kernel, plain, bounds):
         f"{kern[1]:.4f}), plain autograd backward "
         + (f"{plain_ms:.3f} ms" if plain_ms else "not timed")
         + f", no library call; bound {bound_ms * 1e3:.1f} us ({flops:.4e} "
-        f"flops take {fp32_ms * 1e3:.1f} us at fp32's 67 TFLOP/s; {nbytes} "
+        f"flops take {fp32_ms * 1e3:.1f} us at {rate_name}; {nbytes} "
         f"bytes take {bytes_ms * 1e3:.1f} us at 3.35 TB/s); kernel at "
         f"{bound_ms / ms:.1%} of the bound")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -2621,6 +2784,7 @@ def phase_ssm_scan_bwd():
             "replaces_note": "the gradient of ssm_scan_pallas; the JAX "
             "package has no backward kernel (it trains through plain JAX "
             "and autodiff)",
+            "counted_variant": "simt",
             "launches": None, "max_abs_err": max_err,
             **timings["100m training"], "library_ms": None,
             "at": "zamba2 100m training shape (B 32, S 128, H 24, P 64, "
@@ -2694,30 +2858,251 @@ def phase_rwkv6_scan_bwd():
             "by_shape": timings}
 
 
+def bf16_grad_excess(got, want):
+    """max over elements of |got - want| beyond one bf16 ulp of ``want``
+    (``ref.bf16_ulp``) where ``got`` is bf16; of |got - want| itself where
+    it is fp32."""
+    from repro_torch.kernels.flash_attention.ref import bf16_ulp
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        err = (err - bf16_ulp(want)).clamp_min(0.0)
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_bf16_grads(tag, label, names, got, want, dtypes, tol):
+    """Raise unless each gradient is finite, of its input's dtype, and its
+    excess beyond one bf16 ulp (``bf16_grad_excess``) within ``tol`` of
+    max(1, max |truth|) and within BF16_BWD_OWN_TOL of its own max
+    |truth|; returns the largest excess and the largest as a share of
+    max(1, max |truth|)."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for name, g, w, dt in zip(names, got, want, dtypes):
+        if w is None:
+            continue
+        if g.shape != w.shape or g.dtype != dt \
+                or not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{tag} {label}: {name} {tuple(g.shape)} "
+                               f"{g.dtype} (input {dt}) or non-finite")
+        exc, scale = bf16_grad_excess(g, w), float(w.abs().max())
+        worst_abs = max(worst_abs, exc)
+        worst_rel = max(worst_rel, exc / max(1.0, scale))
+        if exc > tol * max(1.0, scale) or exc > BF16_BWD_OWN_TOL * scale:
+            raise RuntimeError(f"{tag} {label}: {name} off by {exc:.3e} "
+                               f"beyond one bf16 ulp, max |g| {scale:.3e} "
+                               f"(gates {tol:.0e} of max(1, max |g|), "
+                               f"{BF16_BWD_OWN_TOL:.0e} of max |g|)")
+    return worst_abs, worst_rel
+
+
+def phase_flash_bwd_bf16():
+    """The bf16 backward (``flash_attention_bwd_cuda`` on bf16 inputs,
+    after ``flash_fwd_wgmma`` with its lse) against autograd through the
+    plain attention in fp32 on the same bf16 values, upcast, at
+    FLASH_BWD_BF16_SHAPES and ragged ones: each gradient bf16, within the
+    per-element gates (``check_bf16_grads``), reruns bit-identical, and
+    the wgmma lse within FLASH_LSE_TOL of flash_fwd_simt's on the values
+    upcast; timed at FLASH_BWD_BF16_SHAPES beside SDPA's bf16 backward,
+    the plain backward and the bf16 tensor-core bound.  Returns its
+    kernels-line entry (``launches`` filled in by the training runs)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    bf16 = torch.bfloat16
+    cases = [(label, B, Hq, Hkv, S, S, D, 0, True, window)
+             for label, B, Hq, Hkv, S, D, window in FLASH_BWD_BF16_SHAPES] + [
+        ("ragged, q_offset 60, window 50, group 7", 1, 7, 1, 130, 190, 64,
+         60, True, 50),
+        ("ragged D 32, window 40", 2, 4, 2, 97, 97, 32, 0, True, 40),
+        ("non-causal D 80", 1, 4, 2, 65, 128, 80, 0, False, None),
+        ("one query, D 128", 1, 4, 4, 1, 77, 128, 76, True, None),
+        ("ragged D 192, window 64, group 3", 1, 6, 2, 150, 150, 192, 0, True,
+         64),
+    ]
+    max_err, lse_worst = 0.0, 0.0
+    for label, B, Hq, Hkv, Sq, Sk, D, off, causal, window in cases:
+        q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, bf16, seed=Sq + D + 1)
+        gen = torch.Generator(device="cuda").manual_seed(Sk)
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        before = dict(FK.launches_by_variant)
+        out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        lse32 = FK.flash_attention_cuda(q.float(), k.float(), v.float(),
+                                        with_lse=True, **kw)[1]
+        got = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        again = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        if {n: c - before[n] for n, c in FK.launches_by_variant.items()} \
+                != {"wgmma": 1, "simt": 1}:
+            raise RuntimeError(f"flash_bwd bf16 {label}: the lse forwards "
+                               f"did not run one wgmma and one SIMT launch")
+        lse_gap = float(((lse - lse32).abs()
+                         / lse32.abs().clamp_min(1.0)).max())
+        want = attention_bwd_ref(q.float(), k.float(), v.float(),
+                                 dout.float(), **kw)
+        err, rel = check_bf16_grads("flash_bwd bf16", label,
+                                    ("dq", "dk", "dv"), got, want,
+                                    (bf16,) * 3, FLASH_BWD_TOL)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        max_err, lse_worst = max(max_err, err), max(lse_worst, lse_gap)
+        log(f"[flash_bwd bf16] {label} (B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Sk{Sk} "
+            f"D{D} q_offset {off} causal {causal} window {window}): largest "
+            f"excess beyond one bf16 ulp {err:.3e} ({rel:.3e} of max(1, max "
+            f"|g|)); wgmma lse within {lse_gap:.3e} of the SIMT lse, of "
+            f"max(1, |lse|) (gate {FLASH_LSE_TOL:.0e}); reruns "
+            f"bit-identical {same}")
+        if lse_gap > FLASH_LSE_TOL or not math.isfinite(lse_gap):
+            raise RuntimeError(f"flash_bwd bf16 {label}: wgmma lse off the "
+                               f"SIMT lse by {lse_gap:.3e}")
+        if not same:
+            raise RuntimeError(f"flash_bwd bf16 {label}: two launches differ")
+        del q, k, v, dout, out, lse, lse32, got, again, want
+        torch.cuda.empty_cache()
+
+    timings = {}
+    for label, B, Hq, Hkv, S, D, window in FLASH_BWD_BF16_SHAPES:
+        timings[label] = time_flash_bwd("flash_bwd bf16", label, B, Hq, Hkv,
+                                        S, D, window, bf16)
+        torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd_bf16", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+            "replaces_note": "the gradient of flash_attention_pallas on "
+            "bf16 inputs (SIMT fp32 arithmetic, each gradient rounded once "
+            "to bf16); the JAX package has no backward kernel",
+            "counter": "flash_attention_bwd", "counted_variant": "simt_bf16",
+            "launches": None, "max_abs_err": max_err,
+            "lse_max_gap": lse_worst, **timings["zamba2-1.2b training"],
+            "at": "zamba2-1.2b training shape (B 32, Hq = Hkv = 32, S 128, "
+            "D 64, causal, bf16)", "by_shape": timings}
+
+
+def phase_ssm_scan_bwd_bf16():
+    """The SSD backward on bf16 x, B and C (``ssd_bwd_simt`` through
+    ``SSDScanFn`` under autograd after ``ssd_fwd_mma``) against autograd
+    through the per-step oracle in fp32 on the same values upcast, at
+    SSD_BWD_BF16_CASES: each gradient in its input's dtype, within the
+    per-element gates (``check_bf16_grads``), reruns bit-identical; timed
+    at the training shape and the full layer beside the bf16 tensor-core
+    bound and (training shape) the plain autograd backward.  Returns its
+    kernels-line entry (``launches`` filled in by the training runs)."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    max_err, timings = 0.0, {}
+    for label, B, S, H, P, N, G, with_h0, with_dhf, dt_dtype in \
+            SSD_BWD_BF16_CASES:
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, G, torch.bfloat16,
+                                           seed=S + H + 1, with_h0=with_h0)
+        dt = dt.to(dt_dtype)
+        gen = torch.Generator(device="cuda").manual_seed(S + 1)
+        dy = torch.randn(x.shape, generator=gen, device="cuda")
+        dhf = torch.randn((B, H, P, N), generator=gen, device="cuda") \
+            if with_dhf else None
+        args = [x, dt, A, Bm, Cm, h0]
+        before = dict(SK.bwd_launches.by_variant)
+        fwd_before = dict(SK.launches.by_variant)
+        got = _grads(ssm_scan, args, dy, dhf)
+        again = _grads(ssm_scan, args, dy, dhf)
+        torch.cuda.synchronize()
+        ran = {v: n - before[v] for v, n in SK.bwd_launches.by_variant.items()}
+        fwd = {v: n - fwd_before[v] for v, n in SK.launches.by_variant.items()}
+        if ran != {"simt": 0, "simt_bf16": 2} or fwd != {"mma": 2, "simt": 0}:
+            raise RuntimeError(f"ssm_scan_bwd bf16 {label}: launches {fwd} "
+                               f"forward, {ran} backward")
+        want = _grads(lambda *a: ssm_scan(*a, impl="torch"),
+                      [None if t is None else t.float() for t in args], dy,
+                      dhf)
+        err, rel = check_bf16_grads(
+            "ssm_scan_bwd bf16", label, names, got, want,
+            [None if t is None else t.dtype for t in args], SSM_BWD_TOL)
+        same = all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+        max_err = max(max_err, err)
+        log(f"[ssm_scan_bwd bf16] {label} (B{B} S{S} H{H} P{P} N{N} G{G}, dt "
+            f"{dt_dtype}, h0 {with_h0}, dh_f {with_dhf}): largest excess "
+            f"beyond one bf16 ulp {err:.3e} ({rel:.3e} of max(1, max |g|)); "
+            f"reruns bit-identical {same}")
+        if not same:
+            raise RuntimeError(f"ssm_scan_bwd bf16 {label}: two launches "
+                               f"differ")
+        del got, again, want
+        if h0 is None and dhf is None:
+            xk, dtk = x.transpose(1, 2), dt.transpose(1, 2)
+            Bk, Ck, dyk = Bm.transpose(1, 2), Cm.transpose(1, 2), \
+                dy.transpose(1, 2)
+            plain = None
+            if S <= 128:
+                leaves = [t.detach().requires_grad_(True) for t in args[:5]]
+                y_plain = ssm_scan(*leaves, impl="torch")[0]
+
+                def plain():
+                    return torch.autograd.grad(y_plain, leaves, dy,
+                                               retain_graph=True)
+            timings[label] = _time_bwd(
+                "ssm_scan_bwd bf16", label,
+                lambda: SK.ssm_scan_bwd_cuda(xk, dtk, A, Bk, Ck, None, dyk),
+                plain, ssd_bwd_bounds(B, S, H, P, N, G, esize=2,
+                                      dt_esize=dt.element_size(),
+                                      rate=H100_BF16_FLOPS),
+                rate_name="bf16's 989 TFLOP/s")
+            del plain
+        del x, dt, A, Bm, Cm, h0, dy, dhf, args
+        torch.cuda.empty_cache()
+    return {"name": "ssm_scan_bwd_bf16", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssm_scan/kernel.py:66",
+            "replaces_note": "the gradient of ssm_scan_pallas on bf16 x, B "
+            "and C (SIMT fp32 walks, each gradient rounded once to its "
+            "input's dtype); the JAX package has no backward kernel",
+            "counter": "ssm_scan_bwd", "counted_variant": "simt_bf16",
+            "launches": None, "max_abs_err": max_err,
+            **timings["zamba2-1.2b training"], "library_ms": None,
+            "at": "zamba2-1.2b training shape (B 32, S 128, H 64, P 64, "
+            "N 64, G 1, bf16 x/B/C, fp32 dt)", "by_shape": timings}
+
+
 def train_step_launches(cfg):
     """The kernel launches of one training step of ``cfg`` that the code
     predicts: each block's forward runs twice under remat (the step, then
     its recompute in the backward) and its backward once.  The dense
     stack launches the flash kernels a layer; zamba2 the SSD kernels a
     Mamba2 layer and the flash kernels a shared-attention application;
-    RWKV6 the WKV kernels a layer."""
+    RWKV6 the WKV kernels a layer.  Every flash forward under grad writes
+    its lse (``flash_attention_lse``)."""
     from repro_torch.models.transformer import _hybrid_segments
     fwd = 2 if cfg.remat else 1
     L = cfg.num_layers
     if cfg.arch_type == "hybrid":
         apps = len(_hybrid_segments(cfg))
         return {"ssm_scan": fwd * L, "ssm_scan_bwd": L,
-                "flash_attention": fwd * apps, "flash_attention_bwd": apps}
+                "flash_attention": fwd * apps,
+                "flash_attention_lse": fwd * apps,
+                "flash_attention_bwd": apps}
     if cfg.rwkv is not None:
         return {"rwkv6_scan": fwd * L, "rwkv6_scan_bwd": L}
-    return {"flash_attention": fwd * L, "flash_attention_bwd": L}
+    return {"flash_attention": fwd * L, "flash_attention_lse": fwd * L,
+            "flash_attention_bwd": L}
+
+
+def train_step_variants(cfg):
+    """The variant each kernel of a training step of ``cfg`` launches: the
+    forward kernels by the compute dtype (fp32 SIMT, bf16 tensor cores),
+    the backward kernels SIMT on fp32 or on bf16 inputs."""
+    bf16 = cfg.compute_dtype == "bfloat16"
+    return {"flash_attention": "wgmma" if bf16 else "simt",
+            "flash_attention_lse": "wgmma" if bf16 else "simt",
+            "ssm_scan": "mma" if bf16 else "simt",
+            "rwkv6_scan": "mma" if bf16 else "simt",
+            "flash_attention_bwd": "simt_bf16" if bf16 else "simt",
+            "ssm_scan_bwd": "simt_bf16" if bf16 else "simt",
+            "rwkv6_scan_bwd": "simt"}
 
 
 def phase_train(label, extra, rounds, counters, ckpt=None):
     """``python -m repro_torch.launch.train`` on the card (``main``), with
     every kernel count set to 0 just before it and read just after: a
     finite loss that falls (the last quarter's mean below round 0's),
-    ``train_step_launches`` a round, every launch fp32 SIMT; ms/round
+    ``train_step_launches`` a round, each of the variant
+    ``train_step_variants`` names (fp32 SIMT; bf16 the tensor-core
+    forwards and the backwards on bf16 inputs); ms/round
     over rounds 1 to rounds - 2 (host clock; each round's plan read-back
     waits for the previous round's step), tokens/s, peak device memory.
     Returns the launches, the by-variant launches, the final state and
@@ -2751,7 +3136,8 @@ def phase_train(label, extra, rounds, counters, ckpt=None):
     log(f"[{label}] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
         f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
-        f"{build_model(cfg).param_count():,} parameters, fp32; "
+        f"{build_model(cfg).param_count():,} parameters, "
+        f"{cfg.param_dtype} (moments fp32); "
         f"{args.silos} silos x {args.batch_per_silo} x {args.seq_len} "
         f"tokens a round; {rounds} rounds in {wall:.1f} s (set-up and "
         f"data included)")
@@ -2765,10 +3151,12 @@ def phase_train(label, extra, rounds, counters, ckpt=None):
     want.update({k: n * rounds for k, n in train_step_launches(cfg).items()})
     if launches != want:
         raise RuntimeError(f"{label}: launches {launches}, expected {want}")
-    if any(n for by in variants.values() for v, n in by.items()
-           if v != "simt"):
-        raise RuntimeError(f"{label}: an fp32 step launched a bf16 variant: "
-                           f"{variants}")
+    kinds = train_step_variants(cfg)
+    want = {name: {v: want[name] if v == kinds[name] else 0 for v in by}
+            for name, by in variants.items()}
+    if variants != want:
+        raise RuntimeError(f"{label}: launches by variant {variants}, "
+                           f"expected {want}")
     tail = losses[-max(rounds // 4, 1):]
     if not all(math.isfinite(x) for x in losses) or \
             not sum(tail) / len(tail) < losses[0]:
@@ -2954,6 +3342,125 @@ def phase_train_grads_full(label, arch, layers, B, S, relative, counters):
     phase_train_grads(label, cfg, params, B, S, relative, counters,
                       full=True)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_grads_bf16(label, arch, B, S, relative, counters):
+    """One step's gradients of ``Model.loss`` of ``arch`` at full width and
+    depth in its own bf16, on the card, three ways from one set of weights
+    (seed 0): the kernels in bf16 (``attn_impl="cuda"``: the wgmma flash
+    and ``ssd_fwd_mma`` forwards under remat, the bf16 backward kernels),
+    the plain path in bf16 (the plain attention and the per-step scans,
+    ``per_step_scans``) and the same plain path in fp32 on the weights
+    upcast, the oracle.  Per leaf, the kernel path's largest distance
+    from the oracle at most BF16_GRAD_RATIO times the bf16 plain path's;
+    the kernels' input leaves (``relative`` and wq/wk/wv) also by that
+    ratio in L2, and not zero.
+    The kernel step's launches must be ``train_step_launches(cfg)``, each
+    of ``train_step_variants``'s variant; launches here count for no
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+    cfg = get_config(arch)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                        device="cuda")
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    null = contextlib.nullcontext
+    steps, kinds = train_step_launches(cfg), train_step_variants(cfg)
+    passes = [("kernels bf16", cfg, "cuda", null, steps),
+              ("plain bf16", cfg, "torch", per_step_scans, {}),
+              ("oracle fp32", cfg32, "torch", per_step_scans, {})]
+    grads, losses = {}, {}
+    for name, c, impl, forms, expect in passes:
+        model = build_model(c)
+        src = params if c is cfg else tree_map(lambda t: t.float(), params)
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(src)]
+        before = {k: c_.count for k, c_ in counters.items()}
+        by_before = {k: dict(c_.by_variant) for k, c_ in counters.items()}
+        t0 = time.perf_counter()
+        with forms():
+            loss, _ = model.loss(tree_unflatten(src, leaves), batch,
+                                 ExecConfig(attn_impl=impl))
+            g = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = {k: c_.count - before[k] for k, c_ in counters.items()}
+        if launched != {k: expect.get(k, 0) for k in counters}:
+            raise RuntimeError(f"{label} {name}: launches {launched}, "
+                               f"expected {expect}")
+        for k, n in expect.items():
+            ran = counters[k].by_variant[kinds[k]] - by_before[k][kinds[k]]
+            if ran != n:
+                raise RuntimeError(f"{label} {name}: {k} launched {ran} "
+                                   f"{kinds[k]} of {n}")
+        grads[name], losses[name] = list(g), float(loss.detach())
+        log(f"[{label}] {name}: loss {losses[name]:.6f}, forward and "
+            f"backward in {secs:.1f} s, launches {launched}")
+        del leaves, loss, g, src
+    truth = grads.pop("oracle fp32")
+    names = [path for path, _ in named_leaves(params)]
+    rel = relative + ("wq", "wk", "wv")
+    rows, failed = [], []
+    for path, gk, gp, w in zip(names, grads["kernels bf16"],
+                               grads["plain bf16"], truth):
+        if gk.dtype != torch.bfloat16 or not bool(torch.isfinite(gk).all()):
+            raise RuntimeError(f"{label}: the kernels' gradient of {path} is "
+                               f"{gk.dtype} or not finite")
+        dk = float((gk.float() - w).abs().max())
+        dp = float((gp.float() - w).abs().max())
+        scale, norm = float(w.abs().max()), float(w.norm())
+        # the L2 distances as shares of the oracle's norm: a lost gradient
+        # is 1.0 off there
+        lk = float((gk.float() - w).norm()) / norm if norm else 0.0
+        lp = float((gp.float() - w).norm()) / norm if norm else 0.0
+        ratio = dk / dp if dp else (0.0 if dk == 0 else math.inf)
+        rows.append((ratio, path, dk, dp, scale, lk, lp))
+        if dk > BF16_GRAD_RATIO * dp:
+            failed.append(f"{path}: {dk:.3e} from the fp32 oracle, the bf16 "
+                          f"plain path {dp:.3e} (gate {BF16_GRAD_RATIO}x)")
+        if path.rsplit("/", 1)[-1] in rel and (
+                lk > BF16_GRAD_RATIO * lp or not bool(gk.any())):
+            failed.append(f"{path}: {lk:.3e} of the oracle's norm from it, "
+                          f"the bf16 plain path {lp:.3e} (gate "
+                          f"{BF16_GRAD_RATIO}x), or zero")
+    ins = [r for r in rows if r[1].rsplit("/", 1)[-1] in rel]
+    log(f"[{label}] {cfg.name}, {cfg.num_layers} layers, "
+        f"{build_model(cfg).param_count():,} parameters, bf16, B {B} x S "
+        f"{S}: per leaf, the largest distance from the fp32 oracle, kernels "
+        f"/ bf16 plain path: largest ratio {max(r[0] for r in rows):.3f} "
+        f"(gate {BF16_GRAD_RATIO}), median "
+        f"{sorted(r[0] for r in rows)[len(rows) // 2]:.3f} over {len(rows)} "
+        f"leaves; the kernels' input leaves {'/'.join(rel)}: L2 distance "
+        f"up to {max(r[5] for r in ins):.3e} of the oracle's norm (the bf16 "
+        f"plain path {max(r[6] for r in ins):.3e}), L2 ratio up to "
+        f"{max(r[5] / r[6] for r in ins if r[6]):.3f} (gate "
+        f"{BF16_GRAD_RATIO}), largest distance up to "
+        f"{max(r[2] / r[4] for r in ins if r[4]):.3e} of their own max |g| "
+        f"(the bf16 plain path {max(r[3] / r[4] for r in ins if r[4]):.3e})")
+    for r, path, dk, dp, scale, lk, lp in sorted(rows, key=lambda r: -r[0])[:5]:
+        log(f"[{label}]   {path}: kernels {dk:.3e}, plain bf16 {dp:.3e} "
+            f"(ratio {r:.3f}), max |g| {scale:.3e}; L2 {lk:.3e} / {lp:.3e}")
+    for kind in rel:
+        of = [r for r in ins if r[1].rsplit("/", 1)[-1] == kind]
+        near = min(of, key=lambda r: r[6])
+        log(f"[{label}]   {kind} ({len(of)} leaves): L2 distance from the "
+            f"oracle, of its norm, kernels {min(r[5] for r in of):.3e} to "
+            f"{max(r[5] for r in of):.3e}, bf16 plain path "
+            f"{min(r[6] for r in of):.3e} to {max(r[6] for r in of):.3e}; "
+            f"nearest for the plain path {near[1]}: kernels {near[5]:.3e}, "
+            f"plain {near[6]:.3e}")
+    if failed:
+        raise RuntimeError(f"{label}: " + "; ".join(failed[:5]))
+    del grads, truth, params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3203,6 +3710,7 @@ def main():
     counters = {"fed_agg": fed_agg_kernel.launches,
                 "residual_norms": robust_kernel.launches,
                 "flash_attention": flash_kernel.launches,
+                "flash_attention_lse": flash_kernel.lse_launches,
                 "ssm_scan": ssd_kernel.launches,
                 "rwkv6_scan": wkv_kernel.launches,
                 "flash_attention_bwd": flash_kernel.bwd_launches,
@@ -3219,7 +3727,9 @@ def main():
                "ssm_scan": phase_ssm_scan(),
                "rwkv6_scan": phase_rwkv6_scan(),
                "flash_attention_bwd": phase_flash_bwd(),
+               "flash_attention_bwd_bf16": phase_flash_bwd_bf16(),
                "ssm_scan_bwd": phase_ssm_scan_bwd(),
+               "ssm_scan_bwd_bf16": phase_ssm_scan_bwd_bf16(),
                "rwkv6_scan_bwd": phase_rwkv6_scan_bwd()}
     data, main = phase_main_path(counters)
     dyn, dyn_rows, dyn_peaks = phase_dynamics(data, counters)
@@ -3256,12 +3766,23 @@ def main():
     phase_serve_ckpt(ckpt_100m, state_100m)
     phase_serve_ckpt_card_vs_cpu(ckpt_small)
     del state_100m
+    # zamba2-1.2b in bf16 last: its functional optimizer peaks near 62 GiB
+    label, extra, rounds = TRAIN_BF16
+    paths[label], VARIANT_LAUNCHES[label], state, _ = phase_train(
+        label, extra, rounds, counters)
+    del state
+    phase_train_grads_bf16(*TRAIN_GRADS_BF16, counters)
     for k, entry in entries.items():
         # launches over the driven paths: the FL main, robust, dynamics,
         # cohort, thompson, telemetry (update_norm's fed_agg and
         # residual_norms) and debug_checks runs, the four serve runs and
-        # the seven training runs
-        by_path = {p: n[k] for p, n in paths.items()}
+        # the eight training runs; a backward entry counts its variant's
+        # launches only (fp32 SIMT, or SIMT on bf16 inputs)
+        counter = entry.pop("counter", k)
+        only = entry.get("counted_variant")
+        by_path = {p: n[counter] if only is None else
+                   VARIANT_LAUNCHES.get(p, {}).get(counter, {}).get(only, 0)
+                   for p, n in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
     for k in ("flash_attention", "ssm_scan", "rwkv6_scan",
@@ -3269,6 +3790,10 @@ def main():
         entries[k]["launches_by_variant"] = {
             v: sum(n[k][v] for n in VARIANT_LAUNCHES.values())
             for v in counters[k].by_variant}
+    # the flash forwards that also wrote their lse (the training ones)
+    entries["flash_attention"]["launches_with_lse_by_variant"] = {
+        v: sum(n["flash_attention_lse"][v] for n in VARIANT_LAUNCHES.values())
+        for v in counters["flash_attention_lse"].by_variant}
     phase_card_vs_cpu()
     phase_serve_card_vs_cpu()
     print(json.dumps({"kernels": list(entries.values())}))

@@ -59,7 +59,11 @@
  *   5. O, m and l stay in registers; a stage goes back to the producer
  *      once the P V that reads its V is done.
  * Epilogue: O / max(l, 1e-30), stored as bf16 pairs straight into the
- * strided output, rows past Sq and padded columns not stored.
+ * strided output, rows past Sq and padded columns not stored; where lse
+ * is asked for (the training forward), each row's log-sum-exp of the
+ * scaled scores in natural-log units, m ln 2 + log(l), as the SIMT
+ * variant writes it (l is summed from the fp32 P, before P is split into
+ * its bf16 terms).
  * Head dims: a 128-byte-swizzled box is 64 bf16 columns, so D is cut
  * into ceil(D / 64) boxes and padded to a multiple of 64 by TMA's zero
  * fill (D 32 -> 64, D 80 -> 128, D 192 = three boxes): zero columns of Q
@@ -129,7 +133,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  float* lse;                    // (B, Hq, Sq) fp32 or null; SIMT only
+  float* lse;                    // (B, Hq, Sq) fp32 or null
   int64_t sqb, sqh, sqs;         // strides in elements: batch, head, seq
   int64_t skb, skh, sks;
   int64_t svb, svh, svs;
@@ -974,6 +978,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       lt = fmaxf(lt, 1e-30f);
       const int64_t row = q0 + r + 8 * hh;
+      if (row < p.Sq && p.lse != nullptr && qd == 0)
+        p.lse[(b * gridDim.x + h) * p.Sq + row] =
+            fmaf(m[hh], 0.6931471805599453f, logf(lt));
       if (row < p.Sq) {
         __nv_bfloat16* orow = og + row * p.sos + 2 * qd;
 #pragma unroll
@@ -1106,9 +1113,9 @@ int launch_wgmma_d(const Params& p, int D, int64_t B, int64_t Hq,
 // 16-byte aligned (TMA).  window <= 0 means none.  Returns 0 on success, a
 // CUDA runtime error code, or 10000 (no tensor-map encoder in the driver)
 // / 20000 + a CUresult (a tensor map was refused).  The caller handles
-// Sq == 0 and Sk == 0 without a launch.  lse: null, or for fp32 a
-// contiguous (B, Hq, Sq) fp32 output of each row's log-sum-exp (the
-// wgmma variant writes none and refuses a non-null lse).
+// Sq == 0 and Sk == 0 without a launch.  lse: null, or a contiguous
+// (B, Hq, Sq) fp32 output of each row's log-sum-exp of the scaled,
+// masked scores (natural log), written by either variant.
 extern "C" int flash_attention_fwd(int dtype, int D, const void* q,
                                    const void* k, const void* v, void* o,
                                    float* lse, const int64_t* strides, int64_t B,
@@ -1140,7 +1147,6 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch_simt(p, D, B, Hq, s);
   if (dtype == 1) {
-    if (lse != nullptr) return (int)cudaErrorInvalidValue;
     if ((Sq + kWgRows - 1) / kWgRows > 65535)        // grid.y
       return (int)cudaErrorInvalidValue;
     return launch_wgmma_d(p, D, B, Hq, Hkv, s);

@@ -56,8 +56,9 @@
  * and the S update, G.v, G^T.k and the G update; the second copy of G
  * adds D^2): at the 100m training shape (B 32, H 12, S 128, D 64) 2.01e9
  * flops, 30.0 us at fp32's 67 TFLOP/s, against 113 MB read and written
- * (33.8 us at 3.35 TB/s; computed).  Tensor cores (the chunked form, as
- * the bf16 forward runs it) are ROADMAP Queue A #15g step 2.
+ * (33.8 us at 3.35 TB/s; computed).  A bf16 backward, and tensor cores
+ * (the chunked form, as the bf16 forward runs it), are ROADMAP Queue A
+ * #15g step 3.
  *
  * The ragged end of S is masked (a partial last tile), never padded in
  * device memory; every sum runs in an order fixed by the shapes, so two

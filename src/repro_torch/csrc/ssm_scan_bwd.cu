@@ -1,6 +1,6 @@
 /*
- * ssm_scan_bwd — the gradient of the fp32 Mamba2 SSD scan for Hopper
- * (sm_90a), SIMT fp32.
+ * ssm_scan_bwd — the gradient of the Mamba2 SSD scan for Hopper (sm_90a),
+ * SIMT fp32 arithmetic for fp32 and bf16 inputs.
  *
  *     a_t = exp(dt_t A),  h_t = a_t h_{t-1} + dt_t x_t B_t^T,  y_t = h_t C_t
  *
@@ -11,14 +11,22 @@
  *     group by the caller; dA per (batch, head), (B, H) contiguous, summed
  *     over batch by the caller: no atomics, so the sums run in a fixed
  *     order.  Every (B, H, S, ·) tensor is a strided view whose last axis
- *     is contiguous.  P in {32, 64}, N in {16, 64}, all fp32.
+ *     is contiguous.  P in {32, 64}, N in {16, 64}.  x, B, C (and dx)
+ *     fp32 or bf16, dt (and ddt) fp32 or bf16, as the forward takes them;
+ *     A, h0, dy, dh_f, dA, dB, dC (per head) and dh0 fp32.
  *
  * The JAX package has no backward kernel: its model trains through plain
  * JAX and autodiff.  The port's model runs the hand-written forward
  * (csrc/ssm_scan.cu, ssd_fwd_simt, the replacement of the TPU kernel
  * repro/kernels/ssm_scan/kernel.py:66 ssm_scan_pallas), so its gradient
  * comes from this kernel: what autodiff of ssm_scan_ref computes for the
- * same inputs.
+ * same inputs.  Under bf16 (the training path of a bf16 model, whose
+ * forward is ssd_fwd_mma) every bf16 input is widened to fp32 as it
+ * loads and the walks are the fp32 walks, instruction for instruction:
+ * the chunk-start states are rebuilt in fp32 from the bf16 values.  dx
+ * (and a bf16 dt's ddt) are rounded once, as they are stored; the
+ * per-head dB and dC stay fp32 for the caller's sum over the group's
+ * heads, rounded after it.
  *
  * The adjoints, with G_t = dL/dh_t = a_{t+1} G_{t+1} + dy_t C_t^T (G_S =
  * dh_f):  dx_t = dt_t G_t B_t,  dB_t = dt_t G_t^T x_t,  dC_t = h_t^T dy_t,
@@ -66,14 +74,17 @@
  * P) + 4 L P N multiply-adds a chunk, the forward walk's L P N: at the
  * 100m training shape (B 32, H 24, S 128, P = N = 64) 9.06e9 flops, 135
  * us at fp32's 67 TFLOP/s, against 101 MB read and written (30 us at
- * 3.35 TB/s; computed): the SIMT FMAs bound it.  Tensor cores (the bf16
- * forward's mma.sync) are ROADMAP Queue A #15g step 2.
+ * 3.35 TB/s; computed): the SIMT FMAs bound it.  In bf16 the same
+ * products could run on the tensor cores (989 TFLOP/s), which this kernel
+ * does not use: a tensor-core backward (the bf16 forward's mma.sync) is
+ * a kernel redesign item of ROADMAP Queue B.
  *
  * Shared with the forward: rows past S are never loaded (zeros in shared
  * memory, dt past S 0, so seg_last is the last valid row's) and never
  * written; every sum runs in an order fixed by the shapes, so two
  * launches give bit-identical gradients.
  */
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,16 +95,16 @@ constexpr int kL = 64;           // chunk length, as ssd_fwd_simt's
 constexpr int kMS = kL + 1;      // row stride of the M, Q and Z tiles
 
 struct BwdParams {
-  const float* x;
-  const float* dt;
+  const void* x;                 // T: fp32 or bf16, as B and C
+  const void* dt;                // TD: fp32 or bf16
   const float* A;
-  const float* bm;
-  const float* cm;
+  const void* bm;
+  const void* cm;
   const float* h0;               // (B, H, P, N) contiguous, or null
   const float* dy;
   const float* dhf;              // (B, H, P, N) contiguous, or null
-  float* dx;
-  float* ddt;
+  void* dx;                      // T, as x
+  void* ddt;                     // TD, as dt
   float* dA;                     // (B, H) contiguous: per (batch, head)
   float* dB;                     // per head, strided
   float* dC;
@@ -111,6 +122,17 @@ template <int P, int N>
 constexpr int bwd_smem_floats() {
   return 2 * kL * (P + 1) + 2 * kL * (N + 1) + 2 * P * (N + 1)
          + 3 * kL * kMS + 9 * kL + 8;
+}
+
+// an input element widened to fp32 (bf16 -> fp32 is exact), and a
+// gradient's one rounding from fp32 to its input's type
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
 }
 
 // the sum of v over the 16 threads of one row of the 16 x 16 grid (lanes
@@ -148,7 +170,7 @@ __device__ __forceinline__ void chunk_decays(int lane, float A, int Lc,
 }
 
 // one block an SM (its shared memory), so every register is its to use
-template <int P, int N>
+template <typename T, typename TD, int P, int N>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_bwd_simt(const BwdParams p) {
   static_assert(P % 16 == 0 && N % 16 == 0 && kL == 64, "tiling");
@@ -184,13 +206,17 @@ ssd_bwd_simt(const BwdParams p) {
   const int64_t b = blockIdx.y;
   const int64_t g = h / p.rep;
   const float A = p.A[h];
-  const float* xg = p.x + b * p.st[0][0] + h * p.st[0][1];
-  const float* dg = p.dt + b * p.st[1][0] + h * p.st[1][1];
-  const float* bg = p.bm + b * p.st[2][0] + g * p.st[2][1];
-  const float* cg = p.cm + b * p.st[3][0] + g * p.st[3][1];
+  const T* xg = static_cast<const T*>(p.x) + b * p.st[0][0] +
+                h * p.st[0][1];
+  const TD* dg = static_cast<const TD*>(p.dt) + b * p.st[1][0] +
+                 h * p.st[1][1];
+  const T* bg = static_cast<const T*>(p.bm) + b * p.st[2][0] +
+                g * p.st[2][1];
+  const T* cg = static_cast<const T*>(p.cm) + b * p.st[3][0] +
+                g * p.st[3][1];
   const float* yg = p.dy + b * p.st[4][0] + h * p.st[4][1];
-  float* dxg = p.dx + b * p.st[5][0] + h * p.st[5][1];
-  float* ddg = p.ddt + b * p.st[6][0] + h * p.st[6][1];
+  T* dxg = static_cast<T*>(p.dx) + b * p.st[5][0] + h * p.st[5][1];
+  TD* ddg = static_cast<TD*>(p.ddt) + b * p.st[6][0] + h * p.st[6][1];
   float* dbg = p.dB + b * p.st[7][0] + h * p.st[7][1];
   float* dcg = p.dC + b * p.st[8][0] + h * p.st[8][1];
   const int64_t so = (b * p.H + h) * (int64_t)(P * N);
@@ -206,15 +232,17 @@ ssd_bwd_simt(const BwdParams p) {
     const int64_t c0 = (int64_t)c * kL;
     const int Lc = (int)(p.S - c0 < kL ? p.S - c0 : kL);
     __syncthreads();             // the last chunk's readers are done
-    if (tid < kL) dts[tid] = tid < Lc ? dg[(c0 + tid) * p.st[1][2]] : 0.f;
+    if (tid < kL)
+      dts[tid] = tid < Lc ? widen(dg[(c0 + tid) * p.st[1][2]]) : 0.f;
     for (int e = tid; e < kL * N; e += kThreads) {
       const int l = e / N, n = e % N;
-      bs[l * kNS + n] = l < Lc ? bg[(c0 + l) * p.st[2][2] + n] : 0.f;
+      bs[l * kNS + n] = l < Lc ? widen(bg[(c0 + l) * p.st[2][2] + n]) : 0.f;
     }
     __syncthreads();             // dts
     for (int e = tid; e < kL * P; e += kThreads) {
       const int l = e / P, q = e % P;
-      xs[l * kXS + q] = l < Lc ? xg[(c0 + l) * p.st[0][2] + q] * dts[l] : 0.f;
+      xs[l * kXS + q] =
+          l < Lc ? widen(xg[(c0 + l) * p.st[0][2] + q]) * dts[l] : 0.f;
     }
     if (tid < 32) chunk_decays(lane, A, Lc, dts, seg, eseg, wl);
     __syncthreads();             // xs, eseg, wl
@@ -253,17 +281,18 @@ ssd_bwd_simt(const BwdParams p) {
     const int64_t c0 = (int64_t)c * kL;
     const int Lc = (int)(p.S - c0 < kL ? p.S - c0 : kL);
     __syncthreads();             // the last chunk's readers are done
-    if (tid < kL) dts[tid] = tid < Lc ? dg[(c0 + tid) * p.st[1][2]] : 0.f;
+    if (tid < kL)
+      dts[tid] = tid < Lc ? widen(dg[(c0 + tid) * p.st[1][2]]) : 0.f;
     for (int e = tid; e < kL * N; e += kThreads) {
       const int l = e / N, n = e % N;
       const bool ok = l < Lc;
-      bs[l * kNS + n] = ok ? bg[(c0 + l) * p.st[2][2] + n] : 0.f;
-      cs[l * kNS + n] = ok ? cg[(c0 + l) * p.st[3][2] + n] : 0.f;
+      bs[l * kNS + n] = ok ? widen(bg[(c0 + l) * p.st[2][2] + n]) : 0.f;
+      cs[l * kNS + n] = ok ? widen(cg[(c0 + l) * p.st[3][2] + n]) : 0.f;
     }
     for (int e = tid; e < kL * P; e += kThreads) {
       const int l = e / P, q = e % P;
       const bool ok = l < Lc;
-      xs[l * kXS + q] = ok ? xg[(c0 + l) * p.st[0][2] + q] : 0.f;
+      xs[l * kXS + q] = ok ? widen(xg[(c0 + l) * p.st[0][2] + q]) : 0.f;
       dys[l * kXS + q] = ok ? yg[(c0 + l) * p.st[4][2] + q] : 0.f;
     }
     {
@@ -367,7 +396,8 @@ ssd_bwd_simt(const BwdParams p) {
           const float gb = fmaf(wl[t], acc2[a][j], acc[a][j]);
           part = fmaf(xv, gb, part);
           partb = fmaf(xv, acc2[a][j], partb);
-          if (t < Lc) dxg[(c0 + t) * p.st[5][2] + tx + 16 * j] = dts[t] * gb;
+          if (t < Lc) store1(dxg + (c0 + t) * p.st[5][2] + tx + 16 * j,
+                             dts[t] * gb);
         }
         part = row_sum16(part);
         partb = row_sum16(partb);
@@ -515,9 +545,11 @@ ssd_bwd_simt(const BwdParams p) {
       gh *= eseg[Lc - 1];
       const float l0 = (((gh + p0) + s0) + t4[lane]) - d0 * qv[lane];
       const float l1 = (((gh + p1) + s1) + t4[lane + 32]) - d1 * qv[lane + 32];
-      if (lane < Lc) ddg[(c0 + lane) * p.st[6][2]] = fmaf(A, l0, qv[lane]);
+      if (lane < Lc)
+        store1(ddg + (c0 + lane) * p.st[6][2], fmaf(A, l0, qv[lane]));
       if (lane + 32 < Lc)
-        ddg[(c0 + lane + 32) * p.st[6][2]] = fmaf(A, l1, qv[lane + 32]);
+        store1(ddg + (c0 + lane + 32) * p.st[6][2],
+               fmaf(A, l1, qv[lane + 32]));
       float da = fmaf(d0, l0, d1 * l1);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -559,29 +591,52 @@ ssd_bwd_simt(const BwdParams p) {
   if (tid == 0) p.dA[b * p.H + h] = dA_acc;
 }
 
-template <int P, int N>
+template <typename T, typename TD, int P, int N>
 int launch(const BwdParams& p, int64_t B, int64_t H, cudaStream_t stream) {
   const int smem = bwd_smem_floats<P, N>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_simt<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ssd_bwd_simt<T, TD, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)H, (unsigned)B);
-  ssd_bwd_simt<P, N><<<grid, kThreads, smem, stream>>>(p);
+  ssd_bwd_simt<T, TD, P, N><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename TD>
+int dispatch_pn(int P, int N, const BwdParams& p, int64_t B, int64_t H,
+                cudaStream_t s) {
+  if (P == 64 && N == 64) return launch<T, TD, 64, 64>(p, B, H, s);
+  if (P == 64 && N == 16) return launch<T, TD, 64, 16>(p, B, H, s);
+  if (P == 32 && N == 64) return launch<T, TD, 32, 64>(p, B, H, s);
+  if (P == 32 && N == 16) return launch<T, TD, 32, 16>(p, B, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dispatch_dt(int dt_dtype, int P, int N, const BwdParams& p, int64_t B,
+                int64_t H, cudaStream_t s) {
+  if (dt_dtype == 0) return dispatch_pn<T, float>(P, N, p, B, H, s);
+  if (dt_dtype == 1) return dispatch_pn<T, __nv_bfloat16>(P, N, p, B, H, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// strides: 27 element strides, (batch, head or group, seq) of x, dt, B,
+// dtype (x, B, C, and dx) and dt_dtype (dt and ddt): 0 = float32, 1 =
+// bfloat16, as ssm_scan_fwd takes them; A, h0, dy, dhf and every other
+// output are float32 (dB and dC per head, summed and rounded by the
+// caller).  strides: 27 element strides, (batch, head or group, seq) of x, dt, B,
 // C, dy, dx, ddt, dB and dC in that order (dB and dC per head).  h0, dhf
 // and dh0 may be null; ws holds (B, H, ceil(S / 64), P, N) floats.
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess).  The
 // caller handles S == 0 without a launch.
-extern "C" int ssm_scan_bwd(int P, int N, const float* x, const float* dt,
-                            const float* A, const float* bm, const float* cm,
-                            const float* h0, const float* dy,
-                            const float* dhf, float* dx, float* ddt,
-                            float* dA, float* dB, float* dC, float* dh0,
+extern "C" int ssm_scan_bwd(int dtype, int dt_dtype, int P, int N,
+                            const void* x, const void* dt, const float* A,
+                            const void* bm, const void* cm, const float* h0,
+                            const float* dy, const float* dhf, void* dx,
+                            void* ddt, float* dA, float* dB, float* dC,
+                            float* dh0,
                             float* ws, const int64_t* strides, int64_t B,
                             int64_t H, int64_t G, int64_t S, void* stream) {
   if (B <= 0 || H <= 0 || G <= 0 || S <= 0 || H % G || B > 65535 ||
@@ -610,9 +665,8 @@ extern "C" int ssm_scan_bwd(int P, int N, const float* x, const float* dt,
   p.rep = (int)(H / G);
   p.n_chunks = (int)((S + kL - 1) / kL);
   cudaStream_t s = (cudaStream_t)stream;
-  if (P == 64 && N == 64) return launch<64, 64>(p, B, H, s);
-  if (P == 64 && N == 16) return launch<64, 16>(p, B, H, s);
-  if (P == 32 && N == 64) return launch<32, 64>(p, B, H, s);
-  if (P == 32 && N == 16) return launch<32, 16>(p, B, H, s);
+  if (dtype == 0) return dispatch_dt<float>(dt_dtype, P, N, p, B, H, s);
+  if (dtype == 1)
+    return dispatch_dt<__nv_bfloat16>(dt_dtype, P, N, p, B, H, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,11 +13,11 @@ unchanged (the paper's empty-round case), by a ``torch.where`` on the
 card: nothing is read back to the host.
 
 Gradients come from autograd through the port's model: on the card the
-attention, SSD and WKV6 forwards are the hand-written kernels and, in
-fp32, their backwards the hand-written backward kernels
-(``kernels.flash_attention``, ``kernels.ssm_scan``,
-``kernels.rwkv6_scan``); bf16 on the card refuses grad (ROADMAP Queue A
-#15g step 2).  The reference's
+attention, SSD and WKV6 forwards are the hand-written kernels and their
+backwards the hand-written backward kernels (``kernels.flash_attention``,
+``kernels.ssm_scan``, ``kernels.rwkv6_scan``), in fp32 and, for the
+attention and the SSD, in bf16; a bf16 WKV6 on the card refuses grad
+(ROADMAP Queue A #15g step 3).  The reference's
 ``abstract_train_state`` (shapes for the dry-run) and the sharded step
 are not ported (ROADMAP Queue A #16, #17).
 """

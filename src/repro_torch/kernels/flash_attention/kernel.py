@@ -11,11 +11,13 @@ one bf16 ulp of ``attention_ref``'s fp32 result plus a small floor, see
 axis is contiguous, so the model's (B, S, H, D) projections go in
 without a transpose; see the source for the design and its bound.
 
-The fp32 variant can also write each row's log-sum-exp (``with_lse``),
+Either variant can also write each row's log-sum-exp (``with_lse``),
 which ``flash_attention_bwd_cuda`` (``csrc/flash_attention_bwd.cu``)
-takes to form dq, dk and dv: the backward of the fp32 training forward.
-The JAX package has no backward kernel (its model trains through plain
-JAX attention); ``bwd_launches`` counts this one's calls.
+takes to form dq, dk and dv: the backward of the training forward, fp32
+or bf16 (SIMT fp32 arithmetic on bf16 values widened as they load, each
+gradient rounded to bf16 once).  The JAX package has no backward kernel
+(its model trains through plain JAX attention); ``bwd_launches`` counts
+this one's calls by the dtype they took.
 """
 from __future__ import annotations
 
@@ -36,9 +38,13 @@ VARIANTS = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 
 launches = _build.LaunchCounter(variants=("wgmma", "simt"))
 launches_by_variant = launches.by_variant
-# one count a call of flash_attention_bwd_cuda (its three kernels: delta,
-# dk/dv, dq), by variant: fp32 SIMT is the only one so far
-bwd_launches = _build.LaunchCounter(variants=("simt",))
+# the launches above that also wrote each row's log-sum-exp (``with_lse``,
+# the training forward), by variant
+lse_launches = _build.LaunchCounter(variants=("wgmma", "simt"))
+# one count a call of flash_attention_bwd_cuda (its kernels: fp32's delta,
+# dq, dk/dv), by variant: SIMT on fp32 inputs, SIMT on bf16 ones
+BWD_VARIANTS = {torch.float32: "simt", torch.bfloat16: "simt_bf16"}
+bwd_launches = _build.LaunchCounter(variants=tuple(BWD_VARIANTS.values()))
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,7 +64,7 @@ def _entry():
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
         ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 7 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -79,9 +85,10 @@ def smem_bytes(variant: str, D: int) -> int:
 
 
 def bwd_smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one block of either backward kernel, as
-    ``csrc/flash_attention_bwd.cu`` sizes it: two 64 x D row tiles, two
-    D x 68 transposed tiles, a 64 x 68 tile of P or dS, lse and delta."""
+    """Dynamic shared memory of one block of either backward kernel (dq,
+    dk/dv), as ``csrc/flash_attention_bwd.cu`` sizes it: two 64 x D row
+    tiles, two D x 68 transposed tiles, a 64 x 68 tile of P or dS, lse and
+    delta."""
     return (2 * 64 * D + 2 * D * 68 + 64 * 68 + 2 * 64) * 4
 
 
@@ -108,12 +115,12 @@ def tma_layout_error(shape, strides, data_ptr: int,
 
 
 def _check_layout(name: str, x: torch.Tensor):
-    """The SIMT variant reads rows of 4 elements at a time: the last axis
-    contiguous, the other strides and the base address aligned to 4
-    elements.  The wgmma variant reads q, k and v by TMA
-    (``tma_layout_error``) and writes pairs of elements."""
+    """The SIMT kernels (the fp32 forward, the backward) read rows of 4
+    elements at a time: the last axis contiguous, the other strides and
+    the base address aligned to 4 elements.  bf16 q, k and v are read by
+    the wgmma variant's TMA (``tma_layout_error``), which asks more."""
     strides = x.stride()
-    if x.dtype == torch.bfloat16 and name != "out":
+    if x.dtype == torch.bfloat16 and name in ("q", "k", "v"):
         why = tma_layout_error(tuple(x.shape), strides, x.data_ptr(),
                                x.element_size())
         if why is not None:
@@ -170,15 +177,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_offset: int = 0, with_lse: bool = False):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) on one CUDA device ->
     (B, Hq, Sq, D) in q's dtype, laid out like q (``empty_like``); with
-    ``with_lse`` (fp32 only) also each row's log-sum-exp of the scaled,
-    masked scores, a contiguous (B, Hq, Sq) fp32 tensor, as a pair.
+    ``with_lse`` also each row's log-sum-exp of the scaled, masked scores
+    (natural log, from either variant), a contiguous (B, Hq, Sq) fp32
+    tensor, as a pair.
 
     fp32 launches the SIMT variant, bf16 the wgmma one.  Launches on the
     current stream and does not synchronise."""
     B, Hq, Hkv, Sq, Sk, D = _check_inputs(q, k, v, window)
-    if with_lse and q.dtype != torch.float32:
-        raise TypeError(f"flash_attention cuda: the log-sum-exp output "
-                        f"exists for float32 only, got {q.dtype}")
     dev = q.device
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) \
@@ -216,6 +221,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{tuple(q.shape)}, k {tuple(k.shape)}, "
                            f"{q.dtype}")
     launches.add(VARIANTS[q.dtype])
+    if with_lse:
+        lse_launches.add(VARIANTS[q.dtype])
     return result()
 
 
@@ -238,20 +245,22 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              window: Optional[int] = None,
                              scale: Optional[float] = None,
                              q_offset: int = 0):
-    """The gradient of ``flash_attention_cuda`` for fp32: q, out, dout
-    (B, Hq, Sq, D), k, v (B, Hkv, Sk, D) and ``lse`` (B, Hq, Sq), the
-    forward's ``with_lse`` output, on one CUDA device -> (dq, dk, dv),
-    each laid out like its input (``empty_like``).
+    """The gradient of ``flash_attention_cuda``: q, out, dout (B, Hq, Sq,
+    D), k, v (B, Hkv, Sk, D), all fp32 or all bf16, and ``lse`` (B, Hq,
+    Sq) fp32, the forward's ``with_lse`` output, on one CUDA device ->
+    (dq, dk, dv), each laid out like its input (``empty_like``) and in
+    its dtype.  bf16 inputs are widened to fp32 as they load and each
+    gradient is rounded once from its fp32 sum (a GQA group's dK / dV
+    summed in fp32 first); delta comes from the bf16 ``out``.
 
     It computes what autodiff of ``ref.attention_ref`` computes, except
     for a query row that sees no key, where the plain version averages V
     over every key: such calls (``rows_without_keys``) are refused with a
-    ``ValueError``; training never makes one.  Launches three kernels on
-    the current stream (delta, dk/dv, dq) and does not synchronise."""
+    ``ValueError``; training never makes one.  Launches its kernels on
+    the current stream (fp32: delta, dq, dk/dv; bf16: dq, whose first
+    walk forms delta from P and dP, then dk/dv) and does not
+    synchronise."""
     B, Hq, Hkv, Sq, Sk, D = _check_inputs(q, k, v, window)
-    if q.dtype != torch.float32:
-        raise TypeError(f"flash_attention_bwd cuda: float32 only, got "
-                        f"{q.dtype}")
     for name, x in (("out", out), ("dout", dout)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"flash_attention_bwd cuda: {name} must be "
@@ -282,7 +291,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                       for st in x.stride()[:3]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_entry()(D, *(x.data_ptr() for x in (
+        err = _bwd_entry()(DTYPES[q.dtype], D, *(x.data_ptr() for x in (
             q, k, v, out, dout, lse, delta, dq, dk, dv)), strides, B, Hq,
             Hkv, Sq, Sk, int(q_offset),
             0 if window is None else int(window), int(causal),
@@ -290,6 +299,6 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd cuda: launch failed with "
                            f"CUDA error {err} at q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}")
-    bwd_launches.add("simt")
+                           f"{tuple(k.shape)}, {q.dtype}")
+    bwd_launches.add(BWD_VARIANTS[q.dtype])
     return dq, dk, dv

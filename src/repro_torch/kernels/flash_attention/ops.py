@@ -8,12 +8,11 @@ masks the ragged ends of Sq and Sk itself, so nothing is padded here;
 ``block_k`` is the reference's kv tile knob and only decides, as there,
 which non-causal calls are refused.
 
-Gradients.  On a CUDA tensor under grad, fp32 goes through
-``FlashAttentionFn``: the forward kernel, which also writes each row's
-log-sum-exp, and the hand-written backward kernel
-(``kernel.flash_attention_bwd_cuda``).  bf16 has no backward kernel yet
-and raises ``NotImplementedError`` (ROADMAP Queue A #15g step 2) rather
-than return an output with no gradient.  ``impl="torch"`` and CPU tensors
+Gradients.  On a CUDA tensor under grad, fp32 and bf16 go through
+``FlashAttentionFn``: the forward kernel of the dtype (SIMT for fp32,
+wgmma for bf16), which also writes each row's log-sum-exp, and the
+hand-written backward kernel (``kernel.flash_attention_bwd_cuda``; bf16
+gradients rounded once from fp32).  ``impl="torch"`` and CPU tensors
 differentiate the plain version by autograd.
 """
 from __future__ import annotations
@@ -25,15 +24,16 @@ import torch
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_cuda, flash_attention_cuda, rows_without_keys)
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.grad import needs_grad, refuse_grad
+from repro_torch.kernels.grad import needs_grad
 
 IMPLS = ("cuda", "torch")
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """fp32 flash attention on the card with a hand-written backward: the
-    forward kernel (``flash_fwd_simt``, with the rows' log-sum-exp) saves
-    q, k, v, o and lse; the backward kernel forms dq, dk and dv from them
+    """Flash attention on the card with a hand-written backward: the
+    forward kernel (``flash_fwd_simt`` for fp32, ``flash_fwd_wgmma`` for
+    bf16, each with the rows' log-sum-exp) saves q, k, v, o and lse; the
+    backward kernel forms dq, dk and dv from them in q's dtype
     (``csrc/flash_attention_bwd.cu``)."""
 
     @staticmethod
@@ -75,8 +75,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 return flash_attention_cuda(q, k, v, causal=causal,
                                             window=window, scale=scale,
                                             q_offset=q_offset)
-            if q.dtype != torch.float32:
-                refuse_grad(f"flash_attention cuda ({q.dtype})", q, k, v)
             if rows_without_keys(q.shape[2], k.shape[2], q_offset, causal,
                                  window):
                 raise ValueError(

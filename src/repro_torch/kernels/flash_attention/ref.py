@@ -16,23 +16,16 @@ NEG_INF = -1e30
 BF16_FLOOR = 2.0 ** -12
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: Optional[int] = None,
-                  scale: Optional[float] = None,
-                  q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); GQA via head grouping.
-
-    Returns (B, Hq, Sq, D) in q's dtype (fp32 softmax inside).  Masked
-    scores take the finite ``NEG_INF``, so a row that sees no key averages
-    V over every key.
-    """
+def _masked_scores(q, k, causal, window, scale, q_offset):
+    """The scaled scores (B, Hkv, G, Sq, Sk) with masked pairs at
+    ``NEG_INF``, in fp32 (float64 for float64 q)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    g = Hq // Hkv
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
     if scale is None:
         scale = D ** -0.5
-    qg = q.reshape(B, Hkv, g, Sq, D)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float() * scale, k.float())
+    qg = q.reshape(B, Hkv, Hq // Hkv, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(f) * scale, k.to(f))
     qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kp = torch.arange(Sk, device=q.device)[None, :]
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -40,10 +33,35 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ok &= kp <= qp
     if window is not None:
         ok &= kp > qp - window
-    s = torch.where(ok, s, NEG_INF)
+    return torch.where(ok, s, NEG_INF)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); GQA via head grouping.
+
+    Returns (B, Hq, Sq, D) in q's dtype (fp32 softmax inside; float64
+    for float64 inputs, a truth to hold the kernels to).  Masked scores
+    take the finite ``NEG_INF``, so a row that sees no key averages V
+    over every key.
+    """
+    s = _masked_scores(q, k, causal, window, scale, q_offset)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return o.reshape(B, Hq, Sq, D).to(q.dtype)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(s.dtype))
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      scale: Optional[float] = None,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Each query row's log-sum-exp of the scaled, masked scores, (B, Hq,
+    Sq) in fp32 (float64 for float64 q): what the forward kernels write
+    under ``with_lse`` for the backward."""
+    s = _masked_scores(q, k, causal, window, scale, q_offset)
+    return torch.logsumexp(s, dim=-1).reshape(q.shape[:3])
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,14 +69,20 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       window: Optional[int] = None,
                       scale: Optional[float] = None, q_offset: int = 0):
     """The plain backward of :func:`attention_ref`: (dq, dk, dv) for the
-    output gradient ``dout``, by autograd through it, each in its input's
-    dtype.  The yardstick of ``flash_attention_bwd_cuda`` in the tests
-    and ``chip_smoke.py``; the port's model never calls it."""
+    output gradient ``dout``, by autograd through it in fp32 (float64 for
+    float64 inputs) on the inputs upcast, each gradient then rounded once
+    to its input's dtype.  For bf16 inputs this is what the bf16 backward
+    kernel computes, save the softmax's row sum delta, which the kernel
+    takes from the bf16 output.  The yardstick of
+    ``flash_attention_bwd_cuda`` in the tests and ``chip_smoke.py``; the
+    port's model never calls it."""
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
     with torch.enable_grad():
-        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        leaves = [x.detach().to(f).requires_grad_(True) for x in (q, k, v)]
         o = attention_ref(*leaves, causal=causal, window=window,
                           scale=scale, q_offset=q_offset)
-        return torch.autograd.grad(o, leaves, dout)
+        grads = torch.autograd.grad(o, leaves, dout.to(f))
+    return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,9 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-# the bf16 backward kernels of flash_attention, ssm_scan and rwkv6_scan
-BF16_BACKWARD = "ROADMAP Queue A #15g step 2"
+# the bf16 backward kernel of rwkv6_scan (flash_attention and ssm_scan
+# have theirs)
+BF16_BACKWARD = "ROADMAP Queue A #15g step 3"
 # fed_agg and residual_norms: no caller differentiates them
 SERVER_STEP_ONLY = ("no backward is planned: the FL server step runs "
                     "under torch.no_grad()")

@@ -40,7 +40,7 @@ STAGED = 32                     # steps staged at once (SIMT)
 
 launches = _build.LaunchCounter(variants=("mma", "simt"))
 # one count a call of rwkv6_scan_bwd_cuda, by variant: fp32 SIMT is the
-# only one so far (the bf16 backward is ROADMAP Queue A #15g step 2)
+# only one so far (the bf16 backward is ROADMAP Queue A #15g step 3)
 bwd_launches = _build.LaunchCounter(variants=("simt",))
 
 
@@ -212,7 +212,7 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{n} {t.device}" for n, t in tensors))
     if any(t.dtype != torch.float32 for _, t in tensors):
         raise TypeError("rwkv6_scan_bwd cuda: float32 only (the bf16 "
-                        "backward is ROADMAP Queue A #15g step 2), got "
+                        "backward is ROADMAP Queue A #15g step 3), got "
                         + ", ".join(f"{n} {t.dtype}" for n, t in tensors))
     if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, logw, dy)):
         raise ValueError(f"rwkv6_scan_bwd cuda: needs r, k, v, logw, dy of "

@@ -9,7 +9,7 @@ Gradients.  On a CUDA tensor under grad, with an input that requires it,
 fp32 goes through ``WKV6ScanFn``: the forward kernel (``wkv_fwd_simt``)
 and the hand-written backward kernel (``kernel.rwkv6_scan_bwd_cuda``,
 ``csrc/rwkv6_scan_bwd.cu``).  bf16 has no backward kernel yet and raises
-``NotImplementedError`` (ROADMAP Queue A #15g step 2) rather than return
+``NotImplementedError`` (ROADMAP Queue A #15g step 3) rather than return
 an output with no gradient.  ``impl="torch"`` and CPU tensors
 differentiate the plain version by autograd.
 

@@ -14,9 +14,11 @@ with the (P, N) fp32 state on the SM, read B and C per group (no
 design and its bound.
 
 ``ssm_scan_bwd_cuda`` launches ``ssd_bwd_simt`` (``csrc/ssm_scan_bwd.cu``),
-the gradient of the fp32 variant: the backward of the fp32 training
-forward.  The JAX package has no backward kernel (its model trains
-through plain JAX); ``bwd_launches`` counts this one's calls.
+the gradient of either variant: the backward of the training forward,
+fp32 or bf16 (fp32 SIMT walks on bf16 values widened as they load, each
+gradient rounded once to its input's dtype).  The JAX package has no
+backward kernel (its model trains through plain JAX); ``bwd_launches``
+counts this one's calls by the dtype of x, B and C.
 """
 from __future__ import annotations
 
@@ -36,9 +38,10 @@ VARIANTS = {torch.float32: "simt", torch.bfloat16: "mma"}
 CHUNK = 64                      # rows of a chunk inside the kernel
 
 launches = _build.LaunchCounter(variants=("mma", "simt"))
-# one count a call of ssm_scan_bwd_cuda, by variant: fp32 SIMT is the
-# only one so far (the bf16 backward is ROADMAP Queue A #15g step 2)
-bwd_launches = _build.LaunchCounter(variants=("simt",))
+# one count a call of ssm_scan_bwd_cuda, by variant: SIMT on fp32 x, B
+# and C, SIMT on bf16 ones
+BWD_VARIANTS = {torch.float32: "simt", torch.bfloat16: "simt_bf16"}
+bwd_launches = _build.LaunchCounter(variants=tuple(BWD_VARIANTS.values()))
 
 
 def smem_bytes(variant: str, P: int, N: int) -> int:
@@ -186,7 +189,7 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = _build.load("ssm_scan_bwd").ssm_scan_bwd
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 15 + [
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 15 + [
         ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -197,17 +200,21 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                       Bm: torch.Tensor, Cm: torch.Tensor,
                       h0: Optional[torch.Tensor], dy: torch.Tensor,
                       dhf: Optional[torch.Tensor] = None):
-    """The gradient of ``ssm_scan_cuda`` for fp32: the forward's inputs
-    (x (B, H, S, P), dt (B, H, S), A (H,), Bm, Cm (B, G, S, N), h0 or
-    None), ``dy`` (B, H, S, P) and ``dhf`` (B, H, P, N) or None (zeros),
-    all float32 on one CUDA device -> (dx, ddt, dA, dB, dC, dh0), each
-    shaped like its input (dh0 None when h0 is), dx, ddt, dB and dC views
-    of the model's (B, S, ·) memory as y is.
+    """The gradient of ``ssm_scan_cuda``: the forward's inputs (x (B, H,
+    S, P), dt (B, H, S), A (H,), Bm, Cm (B, G, S, N), h0 or None),
+    ``dy`` (B, H, S, P) and ``dhf`` (B, H, P, N) or None (zeros), on one
+    CUDA device -> (dx, ddt, dA, dB, dC, dh0), each shaped like its input
+    and in its dtype (dh0 None when h0 is), dx, ddt, dB and dC views of
+    the model's (B, S, ·) memory as y is.  x, Bm and Cm are fp32 or bf16
+    (one dtype), dt fp32 or bf16, as ``ssm_scan_cuda`` takes them; A, h0,
+    dy and dhf fp32.
 
-    The kernel writes dB and dC per head and dA per (batch, head); the
-    heads of a group and the batch are then summed here by
+    The kernel computes in fp32 and writes dx and ddt in their inputs'
+    dtypes, dB and dC per head and dA per (batch, head) in fp32; the heads
+    of a group and the batch are then summed here in fp32 by
     ``torch.sum``, whose reduction order is fixed (no atomics anywhere),
-    so reruns are bit-identical.  Launches one kernel on the current
+    so reruns are bit-identical, and dB and dC rounded once to Bm's dtype
+    after the sum (``sum_partials``).  Launches one kernel on the current
     stream (plus those sums) and does not synchronise."""
     dev = x.device
     tensors = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
@@ -217,9 +224,13 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("ssm_scan_bwd cuda: every tensor must lie on one "
                          "CUDA device, got " + ", ".join(
                              f"{n} {t.device}" for n, t in tensors))
-    if any(t.dtype != torch.float32 for _, t in tensors):
-        raise TypeError("ssm_scan_bwd cuda: float32 only (the bf16 backward "
-                        "is ROADMAP Queue A #15g step 2), got " + ", ".join(
+    if x.dtype not in DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype \
+            or dt.dtype not in DTYPES or any(
+                t.dtype != torch.float32 for n, t in tensors
+                if n in ("A", "dy", "h0", "dhf")):
+        raise TypeError("ssm_scan_bwd cuda: takes float32 or bfloat16 x, Bm "
+                        "and Cm of one dtype, a float32 or bfloat16 dt and "
+                        "float32 A, dy, h0 and dhf, got " + ", ".join(
                             f"{n} {t.dtype}" for n, t in tensors))
     if x.ndim != 4 or Bm.ndim != 4 or Bm.shape != Cm.shape:
         raise ValueError(f"ssm_scan_bwd cuda: needs x (B, H, S, P) and Bm, "
@@ -247,9 +258,9 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"ssm_scan_bwd cuda: {name} must have a "
                              f"contiguous last axis, got strides "
                              f"{t.stride()}")
-    dx = torch.empty((B, S, H, P), dtype=torch.float32,
+    dx = torch.empty((B, S, H, P), dtype=x.dtype,
                      device=dev).transpose(1, 2)
-    ddt = torch.empty((B, S, H), dtype=torch.float32,
+    ddt = torch.empty((B, S, H), dtype=dt.dtype,
                       device=dev).transpose(1, 2)
     dBh, dCh = (torch.empty((B, S, H, N), dtype=torch.float32,
                             device=dev).transpose(1, 2) for _ in range(2))
@@ -258,7 +269,7 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                               dtype=torch.float32,
                                               device=dev)
     if S == 0 or B == 0 or H == 0:
-        zero = dBh.new_zeros(Bm.shape)
+        zero = Bm.new_zeros(Bm.shape)
         if dh0 is not None:
             dh0 = dhf.clone() if dhf is not None else torch.zeros_like(h0)
         return dx, ddt, A.new_zeros(A.shape), zero, zero.clone(), dh0
@@ -272,7 +283,8 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                       for s in t.stride()[:3]))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_entry()(P, N, x.data_ptr(), dt.data_ptr(),
+        err = _bwd_entry()(DTYPES[x.dtype], DTYPES[dt.dtype], P, N,
+                           x.data_ptr(), dt.data_ptr(),
                            A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                            None if h0c is None else h0c.data_ptr(),
                            dy.data_ptr(),
@@ -284,12 +296,20 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ssm_scan_bwd cuda: launch failed with CUDA "
                            f"error {err} at x {tuple(x.shape)}, Bm "
-                           f"{tuple(Bm.shape)}")
-    bwd_launches.add("simt")
-    rep = H // G
-    if rep == 1:
-        dB, dC = dBh, dCh
-    else:       # the heads of each group, summed by torch in a fixed order
-        dB, dC = (t.transpose(1, 2).reshape(B, S, G, rep, N).sum(3)
-                  .transpose(1, 2) for t in (dBh, dCh))
+                           f"{tuple(Bm.shape)}, {x.dtype}")
+    bwd_launches.add(BWD_VARIANTS[x.dtype])
+    dB, dC = (sum_partials(t, G, Bm.dtype) for t in (dBh, dCh))
     return dx, ddt, dA.sum(0), dB, dC, dh0
+
+
+def sum_partials(per_head: torch.Tensor, G: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The per-head fp32 gradient (B, H, S, N) of a group-shared input (a
+    view of (B, S, H, N) memory) summed over each group's H / G heads in
+    fp32 by ``torch.sum`` (a fixed order), then rounded once to ``dtype``
+    -> (B, G, S, N), a view of (B, S, G, N) memory."""
+    B, H, S, N = per_head.shape
+    rep = H // G
+    total = per_head if rep == 1 else per_head.transpose(1, 2).reshape(
+        B, S, G, rep, N).sum(3).transpose(1, 2)
+    return total.to(dtype)

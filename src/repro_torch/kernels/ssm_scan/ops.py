@@ -5,12 +5,12 @@ default) launches the hand-written kernel on a CUDA tensor; a tensor on
 the CPU has no kernel to run and takes the plain version.
 
 Gradients.  On a CUDA tensor under grad, with an input that requires it,
-fp32 goes through ``SSDScanFn``: the forward kernel (``ssd_fwd_simt``)
-and the hand-written backward kernel (``kernel.ssm_scan_bwd_cuda``,
-``csrc/ssm_scan_bwd.cu``).  bf16 has no backward kernel yet and raises
-``NotImplementedError`` (ROADMAP Queue A #15g step 2) rather than return
-an output with no gradient.  ``impl="torch"`` and CPU tensors
-differentiate the plain version by autograd.
+fp32 and bf16 go through ``SSDScanFn``: the forward kernel of the dtype
+(``ssd_fwd_simt`` for fp32, ``ssd_fwd_mma`` for bf16) and the
+hand-written backward kernel (``kernel.ssm_scan_bwd_cuda``,
+``csrc/ssm_scan_bwd.cu``: fp32 walks, each gradient rounded once to its
+input's dtype).  ``impl="torch"`` and CPU tensors differentiate the plain
+version by autograd.
 
 ``impl="torch"`` is the plain version (the per-step oracle
 ``ssm_scan_ref``) on either device.  The kernel's variant follows the
@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.grad import needs_grad, refuse_grad
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.ssm_scan.kernel import (ssm_scan_bwd_cuda,
                                                  ssm_scan_cuda)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -35,10 +35,11 @@ IMPLS = ("cuda", "torch")
 
 
 class SSDScanFn(torch.autograd.Function):
-    """The fp32 SSD scan on the card with a hand-written backward, in the
-    kernel layout: the forward kernel (``ssd_fwd_simt``) saves its
-    inputs; the backward kernel (``csrc/ssm_scan_bwd.cu``) rebuilds the
-    chunk-start states from them and forms every input's gradient."""
+    """The SSD scan on the card with a hand-written backward, in the
+    kernel layout: the forward kernel (``ssd_fwd_simt`` for fp32 x, B and
+    C, ``ssd_fwd_mma`` for bf16) saves its inputs; the backward kernel
+    (``csrc/ssm_scan_bwd.cu``) rebuilds the chunk-start states from them
+    in fp32 and forms every input's gradient in that input's dtype."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, h0):
@@ -73,9 +74,6 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if not needs_grad(x, dt, A, Bm, Cm, h0):
             y, hf = ssm_scan_cuda(xk, dtk, A, Bk, Ck, h0)
         else:
-            if any(t.dtype != torch.float32 for t in (x, dt, A, Bm, Cm)):
-                refuse_grad(f"ssm_scan cuda ({x.dtype})", x, dt, A, Bm, Cm,
-                            h0)
             y, hf = SSDScanFn.apply(xk, dtk, A, Bk, Ck, h0)
     else:
         rep = x.shape[2] // Bm.shape[2]

@@ -46,9 +46,11 @@ def ssm_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     calls it.
 
     Shapes as ``ssm_scan_ref`` (groups expanded to heads); ``dy`` (B, H,
-    S, P), ``dhf`` (B, H, P, N) or None (zeros).  Computes in the inputs'
-    dtype (float32 or float64).  Returns dx, ddt, dA (H,), dB, dC (per
-    head) and dh0 (B, H, P, N).
+    S, P), ``dhf`` (B, H, P, N) or None (zeros).  Computes in float64 for
+    float64 x and in fp32 otherwise (bf16 inputs widened, as the kernel
+    does), and returns dx, ddt, dA (H,), dB, dC (per head) and dh0 (B, H,
+    P, N), each rounded once to its input's dtype (dh0 fp32 when h0 is
+    None).
 
     With a_t = exp(dt_t A), G_t = dL/dh_t = a_{t+1} G_{t+1} + dy_t C_tᵀ
     (G_S = dh_f): dx_t = dt_t G_t B_t, dB_t = dt_t G_tᵀ x_t, dC_t =
@@ -74,10 +76,12 @@ def ssm_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Σ_{τ≥t} (C_τ·dC_τ − dt_τ x_τᵀ G_τ B_τ) + ⟨dh_f, h_f⟩ sums over all of
     S and cancels: in fp32 at S 4096 it left dA 1.2e-3 of max |dA| from
     float64."""
+    dtypes = [t.dtype for t in (x, dt, A, Bm, Cm)]
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x, dt, A, Bm, Cm, dy = (t.to(f) for t in (x, dt, A, Bm, Cm, dy))
+    h0_dtype = torch.float32 if h0 is None else h0.dtype
     Bsz, H, S, P = x.shape
     N = Bm.shape[-1]
-    f = x.dtype
-    A = A.to(f)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
     h = torch.zeros((Bsz, H, P, N), dtype=f, device=x.device) \
@@ -134,4 +138,5 @@ def ssm_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         dA = dA + (dtc * lam).sum(-1)
         gc = e[..., -1, None, None] * gc + torch.einsum(
             "bht,bhtp,bhtn->bhpn", e, dyc, cc)
-    return dx, ddt, dA.sum(0), dB, dC, gc
+    return tuple(t.to(d) for t, d in zip(
+        (dx, ddt, dA.sum(0), dB, dC, gc), dtypes + [h0_dtype]))

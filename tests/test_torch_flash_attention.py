@@ -426,3 +426,81 @@ def test_refuse_grad_rule(grad_mode, requires, refused):
                 refuse_grad("ssm_scan cuda", *tensors)
         else:
             refuse_grad("ssm_scan cuda", *tensors)
+
+
+# ---- bf16 gradients ---------------------------------------------------------
+# attention_bwd_ref on bf16 inputs computes in fp32 on the values upcast
+# and rounds each gradient once to bf16, as the bf16 backward kernel
+# does; against float64 autograd on the same bf16 values, within one bf16
+# ulp of the float64 gradient plus the fp32 tolerance above (1e-5 of
+# max(1, max |g|))
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset", [
+    (2, 4, 2, 100, 100, 64, True, None, 0),     # group 2, ragged
+    (1, 7, 1, 77, 77, 80, True, 16, 0),         # group 7, window
+    (1, 14, 2, 45, 131, 128, True, 40, 86),     # q_offset, Sq < Sk
+])
+def test_plain_backward_in_bf16_matches_float64(B, Hq, Hkv, Sq, Sk, D,
+                                                causal, window, q_offset):
+    bf16 = torch.bfloat16
+    q, k, v = (torch.from_numpy(x).to(bf16)
+               for x in _inputs(B, Hq, Hkv, Sq, Sk, D, seed=Sq + D + 3))
+    dout = torch.from_numpy(np.random.RandomState(Sk).randn(
+        B, Hq, Sq, D).astype(np.float32)).to(bf16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = _ref.attention_bwd_ref(q, k, v, dout, **kw)
+    want = _ref.attention_bwd_ref(q.double(), k.double(), v.double(),
+                                  dout.double(), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == bf16 and w.dtype == torch.float64
+        err = (g.double() - w).abs() - _ref.bf16_ulp(w)
+        assert float(err.max()) <= 1e-5 * max(1.0, float(w.abs().max()))
+
+
+def test_lse_ref_is_the_log_of_the_softmax_denominator():
+    """``attention_lse_ref`` (what the forward kernels write under
+    ``with_lse``) is log Σ exp over each row's visible scaled scores:
+    exp(S - lse) is the plain softmax."""
+    q, k, v = (torch.from_numpy(x).double()
+               for x in _inputs(1, 4, 2, 40, 60, 32, seed=2))
+    kw = dict(causal=True, window=24, q_offset=20)
+    lse = _ref.attention_lse_ref(q, k, **kw)
+    assert lse.shape == (1, 4, 40) and lse.dtype == torch.float64
+    s = _ref._masked_scores(q, k, True, 24, None, 20).reshape(1, 4, 40, 60)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.repeat_interleave(2, 1))
+    assert torch.allclose(o, attention_ref(q, k, v, **kw), atol=1e-12)
+
+
+def test_function_plumbing_in_bf16(monkeypatch):
+    """``FlashAttentionFn`` on bf16 q, k and v, the launches replaced by
+    CPU stand-ins with the kernels' contracts: the forward is asked for
+    the lse, the backward gets the saved bf16 tensors, that lse and a
+    bf16 output gradient, and the gradients come back bf16, equal to the
+    plain backward's (each rounded once from fp32)."""
+    seen = {}
+
+    def fwd(q, k, v, with_lse=False, **kw):
+        seen["fwd"] = (q.dtype, with_lse)
+        o = attention_ref(q, k, v, **kw)
+        return (o, _ref.attention_lse_ref(q, k, **kw)) if with_lse else o
+
+    def bwd(q, k, v, out, lse, dout, **kw):
+        seen["bwd"] = (q.dtype, out.dtype, lse.dtype, dout.dtype,
+                       dout.is_contiguous())
+        return _ref.attention_bwd_ref(q, k, v, dout, **kw)
+    monkeypatch.setattr(ops, "flash_attention_cuda", fwd)
+    monkeypatch.setattr(ops, "flash_attention_bwd_cuda", bwd)
+    bf16 = torch.bfloat16
+    q, k, v = (torch.from_numpy(x).to(bf16).requires_grad_(True)
+               for x in _inputs(2, 4, 2, 50, 50, 64, seed=9))
+    dout = torch.from_numpy(np.random.RandomState(9).randn(
+        2, 4, 50, 64).astype(np.float32)).to(bf16)
+    kw = dict(causal=True, window=20, q_offset=0)
+    out = ops.FlashAttentionFn.apply(q, k, v, True, 20, None, 0)
+    got = torch.autograd.grad(out, (q, k, v), dout.transpose(2, 3)
+                              .contiguous().transpose(2, 3))
+    assert seen == {"fwd": (bf16, True),
+                    "bwd": (bf16, bf16, torch.float32, bf16, True)}
+    want = _ref.attention_bwd_ref(q, k, v, dout, **kw)
+    assert all(g.dtype == bf16 and torch.equal(g, w)
+               for g, w in zip(got, want))

@@ -1091,29 +1091,36 @@ def test_flash_backward_refuses_rows_without_keys(cuda):
 
 
 def test_kernels_without_a_backward_refuse_grad(cuda):
-    """bf16 flash, ssm_scan and rwkv6_scan have no backward kernel: under
-    grad they raise naming #15g step 2 rather than return an output with
-    no gradient; without grad, or with the plain version, they run.
-    fed_agg and residual_norms have none either (the FL server step runs
-    under no_grad) and raise too."""
+    """bf16 rwkv6_scan has no backward kernel: under grad it raises naming
+    #15g step 3 rather than return an output with no gradient; without
+    grad, or with the plain version, it runs.  bf16 flash and ssm_scan
+    have theirs now and take grad through the kernels.  fed_agg and
+    residual_norms have none (the FL server step runs under no_grad) and
+    raise too."""
     from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="#15g step 2"):
-        FO.flash_attention(q, k, v)
+    before = FK.bwd_launches.by_variant["simt_bf16"]
+    FO.flash_attention(q, k, v).float().sum().backward()
+    assert q.grad is not None and q.grad.dtype == torch.bfloat16
+    assert FK.bwd_launches.by_variant["simt_bf16"] == before + 1
     x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 64, 4, 32, 16, 1, torch.bfloat16,
                                       cuda)
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="#15g step 2"):
-        ssm_scan(x, dt, A, Bm, Cm)
+    before = SK.bwd_launches.by_variant["simt_bf16"]
+    ssm_scan(x, dt, A, Bm, Cm)[0].sum().backward()
+    assert x.grad is not None and x.grad.dtype == torch.bfloat16
+    assert SK.bwd_launches.by_variant["simt_bf16"] == before + 1
+    x.grad = None
     ssm_scan(x, dt, A, Bm, Cm, impl="torch")[0].sum().backward()
     assert x.grad is not None
     with torch.no_grad():
         ssm_scan(x, dt, A, Bm, Cm)
     args = _wkv_inputs(1, 64, 2, 32, torch.bfloat16, cuda)
     args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="#15g step 2"):
+    with pytest.raises(NotImplementedError, match="#15g step 3"):
         wkv_kernel_adapter("cuda")(*args)
     with torch.no_grad():
         wkv_kernel_adapter("cuda")(*args)
@@ -1318,3 +1325,147 @@ def test_recurrent_train_driver_on_the_card_matches_cpu(cuda, arch):
                                                   logs["cpu"]]
     np.testing.assert_allclose([r["loss"] for r in logs["cuda"]],
                                [r["loss"] for r in logs["cpu"]], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backwards of flash and ssm_scan
+# ---------------------------------------------------------------------------
+
+# each bf16 gradient against autograd through the plain version in fp32 on
+# the same bf16 values, upcast: its excess beyond one bf16 ulp of the
+# truth within the fp32 gate of max(1, max |g|) and within 1e-3 of its own
+# max |g|, as chip_smoke.py gates them; fp32 outputs without the ulp
+def _check_bf16_grads(got, want, dtypes, tol):
+    from repro_torch.kernels.flash_attention.ref import bf16_ulp
+    for g, w, dt in zip(got, want, dtypes):
+        if w is None:
+            assert g is None
+            continue
+        assert g.shape == w.shape and g.dtype == dt
+        assert bool(torch.isfinite(g).all())
+        err = (g.float() - w.float()).abs()
+        if dt == torch.bfloat16:
+            err = (err - bf16_ulp(w)).clamp_min(0.0)
+        err, scale = float(err.max()), float(w.abs().max())
+        assert err <= tol * max(1.0, scale), (err, scale)
+        assert scale == 0.0 or err <= OWN_MAX_TOL * scale, (err, scale)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,q_offset,causal,window", [
+    (4, 32, 32, 128, 128, 64, 0, True, None),    # zamba2-1.2b's heads
+    (1, 8, 2, 700, 700, 80, 0, True, 256),       # Danube's D, a window
+    (2, 14, 2, 70, 107, 128, 37, True, None),    # q_offset, Sq < Sk
+    (1, 4, 2, 65, 128, 32, 0, False, None),      # non-causal, D 32
+    (1, 6, 2, 150, 150, 192, 0, True, 64),
+])
+def test_flash_backward_kernel_in_bf16_matches_plain(cuda, B, Hq, Hkv, Sq,
+                                                     Sk, D, q_offset, causal,
+                                                     window):
+    """Under grad, bf16 runs flash_fwd_wgmma with its lse and the bf16
+    backward; each gradient bf16, held as above."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Sk, D, torch.bfloat16, cuda, seed=Sq + D)
+    dout = torch.randn_like(q, dtype=torch.float32).to(torch.bfloat16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = (dict(FK.launches_by_variant), dict(FK.lse_launches.by_variant),
+              dict(FK.bwd_launches.by_variant))
+    out, got = _flash_grads(q, k, v, dout, "cuda", **kw)
+    torch.cuda.synchronize()
+    assert (FK.launches_by_variant["wgmma"],
+            FK.lse_launches.by_variant["wgmma"],
+            FK.bwd_launches.by_variant["simt_bf16"],
+            FK.bwd_launches.by_variant["simt"]) == (
+        before[0]["wgmma"] + 1, before[1]["wgmma"] + 1,
+        before[2]["simt_bf16"] + 1, before[2]["simt"])
+    _check_flash(out, q, k, v, **kw)
+    _check_bf16_grads(got, attention_bwd_ref(q.float(), k.float(), v.float(),
+                                             dout.float(), **kw),
+                      (torch.bfloat16,) * 3, FLASH_BWD_TOL)
+    again = _flash_grads(q, k, v, dout, "cuda", **kw)[1]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window", [
+    (4, 32, 32, 128, 64, None), (1, 8, 2, 700, 80, 256),
+    (1, 7, 1, 300, 128, None), (2, 4, 4, 100, 32, 40),
+    (1, 6, 2, 150, 192, None)])
+def test_wgmma_lse_equals_simt_lse(cuda, B, Hq, Hkv, S, D, window):
+    """flash_fwd_wgmma's log-sum-exp (natural log, from m in log2 units)
+    against flash_fwd_simt's on the same bf16 values upcast: within 1e-5
+    of max(1, |lse|) row by row (both sum l from the fp32 P)."""
+    q, k, v = _qkv(B, Hq, Hkv, S, S, D, torch.bfloat16, cuda, seed=S)
+    lse = FK.flash_attention_cuda(q, k, v, window=window, with_lse=True)[1]
+    want = FK.flash_attention_cuda(q.float(), k.float(), v.float(),
+                                   window=window, with_lse=True)[1]
+    assert lse.shape == (B, Hq, S) and lse.dtype == torch.float32
+    assert bool(((lse - want).abs() <= 1e-5 * want.abs().clamp_min(1.0))
+                .all()), float((lse - want).abs().max())
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,h0,dhf,dt_bf16", [
+    (4, 128, 8, 64, 64, 1, False, False, False),    # a training shape
+    (2, 130, 4, 32, 16, 2, True, True, True),       # ragged, G 2, bf16 dt
+    (1, 1000, 2, 64, 64, 1, False, True, False),    # ragged S 1000
+    (2, 1, 2, 32, 64, 1, True, False, True),        # one step
+])
+def test_ssm_scan_backward_kernel_in_bf16_matches_plain(cuda, B, S, H, P, N,
+                                                       G, h0, dhf, dt_bf16):
+    """bf16 x, B and C under grad: ssd_fwd_mma forward, the bf16 backward;
+    each gradient in its input's dtype, against autograd through the
+    per-step oracle in fp32 on the values upcast."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    x, dt, A, Bm, Cm, hh = _ssd_inputs(B, S, H, P, N, G, torch.bfloat16,
+                                       cuda, seed=S + H, h0=h0)
+    if dt_bf16:
+        dt = dt.to(torch.bfloat16)
+    dy = torch.randn(x.shape, device=cuda)
+    dh = torch.randn((B, H, P, N), device=cuda) if dhf else None
+    args = [x, dt, A, Bm, Cm, hh]
+    before = (dict(SK.launches.by_variant), dict(SK.bwd_launches.by_variant))
+    got = _scan_grads(ssm_scan, args, dy, dh)
+    torch.cuda.synchronize()
+    assert (SK.launches.by_variant["mma"],
+            SK.bwd_launches.by_variant["simt_bf16"]) == (
+        before[0]["mma"] + 1, before[1]["simt_bf16"] + 1)
+    want = _scan_grads(_ssd_plain, [None if t is None else t.float()
+                                    for t in args], dy, dh)
+    _check_bf16_grads(got, want, [None if t is None else t.dtype
+                                  for t in args], SSD_BWD_TOL)
+    again = _scan_grads(ssm_scan, args, dy, dh)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_bf16_training_step_of_narrow_zamba2_runs_the_kernels(cuda):
+    """One step of ``Model.loss`` of a narrow bf16 zamba2
+    (``zamba2-1.2b.reduced()`` in bf16: 4 Mamba2 layers, 2 shared-
+    attention applications) on the card: no ``NotImplementedError``, the
+    bf16 kernels' launches as ``remat`` predicts (forwards twice, the
+    backwards once), every gradient bf16, finite and non-zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    cfg = get_config("zamba2-1.2b").reduced(param_dtype="bfloat16",
+                                            compute_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (4, 129), generator=gen,
+                        device=cuda)
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    counts = (FK.launches_by_variant, FK.bwd_launches.by_variant,
+              SK.launches.by_variant, SK.bwd_launches.by_variant)
+    before = [dict(c) for c in counts]
+    loss, _ = model.loss(tree_unflatten(params, leaves),
+                         {"tokens": tok[:, :-1], "labels": tok[:, 1:]},
+                         ExecConfig(attn_impl="cuda"))
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    ran = [{v: c[v] - b[v] for v in c} for c, b in zip(counts, before)]
+    assert ran == [{"wgmma": 4, "simt": 0}, {"simt": 0, "simt_bf16": 2},
+                   {"mma": 8, "simt": 0}, {"simt": 0, "simt_bf16": 4}]
+    assert bool(torch.isfinite(loss))
+    for g in grads:
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+    assert all(bool(g.abs().max() > 0) for g in grads)

@@ -346,3 +346,125 @@ def test_wkv_function_plumbing(monkeypatch):
         assert g.shape == w.shape
         assert float((g - w).abs().max()) <= ALGEBRA_TOL * max(
             1.0, float(w.abs().max()))
+
+
+# ---- bf16: the mirror and the Function's plumbing ---------------------------
+# The bf16 backward kernel widens bf16 x, B, C (and a bf16 dt) to fp32,
+# walks as the fp32 kernel does and rounds each gradient once to its
+# input's dtype; the per-head dB and dC are summed over a group in fp32
+# before their one rounding.  Its mirror does the same on the CPU: held
+# to float64 autograd on the same bf16 values within one bf16 ulp plus
+# the fp32 mirror's LONG_TOL (fp32 outputs, dA and dh0, within LONG_TOL).
+
+def _within_ulp(names, got, want, dtypes, tol):
+    from repro_torch.kernels.flash_attention.ref import bf16_ulp
+    for name, g, w, dt in zip(names, got, want, dtypes):
+        if w is None:
+            continue
+        assert g.dtype == dt, (name, g.dtype, dt)
+        err = (g.double() - w).abs()
+        if dt == torch.bfloat16:
+            err = err - bf16_ulp(w)
+        bound = tol * max(1.0, float(w.abs().max()))
+        assert float(err.max()) <= bound, (name, float(err.max()), bound)
+
+
+@pytest.mark.parametrize("S,P,N,dt_bf16,h0,dhf", [
+    (150, 8, 4, False, True, True), (70, 32, 16, True, False, True),
+    (64, 4, 4, False, False, False)])
+def test_ssd_mirror_in_bf16_matches_float64(S, P, N, dt_bf16, h0, dhf):
+    bf16 = torch.bfloat16
+    x, dt, A, Bm, Cm, hh, dy, dh = _ssd_inputs(2, 2, S, P, N, seed=S + N,
+                                               h0=h0, dhf=dhf)
+    args = [_t(x, bf16), _t(dt, bf16 if dt_bf16 else torch.float32),
+            _t(A, torch.float32), _t(Bm, bf16), _t(Cm, bf16),
+            _t(hh, torch.float32)]
+    dy, dh = _t(dy, torch.float32), _t(dh, torch.float32)
+    want = _autograd(ssm_scan_ref, [None if a is None else a.double()
+                                    for a in args], dy.double(),
+                     None if dh is None else dh.double())
+    got = ssm_scan_bwd_ref(*args, dy, dh)
+    if hh is None:
+        got = list(got[:5]) + [None]
+    _within_ulp(SSD_NAMES, got, want,
+                [None if a is None else a.dtype for a in args], LONG_TOL)
+
+
+def test_ssd_group_partials_are_summed_before_their_rounding():
+    """``kernel.sum_partials``: the per-head fp32 dB of a group summed in
+    fp32, then rounded once.  Planted partials 1 + 3·2⁻¹⁰ and 3·2⁻¹⁰: their
+    fp32 sum rounds to 1 + 2⁻⁷ in bf16, each rounded first (to 1 and
+    3·2⁻¹⁰) sums to 1.00293 and rounds to 1."""
+    from repro_torch.kernels.ssm_scan.kernel import sum_partials
+    B, S, G, rep, N = 2, 3, 2, 2, 4
+    heads = torch.zeros((B, S, G * rep, N))        # the kernel's layout
+    heads[..., 0::2, :] = 1 + 3 * 2.0 ** -10
+    heads[..., 1::2, :] = 3 * 2.0 ** -10
+    per_head = heads.transpose(1, 2)               # (B, H, S, N) view
+    got = sum_partials(per_head, G, torch.bfloat16)
+    assert got.shape == (B, G, S, N) and got.dtype == torch.bfloat16
+    assert bool((got == 1 + 2.0 ** -7).all())
+    each = per_head.to(torch.bfloat16).float()
+    assert bool((each[:, 0::2] + each[:, 1::2]).to(torch.bfloat16).eq(
+        1.0).all())
+    # one head a group: the fp32 partial rounded as it is
+    assert torch.equal(sum_partials(per_head, G * rep, torch.bfloat16),
+                       per_head.to(torch.bfloat16))
+
+
+def test_ssd_function_plumbing_in_bf16(monkeypatch):
+    """``SSDScanFn`` on bf16 x, B and C (views of one projection) and an
+    fp32 dt, the launches replaced by CPU stand-ins with the kernels'
+    contracts (fp32 y; dx in x's dtype, per-head fp32 dB and dC summed by
+    ``sum_partials``): each gradient in its input's dtype and equal to the
+    mirror's, G 2 with H 4."""
+    from repro_torch.kernels.ssm_scan.kernel import sum_partials
+    calls = []
+
+    def fwd(x, dt, A, Bm, Cm, h0=None):
+        rep = x.shape[1] // Bm.shape[1]
+        return ssm_scan_ref(x, dt, A, Bm.repeat_interleave(rep, 1),
+                            Cm.repeat_interleave(rep, 1), h0)
+
+    def bwd(x, dt, A, Bm, Cm, h0, dy, dhf):
+        calls.append((x.dtype, Bm.dtype, dy.dtype))
+        G = Bm.shape[1]
+        rep = x.shape[1] // G
+        out = ssm_scan_bwd_ref(x, dt, A,
+                               Bm.float().repeat_interleave(rep, 1),
+                               Cm.float().repeat_interleave(rep, 1), h0,
+                               dy, dhf)
+        dB, dC = (sum_partials(t, G, Bm.dtype) for t in out[3:5])
+        return out[0], out[1], out[2], dB, dC, None
+    monkeypatch.setattr(SO, "ssm_scan_cuda", fwd)
+    monkeypatch.setattr(SO, "ssm_scan_bwd_cuda", bwd)
+    rng = np.random.RandomState(6)
+    B, S, H, P, N, G = 2, 70, 4, 8, 4, 2
+    xbc = torch.tensor(rng.randn(B, S, H * P + 2 * G * N) * 0.5,
+                       dtype=torch.bfloat16)
+    dtv = torch.tensor(np.log1p(np.exp(rng.randn(B, S, H))),
+                       dtype=torch.float32)
+    A = torch.tensor(-np.exp(rng.rand(H)), dtype=torch.float32)
+    dy = torch.tensor(rng.randn(B, S, H, P), dtype=torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in (xbc, dtv, A)]
+    x, Bm, Cm = torch.split(leaves[0], [H * P, G * N, G * N], -1)
+    x, Bm, Cm = (x.reshape(B, S, H, P), Bm.reshape(B, S, G, N),
+                 Cm.reshape(B, S, G, N))
+    y, _ = SO.SSDScanFn.apply(x.transpose(1, 2), leaves[1].transpose(1, 2),
+                              leaves[2], Bm.transpose(1, 2),
+                              Cm.transpose(1, 2), None)
+    assert y.dtype == torch.float32
+    got = torch.autograd.grad((y.transpose(1, 2) * dy).sum(), leaves)
+    assert calls == [(torch.bfloat16, torch.bfloat16, torch.float32)]
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32]
+    # the same gradients from the mirror, in the kernel layout
+    xk, Bk, Ck = (t.detach().transpose(1, 2) for t in (x, Bm, Cm))
+    dx, ddt, dA, dB, dC, _ = bwd(xk, dtv.transpose(1, 2), A, Bk, Ck, None,
+                                 dy.transpose(1, 2), None)
+    want = torch.cat([dx.transpose(1, 2).reshape(B, S, H * P),
+                      dB.transpose(1, 2).reshape(B, S, G * N),
+                      dC.transpose(1, 2).reshape(B, S, G * N)], -1)
+    assert torch.equal(got[0], want)
+    assert torch.equal(got[1], ddt.transpose(1, 2))
+    assert torch.equal(got[2], dA)
