@@ -73,11 +73,14 @@ Phases, each of which raises on failure:
    and the fp32 kernels' and the plain fp32 attention's distances from a
    float64 truth (out, lse, dq, dk, dv) at zamba2's training and serve
    shapes; ``[flash_bwd bf16]`` the backward on bf16 inputs after the
-   wgmma forward with its lse (the lse held to the SIMT forward's),
-   against autograd through the plain attention in fp32 on the same
-   values, each gradient within one bf16 ulp plus 1e-4 of max(1, max
-   |g|), at zamba2-1.2b's training shape, Danube's and Qwen2's heads and
-   ragged ones, timed beside SDPA's bf16 backward and the bf16 bound;
+   wgmma forward with its lse (the lse held to the SIMT forward's), the
+   tensor-core kernels (``wgmma_bf16``) and the SIMT ones on the same
+   values (``simt_bf16``) each against autograd through the plain
+   attention in fp32 on the same values, each gradient within one bf16
+   ulp plus 1e-4 of max(1, max |g|) (``ref.bf16_grad_gate``), at
+   zamba2-1.2b's training shape, Danube's and Qwen2's heads and ragged
+   ones, the two variants timed in turns beside SDPA's bf16 backward,
+   the plain backward and the bf16 bound;
    ``[ssm_scan_bwd]`` and ``[rwkv6_scan_bwd]`` the scans' backward
    kernels against autograd through their per-step oracles at the 10m
    and 100m training shapes, ragged S, states set and null, P 32 / N 16
@@ -302,15 +305,16 @@ TRAIN_GRADS_FULL = [
      ("w_r", "w_k", "w_v", "w0", "w_lora_a", "w_lora_b", "u_bonus")),
 ]
 TRAIN_F32_TOL = 1e-4            # the driver's loss, card against CPU
-# The bf16 backward kernels (the SIMT kernels on bf16 values widened as
-# they load, each gradient rounded once to bf16) against autograd through
-# the plain version in fp32 on the same bf16 values, upcast, element by
-# element: |g - truth| within one bf16 ulp of the truth (ref.bf16_ulp)
-# plus the fp32 kernel's gate (FLASH_BWD_TOL, SSM_BWD_TOL) of max(1, max
-# |truth|); that excess beyond one ulp also within BF16_BWD_OWN_TOL of the
-# tensor's own max |truth|, which a zero gradient fails; fp32 outputs (dA,
-# dh0) without the ulp.  Stated here before the first run on the card
-BF16_BWD_OWN_TOL = 1e-3
+# The bf16 backward kernels (flash's on the tensor cores and the SIMT
+# ones on bf16 values widened as they load, each gradient rounded once
+# to bf16) against autograd through the plain version in fp32 on the
+# same bf16 values, upcast, element by element: |g - truth| within one
+# bf16 ulp of the truth (ref.bf16_ulp) plus the fp32 kernel's gate
+# (FLASH_BWD_TOL, SSM_BWD_TOL) of max(1, max |truth|); that excess beyond
+# one ulp also within ref.BF16_BWD_OWN_TOL (1e-3) of the tensor's own max
+# |truth|, which a zero gradient fails; fp32 outputs (dA, dh0) without
+# the ulp (ref.bf16_grad_gate, which the tests share).  Stated here before
+# the first run on the card
 # flash_fwd_wgmma's lse against flash_fwd_simt's on the same bf16 values
 # upcast, row by row: both sum l from the fp32 P (ex2.approx against expf,
 # the tensor cores' order against FMAs): within 1e-5 of max(1, |lse|).
@@ -459,6 +463,7 @@ def phase_build():
         for line in _build.ptxas_warnings(b.report):
             log(f"[build]   {line}")
     check_flash_build(builds["flash_attention"].report)
+    check_flash_bwd_build(builds["flash_attention_bwd"].report)
     for name in ("ssm_scan", "rwkv6_scan", "flash_attention_bwd",
                  "ssm_scan_bwd", "rwkv6_scan_bwd"):
         for kernel, k in sorted(_build.ptxas_kernels(
@@ -493,6 +498,31 @@ def check_flash_build(report):
     if serialised:
         raise RuntimeError("ptxas serialised wgmma instructions: "
                            + "; ".join(serialised))
+
+
+def check_flash_bwd_build(report):
+    """Each flash_bwd_wgmma kernel's registers, shared memory and spills;
+    raises on a ptxas line saying wgmma instructions were serialised and
+    on any spill at the training head dims (64, 80, 128)."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import bwd_smem_bytes
+    for name, k in sorted(_build.ptxas_kernels(report).items()):
+        m = re.search(r"flash_bwd_wgmma_(dq|dkdv)ILi(\d+)E", name)
+        if not m:
+            continue
+        kernel, D = m.group(1), int(m.group(2))
+        log(f"[build] flash_bwd_wgmma_{kernel}<{D}>: {k.registers} registers "
+            f"at launch, {bwd_smem_bytes(D, 'wgmma_' + kernel)} bytes of "
+            f"dynamic shared memory, spills {k.spill_stores} / "
+            f"{k.spill_loads} bytes")
+        if D in (64, 80, 128) and (k.spill_stores or k.spill_loads):
+            raise RuntimeError(f"flash_bwd_wgmma_{kernel}<{D}> spills "
+                               f"registers")
+    serialised = _build.wgmma_serialised(report)
+    if serialised:
+        raise RuntimeError("ptxas serialised wgmma instructions of the "
+                           "backward: " + "; ".join(serialised))
 
 
 def ptxas_lines(report):
@@ -2432,11 +2462,13 @@ def flash_bwd_bounds(B, Hq, Hkv, S, D, window, dtype=torch.float32):
             flops / rate * 1e3)
 
 
-def time_flash_bwd(tag, label, B, Hq, Hkv, S, D, window, dtype):
+def time_flash_bwd(tag, label, B, Hq, Hkv, S, D, window, dtype, other=None):
     """The backward kernel at one training shape (causal), timed in turns
     with SDPA's backward of the same dtype (library, kernel, kernel,
-    library), beside the plain backward and the bound; the kernels-line
-    numbers."""
+    library; with ``other``, a variant of the kernel asked for by name,
+    library, kernel, other, kernel, other, library), beside the plain
+    backward and the bound; the kernels-line numbers (and ``other``'s
+    time as ``<other>_ms``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
@@ -2463,9 +2495,17 @@ def time_flash_bwd(tag, label, B, Hq, Hkv, S, D, window, dtype):
     def kernel():
         return FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
 
+    def variant():
+        return FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                           variant=other, **kw)
+
     reps = 20 if S <= 128 else 5
     lib = [cuda_ms(library, reps=reps, warmup=2)]
-    kern = [cuda_ms(kernel, reps=reps, warmup=2) for _ in range(2)]
+    kern, alt = [], []
+    for _ in range(2):
+        kern.append(cuda_ms(kernel, reps=reps, warmup=2))
+        if other is not None:
+            alt.append(cuda_ms(variant, reps=reps, warmup=2))
     lib.append(cuda_ms(library, reps=reps, warmup=2))
     ms, library_ms = sum(kern) / 2, sum(lib) / 2
     plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, dout, **kw),
@@ -2484,9 +2524,17 @@ def time_flash_bwd(tag, label, B, Hq, Hkv, S, D, window, dtype):
         f"at 3.35 TB/s); kernel at {bound_ms / ms:.1%} of the bound "
         f"({flops / ms / 1e9:.2f} TFLOP/s of the counted work), sdpa at "
         f"{bound_ms / library_ms:.1%}; kernel / sdpa {ms / library_ms:.3f}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms,
+                  bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    if other is not None:
+        alt_ms = sum(alt) / 2
+        log(f"[{tag}] {label} timing, in the same turns: {other} "
+            f"{alt_ms:.4f} ms ({alt[0]:.4f} / {alt[1]:.4f}), at "
+            f"{bound_ms / alt_ms:.1%} of the bound; kernel / {other} "
+            f"{ms / alt_ms:.3f}")
+        timing[f"{other}_ms"] = alt_ms
+    return timing
 
 
 def check_flash_bwd(label, got, want):
@@ -2858,23 +2906,14 @@ def phase_rwkv6_scan_bwd():
             "by_shape": timings}
 
 
-def bf16_grad_excess(got, want):
-    """max over elements of |got - want| beyond one bf16 ulp of ``want``
-    (``ref.bf16_ulp``) where ``got`` is bf16; of |got - want| itself where
-    it is fp32."""
-    from repro_torch.kernels.flash_attention.ref import bf16_ulp
-    err = (got.float() - want.float()).abs()
-    if got.dtype == torch.bfloat16:
-        err = (err - bf16_ulp(want)).clamp_min(0.0)
-    return float(err.max()) if err.numel() else 0.0
-
-
 def check_bf16_grads(tag, label, names, got, want, dtypes, tol):
-    """Raise unless each gradient is finite, of its input's dtype, and its
-    excess beyond one bf16 ulp (``bf16_grad_excess``) within ``tol`` of
-    max(1, max |truth|) and within BF16_BWD_OWN_TOL of its own max
-    |truth|; returns the largest excess and the largest as a share of
-    max(1, max |truth|)."""
+    """Raise unless each gradient is finite, of its input's dtype, and
+    passes ``ref.bf16_grad_gate``: its excess beyond one bf16 ulp within
+    ``tol`` of max(1, max |truth|) and within ``ref.BF16_BWD_OWN_TOL`` of
+    its own max |truth|; returns the largest excess and the largest as a
+    share of max(1, max |truth|)."""
+    from repro_torch.kernels.flash_attention.ref import (BF16_BWD_OWN_TOL,
+                                                         bf16_grad_gate)
     worst_abs, worst_rel = 0.0, 0.0
     for name, g, w, dt in zip(names, got, want, dtypes):
         if w is None:
@@ -2883,10 +2922,10 @@ def check_bf16_grads(tag, label, names, got, want, dtypes, tol):
                 or not bool(torch.isfinite(g).all()):
             raise RuntimeError(f"{tag} {label}: {name} {tuple(g.shape)} "
                                f"{g.dtype} (input {dt}) or non-finite")
-        exc, scale = bf16_grad_excess(g, w), float(w.abs().max())
+        exc, scale, ok = bf16_grad_gate(g, w, tol)
         worst_abs = max(worst_abs, exc)
         worst_rel = max(worst_rel, exc / max(1.0, scale))
-        if exc > tol * max(1.0, scale) or exc > BF16_BWD_OWN_TOL * scale:
+        if not ok:
             raise RuntimeError(f"{tag} {label}: {name} off by {exc:.3e} "
                                f"beyond one bf16 ulp, max |g| {scale:.3e} "
                                f"(gates {tol:.0e} of max(1, max |g|), "
@@ -2896,14 +2935,17 @@ def check_bf16_grads(tag, label, names, got, want, dtypes, tol):
 
 def phase_flash_bwd_bf16():
     """The bf16 backward (``flash_attention_bwd_cuda`` on bf16 inputs,
-    after ``flash_fwd_wgmma`` with its lse) against autograd through the
-    plain attention in fp32 on the same bf16 values, upcast, at
-    FLASH_BWD_BF16_SHAPES and ragged ones: each gradient bf16, within the
-    per-element gates (``check_bf16_grads``), reruns bit-identical, and
-    the wgmma lse within FLASH_LSE_TOL of flash_fwd_simt's on the values
-    upcast; timed at FLASH_BWD_BF16_SHAPES beside SDPA's bf16 backward,
-    the plain backward and the bf16 tensor-core bound.  Returns its
-    kernels-line entry (``launches`` filled in by the training runs)."""
+    after ``flash_fwd_wgmma`` with its lse): the tensor-core kernels
+    (``flash_bwd_wgmma``, the default, what training runs) and the SIMT
+    ones asked for by name (``variant="simt_bf16"``) on the same inputs,
+    each against autograd through the plain attention in fp32 on the same
+    bf16 values, upcast, at FLASH_BWD_BF16_SHAPES and ragged ones: each
+    gradient bf16, within the per-element gates (``check_bf16_grads``),
+    reruns bit-identical, and the wgmma lse within FLASH_LSE_TOL of
+    flash_fwd_simt's on the values upcast; both variants timed in turns
+    at FLASH_BWD_BF16_SHAPES beside SDPA's bf16 backward, the plain
+    backward and the bf16 tensor-core bound.  Returns its kernels-line
+    entry (``launches`` filled in by the training runs)."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     bf16 = torch.bfloat16
@@ -2916,24 +2958,36 @@ def phase_flash_bwd_bf16():
         ("one query, D 128", 1, 4, 4, 1, 77, 128, 76, True, None),
         ("ragged D 192, window 64, group 3", 1, 6, 2, 150, 150, 192, 0, True,
          64),
+        ("D 192, group 1, ragged", 2, 4, 4, 200, 200, 192, 0, True, None),
+        ("D 64, group 4, B 4 (the group summed in the block)", 4, 16, 4,
+         2048, 2048, 64, 0, True, None),
     ]
-    max_err, lse_worst = 0.0, 0.0
+    max_err, lse_worst, simt_worst = 0.0, 0.0, 0.0
     for label, B, Hq, Hkv, Sq, Sk, D, off, causal, window in cases:
         q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, bf16, seed=Sq + D + 1)
         gen = torch.Generator(device="cuda").manual_seed(Sk)
         dout = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
         kw = dict(causal=causal, window=window, q_offset=off)
         before = dict(FK.launches_by_variant)
+        bwd_before = dict(FK.bwd_launches.by_variant)
         out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
         lse32 = FK.flash_attention_cuda(q.float(), k.float(), v.float(),
                                         with_lse=True, **kw)[1]
         got = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
         again = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        simt = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                           variant="simt_bf16", **kw)
         torch.cuda.synchronize()
         if {n: c - before[n] for n, c in FK.launches_by_variant.items()} \
                 != {"wgmma": 1, "simt": 1}:
             raise RuntimeError(f"flash_bwd bf16 {label}: the lse forwards "
                                f"did not run one wgmma and one SIMT launch")
+        ran = {n: c - bwd_before[n]
+               for n, c in FK.bwd_launches.by_variant.items()}
+        if ran != {"simt": 0, "wgmma_bf16": 2, "simt_bf16": 1}:
+            raise RuntimeError(f"flash_bwd bf16 {label}: backward launches "
+                               f"{ran}, expected two wgmma_bf16 and one "
+                               f"simt_bf16")
         lse_gap = float(((lse - lse32).abs()
                          / lse32.abs().clamp_min(1.0)).max())
         want = attention_bwd_ref(q.float(), k.float(), v.float(),
@@ -2941,35 +2995,43 @@ def phase_flash_bwd_bf16():
         err, rel = check_bf16_grads("flash_bwd bf16", label,
                                     ("dq", "dk", "dv"), got, want,
                                     (bf16,) * 3, FLASH_BWD_TOL)
+        s_err, s_rel = check_bf16_grads("flash_bwd bf16 simt_bf16", label,
+                                        ("dq", "dk", "dv"), simt, want,
+                                        (bf16,) * 3, FLASH_BWD_TOL)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         max_err, lse_worst = max(max_err, err), max(lse_worst, lse_gap)
+        simt_worst = max(simt_worst, s_err)
         log(f"[flash_bwd bf16] {label} (B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Sk{Sk} "
-            f"D{D} q_offset {off} causal {causal} window {window}): largest "
-            f"excess beyond one bf16 ulp {err:.3e} ({rel:.3e} of max(1, max "
-            f"|g|)); wgmma lse within {lse_gap:.3e} of the SIMT lse, of "
-            f"max(1, |lse|) (gate {FLASH_LSE_TOL:.0e}); reruns "
-            f"bit-identical {same}")
+            f"D{D} q_offset {off} causal {causal} window {window}; blocks a "
+            f"query head: {FK.per_head_blocks(B, Hq, Hkv, Sk)}): largest "
+            f"excess beyond one bf16 ulp, wgmma_bf16 {err:.3e} ({rel:.3e} "
+            f"of max(1, max |g|)), simt_bf16 {s_err:.3e} ({s_rel:.3e}); "
+            f"wgmma lse within {lse_gap:.3e} of the SIMT lse, of max(1, "
+            f"|lse|) (gate {FLASH_LSE_TOL:.0e}); reruns bit-identical {same}")
         if lse_gap > FLASH_LSE_TOL or not math.isfinite(lse_gap):
             raise RuntimeError(f"flash_bwd bf16 {label}: wgmma lse off the "
                                f"SIMT lse by {lse_gap:.3e}")
         if not same:
             raise RuntimeError(f"flash_bwd bf16 {label}: two launches differ")
-        del q, k, v, dout, out, lse, lse32, got, again, want
+        del q, k, v, dout, out, lse, lse32, got, again, simt, want
         torch.cuda.empty_cache()
 
     timings = {}
     for label, B, Hq, Hkv, S, D, window in FLASH_BWD_BF16_SHAPES:
         timings[label] = time_flash_bwd("flash_bwd bf16", label, B, Hq, Hkv,
-                                        S, D, window, bf16)
+                                        S, D, window, bf16,
+                                        other="simt_bf16")
         torch.cuda.empty_cache()
     return {"name": "flash_attention_bwd_bf16", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
             "replaces_note": "the gradient of flash_attention_pallas on "
-            "bf16 inputs (SIMT fp32 arithmetic, each gradient rounded once "
-            "to bf16); the JAX package has no backward kernel",
-            "counter": "flash_attention_bwd", "counted_variant": "simt_bf16",
+            "bf16 inputs (flash_bwd_wgmma: TMA and wgmma, P and dS as two "
+            "bf16 terms, each gradient rounded once to bf16); the JAX "
+            "package has no backward kernel",
+            "counter": "flash_attention_bwd", "counted_variant": "wgmma_bf16",
             "launches": None, "max_abs_err": max_err,
+            "simt_bf16_max_abs_err": simt_worst,
             "lse_max_gap": lse_worst, **timings["zamba2-1.2b training"],
             "at": "zamba2-1.2b training shape (B 32, Hq = Hkv = 32, S 128, "
             "D 64, causal, bf16)", "by_shape": timings}
@@ -3085,13 +3147,14 @@ def train_step_launches(cfg):
 def train_step_variants(cfg):
     """The variant each kernel of a training step of ``cfg`` launches: the
     forward kernels by the compute dtype (fp32 SIMT, bf16 tensor cores),
-    the backward kernels SIMT on fp32 or on bf16 inputs."""
+    the backward kernels SIMT on fp32, and on bf16 inputs flash's on the
+    tensor cores and the SSD's SIMT."""
     bf16 = cfg.compute_dtype == "bfloat16"
     return {"flash_attention": "wgmma" if bf16 else "simt",
             "flash_attention_lse": "wgmma" if bf16 else "simt",
             "ssm_scan": "mma" if bf16 else "simt",
             "rwkv6_scan": "mma" if bf16 else "simt",
-            "flash_attention_bwd": "simt_bf16" if bf16 else "simt",
+            "flash_attention_bwd": "wgmma_bf16" if bf16 else "simt",
             "ssm_scan_bwd": "simt_bf16" if bf16 else "simt",
             "rwkv6_scan_bwd": "simt"}
 

@@ -1,102 +1,137 @@
 /*
  * flash_attention_bwd — the gradient of fp32 and bf16 flash attention for
- * Hopper (sm_90a), SIMT fp32 arithmetic for both.
+ * Hopper (sm_90a).
  *
  *     S = scale * Q K^T (masked),  P = exp(S - lse),  O = P V
  *     dV = P^T dO,  dP = dO V^T,  dS = P o (dP - delta),
  *     dQ = scale * dS K,  dK = scale * dS^T Q,
- *     delta[i] = sum_d dO[i, d] * O[i, d]
+ *     delta[i] = sum_d dO[i, d] * O[i, d] = sum_j P[i, j] dP[i, j]
  *
  *     q, o, dO, dq: (B, Hq, Sq, D); k, v, dk, dv: (B, Hkv, Sk, D), each a
  *     strided view whose last axis is contiguous; lse and delta: (B, Hq,
  *     Sq) fp32, contiguous; G = Hq / Hkv; D in {32, 64, 80, 128, 192};
  *     q, k, v, o, dO, dq, dk and dv all fp32 or all bf16.
  *
- * The JAX package has no backward kernel: its model trains through plain
- * JAX attention (repro/models/transformer.py, attn_impl "chunked") and
- * autodiff.  The port's model runs the hand-written forward kernel
- * (csrc/flash_attention.cu, flash_fwd_simt, the replacement of the TPU
- * kernel repro/kernels/flash_attention/kernel.py:69
- * flash_attention_pallas), so its gradient comes from this kernel: it
- * computes what autodiff of repro_torch's attention_ref computes for the
- * same fp32 inputs.  lse is the forward's per-row log-sum-exp of the
- * scaled, masked scores, which flash_fwd_simt (fp32) and flash_fwd_wgmma
- * (bf16) write beside o, in the same natural-log units.
- *
- * bf16 (the training path of a bf16 model): every bf16 input is widened
- * to fp32 as it is loaded (exact) into the same fp32 shared-memory tiles,
- * and everything after is the fp32 kernel's arithmetic, instruction for
- * instruction; dq, dk and dv are rounded to bf16 once, from their fp32
- * accumulators, as they are stored (a GQA group's dK and dV are summed in
- * fp32 inside one block first).  delta cannot come from o there: the
- * forward keeps o in bf16 only, and dO . bf16(o) moved dq and dk by
- * ~2e-3 of their max |g| (float64 mirror on the CPU, zamba2's training
- * shape), 20x the gate.  So bf16 takes delta[i] = sum_j P_ij dP_ij, the
- * same number for the exact o, from P and dP recomputed in fp32: a
- * first walk of flash_bwd_dq (S and dP again, two more of the products
- * below) in place of flash_bwd_delta.  So it computes the fp32 gradient
- * of the fp32 attention of the bf16 values, the most accurate gradient
- * the card gives for bf16 inputs.  A tensor-core backward (P and dS in
- * bf16) is later work, to be held against this one.
+ * The gradient of the TPU kernel repro/kernels/flash_attention/kernel.py:69
+ * flash_attention_pallas, which has no backward: the JAX package trains
+ * through plain JAX attention (repro/models/transformer.py, attn_impl
+ * "chunked") and autodiff.  The port's model runs the hand-written
+ * forward (csrc/flash_attention.cu: flash_fwd_simt for fp32,
+ * flash_fwd_wgmma for bf16, both writing lse, each row's log-sum-exp of
+ * the scaled, masked scores in natural-log units), so its gradient comes
+ * from here: what autodiff of repro_torch's attention_ref computes in
+ * fp32 for the same inputs, each gradient rounded to the input dtype once.
  *
  * Masks work on absolute positions qp = q_offset + i and kp, as the
  * forward's: causal keeps kp <= qp, a window W keeps kp > qp - W; a
  * masked pair, a key past Sk and a query row past Sq have P = 0.  The
  * plain version gives a row that sees no key the mean of V over every
- * key; this kernel does not: the wrapper refuses such calls (they do not
- * occur in training, where every row sees at least its own key).
+ * key; these kernels do not: the wrapper refuses such calls (they do not
+ * occur in training, where every row sees at least its own key).  Every
+ * sum runs in an order fixed by the shapes and there are no atomics, so
+ * two launches give bit-identical gradients.
  *
- * Three kernels for fp32, two for bf16, each on the current stream, in
- * this order:
+ * Two variants, chosen by the wrapper (kernel.py, flash_attention_bwd_cuda):
  *
- * flash_bwd_delta (fp32 only): delta = rowsum(dO o), one warp a row.
+ * SIMT (fp32; bf16 only where asked for by name, "simt_bf16", as the
+ * yardstick of the bf16 variant).  Three kernels for fp32, two for bf16:
+ *   flash_bwd_delta (fp32 only): delta = rowsum(dO o), one warp a row.
+ *   flash_bwd_dq<T, D>: one block of 256 threads owns one (batch, query
+ *   head, 64-row query tile) and walks the key tiles the forward walks,
+ *   K and V transposed in shared memory, the scaled Q tile and the dO
+ *   tile as rows: S and dP (4 rows x 4 keys a thread), dS into shared
+ *   memory, dQ += dS K (4 rows x D/16 columns a thread).  For bf16 a
+ *   first walk over the same tiles forms delta = rowsum(P dP) and writes
+ *   it for the dk/dv kernel, which therefore runs after this one.
+ *   flash_bwd_dkdv<T, D>: one block owns one (batch, kv head, 64-key
+ *   tile), keeps K and V in shared memory and walks the G query heads of
+ *   its group and their query tiles that see its keys: P^T from S^T, dV
+ *   += P^T dO, dP^T, dS^T, dK += dS^T (scale Q); dK and dV stay in
+ *   registers for the whole walk (4 keys x D/16 columns a thread).
+ *   bf16 values are widened to fp32 as they load (exact); every product
+ *   is fp32 SIMT FMAs.  Shared memory: four D x 64 tiles and a 64 x 68
+ *   one, 220,672 bytes at D 192.
  *
- * flash_bwd_dq<D>: one block owns one (batch, query head, 64-row query
- * tile) and walks the key tiles the forward walks (the same bounds),
- * K and V transposed in shared memory, the scaled Q tile and the dO tile
- * as rows: S and dP (4 rows x 4 keys a thread), dS = P o (dP - delta)
- * into shared memory, dQ += dS K (4 rows x D/16 columns a thread),
- * scaled once at the end.  For bf16 a first walk over the same tiles
- * forms delta = rowsum(P dP) (S and dP, 4 rows x 4 keys a thread, a
- * row's 16 partial sums by a fixed shuffle tree) and writes it for
- * flash_bwd_dkdv, which therefore runs after this kernel.
- *
- * flash_bwd_dkdv<D>: one block of 256 threads owns one (batch, kv head,
- * 64-key tile).  It keeps K and V of its tile in shared memory and walks
- * the G query heads of its group and, for each, the 64-row query tiles
- * that can see its keys (the rest skipped by the causal and window
- * bounds): the scaled Q tile and the dO tile transposed ([D][68]), lse
- * and delta staged; P^T (keys x queries) recomputed from S^T = K (scale
- * Q)^T, then dV += P^T dO, dP^T = V dO^T, dS^T = P^T o (dP^T - delta),
- * dK += dS^T (scale Q).  Thread (ty, tx) of a 16 x 16 grid owns 4 keys x
- * 4 queries of S^T and 4 keys x D/16 columns of dK and dV, which stay in
- * registers across the whole walk.  Summing the group inside the block
- * means no two blocks write one row of dk or dv: no atomics.
- *
- * Every product is fp32 SIMT FMAs (no TF32): the gates are fp32.  Every
- * sum runs in an order fixed by the shapes, so two launches give
- * bit-identical gradients.  Shared memory: four D x 64 tiles and a 64 x
- * 68 one, 220,672 bytes at D 192.  Reads of shared memory are float4
- * along the contracted axis: broadcast across the 16 threads that share
- * a row, or 8 consecutive threads on 8 rows of stride 68, which covers
- * the 32 banks once.
+ * flash_bwd_wgmma (bf16, "wgmma_bf16", every bf16 training path): the
+ * products on the tensor cores, wgmma.mma_async m64nNk16 bf16 -> fp32,
+ * tiles by TMA (csrc/wgmma.cuh, shared with the forward), 384 threads a
+ * block: warpgroup 2 the producer (setmaxnreg 24; one thread issues every
+ * copy into a ring of 3 stages with full and empty mbarriers), warpgroups
+ * 0 and 1 the consumers (setmaxnreg 240).
+ *   flash_bwd_wgmma_dq<D>: a block owns one (batch, query head, 128-row
+ *   query tile), longest first; a consumer 64 rows.  The Q and dO tiles
+ *   come once, the forward's K and V tiles twice.  Walk 1: S = Q K^T and
+ *   dP = dO V^T (SS, from shared memory), P = exp2(S scale log2 e - lse
+ *   log2 e), delta = rowsum(P dP), written for dk/dv.  Walk 2: S and dP
+ *   of tile n and dQ += dS_{n-1} K_{n-1} (RS: dS from registers, where
+ *   the accumulator layout of S is the A-operand layout) go to the tensor
+ *   cores together, and dS_n = P (dP - delta) is formed while the latter
+ *   runs.  dq = scale dQ, rounded once.
+ *   flash_bwd_wgmma_dkdv<D>: a block owns one (batch, kv head, 64-key
+ *   tile), K and V resident, and streams the Q and dO tiles (64 rows) of
+ *   every query head of the group that can see its keys.  At D <= 128
+ *   consumer w takes queries 32w..32w+31 of each tile: S^T = K Q^T and
+ *   dP^T = V dO^T (SS, N 32), P^T and dS^T, dV += P^T dO and dK += dS^T Q
+ *   (RS), both 64 x D accumulators in its registers; warpgroup 1 hands
+ *   its sums to warpgroup 0 through shared memory at the end, which adds
+ *   them, its own first.  At D 192, where two 64 x 192 accumulators do
+ *   not fit one warpgroup's registers, consumer 0 forms dV and consumer
+ *   1 dK over tiles of 32 queries, each forming S^T and dP^T (the role
+ *   is data, not a branch: ptxas serialises wgmma across such a branch).
+ *   GQA at small batch: where G > 1 and B Hkv ceil(Sk / 64) < 264 (two
+ *   waves of 132 SMs), a block owns one query head instead of the whole
+ *   group and writes fp32 dK and dV of that head to a workspace, which
+ *   the wrapper sums over the group (torch.sum, a fixed order) and
+ *   rounds once.  Otherwise the block sums the group in its registers.
+ *   Head dims: D in boxes of 64 bf16 columns (TMA zero-fills past D);
+ *   the products over D take ceil(D / 16) k-steps, the products over keys
+ *   or queries N = D padded to whole boxes, but 80 at D 80.
+ *   Numerics: P and dS go to the tensor cores as two bf16 terms, hi =
+ *   bf16(x) and lo = bf16(x - hi), hi + lo within 2^-17 of x.  One term
+ *   fails the bf16 gate by 6e-4 to 1.8e-3 of max |g| (a float64 mirror
+ *   of these rounding points on the CPU, ref.py's
+ *   attention_bwd_wgmma_mirror; the gate's own-max part is 1e-3); two
+ *   pass it with 1e-6 of max |g| to spare.  delta cannot come from o:
+ *   the forward keeps o in bf16 only, and dO . bf16(o) moved dq and dk by
+ *   ~2e-3 of their max |g| (float64 mirror, zamba2's training shape), 20x
+ *   the gate; so delta = sum_j P_ij dP_ij from walk 1, the same number for
+ *   the exact o.
  *
  * What bounds it.  The five products over the visible (query, key)
- * pairs are 10 * pairs * D flops (S and dP recomputed, dV, dK, dQ, with
- * S again in the dq pass: 12 * pairs * D done); at 67 TFLOP/s of fp32
- * the 100m training shape (B 32, Hq 12 / Hkv 4, S 128, D 64, causal) is
- * bound at 30.3 us by operations against 20.1 us for its 67.3 MB of
- * bytes at 3.35 TB/s (computed).  A SIMT
- * kernel reaches a fraction of the fp32 rate.  In bf16 the same work is
- * bound by the tensor cores at 989 TFLOP/s, which this kernel does not
- * use: wgmma and TMA are later work (ROADMAP Queue B, the flash backward
- * on tensor cores).
+ * pairs are 10 * pairs * D flops; in bf16 at 989 TFLOP/s the Qwen2-7B
+ * heads (B 1, Hq 28 / Hkv 4, S 2048, D 128, causal) are bound at 76.0 us
+ * by operations against 15.7 us for their bytes at 3.35 TB/s, Danube's
+ * (B 1, 32 / 8, S 6144, D 80, window 4096) at 434 us; zamba2-1.2b's
+ * training shape (B 32, 32 / 32, S 128, D 64) is bound by its 118 MB of
+ * bytes, 35.2 us (chip_smoke.py computes each from its inputs).  The
+ * wgmma variant does about 2.4x the counted work (S and dP formed in
+ * both walks of dq and again in dk/dv; dQ, dK and dV in two terms).
+ * What the SIMT bf16 variant lost to, and what this design does about
+ * it: (1) no tensor cores, every product SIMT FMAs on values widened in
+ * shared memory: here every product is wgmma, and tiles arrive by TMA
+ * while the previous tile computes; (2) GQA at small batch ran a
+ * group's heads one after another in a block of (kv head, key tile),
+ * 128 blocks at Qwen2's heads: here a block takes one head and the group
+ * is summed after.  tools/flash_bwd_probe.py reads cycles by phase:
+ * forming P and dS in registers (exp2 on the SFU, the masks, the split
+ * into bf16 terms) takes about as long as the tensor-core work of a
+ * tile, and at zamba2's shape each block's few tiles are latency (one
+ * block an SM: 384 threads at 168 registers).
+ *
+ * Lines "// @probe <name>" mark where tools/flash_bwd_probe.py inserts
+ * clock reads, or drops the low term, in a copy of this source; they are
+ * comments and compile to nothing.
  */
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 256;
 constexpr int kBT = 64;          // query rows of a query tile, keys of a key tile
@@ -581,6 +616,859 @@ int launch_t(const BwdParams& p, int64_t B, int64_t Hq, int64_t Hkv,
   }
 }
 
+// ---------------------------------------------------------------------------
+// flash_bwd_wgmma: bf16 inputs on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // consumer warpgroups 0, 1; producer 2
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct WgParams {
+  const float* lse;              // (B, Hq, Sq), the forward's
+  float* delta;                  // (B, Hq, Sq): dq writes, dk/dv reads
+  void* dq;                      // bf16, strided
+  void* dk;                      // bf16, strided (whole groups)
+  void* dv;
+  float* dk_part;                // (B, Hq, Sk, D) fp32 (one head a block)
+  float* dv_part;
+  int64_t sdq[3], sdk[3], sdv[3];  // element strides (batch, head, seq)
+  int64_t Hq, Sq, Sk, q_offset;
+  int64_t window;                // <= 0: no window
+  int group;                     // Hq / Hkv
+  int causal;
+  int per_head;                  // dk/dv blocks own one query head each
+  float scale;
+};
+
+// Tile sizes of both kernels at head dim D: D in boxes of 64 bf16
+// columns (zero-filled past D by TMA), KS k-steps of 16 over D (the zero
+// columns past D are not multiplied), 64 keys (dq) or 64 queries (dk/dv)
+// a streamed tile, 32 at D 192 where the 64 x 192 accumulator takes 96
+// registers a thread
+template <int D>
+struct Bw {
+  static constexpr int NB = (D + kBox - 1) / kBox;
+  static constexpr int DP = NB * kBox;
+  // the N of the products over keys or queries (the accumulators' width):
+  // D padded to whole boxes, but 80 itself (m64n80k16: 40% less work
+  // than 128)
+  static constexpr int NR = D == 80 ? 80 : DP;
+  static constexpr int KS = (D + 15) / 16;
+  static constexpr int BT = NB == 3 ? 32 : 64;   // rows of a streamed tile
+  static constexpr int STAGES = 3;
+  static constexpr int ROW_BOX = 128 * 128;      // a 128-row box (dq's Q, dO)
+  static constexpr int KEY_BOX = 64 * 128;       // a 64-row box (dk/dv's K, V)
+  static constexpr int T_BOX = BT * 128;         // a streamed box
+  static constexpr int T_BYTES = NB * T_BOX;     // one streamed tile
+  static constexpr int STAGE_BYTES = 2 * T_BYTES;
+  static constexpr int SMEM_DQ =
+      1024 + 2 * NB * ROW_BOX + STAGES * STAGE_BYTES + 8 * (2 * STAGES + 1);
+  static constexpr int SMEM_DKDV =
+      1024 + 2 * NB * KEY_BOX + STAGES * STAGE_BYTES + 8 * (2 * STAGES + 1);
+};
+
+// acc = A B^T over D, A (64 rows) and B (N rows) K-major in 64-column
+// boxes a_box and b_box bytes apart, KS k-steps of 16 columns, four in a
+// box; issued, not committed
+template <int N, int KS>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a_addr,
+                                         int a_box, uint32_t b_addr,
+                                         int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    mma_ss<N>(acc, desc_sw128(a_addr + (kk >> 2) * a_box + off, 16, 1024),
+              desc_sw128(b_addr + (kk >> 2) * b_box + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc += (hi + lo) B, the A operand from registers in its two bf16 terms
+// (K columns), B (K rows x N) MN-major, its 64-column boxes b_box bytes
+// apart; issued, not committed
+template <int K, int N>
+__device__ __forceinline__ void issue_rs(float (&acc)[N / 2],
+                                         const uint32_t (&hi)[K / 16][4],
+                                         const uint32_t (&lo)[K / 16][4],
+                                         uint32_t b_addr, int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t db = desc_sw128(b_addr + kk * 16 * 128, b_box, 1024);
+    mma_rs<N>(acc, hi[kk], db);
+    // @probe lo-term (the next line)
+    mma_rs<N>(acc, lo[kk], db);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// bar.sync on barrier id among count threads (the consumer warpgroups)
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// The columns lo..hi of a tile of n that one of a thread's rows sees
+// (none where lo > hi), found once a tile in 64 bits so that the test of
+// each element is two 32-bit compares.  key_cols: the keys k0 + c that
+// query position qp sees (causal c <= qp - k0, a window c > qp - W - k0,
+// and c < Sk - k0); query_cols: the queries qlo + c that see key kp.
+struct Cols {
+  int lo, hi;
+};
+
+__device__ __forceinline__ Cols key_cols(const WgParams& p, int64_t qp,
+                                         int64_t k0, int n) {
+  int64_t hi = min64(n - 1, p.Sk - 1 - k0);
+  if (p.causal) hi = min64(hi, qp - k0);
+  const int64_t lo = p.window > 0 ? max64(0, qp - p.window + 1 - k0) : 0;
+  return {(int)min64(lo, n), (int)max64(hi, -1)};
+}
+
+__device__ __forceinline__ Cols query_cols(const WgParams& p, int64_t kp,
+                                           int64_t qlo, int n) {
+  const int64_t lo = p.causal ? max64(0, kp - qlo) : 0;
+  const int64_t hi =
+      p.window > 0 ? min64(n - 1, kp + p.window - 1 - qlo) : n - 1;
+  return {(int)min64(lo, n), (int)max64(hi, -1)};
+}
+
+// The dq kernel.  One block of 384 threads owns one (batch, query head,
+// 128-row query tile), longest first; warpgroup w < 2 owns rows 64w..64w+63
+// and warpgroup 2 is the producer (one thread issues every TMA copy: Q
+// and dO once, then the forward's K and V tiles twice, through a ring of
+// STAGES).  Walk 1: delta = rowsum(P o dP) from S and dP (SS).  Walk 2:
+// S and dP of tile n and dQ += dS_{n-1} K_{n-1} (RS, dS as hi + lo) go to
+// the tensor cores together; dS_n is formed while the latter runs.
+template <int D>
+__global__ void __maxnreg__(168)
+flash_bwd_wgmma_dq(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const WgParams p) {
+  using W = Bw<D>;
+  constexpr int BK = W::BT;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;                              // [NB][128][128 B]
+  uint8_t* dos = qs + W::NB * W::ROW_BOX;          // [NB][128][128 B]
+  uint8_t* kvs = dos + W::NB * W::ROW_BOX;         // [STAGES][K, V][NB][BK][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      kvs + W::STAGES * W::STAGE_BYTES);
+  uint64_t* empty = full + W::STAGES;
+  uint64_t* qbar = empty + W::STAGES;
+
+  const int tid = threadIdx.x;
+  const int64_t h = blockIdx.x;
+  const int64_t q0 = ((int64_t)gridDim.y - 1 - blockIdx.y) * 128;
+  const int64_t b = blockIdx.z;
+  const int64_t hk = h / p.group;
+
+  // the forward's key tiles (the wrapper refuses rows that see no key)
+  const int64_t qlo = p.q_offset + q0;
+  const int64_t qhi = qlo + min64(128, p.Sq - q0) - 1;
+  int64_t kt_first = 0;
+  int64_t kt_last = (p.Sk - 1) / BK;
+  if (p.window > 0) kt_first = max64(0, qlo - p.window + 1) / BK;
+  if (p.causal) kt_last = min64(p.Sk - 1, qhi) / BK;
+  const int n_tiles = (int)(kt_last - kt_first + 1);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // from lane 0, so that ptxas knows it uniform across the warp
+  const int wgi = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wgi == 2) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 2 * 128) {
+      const int cb = (int)b, ch = (int)h, chk = (int)hk;
+      mbar_expect_tx(qbar, 2 * W::NB * W::ROW_BOX);
+#pragma unroll
+      for (int x = 0; x < W::NB; ++x) {
+        tma_load(qs + x * W::ROW_BOX, &tq, qbar, x * kBox, (int)q0, ch, cb);
+        tma_load(dos + x * W::ROW_BOX, &tdo, qbar, x * kBox, (int)q0, ch,
+                 cb);
+      }
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        const int s = i % W::STAGES;
+        mbar_wait(&empty[s], ((i / W::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        const int k0 = (int)((kt_first + i % n_tiles) * BK);
+        uint8_t* ks = kvs + s * W::STAGE_BYTES;
+#pragma unroll
+        for (int x = 0; x < W::NB; ++x) {
+          tma_load(ks + x * W::T_BOX, &tk, &full[s], x * kBox, k0, chk, cb);
+          tma_load(ks + W::T_BYTES + x * W::T_BOX, &tv, &full[s], x * kBox,
+                   k0, chk, cb);
+        }
+      }
+    }
+    return;
+  }
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  // @probe dq-start
+  const int t = tid & 127;
+  const int qd = t & 3;
+  const int r = wgi * 64 + (t >> 5) * 16 + ((t & 31) >> 2);  // rows r, r+8
+  const float sl2 = p.scale * kLog2e;
+  const int64_t row_base = (b * p.Hq + h) * p.Sq;
+  int64_t qp[2];
+  float lse2[2];   // log2 units; +inf past Sq, where P is then 0
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t row = q0 + r + 8 * hh;
+    qp[hh] = p.q_offset + row;
+    lse2[hh] = row < p.Sq ? p.lse[row_base + row] * kLog2e : INFINITY;
+  }
+  const uint32_t q_addr = smem_u32(qs) + wgi * 64 * 128;
+  const uint32_t do_addr = smem_u32(dos) + wgi * 64 * 128;
+  auto edge_tile = [&](int64_t k0) {
+    return k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > qlo) ||
+           (p.window > 0 && k0 <= qhi - p.window);
+  };
+  // sc = P of the tile at key k0, from S in sc; masked only on a tile
+  // that crosses the diagonal, the window's edge or Sk
+  auto probabilities = [&](float (&sc)[BK / 2], int64_t k0) {
+    if (edge_tile(k0)) {
+      const Cols cols[2] = {key_cols(p, qp[0], k0, BK),
+                            key_cols(p, qp[1], k0, BK)};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[4 * j + 2 * hh + e];
+            const int col = 8 * j + 2 * qd + e;
+            x = col < cols[hh].lo || col > cols[hh].hi
+                    ? 0.f : fast_exp2(fmaf(x, sl2, -lse2[hh]));
+          }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[4 * j + 2 * hh + e];
+            x = fast_exp2(fmaf(x, sl2, -lse2[hh]));
+          }
+    }
+  };
+  float sc[BK / 2], dp[BK / 2];
+
+  mbar_wait(qbar, 0);
+  // @probe dq-loaded
+  // walk 1: delta[i] = sum_j P_ij dP_ij
+  float part[2] = {0.f, 0.f};
+  for (int n = 0; n < n_tiles; ++n) {
+    const int s = n % W::STAGES;
+    const uint32_t k_addr = smem_u32(kvs + s * W::STAGE_BYTES);
+    mbar_wait(&full[s], (n / W::STAGES) & 1);
+    zero(sc);
+    zero(dp);
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    issue_ss<BK, W::KS>(sc, q_addr, W::ROW_BOX, k_addr, W::T_BOX);
+    issue_ss<BK, W::KS>(dp, do_addr, W::ROW_BOX, k_addr + W::T_BYTES,
+                        W::T_BOX);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    if (t == 0) mbar_arrive(&empty[s]);
+    probabilities(sc, (kt_first + n) * BK);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          part[hh] = fmaf(sc[4 * j + 2 * hh + e], dp[4 * j + 2 * hh + e],
+                          part[hh]);
+  }
+  float delta[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float d = part[hh];
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    delta[hh] = d;
+    const int64_t row = q0 + r + 8 * hh;
+    if (qd == 0 && row < p.Sq) p.delta[row_base + row] = d;
+  }
+  // @probe dq-walk1
+
+  // walk 2: dQ += dS K, dS = P o (dP - delta)
+  float acc[W::NR / 2];
+  zero(acc);
+  uint32_t hi[BK / 16][4], lo[BK / 16][4];
+  for (int n = 0; n < n_tiles; ++n) {
+    const int i = n_tiles + n;
+    const int s = i % W::STAGES;
+    const uint32_t k_addr = smem_u32(kvs + s * W::STAGE_BYTES);
+    const int sp = (i - 1) % W::STAGES;
+    mbar_wait(&full[s], (i / W::STAGES) & 1);
+    zero(sc);
+    zero(dp);
+    fence_regs(sc);
+    fence_regs(dp);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_ss<BK, W::KS>(sc, q_addr, W::ROW_BOX, k_addr, W::T_BOX);
+    issue_ss<BK, W::KS>(dp, do_addr, W::ROW_BOX, k_addr + W::T_BYTES,
+                        W::T_BOX);
+    wgmma_commit();
+    if (n > 0) {
+      issue_rs<BK, W::NR>(acc, hi, lo, smem_u32(kvs + sp * W::STAGE_BYTES),
+                       W::T_BOX);
+      wgmma_commit();
+      wgmma_wait<1>();                  // S_n and dP_n are done
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(sc);
+    fence_regs(dp);
+    probabilities(sc, (kt_first + n) * BK);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 4 * j + 2 * hh + e;
+          sc[c] = sc[c] * (dp[c] - delta[hh]);
+        }
+    if (n > 0) {
+      wgmma_wait<0>();                  // dQ += dS_{n-1} K_{n-1} is done
+      fence_regs(acc);
+      if (t == 0) mbar_arrive(&empty[sp]);
+    }
+    fence_regs(sc);
+    pack_p<BK>(sc, hi, lo);
+  }
+  if (n_tiles > 0) {
+    fence_regs(acc);
+    wgmma_fence();
+    issue_rs<BK, W::NR>(
+        acc, hi, lo,
+        smem_u32(kvs + ((2 * n_tiles - 1) % W::STAGES) * W::STAGE_BYTES),
+        W::T_BOX);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  // @probe dq-walk2
+
+  // dq = scale dQ, rounded once to bf16
+  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.sdq[0] +
+                       h * p.sdq[1];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t row = q0 + r + 8 * hh;
+    if (row < p.Sq) {
+      __nv_bfloat16* drow = dqg + row * p.sdq[2] + 2 * qd;
+#pragma unroll
+      for (int j = 0; j < W::NR / 8; ++j)
+        if (8 * j < D)
+          *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * hh] * p.scale,
+                                    acc[4 * j + 2 * hh + 1] * p.scale);
+    }
+  }
+  // @probe dq-end
+}
+
+// One consumer warpgroup of flash_bwd_wgmma_dkdv at D 192, where two
+// 64 x 192 accumulators do not fit one warpgroup's registers: S^T and
+// dP^T (SS) in both, then dk forms dK += dS^T Q, else dV += P^T dO (RS),
+// each over the whole tile of 32 queries, its accumulator in registers
+// for the whole walk, the product of tile i - 1 running while P^T or
+// dS^T of tile i is formed.  The role
+// is data (the operand's address, a factor of 0 or 1 on dP^T - delta),
+// not a branch: ptxas serialises wgmma on either side of a branch that
+// the two roles take apart, which costs more than the dP^T product that
+// the dV warpgroup computes for nothing
+template <int D>
+__device__ __forceinline__ void dkdv_consumer(
+    const WgParams& p, uint8_t* ks, uint8_t* vs, uint8_t* qds,
+    uint64_t* full, uint64_t* empty, uint64_t* kbar, int64_t k0, int64_t b,
+    int64_t hk, int64_t h_first, int64_t t_first, int n_t, int n_iter,
+    bool dk) {
+  using W = Bw<D>;
+  constexpr int BQ = W::BT;
+  const int t = threadIdx.x & 127;
+  const int qd = t & 3;
+  const int r = (t >> 5) * 16 + ((t & 31) >> 2);   // keys k0 + r, + r + 8
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t k_addr = smem_u32(ks);
+  const uint32_t v_addr = smem_u32(vs);
+  int64_t kp[2] = {k0 + r, k0 + r + 8};
+  // dS^T = P^T (sel (dP^T - delta) + 1 - sel): dS^T for dK, P^T for dV
+  const float sel = dk ? 1.f : 0.f;
+
+  float acc[W::NR / 2];                 // dV (warpgroup 0) or dK (1)
+  zero(acc);
+  float sc[BQ / 2], dp[BQ / 2];
+  float lse2[BQ / 4], dl[BQ / 4];    // by column: 2j + e
+  uint32_t hi[BQ / 16][4], lo[BQ / 16][4];
+
+  mbar_wait(kbar, 0);
+  for (int i = 0; i < n_iter; ++i) {
+    const int s = i % W::STAGES;
+    const int sp = (i - 1 + W::STAGES) % W::STAGES;
+    const int64_t h = h_first + i / n_t;
+    const int64_t q0 = (t_first + i % n_t) * BQ;
+    const int64_t row_base = (b * p.Hq + h) * p.Sq;
+    // this thread's columns (queries q0 + 8j + 2qd + e): lse in log2
+    // units, +inf past Sq (P = 0 there), and delta
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int64_t row = q0 + 8 * j + 2 * qd + e;
+        const bool in = row < p.Sq;
+        lse2[2 * j + e] = in ? p.lse[row_base + row] * kLog2e : INFINITY;
+        dl[2 * j + e] = in ? p.delta[row_base + row] : 0.f;
+      }
+    const uint32_t q_addr = smem_u32(qds + s * W::STAGE_BYTES);
+    const uint32_t do_addr = q_addr + W::T_BYTES;
+    mbar_wait(&full[s], (i / W::STAGES) & 1);
+    zero(sc);
+    fence_regs(sc);
+    zero(dp);
+    fence_regs(dp);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_ss<BQ, W::KS>(sc, k_addr, W::KEY_BOX, q_addr, W::T_BOX);
+    issue_ss<BQ, W::KS>(dp, v_addr, W::KEY_BOX, do_addr, W::T_BOX);
+    wgmma_commit();
+    if (i > 0) {
+      // the previous tile's dV += P^T dO or dK += dS^T Q
+      const uint32_t prev = smem_u32(qds + sp * W::STAGE_BYTES) +
+                            (dk ? 0 : W::T_BYTES);
+      issue_rs<BQ, W::NR>(acc, hi, lo, prev, W::T_BOX);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(sc);
+    fence_regs(dp);
+    // P^T, masked on the tiles that cross the diagonal or the window
+    const int64_t qlo = p.q_offset + q0;
+    const bool edge = (p.causal && k0 + 63 > qlo) ||
+                      (p.window > 0 && k0 <= qlo + BQ - 1 - p.window);
+    Cols cols[2] = {{0, BQ - 1}, {0, BQ - 1}};
+    if (edge)
+      for (int hh = 0; hh < 2; ++hh) cols[hh] = query_cols(p, kp[hh], qlo, BQ);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 4 * j + 2 * hh + e;
+          const int col = 8 * j + 2 * qd + e;
+          float x = fast_exp2(fmaf(sc[c], sl2, -lse2[2 * j + e]));
+          if (col < cols[hh].lo || col > cols[hh].hi) x = 0.f;
+          sc[c] = x * fmaf(sel, dp[c] - dl[2 * j + e], 1.f - sel);
+        }
+    if (i > 0) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (t == 0) mbar_arrive(&empty[sp]);
+    }
+    fence_regs(sc);
+    pack_p<BQ>(sc, hi, lo);
+  }
+  if (n_iter > 0) {
+    fence_regs(acc);
+    wgmma_fence();
+    const uint32_t last = smem_u32(qds + ((n_iter - 1) % W::STAGES) *
+                                             W::STAGE_BYTES) +
+                          (dk ? 0 : W::T_BYTES);
+    issue_rs<BQ, W::NR>(acc, hi, lo, last, W::T_BOX);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // dK = scale dS^T Q, dV = P^T dO: the whole group's, rounded once to
+  // bf16, or this query head's in fp32 for the wrapper's sum
+  const float f = dk ? p.scale : 1.f;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (kp[hh] >= p.Sk) continue;
+    if (p.per_head) {
+      float* prow = (dk ? p.dk_part : p.dv_part) +
+                    ((b * p.Hq + h_first) * p.Sk + kp[hh]) * D + 2 * qd;
+#pragma unroll
+      for (int j = 0; j < W::NR / 8; ++j)
+        if (8 * j < D)
+          *reinterpret_cast<float2*>(prow + 8 * j) =
+              make_float2(acc[4 * j + 2 * hh] * f,
+                          acc[4 * j + 2 * hh + 1] * f);
+    } else {
+      const int64_t s0 = dk ? p.sdk[0] : p.sdv[0];
+      const int64_t s1 = dk ? p.sdk[1] : p.sdv[1];
+      const int64_t s2 = dk ? p.sdk[2] : p.sdv[2];
+      __nv_bfloat16* grow = static_cast<__nv_bfloat16*>(dk ? p.dk : p.dv) +
+                            b * s0 + hk * s1 + kp[hh] * s2 + 2 * qd;
+#pragma unroll
+      for (int j = 0; j < W::NR / 8; ++j)
+        if (8 * j < D)
+          *reinterpret_cast<__nv_bfloat162*>(grow + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * hh] * f,
+                                    acc[4 * j + 2 * hh + 1] * f);
+    }
+  }
+}
+
+// One consumer warpgroup w of flash_bwd_wgmma_dkdv at D <= 128: it owns
+// queries 32w..32w+31 of every streamed tile of 64 and forms S^T and dP^T
+// over them (SS, N 32), P^T and dS^T, then dV += P^T dO and dK += dS^T Q
+// (RS, K 32), each 64 x D accumulator in its registers; the products of
+// tile i - 1 run while P^T and dS^T of tile i are formed.  At the end
+// warpgroup 1 hands its dK and dV to warpgroup 0 through shared memory
+// (the stages, no longer read), which adds them, its own first, and
+// stores.  No S^T or P^T is formed twice.
+template <int D>
+__device__ __forceinline__ void dkdv_consumer_split(
+    const WgParams& p, uint8_t* ks, uint8_t* vs, uint8_t* qds,
+    uint64_t* full, uint64_t* empty, uint64_t* kbar, int64_t k0, int64_t b,
+    int64_t hk, int64_t h_first, int64_t t_first, int n_t, int n_iter,
+    int wgi) {
+  using W = Bw<D>;
+  constexpr int BQ = W::BT;
+  constexpr int BH = BQ / 2;          // queries of a warpgroup
+  constexpr int NR = W::NR;
+  static_assert(BQ == 64, "the split walk takes streamed tiles of 64");
+  const int t = threadIdx.x & 127;
+  const int qd = t & 3;
+  const int r = (t >> 5) * 16 + ((t & 31) >> 2);   // keys k0 + r, + r + 8
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t k_addr = smem_u32(ks);
+  const uint32_t v_addr = smem_u32(vs);
+  const int64_t kp[2] = {k0 + r, k0 + r + 8};
+  const int wq = wgi * BH;             // this warpgroup's first query
+
+  float acc_k[NR / 2], acc_v[NR / 2];
+  zero(acc_k);
+  zero(acc_v);
+  float sc[BH / 2], dp[BH / 2];
+  float lse2[BH / 4], dl[BH / 4];      // by column: 2j + e
+  uint32_t ph[BH / 16][4], pl[BH / 16][4], sh[BH / 16][4], sl[BH / 16][4];
+
+  // @probe kv-start
+  mbar_wait(kbar, 0);
+  // @probe kv-loaded
+  for (int i = 0; i < n_iter; ++i) {
+    const int s = i % W::STAGES;
+    const int sp = (i - 1 + W::STAGES) % W::STAGES;
+    const int64_t h = h_first + i / n_t;
+    const int64_t q0 = (t_first + i % n_t) * BQ;
+    const int64_t row_base = (b * p.Hq + h) * p.Sq;
+    // this thread's columns, queries q0 + wq + 8j + 2qd + e: lse in log2
+    // units, +inf past Sq (P = 0 there), and delta
+#pragma unroll
+    for (int j = 0; j < BH / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int64_t row = q0 + wq + 8 * j + 2 * qd + e;
+        const bool in = row < p.Sq;
+        lse2[2 * j + e] = in ? p.lse[row_base + row] * kLog2e : INFINITY;
+        dl[2 * j + e] = in ? p.delta[row_base + row] : 0.f;
+      }
+    const uint32_t q_addr = smem_u32(qds + s * W::STAGE_BYTES) + wq * 128;
+    const uint32_t do_addr = q_addr + W::T_BYTES;
+    // @probe kv-tile-wait
+    mbar_wait(&full[s], (i / W::STAGES) & 1);
+    // @probe kv-tile-ready
+    zero(sc);
+    zero(dp);
+    fence_regs(sc);
+    fence_regs(dp);
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+    wgmma_fence();
+    issue_ss<BH, W::KS>(sc, k_addr, W::KEY_BOX, q_addr, W::T_BOX);
+    issue_ss<BH, W::KS>(dp, v_addr, W::KEY_BOX, do_addr, W::T_BOX);
+    wgmma_commit();
+    if (i > 0) {
+      // the previous tile's dV += P^T dO and dK += dS^T Q
+      const uint32_t prev = smem_u32(qds + sp * W::STAGE_BYTES) + wq * 128;
+      issue_rs<BH, NR>(acc_v, ph, pl, prev + W::T_BYTES, W::T_BOX);
+      issue_rs<BH, NR>(acc_k, sh, sl, prev, W::T_BOX);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    // @probe kv-scores
+    fence_regs(sc);
+    fence_regs(dp);
+    // P^T into sc, dS^T into dp; masked on the tiles that cross the
+    // diagonal or the window
+    const int64_t qlo = p.q_offset + q0;
+    const bool edge = (p.causal && k0 + 63 > qlo) ||
+                      (p.window > 0 && k0 <= qlo + BQ - 1 - p.window);
+    Cols cols[2] = {{0, BQ - 1}, {0, BQ - 1}};
+    if (edge)
+      for (int hh = 0; hh < 2; ++hh) cols[hh] = query_cols(p, kp[hh], qlo, BQ);
+#pragma unroll
+    for (int j = 0; j < BH / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 4 * j + 2 * hh + e;
+          const int col = wq + 8 * j + 2 * qd + e;
+          float x = fast_exp2(fmaf(sc[c], sl2, -lse2[2 * j + e]));
+          if (col < cols[hh].lo || col > cols[hh].hi) x = 0.f;
+          sc[c] = x;
+          dp[c] = x * (dp[c] - dl[2 * j + e]);
+        }
+    // @probe kv-rs-wait
+    if (i > 0) {
+      wgmma_wait<0>();
+      fence_regs(acc_k);
+      fence_regs(acc_v);
+      if (t == 0) mbar_arrive(&empty[sp]);
+    }
+    // @probe kv-rs-done
+    fence_regs(sc);
+    fence_regs(dp);
+    pack_p<BH>(sc, ph, pl);
+    pack_p<BH>(dp, sh, sl);
+    // @probe kv-packed
+  }
+  if (n_iter > 0) {
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+    wgmma_fence();
+    const uint32_t last =
+        smem_u32(qds + ((n_iter - 1) % W::STAGES) * W::STAGE_BYTES) + wq * 128;
+    issue_rs<BH, NR>(acc_v, ph, pl, last + W::T_BYTES, W::T_BOX);
+    issue_rs<BH, NR>(acc_k, sh, sl, last, W::T_BOX);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+  }
+  // @probe kv-loop-end
+
+  // warpgroup 1's sums to warpgroup 0, register by register ([reg][t]:
+  // the two warpgroups' accumulator layouts are the same), once both are
+  // done reading the stages
+  float* xfer = reinterpret_cast<float*>(qds);
+  named_barrier(1, 256);
+  if (wgi == 1) {
+#pragma unroll
+    for (int c = 0; c < NR / 2; ++c) {
+      xfer[c * 128 + t] = acc_k[c];
+      xfer[(NR / 2 + c) * 128 + t] = acc_v[c];
+    }
+  }
+  named_barrier(2, 256);
+  if (wgi == 1) return;
+#pragma unroll
+  for (int c = 0; c < NR / 2; ++c) {
+    acc_k[c] += xfer[c * 128 + t];
+    acc_v[c] += xfer[(NR / 2 + c) * 128 + t];
+  }
+
+  // dK = scale dS^T Q, dV = P^T dO: the whole group's, rounded once to
+  // bf16, or this query head's in fp32 for the wrapper's sum
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (kp[hh] >= p.Sk) continue;
+    if (p.per_head) {
+      const int64_t off = ((b * p.Hq + h_first) * p.Sk + kp[hh]) * D + 2 * qd;
+#pragma unroll
+      for (int j = 0; j < NR / 8; ++j)
+        if (8 * j < D) {
+          *reinterpret_cast<float2*>(p.dk_part + off + 8 * j) =
+              make_float2(acc_k[4 * j + 2 * hh] * p.scale,
+                          acc_k[4 * j + 2 * hh + 1] * p.scale);
+          *reinterpret_cast<float2*>(p.dv_part + off + 8 * j) =
+              make_float2(acc_v[4 * j + 2 * hh], acc_v[4 * j + 2 * hh + 1]);
+        }
+    } else {
+      __nv_bfloat16* krow = static_cast<__nv_bfloat16*>(p.dk) +
+                            b * p.sdk[0] + hk * p.sdk[1] +
+                            kp[hh] * p.sdk[2] + 2 * qd;
+      __nv_bfloat16* vrow = static_cast<__nv_bfloat16*>(p.dv) +
+                            b * p.sdv[0] + hk * p.sdv[1] +
+                            kp[hh] * p.sdv[2] + 2 * qd;
+#pragma unroll
+      for (int j = 0; j < NR / 8; ++j)
+        if (8 * j < D) {
+          *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) =
+              __floats2bfloat162_rn(acc_k[4 * j + 2 * hh] * p.scale,
+                                    acc_k[4 * j + 2 * hh + 1] * p.scale);
+          *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
+              __floats2bfloat162_rn(acc_v[4 * j + 2 * hh],
+                                    acc_v[4 * j + 2 * hh + 1]);
+        }
+    }
+  }
+  // @probe kv-end
+}
+
+// The dk/dv kernel.  One block of 384 threads owns one (batch, kv head
+// or, with per_head, query head, 64-key tile); K and V of the tile stay
+// in shared memory, and the Q and dO tiles of every query head of the
+// group (or of the one head) that can see these keys stream through a
+// ring of STAGES.  The consumers split each tile's queries between
+// them (dkdv_consumer_split) or, at D 192, the two gradients
+// (dkdv_consumer).  The sums run in an order fixed by the shapes; no two
+// blocks write one row.
+template <int D>
+__global__ void __maxnreg__(168)
+flash_bwd_wgmma_dkdv(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const WgParams p) {
+  using W = Bw<D>;
+  constexpr int BQ = W::BT;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = smem;                              // [NB][64][128 B]
+  uint8_t* vs = ks + W::NB * W::KEY_BOX;           // [NB][64][128 B]
+  uint8_t* qds = vs + W::NB * W::KEY_BOX;          // [STAGES][Q, dO][NB][BQ][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      qds + W::STAGES * W::STAGE_BYTES);
+  uint64_t* empty = full + W::STAGES;
+  uint64_t* kbar = empty + W::STAGES;
+
+  const int tid = threadIdx.x;
+  const int64_t k0 = (int64_t)blockIdx.y * 64;     // causal: longest first
+  const int64_t b = blockIdx.z;
+  const int64_t hk = p.per_head ? blockIdx.x / p.group : blockIdx.x;
+  const int64_t h_first = p.per_head ? blockIdx.x : hk * p.group;
+  const int n_heads = p.per_head ? 1 : p.group;
+
+  // the query rows that see some key of this tile, in tiles of BQ
+  const int64_t k_last = min64(k0 + 64, p.Sk) - 1;
+  int64_t i_lo = 0, i_hi = p.Sq - 1;
+  if (p.causal) i_lo = max64(i_lo, k0 - p.q_offset);
+  if (p.window > 0) i_hi = min64(i_hi, k_last + p.window - 1 - p.q_offset);
+  const int64_t t_first = i_lo <= i_hi ? i_lo / BQ : 0;
+  const int n_t = i_lo <= i_hi ? (int)(i_hi / BQ - i_lo / BQ + 1) : 0;
+  const int n_iter = n_heads * n_t;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(kbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // from lane 0, so that ptxas knows it uniform across the warp
+  const int wgi = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wgi == 2) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 2 * 128) {
+      const int cb = (int)b, chk = (int)hk;
+      mbar_expect_tx(kbar, 2 * W::NB * W::KEY_BOX);
+#pragma unroll
+      for (int x = 0; x < W::NB; ++x) {
+        tma_load(ks + x * W::KEY_BOX, &tk, kbar, x * kBox, (int)k0, chk, cb);
+        tma_load(vs + x * W::KEY_BOX, &tv, kbar, x * kBox, (int)k0, chk, cb);
+      }
+      for (int i = 0; i < n_iter; ++i) {
+        const int s = i % W::STAGES;
+        mbar_wait(&empty[s], ((i / W::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        const int ch = (int)(h_first + i / n_t);
+        const int q0 = (int)((t_first + i % n_t) * BQ);
+        uint8_t* st = qds + s * W::STAGE_BYTES;
+#pragma unroll
+        for (int x = 0; x < W::NB; ++x) {
+          tma_load(st + x * W::T_BOX, &tq, &full[s], x * kBox, q0, ch, cb);
+          tma_load(st + W::T_BYTES + x * W::T_BOX, &tdo, &full[s], x * kBox,
+                   q0, ch, cb);
+        }
+      }
+    }
+    return;
+  }
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  if constexpr (D == 192)
+    dkdv_consumer<D>(p, ks, vs, qds, full, empty, kbar, k0, b, hk, h_first,
+                     t_first, n_t, n_iter, wgi == 1);
+  else
+    dkdv_consumer_split<D>(p, ks, vs, qds, full, empty, kbar, k0, b, hk,
+                           h_first, t_first, n_t, n_iter, wgi);
+}
+
+template <int D>
+int launch_wgmma_d(const void* q, const void* k, const void* v,
+                   const void* dout, const int64_t* st, WgParams p,
+                   int64_t B, int64_t Hkv, cudaStream_t stream) {
+  using W = Bw<D>;
+  // st: (batch, head, seq) of q, k, v, dout
+  CUtensorMap mq, mk, mv, mdo;
+  auto maps = [&](int q_rows, int k_rows) {
+    int err = encode_map(&mq, q, D, p.Sq, p.Hq, B, st[2], st[1], st[0],
+                         q_rows);
+    if (!err) err = encode_map(&mdo, dout, D, p.Sq, p.Hq, B, st[11], st[10],
+                               st[9], q_rows);
+    if (!err) err = encode_map(&mk, k, D, p.Sk, Hkv, B, st[5], st[4], st[3],
+                               k_rows);
+    if (!err) err = encode_map(&mv, v, D, p.Sk, Hkv, B, st[8], st[7], st[6],
+                               k_rows);
+    return err;
+  };
+  cudaError_t cerr = cudaFuncSetAttribute(
+      flash_bwd_wgmma_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::SMEM_DQ);
+  if (cerr == cudaSuccess)
+    cerr = cudaFuncSetAttribute(flash_bwd_wgmma_dkdv<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                W::SMEM_DKDV);
+  if (cerr != cudaSuccess) return (int)cerr;
+  // dq first: it writes the delta that dk/dv reads
+  int err = maps(128, W::BT);
+  if (err) return err;
+  const dim3 gq((unsigned)p.Hq, (unsigned)((p.Sq + 127) / 128), (unsigned)B);
+  flash_bwd_wgmma_dq<D><<<gq, kWgThreads, W::SMEM_DQ, stream>>>(mq, mk, mv,
+                                                                 mdo, p);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return (int)cerr;
+  err = maps(W::BT, 64);
+  if (err) return err;
+  const dim3 gkv((unsigned)(p.per_head ? p.Hq : Hkv),
+                 (unsigned)((p.Sk + 63) / 64), (unsigned)B);
+  flash_bwd_wgmma_dkdv<D><<<gkv, kWgThreads, W::SMEM_DKDV, stream>>>(
+      mq, mk, mv, mdo, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, the type of q, k, v, o, dout and of
@@ -634,4 +1522,62 @@ extern "C" int flash_attention_bwd(int dtype, int D, const void* q,
   if (dtype == 0) return launch_t<float>(p, B, Hq, Hkv, s);
   if (dtype == 1) return launch_t<__nv_bfloat16>(p, B, Hq, Hkv, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 backward on the tensor cores (flash_bwd_wgmma_dq, then
+// flash_bwd_wgmma_dkdv).  strides: 21 element strides, (batch, head,
+// seq) of q, k, v, dout, dq, dk and dv in that order; the last axis of
+// each is contiguous; q, k, v and dout are read by TMA (every stride of
+// an axis longer than 1 a multiple of 8 elements, 16-byte-aligned
+// bases).  lse: the forward's, delta: scratch, both contiguous (B, Hq,
+// Sq) fp32.  per_head: the dk/dv blocks own one query head each and
+// write fp32 dK and dV of that head to dk_part and dv_part, contiguous
+// (B, Hq, Sk, D), for the caller to sum over each group (dk and dv are
+// then not written); else dk and dv get each group's sum, rounded once.
+// window <= 0 means none.  Every query row must see at least one key.
+// Returns 0, a CUDA runtime error code, or 10000 / 20000 + a CUresult
+// (no tensor-map encoder / a tensor map refused).  The caller handles
+// Sq == 0 and Sk == 0 without a launch.
+extern "C" int flash_attention_bwd_wgmma(
+    int D, const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, float* delta, void* dq, void* dk, void* dv,
+    float* dk_part, float* dv_part, const int64_t* strides, int64_t B,
+    int64_t Hq, int64_t Hkv, int64_t Sq, int64_t Sk, int64_t q_offset,
+    int64_t window, int causal, float scale, int per_head, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || Hq % Hkv ||
+      B > 65535 || Sq > 0x7fffffffLL || Sk > 0x7fffffffLL ||
+      (Sq + 127) / 128 > 65535 || (Sk + 63) / 64 > 65535 ||
+      (per_head && (dk_part == nullptr || dv_part == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  WgParams p;
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.dk_part = dk_part;
+  p.dv_part = dv_part;
+  for (int j = 0; j < 3; ++j) {
+    p.sdq[j] = strides[12 + j];
+    p.sdk[j] = strides[15 + j];
+    p.sdv[j] = strides[18 + j];
+  }
+  p.Hq = Hq;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.q_offset = q_offset;
+  p.window = window;
+  p.group = (int)(Hq / Hkv);
+  p.causal = causal;
+  p.per_head = per_head;
+  p.scale = scale;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 32: return launch_wgmma_d<32>(q, k, v, dout, strides, p, B, Hkv, s);
+    case 64: return launch_wgmma_d<64>(q, k, v, dout, strides, p, B, Hkv, s);
+    case 80: return launch_wgmma_d<80>(q, k, v, dout, strides, p, B, Hkv, s);
+    case 128: return launch_wgmma_d<128>(q, k, v, dout, strides, p, B, Hkv, s);
+    case 192: return launch_wgmma_d<192>(q, k, v, dout, strides, p, B, Hkv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

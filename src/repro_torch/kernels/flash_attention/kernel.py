@@ -13,11 +13,14 @@ without a transpose; see the source for the design and its bound.
 
 Either variant can also write each row's log-sum-exp (``with_lse``),
 which ``flash_attention_bwd_cuda`` (``csrc/flash_attention_bwd.cu``)
-takes to form dq, dk and dv: the backward of the training forward, fp32
-or bf16 (SIMT fp32 arithmetic on bf16 values widened as they load, each
-gradient rounded to bf16 once).  The JAX package has no backward kernel
-(its model trains through plain JAX attention); ``bwd_launches`` counts
-this one's calls by the dtype they took.
+takes to form dq, dk and dv: the backward of the training forward.  fp32
+runs SIMT kernels; bf16 runs ``flash_bwd_wgmma`` (TMA and wgmma, P and
+dS passed to the tensor cores as two bf16 terms, each gradient rounded
+to bf16 once), and the SIMT kernels on bf16 values widened as they load
+only where asked for by name (``variant="simt_bf16"``, the yardstick of
+the tests and ``chip_smoke.py``).  The JAX package has no backward
+kernel (its model trains through plain JAX attention); ``bwd_launches``
+counts this one's calls by the variant they took.
 """
 from __future__ import annotations
 
@@ -42,9 +45,16 @@ launches_by_variant = launches.by_variant
 # the training forward), by variant
 lse_launches = _build.LaunchCounter(variants=("wgmma", "simt"))
 # one count a call of flash_attention_bwd_cuda (its kernels: fp32's delta,
-# dq, dk/dv), by variant: SIMT on fp32 inputs, SIMT on bf16 ones
-BWD_VARIANTS = {torch.float32: "simt", torch.bfloat16: "simt_bf16"}
-bwd_launches = _build.LaunchCounter(variants=tuple(BWD_VARIANTS.values()))
+# dq, dk/dv), by variant: SIMT on fp32 inputs, tensor cores on bf16 ones
+# (the default), SIMT on bf16 ones where asked for by name
+BWD_VARIANTS = {torch.float32: "simt", torch.bfloat16: "wgmma_bf16"}
+bwd_launches = _build.LaunchCounter(variants=("simt", "wgmma_bf16",
+                                              "simt_bf16"))
+# the wgmma backward's dk/dv blocks own one query head each (fp32
+# partials, summed over the group by ``sum_group_partials``) where a
+# block a (batch, kv head, 64-key tile) would make fewer than this many
+# blocks: two waves of the H100's 132 SMs
+PER_HEAD_BELOW = 264
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,6 +81,16 @@ def _bwd_entry():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_wgmma_entry():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_wgmma
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [
+        ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 7 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def smem_bytes(variant: str, D: int) -> int:
     """Dynamic shared memory of one block, as ``csrc/flash_attention.cu``
     sizes it: SIMT, the fp32 Q, K^T and V tiles; wgmma, the Q tile of 128
@@ -84,12 +104,57 @@ def smem_bytes(variant: str, D: int) -> int:
     return 1024 + boxes * 128 * 128 + 3 * 2 * boxes * keys * 128 + 8 * 7
 
 
-def bwd_smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one block of either backward kernel (dq,
-    dk/dv), as ``csrc/flash_attention_bwd.cu`` sizes it: two 64 x D row
-    tiles, two D x 68 transposed tiles, a 64 x 68 tile of P or dS, lse and
-    delta."""
-    return (2 * 64 * D + 2 * D * 68 + 64 * 68 + 2 * 64) * 4
+def bwd_smem_bytes(D: int, kernel: str = "simt") -> int:
+    """Dynamic shared memory of one block of a backward kernel, as
+    ``csrc/flash_attention_bwd.cu`` sizes it.  ``"simt"`` (dq and dk/dv
+    alike): two 64 x D row tiles, two D x 68 transposed tiles, a 64 x 68
+    tile of P or dS, lse and delta, fp32.  ``"wgmma_dq"``: the Q and dO
+    tiles of 128 rows and 3 stages of K and V tiles; ``"wgmma_dkdv"``:
+    the K and V tiles of 64 keys and 3 stages of Q and dO tiles; bf16 in
+    64-column boxes, the streamed tiles 64 rows (32 at D 192), 1024 bytes
+    of alignment slack and 7 mbarriers."""
+    if kernel == "simt":
+        return (2 * 64 * D + 2 * D * 68 + 64 * 68 + 2 * 64) * 4
+    boxes = -(-D // 64)
+    rows = {"wgmma_dq": 128, "wgmma_dkdv": 64}[kernel]
+    streamed = 32 if boxes == 3 else 64
+    return 1024 + 2 * boxes * rows * 128 + 3 * 2 * boxes * streamed * 128 \
+        + 8 * 7
+
+
+def bwd_variant(dtype: torch.dtype, variant: Optional[str] = None) -> str:
+    """The backward variant a call of ``flash_attention_bwd_cuda`` runs:
+    ``BWD_VARIANTS[dtype]`` unless one is named; bf16 takes
+    ``"wgmma_bf16"`` or ``"simt_bf16"``, fp32 only ``"simt"``."""
+    if dtype not in BWD_VARIANTS:
+        raise TypeError(f"flash_attention_bwd cuda: takes float32 or "
+                        f"bfloat16, got {dtype}")
+    if variant is None:
+        return BWD_VARIANTS[dtype]
+    allowed = ("simt",) if dtype == torch.float32 \
+        else ("wgmma_bf16", "simt_bf16")
+    if variant not in allowed:
+        raise ValueError(f"flash_attention_bwd cuda: variant {variant!r} "
+                         f"does not take {dtype} (one of {allowed})")
+    return variant
+
+
+def per_head_blocks(B: int, Hq: int, Hkv: int, Sk: int) -> bool:
+    """Do the wgmma backward's dk/dv blocks own one query head each?  Where
+    G = Hq / Hkv > 1 and one block a (batch, kv head, 64-key tile) would
+    give under ``PER_HEAD_BELOW`` blocks: then a block walks one head of
+    its group instead of all G in turn, and the G fp32 partials are summed
+    by ``sum_group_partials``."""
+    return Hq > Hkv and B * Hkv * -(-Sk // 64) < PER_HEAD_BELOW
+
+
+def sum_group_partials(part: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """(B, Hq, Sk, D) fp32 per-query-head partials of dK or dV -> (B,
+    Hkv, Sk, D) fp32: each group's G heads summed in fp32 by ``torch.sum``
+    over the group axis (an order fixed by the shapes), before the one
+    rounding to bf16."""
+    B, Hq, Sk, D = part.shape
+    return part.view(B, Hkv, Hq // Hkv, Sk, D).sum(2)
 
 
 def tma_layout_error(shape, strides, data_ptr: int,
@@ -244,22 +309,29 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True,
                              window: Optional[int] = None,
                              scale: Optional[float] = None,
-                             q_offset: int = 0):
+                             q_offset: int = 0,
+                             variant: Optional[str] = None):
     """The gradient of ``flash_attention_cuda``: q, out, dout (B, Hq, Sq,
     D), k, v (B, Hkv, Sk, D), all fp32 or all bf16, and ``lse`` (B, Hq,
     Sq) fp32, the forward's ``with_lse`` output, on one CUDA device ->
     (dq, dk, dv), each laid out like its input (``empty_like``) and in
-    its dtype.  bf16 inputs are widened to fp32 as they load and each
-    gradient is rounded once from its fp32 sum (a GQA group's dK / dV
-    summed in fp32 first); delta comes from the bf16 ``out``.
+    its dtype, each rounded once from its fp32 sum.
+
+    ``variant`` (default ``BWD_VARIANTS[dtype]``): ``"simt"`` for fp32
+    (delta from ``out``); for bf16 ``"wgmma_bf16"``, the tensor-core
+    kernels (delta from P and dP in a first walk of the dq kernel; a GQA
+    group's dK and dV summed in fp32 inside a block, or per query head
+    and then by ``sum_group_partials`` where ``per_head_blocks``), or
+    ``"simt_bf16"``, the SIMT kernels on the values widened as they load,
+    which nothing but a comparison asks for.  bf16 dout must be readable
+    by TMA (``tma_layout_error``) for the wgmma variant.
 
     It computes what autodiff of ``ref.attention_ref`` computes, except
     for a query row that sees no key, where the plain version averages V
     over every key: such calls (``rows_without_keys``) are refused with a
     ``ValueError``; training never makes one.  Launches its kernels on
-    the current stream (fp32: delta, dq, dk/dv; bf16: dq, whose first
-    walk forms delta from P and dP, then dk/dv) and does not
-    synchronise."""
+    the current stream and does not synchronise."""
+    variant = bwd_variant(q.dtype, variant)
     B, Hq, Hkv, Sq, Sk, D = _check_inputs(q, k, v, window)
     for name, x in (("out", out), ("dout", dout)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
@@ -267,6 +339,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              f"like q {tuple(q.shape)} {q.dtype}, got "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
         _check_layout(name, x)
+    if variant == "wgmma_bf16":
+        why = tma_layout_error(tuple(dout.shape), dout.stride(),
+                               dout.data_ptr(), dout.element_size())
+        if why is not None:
+            raise ValueError(f"flash_attention_bwd cuda: dout cannot be "
+                             f"read by TMA: {why}")
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd cuda: lse must be a "
@@ -286,19 +364,41 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if scale is None:
         scale = D ** -0.5
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_int64 * 24)(*(st for x in (q, k, v, out, dout, dq,
-                                                   dk, dv)
-                                      for st in x.stride()[:3]))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_entry()(DTYPES[q.dtype], D, *(x.data_ptr() for x in (
-            q, k, v, out, dout, lse, delta, dq, dk, dv)), strides, B, Hq,
-            Hkv, Sq, Sk, int(q_offset),
-            0 if window is None else int(window), int(causal),
-            float(scale), stream)
+    window = 0 if window is None else int(window)
+    if variant == "wgmma_bf16":
+        per_head = per_head_blocks(B, Hq, Hkv, Sk)
+        parts = [torch.empty((B, Hq, Sk, D), dtype=torch.float32,
+                             device=q.device) for _ in range(2)] \
+            if per_head else [None, None]
+        strides = (ctypes.c_int64 * 21)(*(st for x in (q, k, v, dout, dq,
+                                                       dk, dv)
+                                          for st in x.stride()[:3]))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _bwd_wgmma_entry()(
+                D, *(x.data_ptr() for x in (q, k, v, dout, lse, delta, dq,
+                                            dk, dv)),
+                *(None if x is None else x.data_ptr() for x in parts),
+                strides, B, Hq, Hkv, Sq, Sk, int(q_offset), window,
+                int(causal), float(scale), int(per_head), stream)
+        if err == 0 and per_head:
+            dk.copy_(sum_group_partials(parts[0], Hkv))
+            dv.copy_(sum_group_partials(parts[1], Hkv))
+    else:
+        strides = (ctypes.c_int64 * 24)(*(st for x in (q, k, v, out, dout,
+                                                       dq, dk, dv)
+                                          for st in x.stride()[:3]))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _bwd_entry()(DTYPES[q.dtype], D, *(x.data_ptr() for x in (
+                q, k, v, out, dout, lse, delta, dq, dk, dv)), strides, B,
+                Hq, Hkv, Sq, Sk, int(q_offset), window, int(causal),
+                float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd cuda: launch failed with "
-                           f"CUDA error {err} at q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype}")
-    bwd_launches.add(BWD_VARIANTS[q.dtype])
+        raise RuntimeError(f"flash_attention_bwd cuda: {variant} launch "
+                           f"failed with error {err} (a CUDA error; 10000: "
+                           f"no tensor-map encoder, 20000 + n: CUresult n "
+                           f"encoding a tensor map) at q {tuple(q.shape)}, "
+                           f"k {tuple(k.shape)}, {q.dtype}")
+    bwd_launches.add(variant)
     return dq, dk, dv

@@ -11,7 +11,8 @@ which non-causal calls are refused.
 Gradients.  On a CUDA tensor under grad, fp32 and bf16 go through
 ``FlashAttentionFn``: the forward kernel of the dtype (SIMT for fp32,
 wgmma for bf16), which also writes each row's log-sum-exp, and the
-hand-written backward kernel (``kernel.flash_attention_bwd_cuda``; bf16
+hand-written backward kernels (``kernel.flash_attention_bwd_cuda``: SIMT
+for fp32, ``flash_bwd_wgmma`` on the tensor cores for bf16, its
 gradients rounded once from fp32).  ``impl="torch"`` and CPU tensors
 differentiate the plain version by autograd.
 """
@@ -33,8 +34,9 @@ class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on the card with a hand-written backward: the
     forward kernel (``flash_fwd_simt`` for fp32, ``flash_fwd_wgmma`` for
     bf16, each with the rows' log-sum-exp) saves q, k, v, o and lse; the
-    backward kernel forms dq, dk and dv from them in q's dtype
-    (``csrc/flash_attention_bwd.cu``)."""
+    backward kernel of the dtype (``BWD_VARIANTS``: SIMT for fp32,
+    ``flash_bwd_wgmma`` for bf16, never the SIMT bf16 one) forms dq, dk
+    and dv from them in q's dtype (``csrc/flash_attention_bwd.cu``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, q_offset):

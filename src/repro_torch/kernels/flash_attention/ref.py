@@ -85,6 +85,58 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
+def _bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """fp32 ``x`` as the tensor cores take it: one bf16 term, bf16(x), or
+    two, hi = bf16(x) and lo = bf16(x - hi), returned summed (float64)."""
+    hi = x.to(torch.bfloat16)
+    if terms == 1:
+        return hi.double()
+    return hi.double() + (x - hi.float()).to(torch.bfloat16).double()
+
+
+def attention_bwd_wgmma_mirror(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, dout: torch.Tensor, *,
+                               causal: bool = True,
+                               window: Optional[int] = None,
+                               scale: Optional[float] = None,
+                               q_offset: int = 0, terms: int = 2):
+    """The rounding points of the bf16 tensor-core backward
+    (``flash_bwd_wgmma`` in ``csrc/flash_attention_bwd.cu``), for tests
+    only: S = Q K^T and dP = dO V^T from the bf16 values with fp32 sums,
+    P = exp(scale S - lse) and dS = P (dP - delta) in fp32 (delta = Σ P
+    dP), then P and dS rounded to ``terms`` bf16 terms (2: hi + lo, as
+    the kernel passes them to the tensor cores) before dV = P^T dO, dQ =
+    scale dS K and dK = scale dS^T Q, which run in float64; each gradient
+    rounded to bf16 once.  q, k, v, dout: bf16, (B, H, S, D) with GQA
+    groups as in ``attention_ref``."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    f = torch.float32
+    qg = q.float().reshape(B, Hkv, G, Sq, D)
+    dog = dout.float().reshape(B, Hkv, G, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.float())
+    qp = q_offset + torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    lse = torch.logsumexp(torch.where(ok, s, NEG_INF), dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - lse), 0.0).to(f)
+    delta = (p.double() * dp.double()).sum(-1, keepdim=True)
+    ds = (p.double() * (dp.double() - delta)).to(f)
+    pr, dsr = _bf16_terms(p, terms), _bf16_terms(ds, terms)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", pr, dog.double())
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", dsr, k.double()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", dsr, qg.double()) * scale
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp of each element of ``x`` (fp32; 0 where ``x`` is 0):
     2^(e - 7) for 2^e <= |x| < 2^(e + 1)."""
@@ -106,3 +158,33 @@ def bf16_excess(got: torch.Tensor, truth: torch.Tensor) -> float:
     err = (got.float() - truth).abs() - bf16_ulp(truth)
     row = truth.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
     return float((err / row).max())
+
+
+# The gate of a bf16 gradient (the flash and SSD backwards on bf16
+# inputs): its excess beyond one bf16 ulp of the truth (autograd through
+# the plain version in fp32 or float64 on the same bf16 values, upcast)
+# within the fp32 kernel's tolerance of max(1, max |truth|) and within
+# BF16_BWD_OWN_TOL of the tensor's own max |truth|, which a zero gradient
+# fails; fp32 outputs (dA, dh0) without the ulp.  chip_smoke.py and the
+# tests hold every bf16 backward to it
+BF16_BWD_OWN_TOL = 1e-3
+
+
+def bf16_grad_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over elements of |got - want| beyond one bf16 ulp of ``want``
+    (``bf16_ulp``) where ``got`` is bf16; of |got - want| itself where it
+    is fp32."""
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        err = (err - bf16_ulp(want)).clamp_min(0.0)
+    return float(err.max()) if err.numel() else 0.0
+
+
+def bf16_grad_gate(got: torch.Tensor, want: torch.Tensor, tol: float):
+    """(excess, max |want|, passes) of one gradient under the gate above:
+    the excess (``bf16_grad_excess``) within ``tol`` of max(1, max
+    |want|) and within ``BF16_BWD_OWN_TOL`` of max |want|."""
+    exc = bf16_grad_excess(got, want)
+    top = float(want.abs().max()) if want.numel() else 0.0
+    ok = exc <= tol * max(1.0, top) and exc <= BF16_BWD_OWN_TOL * top
+    return exc, top, ok

@@ -384,11 +384,20 @@ def test_rows_without_keys_finds_the_rows_the_backward_refuses(
 
 
 def test_backward_kernels_fit_shared_memory():
-    """Both backward kernels' dynamic shared memory fits a block's 227 KB
-    at every head dim (220,672 bytes at D 192)."""
+    """Every backward kernel's dynamic shared memory fits a block's 227 KB
+    at every head dim: the SIMT pair (220,672 bytes at D 192) and the
+    wgmma dq and dk/dv kernels (bf16 boxes of 64 columns, 3 stages)."""
     for D in K.HEAD_DIMS:
         assert 0 < K.bwd_smem_bytes(D) <= 232_448
+        for kernel in ("wgmma_dq", "wgmma_dkdv"):
+            assert 0 < K.bwd_smem_bytes(D, kernel) <= 232_448
     assert K.bwd_smem_bytes(192) == 220_672
+    # dq at D 128: Q and dO of 128 rows, 3 stages of K and V of 64 keys
+    assert K.bwd_smem_bytes(128, "wgmma_dq") == \
+        1024 + 2 * 2 * 128 * 128 + 3 * 2 * 2 * 64 * 128 + 56
+    # dk/dv at D 192: K and V of 64 keys, 3 stages of 32-row Q and dO
+    assert K.bwd_smem_bytes(192, "wgmma_dkdv") == \
+        1024 + 2 * 3 * 64 * 128 + 3 * 2 * 3 * 32 * 128 + 56
 
 
 def test_cpu_tensors_under_grad_differentiate_the_plain_version():
@@ -504,3 +513,173 @@ def test_function_plumbing_in_bf16(monkeypatch):
     want = _ref.attention_bwd_ref(q, k, v, dout, **kw)
     assert all(g.dtype == bf16 and torch.equal(g, w)
                for g, w in zip(got, want))
+
+
+# ---- the tensor-core bf16 backward (flash_bwd_wgmma) ------------------------
+# Its rounding points mirrored on the CPU (ref.attention_bwd_wgmma_mirror:
+# S and dP from the bf16 values with fp32 sums, P and dS rounded to bf16
+# terms before the products, which run in float64, each gradient rounded
+# to bf16 once) against float64 autograd on the same bf16 values, under
+# the gate the card holds the kernel to (ref.bf16_grad_gate with the fp32
+# kernel's 1e-4): two terms pass, one term fails
+MIRROR_SHAPES = [
+    # (B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset)
+    (1, 2, 2, 128, 128, 64, True, None, 0),     # the training structure
+    (1, 7, 1, 256, 256, 128, True, None, 0),    # group 7, Qwen2's D
+    (1, 7, 1, 130, 190, 64, True, 50, 60),      # window 50, q_offset 60
+    (1, 4, 2, 65, 128, 80, False, None, 0),     # D 80, non-causal
+]
+FLASH_BWD_TOL = 1e-4
+
+
+def _mirror_case(B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset):
+    bf16 = torch.bfloat16
+    q, k, v = (torch.from_numpy(x).to(bf16)
+               for x in _inputs(B, Hq, Hkv, Sq, Sk, D, seed=Sq + D + 5))
+    dout = torch.from_numpy(np.random.RandomState(Sk + 1).randn(
+        B, Hq, Sq, D).astype(np.float32)).to(bf16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = _ref.attention_bwd_ref(q.double(), k.double(), v.double(),
+                                  dout.double(), **kw)
+    return q, k, v, dout, kw, want
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset",
+                         MIRROR_SHAPES)
+def test_bf16_backward_mirror_in_two_terms_passes_the_gate(
+        B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset):
+    q, k, v, dout, kw, want = _mirror_case(B, Hq, Hkv, Sq, Sk, D, causal,
+                                           window, q_offset)
+    got = _ref.attention_bwd_wgmma_mirror(q, k, v, dout, terms=2, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        exc, top, ok = _ref.bf16_grad_gate(g, w, FLASH_BWD_TOL)
+        assert ok, (exc, top)
+        # with room to spare: under 1e-5 of max(1, max |g|)
+        assert exc <= 1e-5 * max(1.0, top)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset",
+                         MIRROR_SHAPES)
+def test_bf16_backward_mirror_in_one_term_fails_the_gate(
+        B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset):
+    """P and dS in one bf16 term each, as a kernel that dropped the low
+    term would carry them: some gradient fails the gate's own-max part
+    (1e-3 of max |g|)."""
+    q, k, v, dout, kw, want = _mirror_case(B, Hq, Hkv, Sq, Sk, D, causal,
+                                           window, q_offset)
+    got = _ref.attention_bwd_wgmma_mirror(q, k, v, dout, terms=1, **kw)
+    gates = [_ref.bf16_grad_gate(g, w, FLASH_BWD_TOL)
+             for g, w in zip(got, want)]
+    assert not all(ok for _, _, ok in gates), gates
+
+
+def test_bf16_grad_gate_is_the_one_rule():
+    """``ref.bf16_grad_gate``: the excess beyond one bf16 ulp of the truth
+    within tol of max(1, max |truth|) and within 1e-3 of max |truth|; a
+    zero gradient against a non-zero truth fails, fp32 outputs are held
+    without the ulp."""
+    w = torch.tensor([0.5, -0.25, 2.0 ** -10])
+    g = w.to(torch.bfloat16)
+    assert _ref.bf16_grad_gate(g, w, 1e-4) == (0.0, 0.5, True)
+    assert not _ref.bf16_grad_gate(torch.zeros_like(g), w, 1e-4)[2]
+    off = (w + torch.tensor([0.0, 0.0, 1e-3])).to(torch.bfloat16)
+    exc, top, ok = _ref.bf16_grad_gate(off, w, 1e-4)
+    assert not ok and exc > 1e-4
+    # fp32 outputs: |got - want| itself (w + 1e-6 rounds to fp32)
+    assert _ref.bf16_grad_excess(w + 1e-6, w) == pytest.approx(1e-6,
+                                                               rel=0.05)
+    assert _ref.BF16_BWD_OWN_TOL == 1e-3
+
+
+def test_bwd_variant_rule():
+    """bf16 runs the tensor-core backward unless the SIMT one is named;
+    fp32 has only SIMT."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert K.BWD_VARIANTS == {f32: "simt", bf16: "wgmma_bf16"}
+    assert K.bwd_variant(bf16) == "wgmma_bf16"
+    assert K.bwd_variant(bf16, "simt_bf16") == "simt_bf16"
+    assert K.bwd_variant(f32) == "simt"
+    for dtype, variant in ((bf16, "simt"), (f32, "wgmma_bf16"),
+                           (f32, "simt_bf16"), (bf16, "mma")):
+        with pytest.raises(ValueError, match="variant"):
+            K.bwd_variant(dtype, variant)
+    with pytest.raises(TypeError):
+        K.bwd_variant(torch.float16)
+    assert set(K.bwd_launches.by_variant) == {"simt", "wgmma_bf16",
+                                              "simt_bf16"}
+
+
+def test_function_plumbing_in_bf16_runs_the_wgmma_variant(monkeypatch):
+    """``FlashAttentionFn`` on bf16 asks the backward for no variant, so
+    the wrapper takes ``BWD_VARIANTS[bf16]``, the tensor-core kernels,
+    and counts the call under ``wgmma_bf16``: the launch replaced by a
+    CPU stand-in with the wrapper's rule and count, returning the mirror
+    of the kernel's rounding."""
+    seen = {}
+
+    def fwd(q, k, v, with_lse=False, **kw):
+        o = attention_ref(q, k, v, **kw)
+        return (o, _ref.attention_lse_ref(q, k, **kw)) if with_lse else o
+
+    def bwd(q, k, v, out, lse, dout, variant=None, **kw):
+        seen["asked"] = variant
+        ran = K.bwd_variant(q.dtype, variant)
+        K.bwd_launches.add(ran)
+        return _ref.attention_bwd_wgmma_mirror(q, k, v, dout, **kw)
+    monkeypatch.setattr(ops, "flash_attention_cuda", fwd)
+    monkeypatch.setattr(ops, "flash_attention_bwd_cuda", bwd)
+    bf16 = torch.bfloat16
+    q, k, v = (torch.from_numpy(x).to(bf16).requires_grad_(True)
+               for x in _inputs(1, 4, 2, 50, 50, 64, seed=10))
+    dout = torch.from_numpy(np.random.RandomState(10).randn(
+        1, 4, 50, 64).astype(np.float32)).to(bf16)
+    before = dict(K.bwd_launches.by_variant)
+    out = ops.FlashAttentionFn.apply(q, k, v, True, None, None, 0)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    ran = {n: c - before[n] for n, c in K.bwd_launches.by_variant.items()}
+    assert seen == {"asked": None}
+    assert ran == {"simt": 0, "wgmma_bf16": 1, "simt_bf16": 0}
+    want = _ref.attention_bwd_ref(q.double(), k.double(), v.double(),
+                                  dout.double())
+    for g, w in zip(got, want):
+        assert g.dtype == bf16 and _ref.bf16_grad_gate(g, w, 1e-4)[2]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sk,per_head", [
+    (1, 28, 4, 2048, True),      # Qwen2's heads: 128 blocks a group
+    (1, 32, 8, 6144, False),     # Danube's: 768
+    (32, 32, 32, 128, False),    # zamba2-1.2b's training: G = 1
+    (4, 16, 4, 1024, True),      # 256 blocks, under two waves
+    (4, 16, 4, 2048, False),     # 512
+])
+def test_per_head_blocks_under_two_waves(B, Hq, Hkv, Sk, per_head):
+    assert K.per_head_blocks(B, Hq, Hkv, Sk) == per_head
+
+
+def test_group_partials_sum_in_a_fixed_order():
+    """``sum_group_partials``: the per-query-head fp32 dK (or dV) of each
+    group summed over its G heads in fp32, equal to the float64 sum
+    within fp32 rounding (G - 1 additions of 2^-24 each, of the sum of
+    |x|), the same bits on every call, and rounded to bf16 once by the
+    wrapper's copy."""
+    torch.set_num_threads(1)
+    B, Hkv, G, Sk, D = 2, 4, 7, 130, 64
+    part = torch.from_numpy(np.random.RandomState(3).randn(
+        B, Hkv * G, Sk, D).astype(np.float32) * 10.0 ** np.random.RandomState(
+            4).randint(-3, 3, size=(1, Hkv * G, 1, 1)).astype(np.float32))
+    got = K.sum_group_partials(part, Hkv)
+    assert got.shape == (B, Hkv, Sk, D) and got.dtype == torch.float32
+    f64 = part.double().view(B, Hkv, G, Sk, D)
+    bound = (G - 1) * 2.0 ** -24 * f64.abs().sum(2)
+    assert bool(((got.double() - f64.sum(2)).abs() <= bound).all())
+    assert torch.equal(got, K.sum_group_partials(part.clone(), Hkv))
+    # the group's heads are hk * G + g, as the forward orders them
+    lone = torch.zeros_like(part)
+    lone[:, 3 * G + 5] = 1.0
+    assert torch.equal(K.sum_group_partials(lone, Hkv)[:, 3],
+                       torch.ones(B, Sk, D))
+    assert float(K.sum_group_partials(lone, Hkv)[:, :3].abs().sum()) == 0.0
+    dk = torch.empty(B, Hkv, Sk, D, dtype=torch.bfloat16)
+    dk.copy_(got)
+    assert torch.equal(dk, got.to(torch.bfloat16))

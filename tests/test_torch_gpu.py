@@ -1102,10 +1102,10 @@ def test_kernels_without_a_backward_refuse_grad(cuda):
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
     q.requires_grad_(True)
-    before = FK.bwd_launches.by_variant["simt_bf16"]
+    before = FK.bwd_launches.by_variant["wgmma_bf16"]
     FO.flash_attention(q, k, v).float().sum().backward()
     assert q.grad is not None and q.grad.dtype == torch.bfloat16
-    assert FK.bwd_launches.by_variant["simt_bf16"] == before + 1
+    assert FK.bwd_launches.by_variant["wgmma_bf16"] == before + 1
     x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 64, 4, 32, 16, 1, torch.bfloat16,
                                       cuda)
     x.requires_grad_(True)
@@ -1334,35 +1334,59 @@ def test_recurrent_train_driver_on_the_card_matches_cpu(cuda, arch):
 # each bf16 gradient against autograd through the plain version in fp32 on
 # the same bf16 values, upcast: its excess beyond one bf16 ulp of the
 # truth within the fp32 gate of max(1, max |g|) and within 1e-3 of its own
-# max |g|, as chip_smoke.py gates them; fp32 outputs without the ulp
+# max |g| (ref.bf16_grad_gate, as chip_smoke.py gates them); fp32 outputs
+# without the ulp
 def _check_bf16_grads(got, want, dtypes, tol):
-    from repro_torch.kernels.flash_attention.ref import bf16_ulp
+    from repro_torch.kernels.flash_attention.ref import bf16_grad_gate
     for g, w, dt in zip(got, want, dtypes):
         if w is None:
             assert g is None
             continue
         assert g.shape == w.shape and g.dtype == dt
         assert bool(torch.isfinite(g).all())
-        err = (g.float() - w.float()).abs()
-        if dt == torch.bfloat16:
-            err = (err - bf16_ulp(w)).clamp_min(0.0)
-        err, scale = float(err.max()), float(w.abs().max())
-        assert err <= tol * max(1.0, scale), (err, scale)
-        assert scale == 0.0 or err <= OWN_MAX_TOL * scale, (err, scale)
+        err, scale, ok = bf16_grad_gate(g, w, tol)
+        assert ok, (err, scale)
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,q_offset,causal,window", [
+# every head dim at GQA groups 1, 4 and 7, with ragged Sq and Sk, windows,
+# q_offset and non-causal calls among them; the training shape of
+# zamba2-1.2b's heads; groups of 4 and 7 both under two waves of blocks
+# (one query head a block, summed after) and above (the group in a block)
+BF16_BWD_CASES = [
+    # (B, Hq, Hkv, Sq, Sk, D, q_offset, causal, window)
     (4, 32, 32, 128, 128, 64, 0, True, None),    # zamba2-1.2b's heads
     (1, 8, 2, 700, 700, 80, 0, True, 256),       # Danube's D, a window
     (2, 14, 2, 70, 107, 128, 37, True, None),    # q_offset, Sq < Sk
     (1, 4, 2, 65, 128, 32, 0, False, None),      # non-causal, D 32
     (1, 6, 2, 150, 150, 192, 0, True, 64),
-])
+    (2, 2, 2, 97, 97, 32, 0, True, 40),          # D 32, G 1, ragged
+    (1, 8, 2, 200, 200, 32, 0, True, None),      # D 32, G 4
+    (1, 7, 1, 130, 190, 32, 60, True, 50),       # D 32, G 7
+    (2, 3, 3, 130, 130, 64, 0, True, 50),        # D 64, G 1, window
+    (1, 8, 2, 190, 250, 64, 60, True, None),     # D 64, G 4, q_offset
+    (1, 7, 1, 130, 190, 64, 60, True, 50),       # D 64, G 7
+    (4, 16, 4, 1100, 1100, 64, 0, True, None),   # D 64, G 4, group a block
+    (1, 2, 2, 77, 77, 80, 0, True, None),        # D 80, G 1, ragged
+    (1, 7, 1, 65, 128, 80, 0, False, None),      # D 80, G 7, non-causal
+    (2, 2, 2, 100, 100, 128, 0, True, 30),       # D 128, G 1
+    (1, 8, 2, 129, 129, 128, 0, True, None),     # D 128, G 4
+    (1, 7, 1, 333, 1000, 128, 667, True, 100),   # D 128, G 7, window
+    (7, 28, 4, 600, 600, 128, 0, True, None),    # D 128, G 7, group a block
+    (2, 3, 3, 130, 130, 192, 0, True, None),     # D 192, G 1
+    (1, 8, 2, 150, 256, 192, 0, False, None),    # D 192, G 4, non-causal
+    (1, 7, 1, 100, 140, 192, 40, True, 70),      # D 192, G 7
+    (5, 8, 2, 1700, 1700, 192, 0, True, 300),    # D 192, G 4, group a block
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,q_offset,causal,window",
+                         BF16_BWD_CASES)
 def test_flash_backward_kernel_in_bf16_matches_plain(cuda, B, Hq, Hkv, Sq,
                                                      Sk, D, q_offset, causal,
                                                      window):
-    """Under grad, bf16 runs flash_fwd_wgmma with its lse and the bf16
-    backward; each gradient bf16, held as above."""
+    """Under grad, bf16 runs flash_fwd_wgmma with its lse and the
+    tensor-core backward (``wgmma_bf16``); each gradient bf16, held as
+    above; reruns bit-identical."""
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     q, k, v = _qkv(B, Hq, Hkv, Sq, Sk, D, torch.bfloat16, cuda, seed=Sq + D)
     dout = torch.randn_like(q, dtype=torch.float32).to(torch.bfloat16)
@@ -1373,16 +1397,47 @@ def test_flash_backward_kernel_in_bf16_matches_plain(cuda, B, Hq, Hkv, Sq,
     torch.cuda.synchronize()
     assert (FK.launches_by_variant["wgmma"],
             FK.lse_launches.by_variant["wgmma"],
+            FK.bwd_launches.by_variant["wgmma_bf16"],
             FK.bwd_launches.by_variant["simt_bf16"],
             FK.bwd_launches.by_variant["simt"]) == (
         before[0]["wgmma"] + 1, before[1]["wgmma"] + 1,
-        before[2]["simt_bf16"] + 1, before[2]["simt"])
+        before[2]["wgmma_bf16"] + 1, before[2]["simt_bf16"],
+        before[2]["simt"])
     _check_flash(out, q, k, v, **kw)
     _check_bf16_grads(got, attention_bwd_ref(q.float(), k.float(), v.float(),
                                              dout.float(), **kw),
                       (torch.bfloat16,) * 3, FLASH_BWD_TOL)
     again = _flash_grads(q, k, v, dout, "cuda", **kw)[1]
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,q_offset,causal,window", [
+    BF16_BWD_CASES[0], BF16_BWD_CASES[1], BF16_BWD_CASES[7],
+    BF16_BWD_CASES[16], BF16_BWD_CASES[20]])
+def test_flash_backward_bf16_variants_pass_one_gate(cuda, B, Hq, Hkv, Sq,
+                                                    Sk, D, q_offset, causal,
+                                                    window):
+    """The tensor-core kernels and the SIMT ones asked for by name, on the
+    same bf16 inputs, lse and output: both within the gate of the truth,
+    each counted under its own variant."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Sk, D, torch.bfloat16, cuda, seed=Sq + 3)
+    dout = torch.randn_like(q, dtype=torch.float32).to(torch.bfloat16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), dout.float(),
+                             **kw)
+    for variant in ("wgmma_bf16", "simt_bf16"):
+        before = dict(FK.bwd_launches.by_variant)
+        got = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                          variant=variant, **kw)
+        torch.cuda.synchronize()
+        ran = {n: c - before[n] for n, c in FK.bwd_launches.by_variant.items()}
+        assert ran == {n: int(n == variant) for n in ran}
+        _check_bf16_grads(got, want, (torch.bfloat16,) * 3, FLASH_BWD_TOL)
+    with pytest.raises(ValueError, match="variant"):
+        FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, variant="simt",
+                                    **kw)
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,window", [
@@ -1463,7 +1518,8 @@ def test_bf16_training_step_of_narrow_zamba2_runs_the_kernels(cuda):
     grads = torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
     ran = [{v: c[v] - b[v] for v in c} for c, b in zip(counts, before)]
-    assert ran == [{"wgmma": 4, "simt": 0}, {"simt": 0, "simt_bf16": 2},
+    assert ran == [{"wgmma": 4, "simt": 0},
+                   {"simt": 0, "wgmma_bf16": 2, "simt_bf16": 0},
                    {"mma": 8, "simt": 0}, {"simt": 0, "simt_bf16": 4}]
     assert bool(torch.isfinite(loss))
     for g in grads:

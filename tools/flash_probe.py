@@ -118,8 +118,8 @@ def build(out, variants):
         with open(cu, "w") as f:
             f.write(src)
         procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
-             os.path.join(out, f"{name}.so"), cu],
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", os.path.join(out, f"{name}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
