@@ -11,7 +11,8 @@ Phases, each of which raises on failure:
    csrc`` by ``nvcc`` (seconds and the ``-Xptxas -v`` report; each
    flash_attention variant's registers, shared memory and spills, and a
    failure on serialised wgmma or on a spill of the wgmma variant at D
-   64, 80 or 128; each scan variant's registers and spills);
+   64, 80 or 128; each scan variant's registers and spills, and a
+   failure on a spill of ``ssd_bwd_mma`` at P = N = 64);
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes and at ragged ones, bit-identical reruns, and timings
    (kernel, plain version, one PyTorch library call, in turns) beside
@@ -88,8 +89,12 @@ Phases, each of which raises on failure:
    gradient within 2e-4 / 1e-4 of max(1, max |g|) and 1e-3 of its own
    max |g|), reruns bit-identical, timed beside the plain autograd
    backward and the bound; ``[ssm_scan_bwd bf16]`` the SSD backward on
-   bf16 x, B and C the same way (one bf16 ulp plus 2e-4) at zamba2-1.2b's
-   training shape and full layer;
+   bf16 x, B and C the same way (one bf16 ulp plus 2e-4), the
+   tensor-core kernel (``mma_bf16``) and the SIMT one on the same values
+   (``simt_bf16``), at zamba2-1.2b's training shape and full layer and
+   ragged ones (every (P, N), groups, states, S 1, several heads a
+   block), the two timed in turns; ``[flash_fwd fp32]`` the fp32 flash
+   forward with its lse at the fp32 training shapes beside SDPA's;
    ``[train flude-paper]``, ``[train 100m]``, ``[train 100m S2048]``,
    ``[train zamba2 10m]``, ``[train zamba2 100m]``, ``[train rwkv6
    10m]`` and ``[train rwkv6 100m]``: the driver's rounds with every
@@ -107,14 +112,21 @@ Phases, each of which raises on failure:
    the bf16 kernels' launches a step exact) and ``[train grads zamba2
    full bf16]`` (one step three ways: the kernels in bf16, the plain path
    in bf16, the per-step plain path in fp32 as the oracle; per leaf the
-   kernels no further from the oracle than 2x the bf16 plain path);
+   kernels no further from the oracle than 2x the bf16 plain path) and
+   ``[train grads zamba2 shallow bf16]`` (the same at full width cut to
+   one Mamba2 layer and one shared-attention application, per leaf
+   within 5% of the oracle's own max |g| and L2 norm, the kernels and the
+   bf16 plain path alike);
    ``[train card vs CPU]`` (4-silo runs of flude-paper and of both
    recurrent stacks at --scale 10m, trajectories identical, loss within
    1e-4); ``[serve ckpt]`` the 100m checkpoint the training run saved,
    restored bit for bit and served, and a small one served on both
    devices: logits teacher-forced on the CPU's ids held together, ids
    compared with each step's top-2 margin, each checkpoint's SHA-256
-   logged;
+   logged; ``[poison]`` every output and workspace the kernel wrappers
+   allocate filled with NaN (``_build.poisoned``): ``tools/bwd_check.py``,
+   the bf16 SSD backward at a ragged shape and ``[serve ckpt]`` again, at
+   their gates;
 7. card against CPU: the golden FL setup (N = 24, 5 rounds) for FLUDE
    and three robust rule / attack / policy combinations, and the four
    reduced serve configs in fp32.
@@ -328,12 +340,20 @@ FLASH_BWD_BF16_SHAPES = [
     ("danube heads S 6144", 1, 32, 8, 6144, 80, 4096),
     ("qwen2 heads S 2048", 1, 28, 4, 2048, 128, None),
 ]
-# (label, B, S, H, P, N, G, h0, dh_f, dt dtype), x, B and C bf16
+# (label, B, S, H, P, N, G, h0, dh_f, dt dtype), x, B and C bf16; the
+# mma kernel walks heads_per_block heads a block: 8 at the training shape,
+# 4 at "G 2, four heads a block", 1 elsewhere
 SSD_BWD_BF16_CASES = [
     ("zamba2-1.2b training", 32, 128, 64, 64, 64, 1, False, False,
      torch.float32),
     ("ragged S 1000, G 2, P 32 / N 16, h0, dh_f, bf16 dt", 2, 1000, 4, 32,
      16, 2, True, True, torch.bfloat16),
+    ("ragged S 77, P 64 / N 16, G 4, h0", 1, 77, 8, 64, 16, 4, True, False,
+     torch.float32),
+    ("S 1, P 32 / N 64, h0, dh_f, bf16 dt", 3, 1, 2, 32, 64, 1, True, True,
+     torch.bfloat16),
+    ("ragged S 300, G 2, four heads a block, h0, dh_f", 16, 300, 64, 64, 64,
+     2, True, True, torch.float32),
     ("zamba2-1.2b layer", 4, 4096, 64, 64, 64, 1, False, False,
      torch.float32),
 ]
@@ -353,6 +373,18 @@ TRAIN_BF16 = ("train zamba2-1.2b bf16", ["--arch", "zamba2-1.2b", "--lr",
 TRAIN_GRADS_BF16 = ("train grads zamba2 full bf16", "zamba2-1.2b", 2, 1024,
                     ("a_log", "dt_bias", "w_in"))
 BF16_GRAD_RATIO = 2.0
+# The same step at full width cut to SHALLOW_LAYERS layers (one
+# shared-attention application), 2 x 1024, where bf16's rounding has not
+# yet grown past a lost gradient's size: per leaf, the kernel path's and
+# the bf16 plain path's largest distance from the fp32 oracle within
+# SHALLOW_OWN_TOL of the leaf's own max |g|, and their L2 distance within
+# SHALLOW_L2_TOL of its norm (a lost gradient is 1.0 off).  Stated in
+# PERF.md before the first run, at 4 layers, with the rule to take fewer
+# layers where the bf16 plain path fails them: it did at 4 (0.44 of own
+# max, 0.15 L2) and at 2 (0.115, 0.055), and passed at 1 (PERF.md)
+SHALLOW_LAYERS = 1
+SHALLOW_OWN_TOL = 0.05
+SHALLOW_L2_TOL = 0.05
 # The kernels' input leaves (a_log, dt_bias, w_in, wq, wk, wv) also by the
 # ratio in L2 (the distance's norm over the oracle's), and not zero.  No
 # distance from the fp32 oracle tells a lost gradient from bf16's
@@ -464,6 +496,7 @@ def phase_build():
             log(f"[build]   {line}")
     check_flash_build(builds["flash_attention"].report)
     check_flash_bwd_build(builds["flash_attention_bwd"].report)
+    check_ssd_bwd_build(builds["ssm_scan_bwd_mma"].report)
     for name in ("ssm_scan", "rwkv6_scan", "flash_attention_bwd",
                  "ssm_scan_bwd", "rwkv6_scan_bwd"):
         for kernel, k in sorted(_build.ptxas_kernels(
@@ -523,6 +556,35 @@ def check_flash_bwd_build(report):
     if serialised:
         raise RuntimeError("ptxas serialised wgmma instructions of the "
                            "backward: " + "; ".join(serialised))
+
+
+def check_ssd_bwd_build(report):
+    """Each ssd_bwd_mma instantiation's registers, shared memory and
+    spills (by dt dtype, P and N); raises on any spill at P = N = 64,
+    zamba2-1.2b's heads."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan.kernel import bwd_smem_bytes
+    seen = 0
+    for name, k in sorted(_build.ptxas_kernels(report).items()):
+        m = re.search(r"ssd_bwd_mmaI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                      name)
+        if not m:
+            continue
+        seen += 1
+        dt, P, N = ("fp32" if m.group(1) == "f" else "bf16",
+                    int(m.group(2)), int(m.group(3)))
+        log(f"[build] ssd_bwd_mma<{dt} dt, P {P}, N {N}>: {k.registers} "
+            f"registers at launch, {bwd_smem_bytes(P, N, 'mma_bf16')} bytes "
+            f"of dynamic shared memory, spills {k.spill_stores} / "
+            f"{k.spill_loads} bytes")
+        if P == 64 and N == 64 and (k.spill_stores or k.spill_loads):
+            raise RuntimeError(f"ssd_bwd_mma<{dt} dt, 64, 64> spills "
+                               f"registers")
+    if seen != 8:
+        raise RuntimeError(f"ssd_bwd_mma: {seen} instantiations in the "
+                           f"ptxas report, expected 8 (2 dt dtypes x 4 "
+                           f"(P, N))")
 
 
 def ptxas_lines(report):
@@ -2537,6 +2599,61 @@ def time_flash_bwd(tag, label, B, Hq, Hkv, S, D, window, dtype, other=None):
     return timing
 
 
+def phase_flash_fwd_fp32():
+    """``flash_fwd_simt`` with its log-sum-exp (the forward fp32 training
+    runs under grad, twice a layer a step under remat) at the fp32
+    training shapes (FLASH_BWD_SHAPES without the window), timed in turns
+    with SDPA's fp32 forward (library, kernel, kernel, library) beside the
+    plain attention and the bound: q, k, v read and out and lse written
+    once, QK^T and P.V over the visible pairs at fp32's 67 TFLOP/s.
+    Returns {label: timing}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    timings = {}
+    for label, B, Hq, Hkv, S, D, window in FLASH_BWD_SHAPES:
+        if window is not None:
+            continue
+        q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, torch.float32, seed=4)
+
+        def kernel():
+            return FK.flash_attention_cuda(q, k, v, causal=True,
+                                           with_lse=True)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        reps = 20 if S <= 128 else 5
+        lib = [cuda_ms(library, reps=reps, warmup=2)]
+        kern = [cuda_ms(kernel, reps=reps, warmup=2) for _ in range(2)]
+        lib.append(cuda_ms(library, reps=reps, warmup=2))
+        ms, library_ms = sum(kern) / 2, sum(lib) / 2
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True),
+                           reps=3, warmup=1)
+        nbytes = 4 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D + B * Hq * S)
+        flops = 4 * B * Hq * D * visible_pairs(S, S, 0, True, None)
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        ops_ms = flops / H100_FP32_FLOPS * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"[flash_fwd fp32] {label} (B{B} Hq{Hq}/{Hkv} S{S} D{D}, causal, "
+            f"with lse): kernel {ms:.4f} ms ({kern[0]:.4f} / {kern[1]:.4f}), "
+            f"plain {plain_ms:.3f} ms, sdpa(is_causal, enable_gqa) fp32 "
+            f"forward {library_ms:.4f} ms ({lib[0]:.4f} / {lib[1]:.4f}); "
+            f"bound {bound_ms * 1e3:.1f} us ({flops:.4e} flops take "
+            f"{ops_ms * 1e3:.1f} us at 67 TFLOP/s fp32; {nbytes} bytes take "
+            f"{bytes_ms * 1e3:.1f} us at 3.35 TB/s); kernel at "
+            f"{bound_ms / ms:.1%} of the bound, sdpa at "
+            f"{bound_ms / library_ms:.1%}; kernel / sdpa "
+            f"{ms / library_ms:.3f}")
+        timings[label] = dict(ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms,
+                              bound_by="bytes" if bytes_ms >= ops_ms
+                              else "operations")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return timings
+
+
 def check_flash_bwd(label, got, want):
     """Raise unless each of dq, dk, dv is finite and within FLASH_BWD_TOL
     of max(1, max |g|); returns the largest absolute error."""
@@ -2750,13 +2867,19 @@ def check_scan_grads(tag, label, names, got, want, tol):
 
 
 def _time_bwd(tag, label, kernel, plain, bounds,
-              rate_name="fp32's 67 TFLOP/s"):
+              rate_name="fp32's 67 TFLOP/s", other=None):
     """Device times of the backward kernel and of the plain autograd
     backward (``plain`` None: not timed), beside the bound (its operations
-    at ``rate_name``); the kernels-line numbers."""
+    at ``rate_name``); with ``other`` (name, call), a second variant timed
+    in turns with the kernel (kernel, other, kernel, other); the
+    kernels-line numbers (and the other's time as ``<name>_ms``)."""
     nbytes, flops, bytes_ms, fp32_ms = bounds
     bound_ms = max(bytes_ms, fp32_ms)
-    kern = [cuda_ms(kernel, reps=10, warmup=2) for _ in range(2)]
+    kern, alt = [], []
+    for _ in range(2):
+        kern.append(cuda_ms(kernel, reps=10, warmup=2))
+        if other is not None:
+            alt.append(cuda_ms(other[1], reps=10, warmup=2))
     ms = sum(kern) / 2
     plain_ms = cuda_ms(plain, reps=1, warmup=1) if plain else None
     log(f"[{tag}] {label} timing: kernel {ms:.4f} ms ({kern[0]:.4f} / "
@@ -2766,8 +2889,16 @@ def _time_bwd(tag, label, kernel, plain, bounds,
         f"flops take {fp32_ms * 1e3:.1f} us at {rate_name}; {nbytes} "
         f"bytes take {bytes_ms * 1e3:.1f} us at 3.35 TB/s); kernel at "
         f"{bound_ms / ms:.1%} of the bound")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= fp32_ms else "operations")
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by="bytes" if bytes_ms >= fp32_ms else "operations")
+    if other is not None:
+        alt_ms = sum(alt) / 2
+        log(f"[{tag}] {label} timing, in the same turns: {other[0]} "
+            f"{alt_ms:.4f} ms ({alt[0]:.4f} / {alt[1]:.4f}), at "
+            f"{bound_ms / alt_ms:.1%} of the bound; kernel / {other[0]} "
+            f"{ms / alt_ms:.3f}")
+        timing[f"{other[0]}_ms"] = alt_ms
+    return timing
 
 
 def phase_ssm_scan_bwd():
@@ -3038,18 +3169,22 @@ def phase_flash_bwd_bf16():
 
 
 def phase_ssm_scan_bwd_bf16():
-    """The SSD backward on bf16 x, B and C (``ssd_bwd_simt`` through
-    ``SSDScanFn`` under autograd after ``ssd_fwd_mma``) against autograd
-    through the per-step oracle in fp32 on the same values upcast, at
-    SSD_BWD_BF16_CASES: each gradient in its input's dtype, within the
-    per-element gates (``check_bf16_grads``), reruns bit-identical; timed
-    at the training shape and the full layer beside the bf16 tensor-core
-    bound and (training shape) the plain autograd backward.  Returns its
-    kernels-line entry (``launches`` filled in by the training runs)."""
+    """The SSD backward on bf16 x, B and C after ``ssd_fwd_mma``: the
+    tensor-core kernel (``ssd_bwd_mma``, variant ``mma_bf16``, the
+    default, what training runs, through ``SSDScanFn`` under autograd)
+    and the SIMT one asked for by name (``variant="simt_bf16"``) on the
+    same inputs, each against autograd through the per-step oracle in
+    fp32 on the same values upcast, at SSD_BWD_BF16_CASES: each gradient
+    in its input's dtype, within the per-element gates
+    (``check_bf16_grads``), reruns bit-identical; the two variants timed
+    in turns at the training shape and the full layer beside the bf16
+    tensor-core bound and (training shape) the plain autograd backward.
+    Returns its kernels-line entry (``launches`` filled in by the
+    training runs)."""
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
-    max_err, timings = 0.0, {}
+    max_err, simt_worst, timings = 0.0, 0.0, {}
     for label, B, S, H, P, N, G, with_h0, with_dhf, dt_dtype in \
             SSD_BWD_BF16_CASES:
         x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, G, torch.bfloat16,
@@ -3064,32 +3199,42 @@ def phase_ssm_scan_bwd_bf16():
         fwd_before = dict(SK.launches.by_variant)
         got = _grads(ssm_scan, args, dy, dhf)
         again = _grads(ssm_scan, args, dy, dhf)
+        xk, dtk = x.transpose(1, 2), dt.transpose(1, 2)
+        Bk, Ck, dyk = Bm.transpose(1, 2), Cm.transpose(1, 2), \
+            dy.transpose(1, 2)
+        simt = SK.ssm_scan_bwd_cuda(xk, dtk, A, Bk, Ck, h0, dyk, dhf,
+                                    variant="simt_bf16")
+        simt = [t.transpose(1, 2) if i in (0, 1, 3, 4) else t
+                for i, t in enumerate(simt)]       # to the model's layout
         torch.cuda.synchronize()
         ran = {v: n - before[v] for v, n in SK.bwd_launches.by_variant.items()}
         fwd = {v: n - fwd_before[v] for v, n in SK.launches.by_variant.items()}
-        if ran != {"simt": 0, "simt_bf16": 2} or fwd != {"mma": 2, "simt": 0}:
+        if ran != {"simt": 0, "mma_bf16": 2, "simt_bf16": 1} \
+                or fwd != {"mma": 2, "simt": 0}:
             raise RuntimeError(f"ssm_scan_bwd bf16 {label}: launches {fwd} "
                                f"forward, {ran} backward")
         want = _grads(lambda *a: ssm_scan(*a, impl="torch"),
                       [None if t is None else t.float() for t in args], dy,
                       dhf)
-        err, rel = check_bf16_grads(
-            "ssm_scan_bwd bf16", label, names, got, want,
-            [None if t is None else t.dtype for t in args], SSM_BWD_TOL)
+        dtypes = [None if t is None else t.dtype for t in args]
+        err, rel = check_bf16_grads("ssm_scan_bwd bf16", label, names, got,
+                                    want, dtypes, SSM_BWD_TOL)
+        s_err, s_rel = check_bf16_grads("ssm_scan_bwd bf16 simt_bf16", label,
+                                        names, simt, want, dtypes,
+                                        SSM_BWD_TOL)
         same = all(g is None or torch.equal(g, a) for g, a in zip(got, again))
-        max_err = max(max_err, err)
+        max_err, simt_worst = max(max_err, err), max(simt_worst, s_err)
         log(f"[ssm_scan_bwd bf16] {label} (B{B} S{S} H{H} P{P} N{N} G{G}, dt "
-            f"{dt_dtype}, h0 {with_h0}, dh_f {with_dhf}): largest excess "
-            f"beyond one bf16 ulp {err:.3e} ({rel:.3e} of max(1, max |g|)); "
-            f"reruns bit-identical {same}")
+            f"{dt_dtype}, h0 {with_h0}, dh_f {with_dhf}; heads a block "
+            f"{SK.heads_per_block(B, H, G)}): largest excess beyond one bf16 "
+            f"ulp, mma_bf16 {err:.3e} ({rel:.3e} of max(1, max |g|)), "
+            f"simt_bf16 {s_err:.3e} ({s_rel:.3e}); reruns bit-identical "
+            f"{same}")
         if not same:
             raise RuntimeError(f"ssm_scan_bwd bf16 {label}: two launches "
                                f"differ")
-        del got, again, want
+        del got, again, want, simt
         if h0 is None and dhf is None:
-            xk, dtk = x.transpose(1, 2), dt.transpose(1, 2)
-            Bk, Ck, dyk = Bm.transpose(1, 2), Cm.transpose(1, 2), \
-                dy.transpose(1, 2)
             plain = None
             if S <= 128:
                 leaves = [t.detach().requires_grad_(True) for t in args[:5]]
@@ -3104,18 +3249,22 @@ def phase_ssm_scan_bwd_bf16():
                 plain, ssd_bwd_bounds(B, S, H, P, N, G, esize=2,
                                       dt_esize=dt.element_size(),
                                       rate=H100_BF16_FLOPS),
-                rate_name="bf16's 989 TFLOP/s")
+                rate_name="bf16's 989 TFLOP/s",
+                other=("simt_bf16", lambda: SK.ssm_scan_bwd_cuda(
+                    xk, dtk, A, Bk, Ck, None, dyk, variant="simt_bf16")))
             del plain
-        del x, dt, A, Bm, Cm, h0, dy, dhf, args
+        del x, dt, A, Bm, Cm, h0, dy, dhf, args, xk, dtk, Bk, Ck, dyk
         torch.cuda.empty_cache()
     return {"name": "ssm_scan_bwd_bf16", "route": "cuda",
-            "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+            "source": "src/repro_torch/csrc/ssm_scan_bwd_mma.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:66",
             "replaces_note": "the gradient of ssm_scan_pallas on bf16 x, B "
-            "and C (SIMT fp32 walks, each gradient rounded once to its "
-            "input's dtype); the JAX package has no backward kernel",
-            "counter": "ssm_scan_bwd", "counted_variant": "simt_bf16",
+            "and C (ssd_bwd_mma: the chunk products on mma.sync with the "
+            "fp32 factors as two bf16 terms, each gradient rounded once to "
+            "its input's dtype); the JAX package has no backward kernel",
+            "counter": "ssm_scan_bwd", "counted_variant": "mma_bf16",
             "launches": None, "max_abs_err": max_err,
+            "simt_bf16_max_abs_err": simt_worst,
             **timings["zamba2-1.2b training"], "library_ms": None,
             "at": "zamba2-1.2b training shape (B 32, S 128, H 64, P 64, "
             "N 64, G 1, bf16 x/B/C, fp32 dt)", "by_shape": timings}
@@ -3147,15 +3296,15 @@ def train_step_launches(cfg):
 def train_step_variants(cfg):
     """The variant each kernel of a training step of ``cfg`` launches: the
     forward kernels by the compute dtype (fp32 SIMT, bf16 tensor cores),
-    the backward kernels SIMT on fp32, and on bf16 inputs flash's on the
-    tensor cores and the SSD's SIMT."""
+    the backward kernels SIMT on fp32, and on bf16 inputs flash's and the
+    SSD's on the tensor cores."""
     bf16 = cfg.compute_dtype == "bfloat16"
     return {"flash_attention": "wgmma" if bf16 else "simt",
             "flash_attention_lse": "wgmma" if bf16 else "simt",
             "ssm_scan": "mma" if bf16 else "simt",
             "rwkv6_scan": "mma" if bf16 else "simt",
             "flash_attention_bwd": "wgmma_bf16" if bf16 else "simt",
-            "ssm_scan_bwd": "simt_bf16" if bf16 else "simt",
+            "ssm_scan_bwd": "mma_bf16" if bf16 else "simt",
             "rwkv6_scan_bwd": "simt"}
 
 
@@ -3409,7 +3558,8 @@ def phase_train_grads_full(label, arch, layers, B, S, relative, counters):
     torch.cuda.empty_cache()
 
 
-def phase_train_grads_bf16(label, arch, B, S, relative, counters):
+def phase_train_grads_bf16(label, arch, B, S, relative, counters,
+                           layers=None):
     """One step's gradients of ``Model.loss`` of ``arch`` at full width and
     depth in its own bf16, on the card, three ways from one set of weights
     (seed 0): the kernels in bf16 (``attn_impl="cuda"``: the wgmma flash
@@ -3419,7 +3569,10 @@ def phase_train_grads_bf16(label, arch, B, S, relative, counters):
     upcast, the oracle.  Per leaf, the kernel path's largest distance
     from the oracle at most BF16_GRAD_RATIO times the bf16 plain path's;
     the kernels' input leaves (``relative`` and wq/wk/wv) also by that
-    ratio in L2, and not zero.
+    ratio in L2, and not zero.  With ``layers`` (the depth cut to it) the
+    gates are the shallow check's instead: per leaf, the kernel path and
+    the bf16 plain path each within SHALLOW_OWN_TOL of the leaf's own max
+    |g| and SHALLOW_L2_TOL of its norm from the oracle.
     The kernel step's launches must be ``train_step_launches(cfg)``, each
     of ``train_step_variants``'s variant; launches here count for no
     path."""
@@ -3427,6 +3580,8 @@ def phase_train_grads_bf16(label, arch, B, S, relative, counters):
     from repro_torch.models import ExecConfig, build_model
     from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
     gc.collect()
@@ -3487,6 +3642,15 @@ def phase_train_grads_bf16(label, arch, B, S, relative, counters):
         lp = float((gp.float() - w).norm()) / norm if norm else 0.0
         ratio = dk / dp if dp else (0.0 if dk == 0 else math.inf)
         rows.append((ratio, path, dk, dp, scale, lk, lp))
+        if layers:
+            for who, d, l2 in (("kernel", dk, lk), ("bf16 plain", dp, lp)):
+                if d > SHALLOW_OWN_TOL * scale or l2 > SHALLOW_L2_TOL:
+                    failed.append(f"{path}: the {who} path {d:.3e} from the "
+                                  f"fp32 oracle, its own max |g| "
+                                  f"{scale:.3e}; L2 {l2:.3e} of the "
+                                  f"oracle's norm (gates "
+                                  f"{SHALLOW_OWN_TOL}, {SHALLOW_L2_TOL})")
+            continue
         if dk > BF16_GRAD_RATIO * dp:
             failed.append(f"{path}: {dk:.3e} from the fp32 oracle, the bf16 "
                           f"plain path {dp:.3e} (gate {BF16_GRAD_RATIO}x)")
@@ -3512,6 +3676,18 @@ def phase_train_grads_bf16(label, arch, B, S, relative, counters):
     for r, path, dk, dp, scale, lk, lp in sorted(rows, key=lambda r: -r[0])[:5]:
         log(f"[{label}]   {path}: kernels {dk:.3e}, plain bf16 {dp:.3e} "
             f"(ratio {r:.3f}), max |g| {scale:.3e}; L2 {lk:.3e} / {lp:.3e}")
+    if layers:
+        def share(d, scale):
+            return d / scale if scale else (0.0 if d == 0 else math.inf)
+        log(f"[{label}] depth cut to {layers} of "
+            f"{get_config(arch).num_layers} layers: per leaf, the largest "
+            f"distance from the fp32 oracle as a share of the leaf's own "
+            f"max |g|, kernels up to "
+            f"{max(share(r[2], r[4]) for r in rows):.3e}, bf16 plain path "
+            f"up to {max(share(r[3], r[4]) for r in rows):.3e} (gate "
+            f"{SHALLOW_OWN_TOL}); L2 share kernels up to "
+            f"{max(r[5] for r in rows):.3e}, bf16 plain path up to "
+            f"{max(r[6] for r in rows):.3e} (gate {SHALLOW_L2_TOL})")
     for kind in rel:
         of = [r for r in ins if r[1].rsplit("/", 1)[-1] == kind]
         near = min(of, key=lambda r: r[6])
@@ -3733,6 +3909,51 @@ def phase_serve_ckpt_card_vs_cpu(ckpt_small):
                            f"that is no near tie: {flips}")
 
 
+def phase_poison(ckpt_100m, state_100m, ckpt_small):
+    """The kernels with every output and workspace their wrappers allocate
+    filled with NaN (``_build.poisoned()``, in the place of a memory
+    checker, which refuses the card): ``tools/bwd_check.py``'s checks
+    (each backward kernel at a ragged shape, ``ssd_bwd_mma`` at two), the
+    bf16 SSD backward at SSD_BWD_BF16_CASES' ragged S 300 (four heads a
+    block, a workspace) against the per-step oracle, and ``[serve ckpt]``
+    (both checkpoints), each at its own unchanged gate.  A kernel that
+    leaves an element of what it returns unwritten, or reads one it did
+    not write, fails here on every run."""
+    import importlib.util
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    spec = importlib.util.spec_from_file_location(
+        "bwd_check", os.path.join(ROOT, "tools", "bwd_check.py"))
+    bwd_check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bwd_check)
+    t0 = time.perf_counter()
+    with _build.poisoned():
+        bwd_check.run_checks()
+        label, B, S, H, P, N, G, _, _, dt_dtype = next(
+            c for c in SSD_BWD_BF16_CASES if c[0].startswith("ragged S 300"))
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, G, torch.bfloat16,
+                                           seed=S + H + 2, with_h0=True)
+        gen = torch.Generator(device="cuda").manual_seed(S + 2)
+        dy = torch.randn(x.shape, generator=gen, device="cuda")
+        dhf = torch.randn((B, H, P, N), generator=gen, device="cuda")
+        args = [x, dt.to(dt_dtype), A, Bm, Cm, h0]
+        got = _grads(ssm_scan, args, dy, dhf)
+        want = _grads(lambda *a: ssm_scan(*a, impl="torch"),
+                      [t.float() for t in args], dy, dhf)
+        err, rel = check_bf16_grads("poison", f"ssm_scan_bwd {label}",
+                                    ("dx", "ddt", "dA", "dB", "dC", "dh0"),
+                                    got, want, [t.dtype for t in args],
+                                    SSM_BWD_TOL)
+        log(f"[poison] ssm_scan_bwd mma_bf16 {label}: largest excess beyond "
+            f"one bf16 ulp {err:.3e} ({rel:.3e} of max(1, max |g|))")
+        del x, dt, A, Bm, Cm, h0, dy, dhf, args, got, want
+        phase_serve_ckpt(ckpt_100m, state_100m)
+        phase_serve_ckpt_card_vs_cpu(ckpt_small)
+    log(f"[poison] every output and workspace NaN-filled: the backward "
+        f"checks, the bf16 SSD backward and [serve ckpt] passed their "
+        f"gates ({time.perf_counter() - t0:.1f} s)")
+
+
 def teacher_forced_logits(model, params, tokens, ids, device):
     """``serve``'s prefill and decode loop with the decode inputs taken
     from ``ids`` (B, 1 + steps) in place of each step's argmax: the
@@ -3794,6 +4015,8 @@ def main():
                "ssm_scan_bwd": phase_ssm_scan_bwd(),
                "ssm_scan_bwd_bf16": phase_ssm_scan_bwd_bf16(),
                "rwkv6_scan_bwd": phase_rwkv6_scan_bwd()}
+    entries["flash_attention"]["fp32_training_forward_by_shape"] = \
+        phase_flash_fwd_fp32()
     data, main = phase_main_path(counters)
     dyn, dyn_rows, dyn_peaks = phase_dynamics(data, counters)
     paths = {"main": main, **phase_robust(data, counters), **dyn,
@@ -3828,6 +4051,7 @@ def main():
     phase_train_card_vs_cpu("rwkv6-7b", "10m")
     phase_serve_ckpt(ckpt_100m, state_100m)
     phase_serve_ckpt_card_vs_cpu(ckpt_small)
+    phase_poison(ckpt_100m, state_100m, ckpt_small)
     del state_100m
     # zamba2-1.2b in bf16 last: its functional optimizer peaks near 62 GiB
     label, extra, rounds = TRAIN_BF16
@@ -3835,6 +4059,9 @@ def main():
         label, extra, rounds, counters)
     del state
     phase_train_grads_bf16(*TRAIN_GRADS_BF16, counters)
+    label, arch, B, S, relative = TRAIN_GRADS_BF16
+    phase_train_grads_bf16("train grads zamba2 shallow bf16", arch, B, S,
+                           relative, counters, layers=SHALLOW_LAYERS)
     for k, entry in entries.items():
         # launches over the driven paths: the FL main, robust, dynamics,
         # cohort, thompson, telemetry (update_norm's fed_agg and

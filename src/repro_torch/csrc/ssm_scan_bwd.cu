@@ -20,8 +20,9 @@
  * (csrc/ssm_scan.cu, ssd_fwd_simt, the replacement of the TPU kernel
  * repro/kernels/ssm_scan/kernel.py:66 ssm_scan_pallas), so its gradient
  * comes from this kernel: what autodiff of ssm_scan_ref computes for the
- * same inputs.  Under bf16 (the training path of a bf16 model, whose
- * forward is ssd_fwd_mma) every bf16 input is widened to fp32 as it
+ * same inputs.  Under bf16 (asked for by name, variant "simt_bf16": the
+ * yardstick of ssd_bwd_mma in csrc/ssm_scan_bwd_mma.cu, which a bf16
+ * model trains through) every bf16 input is widened to fp32 as it
  * loads and the walks are the fp32 walks, instruction for instruction:
  * the chunk-start states are rebuilt in fp32 from the bf16 values.  dx
  * (and a bf16 dt's ddt) are rounded once, as they are stored; the
@@ -75,9 +76,8 @@
  * 100m training shape (B 32, H 24, S 128, P = N = 64) 9.06e9 flops, 135
  * us at fp32's 67 TFLOP/s, against 101 MB read and written (30 us at
  * 3.35 TB/s; computed): the SIMT FMAs bound it.  In bf16 the same
- * products could run on the tensor cores (989 TFLOP/s), which this kernel
- * does not use: a tensor-core backward (the bf16 forward's mma.sync) is
- * a kernel redesign item of ROADMAP Queue B.
+ * products run on the tensor cores (989 TFLOP/s) in ssd_bwd_mma
+ * (csrc/ssm_scan_bwd_mma.cu), which this kernel does not use.
  *
  * Shared with the forward: rows past S are never loaded (zeros in shared
  * memory, dt past S 0, so seg_last is the last valid row's) and never

@@ -2,14 +2,19 @@
 
 Each source under ``repro_torch/csrc/`` compiles into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds); the
-scan kernels share ``csrc/mma.cuh``.  The library lands in ``build/kernels/`` at the repository root, named by a hash
-of the source and the flags, and is reused until either changes.  Nothing
+scan kernels share ``csrc/mma.cuh``.  Every output and workspace a
+kernel wrapper hands a kernel is allocated by ``empty`` / ``empty_like``
+here, which fill it with NaN inside ``poisoned()``: a kernel that leaves
+an element unwritten, or reads one it did not write, then shows NaN on
+every run.  The library lands in ``build/kernels/`` at the repository
+root, named by a hash of the source and the flags, and is reused until either changes.  Nothing
 is built when this module is imported: the first kernel launch builds what
 it needs, and ``build_all`` builds every source at once, one ``nvcc``
 process per source, all started together.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -21,12 +26,15 @@ import time
 from pathlib import Path
 from typing import Dict, List, NamedTuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"fed_agg": "fed_agg.cu", "robust_agg": "robust_agg.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "ssm_scan": "ssm_scan.cu", "ssm_scan_bwd": "ssm_scan_bwd.cu",
+           "ssm_scan_bwd_mma": "ssm_scan_bwd_mma.cu",
            "rwkv6_scan": "rwkv6_scan.cu",
            "rwkv6_scan_bwd": "rwkv6_scan_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -175,3 +183,36 @@ class LaunchCounter:
         for v in self.by_variant:
             self.by_variant[v] = 0
 
+
+_POISON = [0]
+
+
+@contextlib.contextmanager
+def poisoned():
+    """Inside it, ``empty`` and ``empty_like`` fill what they allocate with
+    NaN (a debug mode, in the place of a memory checker, which refuses
+    the card): every output and workspace the kernel wrappers allocate
+    comes through them."""
+    _POISON[0] += 1
+    try:
+        yield
+    finally:
+        _POISON[0] -= 1
+
+
+def _fill(t: torch.Tensor) -> torch.Tensor:
+    if _POISON[0] and t.is_floating_point():
+        t.fill_(float("nan"))
+    return t
+
+
+def empty(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.empty`` for a kernel's output or workspace (NaN-filled
+    inside ``poisoned()``)."""
+    return _fill(torch.empty(shape, dtype=dtype, device=device))
+
+
+def empty_like(t: torch.Tensor) -> torch.Tensor:
+    """``torch.empty_like`` (its strides kept) for a kernel's output
+    (NaN-filled inside ``poisoned()``)."""
+    return _fill(torch.empty_like(t))

@@ -97,13 +97,13 @@ def fed_agg_cuda(updates: torch.Tensor, weights: torch.Tensor, *,
         raise ValueError("fed_agg cuda: updates and weights must be "
                          "contiguous")
     C, D = updates.shape
-    out = torch.empty((D,), dtype=torch.float32, device=updates.device)
+    out = _build.empty((D,), torch.float32, updates.device)
     if D == 0:
         return out
     g = geometry(C, D, block_c, block_d,
                  aligned=updates.data_ptr() % 8 == 0)
-    partial = out if g.n_chunks == 1 else torch.empty(
-        (g.n_chunks, D), dtype=torch.float32, device=updates.device)
+    partial = out if g.n_chunks == 1 else _build.empty(
+        (g.n_chunks, D), torch.float32, updates.device)
     with torch.cuda.device(updates.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(updates.data_ptr(), weights.data_ptr(),

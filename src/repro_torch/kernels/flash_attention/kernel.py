@@ -250,8 +250,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     current stream and does not synchronise."""
     B, Hq, Hkv, Sq, Sk, D = _check_inputs(q, k, v, window)
     dev = q.device
-    out = torch.empty_like(q)
-    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) \
+    out = _build.empty_like(q)
+    lse = _build.empty((B, Hq, Sq), torch.float32, dev) \
         if with_lse else None
 
     def result():
@@ -356,19 +356,19 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"causal {causal}, window {window}); the kernel "
                          f"does not take the plain version's mean of V "
                          f"over every key")
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dq, dk, dv = (_build.empty_like(x) for x in (q, k, v))
     if B == 0 or Hq == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
     for name, x in (("dq", dq), ("dk", dk), ("dv", dv)):
         _check_layout(name, x)
     if scale is None:
         scale = D ** -0.5
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    delta = _build.empty((B, Hq, Sq), torch.float32, q.device)
     window = 0 if window is None else int(window)
     if variant == "wgmma_bf16":
         per_head = per_head_blocks(B, Hq, Hkv, Sk)
-        parts = [torch.empty((B, Hq, Sk, D), dtype=torch.float32,
-                             device=q.device) for _ in range(2)] \
+        parts = [_build.empty((B, Hq, Sk, D), torch.float32, q.device)
+                 for _ in range(2)] \
             if per_head else [None, None]
         strides = (ctypes.c_int64 * 21)(*(st for x in (q, k, v, dout, dq,
                                                        dk, dv)

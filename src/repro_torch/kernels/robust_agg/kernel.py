@@ -49,7 +49,7 @@ def residual_norms_cuda(updates: torch.Tensor,
     C, D = updates.shape
     if C == 0 or D == 0:
         return torch.zeros((C,), dtype=torch.float32, device=updates.device)
-    out = torch.empty((C,), dtype=torch.float32, device=updates.device)
+    out = _build.empty((C,), torch.float32, updates.device)
     with torch.cuda.device(updates.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(updates.data_ptr(), center.data_ptr(),

@@ -149,13 +149,12 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"bytes and a 16-byte-aligned base (its rows "
                              f"are copied 16 bytes at a time), got strides "
                              f"{t.stride()}")
-    y = torch.empty((B, S, H, D), dtype=torch.float32,
-                    device=dev).transpose(1, 2)
+    y = _build.empty((B, S, H, D), torch.float32, dev).transpose(1, 2)
     if S == 0 or B == 0 or H == 0:
         sf = torch.zeros((B, H, D, D), dtype=torch.float32, device=dev) \
             if s0 is None else s0.clone()
         return y, sf
-    sf = torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
+    sf = _build.empty((B, H, D, D), torch.float32, dev)
     u32 = u.float().contiguous()
     s0c = None if s0 is None else s0.contiguous()
     strides = (ctypes.c_int64 * 15)(*r.stride()[:3], *k.stride()[:3],
@@ -237,17 +236,16 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"rwkv6_scan_bwd cuda: {name} must have a "
                              f"contiguous last axis, got strides "
                              f"{t.stride()}")
-    dr, dk, dv, dlogw = (torch.empty((B, S, H, D), dtype=torch.float32,
-                                     device=dev).transpose(1, 2)
+    dr, dk, dv, dlogw = (_build.empty((B, S, H, D), torch.float32,
+                                      dev).transpose(1, 2)
                          for _ in range(4))
-    ds0 = None if s0 is None else torch.empty((B, H, D, D),
-                                              dtype=torch.float32,
-                                              device=dev)
+    ds0 = None if s0 is None else _build.empty((B, H, D, D), torch.float32,
+                                               dev)
     if S == 0 or B == 0 or H == 0:
         if ds0 is not None:
             ds0 = dsf.clone() if dsf is not None else torch.zeros_like(s0)
         return dr, dk, dv, dlogw, torch.zeros_like(u), ds0
-    du = torch.empty((B, H, D), dtype=torch.float32, device=dev)
+    du = _build.empty((B, H, D), torch.float32, dev)
     u32 = u.contiguous()
     s0c = None if s0 is None else s0.contiguous()
     dsfc = None if dsf is None else dsf.contiguous()

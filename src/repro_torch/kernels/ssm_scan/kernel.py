@@ -13,12 +13,17 @@ with the (P, N) fp32 state on the SM, read B and C per group (no
 (B, S, H, P) layout goes in without a transpose.  See the source for the
 design and its bound.
 
-``ssm_scan_bwd_cuda`` launches ``ssd_bwd_simt`` (``csrc/ssm_scan_bwd.cu``),
-the gradient of either variant: the backward of the training forward,
-fp32 or bf16 (fp32 SIMT walks on bf16 values widened as they load, each
-gradient rounded once to its input's dtype).  The JAX package has no
-backward kernel (its model trains through plain JAX); ``bwd_launches``
-counts this one's calls by the dtype of x, B and C.
+``ssm_scan_bwd_cuda`` launches the gradient of either variant, the
+backward of the training forward: fp32 runs ``ssd_bwd_simt``
+(``csrc/ssm_scan_bwd.cu``, fp32 SIMT walks); bf16 runs ``ssd_bwd_mma``
+(``csrc/ssm_scan_bwd_mma.cu``: the chunk products on tensor cores with
+the fp32 factors as two bf16 terms, a block walking ``heads_per_block``
+heads of a group and summing their dB and dC on the chip), and the SIMT
+kernel on bf16 values widened as they load only where asked for by name
+(``variant="simt_bf16"``, the yardstick of the tests and
+``chip_smoke.py``).  Each gradient is rounded once to its input's dtype.
+The JAX package has no backward kernel (its model trains through plain
+JAX); ``bwd_launches`` counts this one's calls by the variant they took.
 """
 from __future__ import annotations
 
@@ -39,9 +44,20 @@ CHUNK = 64                      # rows of a chunk inside the kernel
 
 launches = _build.LaunchCounter(variants=("mma", "simt"))
 # one count a call of ssm_scan_bwd_cuda, by variant: SIMT on fp32 x, B
-# and C, SIMT on bf16 ones
-BWD_VARIANTS = {torch.float32: "simt", torch.bfloat16: "simt_bf16"}
-bwd_launches = _build.LaunchCounter(variants=tuple(BWD_VARIANTS.values()))
+# and C, tensor cores on bf16 ones (the default), SIMT on bf16 ones where
+# asked for by name
+BWD_VARIANTS = {torch.float32: "simt", torch.bfloat16: "mma_bf16"}
+bwd_launches = _build.LaunchCounter(variants=("simt", "mma_bf16",
+                                              "simt_bf16"))
+# ssd_bwd_mma: a block walks up to this many heads of one group, adding
+# their dB and dC into one fp32 partial, while that leaves at least
+# MMA_MIN_BLOCKS blocks (about one wave at two blocks an SM of the H100's
+# 132).  Measured on the H100 at zamba2-1.2b's training shape (B 32, H 64,
+# S 128; PERF.md): 8 heads a block 0.311 ms a call, 4 0.322, 1 0.341 (its
+# partials' torch.sum 0.064 ms of it); at the full layer (B 4, S 4096)
+# 1.41 ms at one head, 2.00 at two
+MMA_MAX_HEADS = 8
+MMA_MIN_BLOCKS = 256
 
 
 def smem_bytes(variant: str, P: int, N: int) -> int:
@@ -60,15 +76,57 @@ def smem_bytes(variant: str, P: int, N: int) -> int:
     return 2 * stage + 2 * PB * N * 2 + 4 * L * 4
 
 
-def bwd_smem_bytes(P: int, N: int) -> int:
-    """Dynamic shared memory of one ``ssd_bwd_simt`` block, as
-    ``csrc/ssm_scan_bwd.cu`` sizes it: x and dy, B and C, Gc and the
-    chunk's start state, M and Q, rows padded by one float, six rows of
-    64 (dt, seg, exp(seg), exp(seg_last - seg), q, r) and eight
-    partials, fp32."""
+def bwd_smem_bytes(P: int, N: int, variant: str = "simt") -> int:
+    """Dynamic shared memory of one backward block, as the source sizes
+    it.  ``"simt"`` / ``"simt_bf16"`` (``ssd_bwd_simt``,
+    ``bwd_smem_floats``): x and dy, B and C, Gc and the chunk's start
+    state, rows padded by one float; M, Q and Z, rows of 65; nine rows of
+    64 (dt, seg, exp(seg), exp(seg_last - seg), q, beta, gamma and the
+    rectangle sums) and eight partials, fp32.  ``"mma_bf16"``
+    (``ssd_bwd_mma``, ``Tile``): x and dY's two terms [64][P], B and C
+    [64][N], Gc's and h_s's two terms [P][N], Q^T o dt's two terms
+    [64][64], bf16; then fp32 dt, each of the 4 warps' seg and column
+    sums, the rectangle sums, q, beta and gamma (64 each), 4 partials, 4
+    scratch tiles of 16 x 17 and Gc [P][N]."""
     L = CHUNK
-    return 4 * (2 * L * (P + 1) + 2 * L * (N + 1) + 2 * P * (N + 1)
-                + 2 * L * (L + 1) + 6 * L + 8)
+    if variant in ("simt", "simt_bf16"):
+        return 4 * (2 * L * (P + 1) + 2 * L * (N + 1) + 2 * P * (N + 1)
+                    + 3 * L * (L + 1) + 9 * L + 8)
+    if variant != "mma_bf16":
+        raise ValueError(f"unknown ssm_scan backward variant {variant!r}")
+    tiles = 2 * (3 * L * P + 2 * L * N + 4 * P * N + 2 * L * L)
+    return tiles + 4 * (L + 4 * L + 4 * L + 4 * L + 4 + 4 * 16 * 17
+                        + P * N)
+
+
+def bwd_variant(dtype: torch.dtype, variant: Optional[str] = None) -> str:
+    """The backward variant a call of ``ssm_scan_bwd_cuda`` runs on x, B
+    and C of ``dtype``: ``BWD_VARIANTS[dtype]`` unless one is named; bf16
+    takes ``"mma_bf16"`` or ``"simt_bf16"``, fp32 only ``"simt"``."""
+    if dtype not in BWD_VARIANTS:
+        raise TypeError(f"ssm_scan_bwd cuda: takes float32 or bfloat16 x, "
+                        f"Bm and Cm, got {dtype}")
+    if variant is None:
+        return BWD_VARIANTS[dtype]
+    allowed = ("simt",) if dtype == torch.float32 \
+        else ("mma_bf16", "simt_bf16")
+    if variant not in allowed:
+        raise ValueError(f"ssm_scan_bwd cuda: variant {variant!r} does not "
+                         f"take {dtype} (one of {allowed})")
+    return variant
+
+
+def heads_per_block(B: int, H: int, G: int) -> int:
+    """How many heads of one group a ``ssd_bwd_mma`` block walks: the
+    largest power of two dividing H / G, at most ``MMA_MAX_HEADS``, that
+    leaves at least ``MMA_MIN_BLOCKS`` blocks (1 where even one head a
+    block leaves fewer).  Its dB and dC partials are then (B, H / hpb, S,
+    N) fp32 where one a head would be (B, H, S, N)."""
+    rep, hpb = H // G, 1
+    while 2 * hpb <= MMA_MAX_HEADS and rep % (2 * hpb) == 0 \
+            and B * H // (2 * hpb) >= MMA_MIN_BLOCKS:
+        hpb *= 2
+    return hpb
 
 
 def launch_shape(variant: str, B: int, H: int):
@@ -79,15 +137,25 @@ def launch_shape(variant: str, B: int, H: int):
     return (2 * H, B), 128
 
 
-def _check_rows(name: str, t: torch.Tensor):
-    """The mma variant copies rows of 16 bytes by cp.async: every stride
-    but the last a multiple of 8 bf16 elements, and a 16-byte-aligned
-    base."""
-    if any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
-        raise ValueError(f"ssm_scan cuda: bf16 {name} must have strides "
-                         f"that are multiples of 8 elements and a 16-byte-"
-                         f"aligned base (its rows are copied 16 bytes at a "
-                         f"time), got strides {t.stride()}")
+def rows_error(t: torch.Tensor) -> Optional[str]:
+    """Why the mma kernels cannot read the rows of ``t`` 16 bytes at a
+    time (cp.async of bf16 x, B and C; float4 loads of the backward's fp32
+    dy), or None if they can: the last axis contiguous, every other
+    stride a multiple of 16 bytes, a 16-byte-aligned base."""
+    per = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % per for s in t.stride()[:-1]) \
+            or t.data_ptr() % 16:
+        return (f"must have a contiguous last axis, strides that are "
+                f"multiples of {per} elements and a 16-byte-aligned base "
+                f"(its rows are read 16 bytes at a time), got strides "
+                f"{t.stride()}")
+    return None
+
+
+def _check_rows(name: str, t: torch.Tensor, what: str = "ssm_scan cuda"):
+    why = rows_error(t)
+    if why is not None:
+        raise ValueError(f"{what}: {t.dtype} {name} {why}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,13 +225,12 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                              f"last axis, got strides {t.stride()}")
         if x.dtype == torch.bfloat16:
             _check_rows(name, t)
-    y = torch.empty((B, S, H, P), dtype=torch.float32,
-                    device=dev).transpose(1, 2)
+    y = _build.empty((B, S, H, P), torch.float32, dev).transpose(1, 2)
     if S == 0 or B == 0 or H == 0:
         hf = torch.zeros((B, H, P, N), dtype=torch.float32, device=dev) \
             if h0 is None else h0.clone()
         return y, hf
-    hf = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    hf = _build.empty((B, H, P, N), torch.float32, dev)
     A32 = A.float().contiguous()
     h0c = None if h0 is None else h0.contiguous()
     strides = (ctypes.c_int64 * 15)(*x.stride()[:3], *dt.stride(),
@@ -196,10 +263,21 @@ def _bwd_entry():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_mma_entry():
+    fn = _build.load("ssm_scan_bwd_mma").ssm_scan_bwd_mma
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 15 + [
+        ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                       Bm: torch.Tensor, Cm: torch.Tensor,
                       h0: Optional[torch.Tensor], dy: torch.Tensor,
-                      dhf: Optional[torch.Tensor] = None):
+                      dhf: Optional[torch.Tensor] = None,
+                      variant: Optional[str] = None):
     """The gradient of ``ssm_scan_cuda``: the forward's inputs (x (B, H,
     S, P), dt (B, H, S), A (H,), Bm, Cm (B, G, S, N), h0 or None),
     ``dy`` (B, H, S, P) and ``dhf`` (B, H, P, N) or None (zeros), on one
@@ -207,11 +285,13 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     and in its dtype (dh0 None when h0 is), dx, ddt, dB and dC views of
     the model's (B, S, ·) memory as y is.  x, Bm and Cm are fp32 or bf16
     (one dtype), dt fp32 or bf16, as ``ssm_scan_cuda`` takes them; A, h0,
-    dy and dhf fp32.
+    dy and dhf fp32.  ``variant`` (``bwd_variant``): fp32 runs
+    ``"simt"``; bf16 ``"mma_bf16"`` unless ``"simt_bf16"`` is named.
 
-    The kernel computes in fp32 and writes dx and ddt in their inputs'
-    dtypes, dB and dC per head and dA per (batch, head) in fp32; the heads
-    of a group and the batch are then summed here in fp32 by
+    The kernels compute in fp32 and write dx and ddt in their inputs'
+    dtypes, dA per (batch, head) and dB and dC as fp32 partial sums (one a
+    head for SIMT, one a block of ``heads_per_block`` heads for mma); the
+    partials of a group and the batch are then summed here in fp32 by
     ``torch.sum``, whose reduction order is fixed (no atomics anywhere),
     so reruns are bit-identical, and dB and dC rounded once to Bm's dtype
     after the sum (``sum_partials``).  Launches one kernel on the current
@@ -232,6 +312,7 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                         "and Cm of one dtype, a float32 or bfloat16 dt and "
                         "float32 A, dy, h0 and dhf, got " + ", ".join(
                             f"{n} {t.dtype}" for n, t in tensors))
+    variant = bwd_variant(x.dtype, variant)
     if x.ndim != 4 or Bm.ndim != 4 or Bm.shape != Cm.shape:
         raise ValueError(f"ssm_scan_bwd cuda: needs x (B, H, S, P) and Bm, "
                          f"Cm (B, G, S, N), got {tuple(x.shape)}, "
@@ -258,54 +339,73 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"ssm_scan_bwd cuda: {name} must have a "
                              f"contiguous last axis, got strides "
                              f"{t.stride()}")
-    dx = torch.empty((B, S, H, P), dtype=x.dtype,
-                     device=dev).transpose(1, 2)
-    ddt = torch.empty((B, S, H), dtype=dt.dtype,
-                      device=dev).transpose(1, 2)
-    dBh, dCh = (torch.empty((B, S, H, N), dtype=torch.float32,
-                            device=dev).transpose(1, 2) for _ in range(2))
-    dA = torch.empty((B, H), dtype=torch.float32, device=dev)
-    dh0 = None if h0 is None else torch.empty((B, H, P, N),
-                                              dtype=torch.float32,
-                                              device=dev)
+        if variant == "mma_bf16":
+            _check_rows(name, t, "ssm_scan_bwd cuda")
     if S == 0 or B == 0 or H == 0:
+        dx = _build.empty((B, S, H, P), x.dtype, dev).transpose(1, 2)
+        ddt = _build.empty((B, S, H), dt.dtype, dev).transpose(1, 2)
         zero = Bm.new_zeros(Bm.shape)
-        if dh0 is not None:
-            dh0 = dhf.clone() if dhf is not None else torch.zeros_like(h0)
+        dh0 = None if h0 is None else \
+            dhf.clone() if dhf is not None else torch.zeros_like(h0)
         return dx, ddt, A.new_zeros(A.shape), zero, zero.clone(), dh0
-    ws = torch.empty((B, H, -(-S // CHUNK), P, N), dtype=torch.float32,
-                     device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        entry = _bwd_mma_entry() if variant == "mma_bf16" else _bwd_entry()
+        out = launch_bwd(entry, variant, x, dt, A, Bm, Cm, h0, dy, dhf,
+                         stream)
+    bwd_launches.add(variant)
+    return out
+
+
+def launch_bwd(entry, variant: str, x, dt, A, Bm, Cm, h0, dy, dhf,
+               stream):
+    """Allocate the backward's outputs and workspace, call ``entry`` (the
+    C function of ``variant``) on ``stream``, and sum the partials: the
+    part of ``ssm_scan_bwd_cuda`` after its checks."""
+    B, H, S, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[3]
+    dev = x.device
+    mma = variant == "mma_bf16"
+    hpb = heads_per_block(B, H, G) if mma else 1
+    dx = _build.empty((B, S, H, P), x.dtype, dev).transpose(1, 2)
+    ddt = _build.empty((B, S, H), dt.dtype, dev).transpose(1, 2)
+    dBp, dCp = (_build.empty((B, S, H // hpb, N), torch.float32,
+                             dev).transpose(1, 2) for _ in range(2))
+    dA = _build.empty((B, H), torch.float32, dev)
+    dh0 = None if h0 is None else _build.empty((B, H, P, N), torch.float32,
+                                               dev)
+    n_chunks = -(-S // CHUNK)
+    # ssd_bwd_mma keeps the first and last chunk-start states off it
+    n_ws = max(n_chunks - 2, 0) if mma else n_chunks
+    ws = _build.empty((B, H, n_ws, P, N), torch.float32, dev) if n_ws \
+        else None
     h0c = None if h0 is None else h0.contiguous()
     dhfc = None if dhf is None else dhf.contiguous()
     A32 = A.contiguous()
     strides = (ctypes.c_int64 * 27)(*(s for t in (x, dt, Bm, Cm, dy, dx,
-                                                  ddt, dBh, dCh)
+                                                  ddt, dBp, dCp)
                                       for s in t.stride()[:3]))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_entry()(DTYPES[x.dtype], DTYPES[dt.dtype], P, N,
-                           x.data_ptr(), dt.data_ptr(),
-                           A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                           None if h0c is None else h0c.data_ptr(),
-                           dy.data_ptr(),
-                           None if dhfc is None else dhfc.data_ptr(),
-                           dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
-                           dBh.data_ptr(), dCh.data_ptr(),
-                           None if dh0 is None else dh0.data_ptr(),
-                           ws.data_ptr(), strides, B, H, G, S, stream)
+    ptrs = [t if t is None else t.data_ptr() for t in (
+        x, dt, A32, Bm, Cm, h0c, dy, dhfc, dx, ddt, dA, dBp, dCp, dh0, ws)]
+    if mma:
+        err = entry(DTYPES[dt.dtype], P, N, *ptrs, strides, B, H, G, S, hpb,
+                    stream)
+    else:
+        err = entry(DTYPES[x.dtype], DTYPES[dt.dtype], P, N, *ptrs, strides,
+                    B, H, G, S, stream)
     if err != 0:
-        raise RuntimeError(f"ssm_scan_bwd cuda: launch failed with CUDA "
-                           f"error {err} at x {tuple(x.shape)}, Bm "
-                           f"{tuple(Bm.shape)}, {x.dtype}")
-    bwd_launches.add(BWD_VARIANTS[x.dtype])
-    dB, dC = (sum_partials(t, G, Bm.dtype) for t in (dBh, dCh))
+        raise RuntimeError(f"ssm_scan_bwd cuda: {variant} launch failed "
+                           f"with CUDA error {err} at x {tuple(x.shape)}, "
+                           f"Bm {tuple(Bm.shape)}, {x.dtype}")
+    dB, dC = (sum_partials(t, G, Bm.dtype) for t in (dBp, dCp))
     return dx, ddt, dA.sum(0), dB, dC, dh0
 
 
 def sum_partials(per_head: torch.Tensor, G: int,
                  dtype: torch.dtype) -> torch.Tensor:
-    """The per-head fp32 gradient (B, H, S, N) of a group-shared input (a
-    view of (B, S, H, N) memory) summed over each group's H / G heads in
+    """The fp32 partials (B, Hp, S, N) of a group-shared input's gradient
+    (a view of (B, S, Hp, N) memory; one a head, or one a block of heads,
+    each group's Hp / G partials consecutive) summed over each group in
     fp32 by ``torch.sum`` (a fixed order), then rounded once to ``dtype``
     -> (B, G, S, N), a view of (B, S, G, N) memory."""
     B, H, S, N = per_head.shape

@@ -7,9 +7,10 @@ the CPU has no kernel to run and takes the plain version.
 Gradients.  On a CUDA tensor under grad, with an input that requires it,
 fp32 and bf16 go through ``SSDScanFn``: the forward kernel of the dtype
 (``ssd_fwd_simt`` for fp32, ``ssd_fwd_mma`` for bf16) and the
-hand-written backward kernel (``kernel.ssm_scan_bwd_cuda``,
-``csrc/ssm_scan_bwd.cu``: fp32 walks, each gradient rounded once to its
-input's dtype).  ``impl="torch"`` and CPU tensors differentiate the plain
+hand-written backward kernel of the dtype (``kernel.ssm_scan_bwd_cuda``:
+``ssd_bwd_simt``'s fp32 walks for fp32, ``ssd_bwd_mma``'s tensor-core
+chunk products for bf16; each gradient rounded once to its input's
+dtype).  ``impl="torch"`` and CPU tensors differentiate the plain
 version by autograd.
 
 ``impl="torch"`` is the plain version (the per-step oracle
@@ -27,7 +28,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.grad import needs_grad
-from repro_torch.kernels.ssm_scan.kernel import (ssm_scan_bwd_cuda,
+from repro_torch.kernels.ssm_scan.kernel import (rows_error,
+                                                 ssm_scan_bwd_cuda,
                                                  ssm_scan_cuda)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -38,8 +40,9 @@ class SSDScanFn(torch.autograd.Function):
     """The SSD scan on the card with a hand-written backward, in the
     kernel layout: the forward kernel (``ssd_fwd_simt`` for fp32 x, B and
     C, ``ssd_fwd_mma`` for bf16) saves its inputs; the backward kernel
-    (``csrc/ssm_scan_bwd.cu``) rebuilds the chunk-start states from them
-    in fp32 and forms every input's gradient in that input's dtype."""
+    (``ssd_bwd_simt`` for fp32, ``ssd_bwd_mma`` for bf16) rebuilds the
+    chunk-start states from them in fp32 and forms every input's
+    gradient in that input's dtype."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, h0):
@@ -52,9 +55,13 @@ class SSDScanFn(torch.autograd.Function):
     def backward(ctx, dy, dhf):
         x, dt, A, Bm, Cm, h0 = ctx.saved_tensors
         # the incoming gradient may be any view (expanded, transposed) or
-        # None (y unused); a copy costs a few us against the kernel
-        dy = torch.zeros_like(x) if dy is None else \
-            dy if dy.stride(-1) == 1 else dy.contiguous()
+        # None (y unused, fp32 zeros); the kernels read its rows 16 bytes
+        # at a time, so any other layout is copied (a few us against the
+        # kernel)
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        elif rows_error(dy) is not None:
+            dy = dy.contiguous()
         return ssm_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dhf)
 
 

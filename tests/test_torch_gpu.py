@@ -1109,10 +1109,10 @@ def test_kernels_without_a_backward_refuse_grad(cuda):
     x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 64, 4, 32, 16, 1, torch.bfloat16,
                                       cuda)
     x.requires_grad_(True)
-    before = SK.bwd_launches.by_variant["simt_bf16"]
+    before = SK.bwd_launches.by_variant["mma_bf16"]
     ssm_scan(x, dt, A, Bm, Cm)[0].sum().backward()
     assert x.grad is not None and x.grad.dtype == torch.bfloat16
-    assert SK.bwd_launches.by_variant["simt_bf16"] == before + 1
+    assert SK.bwd_launches.by_variant["mma_bf16"] == before + 1
     x.grad = None
     ssm_scan(x, dt, A, Bm, Cm, impl="torch")[0].sum().backward()
     assert x.grad is not None
@@ -1457,17 +1457,32 @@ def test_wgmma_lse_equals_simt_lse(cuda, B, Hq, Hkv, S, D, window):
                 .all()), float((lse - want).abs().max())
 
 
-@pytest.mark.parametrize("B,S,H,P,N,G,h0,dhf,dt_bf16", [
+# every (P, N) with fp32 and bf16 dt, groups 1 to 4, ragged S (in the last
+# chunk, in the first, one step), h0 and dh_f set and null, one and
+# several heads a block of the tensor-core kernel (heads_per_block), and
+# its workspace (S > 128)
+SSD_BF16_BWD_CASES = [
+    # (B, S, H, P, N, G, h0, dh_f, bf16 dt)
     (4, 128, 8, 64, 64, 1, False, False, False),    # a training shape
     (2, 130, 4, 32, 16, 2, True, True, True),       # ragged, G 2, bf16 dt
     (1, 1000, 2, 64, 64, 1, False, True, False),    # ragged S 1000
     (2, 1, 2, 32, 64, 1, True, False, True),        # one step
-])
+    (1, 77, 8, 64, 16, 4, True, False, False),      # G 4, one chunk
+    (2, 200, 4, 32, 64, 2, False, True, True),      # P 32 / N 64, G 2
+    (3, 64, 6, 64, 16, 3, True, True, True),        # 3 heads a group
+    (2, 33, 4, 32, 16, 1, False, False, False),     # S in the first chunk
+    (16, 300, 64, 64, 64, 2, True, True, False),    # four heads a block
+    (32, 128, 64, 64, 64, 1, False, False, False),  # zamba2-1.2b: eight
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,h0,dhf,dt_bf16", SSD_BF16_BWD_CASES)
 def test_ssm_scan_backward_kernel_in_bf16_matches_plain(cuda, B, S, H, P, N,
                                                        G, h0, dhf, dt_bf16):
-    """bf16 x, B and C under grad: ssd_fwd_mma forward, the bf16 backward;
-    each gradient in its input's dtype, against autograd through the
-    per-step oracle in fp32 on the values upcast."""
+    """bf16 x, B and C under grad: ssd_fwd_mma forward, the tensor-core
+    backward (``mma_bf16``); each gradient in its input's dtype, against
+    autograd through the per-step oracle in fp32 on the values upcast;
+    reruns bit-identical."""
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     x, dt, A, Bm, Cm, hh = _ssd_inputs(B, S, H, P, N, G, torch.bfloat16,
@@ -1481,14 +1496,72 @@ def test_ssm_scan_backward_kernel_in_bf16_matches_plain(cuda, B, S, H, P, N,
     got = _scan_grads(ssm_scan, args, dy, dh)
     torch.cuda.synchronize()
     assert (SK.launches.by_variant["mma"],
+            SK.bwd_launches.by_variant["mma_bf16"],
             SK.bwd_launches.by_variant["simt_bf16"]) == (
-        before[0]["mma"] + 1, before[1]["simt_bf16"] + 1)
+        before[0]["mma"] + 1, before[1]["mma_bf16"] + 1,
+        before[1]["simt_bf16"])
     want = _scan_grads(_ssd_plain, [None if t is None else t.float()
                                     for t in args], dy, dh)
     _check_bf16_grads(got, want, [None if t is None else t.dtype
                                   for t in args], SSD_BWD_TOL)
     again = _scan_grads(ssm_scan, args, dy, dh)
     assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,h0,dhf,dt_bf16", [
+    SSD_BF16_BWD_CASES[i] for i in (0, 1, 3, 4, 5, 8)])
+def test_ssm_scan_backward_bf16_variants_pass_one_gate(cuda, B, S, H, P, N,
+                                                      G, h0, dhf, dt_bf16):
+    """The tensor-core kernel and the SIMT one asked for by name, on the
+    same bf16 inputs: both within the gate of the truth, each counted
+    under its own variant; fp32's ``simt`` refuses bf16."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    x, dt, A, Bm, Cm, hh = _ssd_inputs(B, S, H, P, N, G, torch.bfloat16,
+                                       cuda, seed=S + 7, h0=h0)
+    if dt_bf16:
+        dt = dt.to(torch.bfloat16)
+    dy = torch.randn(x.shape, device=cuda)
+    dh = torch.randn((B, H, P, N), device=cuda) if dhf else None
+    want = _scan_grads(_ssd_plain, [None if t is None else t.float()
+                                    for t in (x, dt, A, Bm, Cm, hh)], dy, dh)
+    k = [t.transpose(1, 2) for t in (x, dt, Bm, Cm, dy)]
+    for variant in ("mma_bf16", "simt_bf16"):
+        before = dict(SK.bwd_launches.by_variant)
+        got = SK.ssm_scan_bwd_cuda(k[0], k[1], A, k[2], k[3], hh, k[4], dh,
+                                   variant=variant)
+        torch.cuda.synchronize()
+        ran = {n: c - before[n] for n, c in SK.bwd_launches.by_variant.items()}
+        assert ran == {n: int(n == variant) for n in ran}
+        got = [t.transpose(1, 2) if i in (0, 1, 3, 4) else t
+               for i, t in enumerate(got)]                # model layout
+        _check_bf16_grads(got, want, [t.dtype if t is not None else None
+                                      for t in (x, dt, A, Bm, Cm, hh)],
+                          SSD_BWD_TOL)
+    with pytest.raises(ValueError, match="variant"):
+        SK.ssm_scan_bwd_cuda(k[0], k[1], A, k[2], k[3], hh, k[4], dh,
+                             variant="simt")
+
+
+def test_ssm_scan_backward_mma_refuses_rows_it_cannot_read(cuda):
+    """The tensor-core backward copies rows of bf16 x, B and C 16 bytes at
+    a time (cp.async) and reads fp32 dy as float4: strides that are no
+    multiple of 16 bytes, or a base off 16 bytes, raise before a launch
+    (``SSDScanFn`` copies such a dy); the SIMT variant takes them."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 64, 2, 32, 16, 1, torch.bfloat16,
+                                      cuda)
+    k = [t.transpose(1, 2) for t in (x, dt, Bm, Cm)]
+    dy = torch.randn((1, 64, 2, 34), device=cuda)[..., :32].transpose(1, 2)
+    with pytest.raises(ValueError, match="16 bytes"):
+        SK.ssm_scan_bwd_cuda(k[0], k[1], A, k[2], k[3], None, dy)
+    got = SK.ssm_scan_bwd_cuda(k[0], k[1], A, k[2], k[3], None, dy,
+                               variant="simt_bf16")
+    assert bool(torch.isfinite(got[0].float()).all())
+    wide = torch.randn((1, 64, 2, 36), device=cuda).to(torch.bfloat16)
+    xs = wide[..., :32].transpose(1, 2)              # a 72-byte row stride
+    with pytest.raises(ValueError, match="16 bytes"):
+        SK.ssm_scan_bwd_cuda(xs, k[1], A, k[2], k[3], None,
+                             dy.contiguous())
 
 
 def test_bf16_training_step_of_narrow_zamba2_runs_the_kernels(cuda):
@@ -1520,7 +1593,8 @@ def test_bf16_training_step_of_narrow_zamba2_runs_the_kernels(cuda):
     ran = [{v: c[v] - b[v] for v in c} for c, b in zip(counts, before)]
     assert ran == [{"wgmma": 4, "simt": 0},
                    {"simt": 0, "wgmma_bf16": 2, "simt_bf16": 0},
-                   {"mma": 8, "simt": 0}, {"simt": 0, "simt_bf16": 4}]
+                   {"mma": 8, "simt": 0},
+                   {"simt": 0, "mma_bf16": 4, "simt_bf16": 0}]
     assert bool(torch.isfinite(loss))
     for g in grads:
         assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())

@@ -468,3 +468,106 @@ def test_ssd_function_plumbing_in_bf16(monkeypatch):
     assert torch.equal(got[0], want)
     assert torch.equal(got[1], ddt.transpose(1, 2))
     assert torch.equal(got[2], dA)
+
+
+# ---- the tensor-core backward's rounding points, mirrored in float64 --------
+# ssd_bwd_mma (csrc/ssm_scan_bwd_mma.cu) passes each fp32 factor of its
+# chunk products to the tensor cores as bf16 terms.  ref.ssm_scan_bwd_mma_
+# mirror rounds them where the kernel does and runs the rest in float64;
+# held here to float64 autograd on the same bf16 values under the card's
+# gate (ref.bf16_grad_gate at SSM_BWD_TOL, 2e-4, and 1e-3 of own max |g|):
+# the kernel's terms (ref.MMA_TERMS, two for every factor) pass at each
+# shape, one term fewer for any single factor fails at one of them at
+# least, and without rounding the mirror is ssm_scan_bwd_ref's algebra.
+
+SSD_BWD_TOL = 2e-4
+# (B, H, S, P, N, G, h0, dh_f, bf16 dt)
+MMA_MIRROR_SHAPES = [
+    (1, 2, 128, 64, 64, 1, False, False, False),
+    (2, 4, 130, 32, 16, 2, True, True, True),
+    (1, 4, 77, 64, 16, 4, False, False, False),
+    (2, 2, 1, 32, 64, 1, True, True, False),
+]
+
+
+def _mma_case(B, H, S, P, N, G, h0, dhf, dt_bf16):
+    """bf16 x, B and C (B and C per group), fp32 or bf16 dt, fp32 A, h0,
+    dy and dh_f; and float64 autograd through the per-step oracle on the
+    same values."""
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(S + N + H)
+    x = torch.tensor(rng.randn(B, H, S, P) * 0.5).to(bf16)
+    dt = torch.tensor(np.log1p(np.exp(rng.randn(B, H, S)))).to(
+        bf16 if dt_bf16 else torch.float32)
+    A = torch.tensor(-np.exp(rng.rand(H) * 2.8), dtype=torch.float32)
+    Bm, Cm = (torch.tensor(rng.randn(B, G, S, N) * 0.5).to(bf16)
+              for _ in range(2))
+    hh = torch.tensor(rng.randn(B, H, P, N), dtype=torch.float32) \
+        if h0 else None
+    dy = torch.tensor(rng.randn(B, H, S, P), dtype=torch.float32)
+    dh = torch.tensor(rng.randn(B, H, P, N), dtype=torch.float32) \
+        if dhf else None
+    args = [x, dt, A, Bm, Cm, hh]
+    rep = H // G
+
+    def plain(x, dt, A, Bm, Cm, h0):
+        return ssm_scan_ref(x, dt, A, Bm.repeat_interleave(rep, 1),
+                            Cm.repeat_interleave(rep, 1), h0)
+    want = _autograd(plain, [None if a is None else a.double()
+                             for a in args], dy.double(),
+                     None if dh is None else dh.double())
+    return args, dy, dh, want
+
+
+def _mma_gate(got, want):
+    """The names of the gradients that fail ``bf16_grad_gate``."""
+    from repro_torch.kernels.flash_attention.ref import bf16_grad_gate
+    return [name for name, g, w in zip(SSD_NAMES, got, want)
+            if w is not None and not bf16_grad_gate(g, w, SSD_BWD_TOL)[2]]
+
+
+@pytest.mark.parametrize("shape", MMA_MIRROR_SHAPES)
+def test_ssd_mma_mirror_in_the_kernels_terms_passes_the_gate(shape):
+    from repro_torch.kernels.ssm_scan.ref import (MMA_TERMS,
+                                                  ssm_scan_bwd_mma_mirror)
+    args, dy, dh, want = _mma_case(*shape)
+    got = ssm_scan_bwd_mma_mirror(*args, dy, dh, terms=MMA_TERMS)
+    for g, a in zip(got, args):
+        assert a is None or g.dtype == a.dtype
+    assert _mma_gate(got, want) == []
+
+
+@pytest.mark.parametrize("factor", ["dy", "m", "q", "gc", "hs", "edy",
+                                    "bstate"])
+def test_ssd_mma_mirror_with_a_factor_in_one_term_fails_the_gate(factor):
+    from repro_torch.kernels.ssm_scan.ref import (MMA_TERMS,
+                                                  ssm_scan_bwd_mma_mirror)
+    terms = dict(MMA_TERMS, **{factor: MMA_TERMS[factor] - 1})
+    failed = {}
+    for shape in MMA_MIRROR_SHAPES:
+        args, dy, dh, want = _mma_case(*shape)
+        failed[shape] = _mma_gate(ssm_scan_bwd_mma_mirror(
+            *args, dy, dh, terms=terms), want)
+    assert any(failed.values()), failed
+
+
+@pytest.mark.parametrize("shape", MMA_MIRROR_SHAPES)
+def test_ssd_mma_mirror_unrounded_is_the_reference(shape):
+    """terms=None on float64 inputs: the kernel's orientation, its λ
+    without the two cancelling terms and its group sums are
+    ``ssm_scan_bwd_ref``'s algebra, within 1e-10 of max(1, max |g|)."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_mma_mirror
+    B, H, S, P, N, G = shape[:6]
+    args, dy, dh, _ = _mma_case(*shape)
+    args = [None if a is None else a.double() for a in args]
+    dy, dh = dy.double(), None if dh is None else dh.double()
+    got = ssm_scan_bwd_mma_mirror(*args, dy, dh, terms=None)
+    rep = H // G
+    x, dt, A, Bm, Cm, hh = args
+    want = list(ssm_scan_bwd_ref(x, dt, A, Bm.repeat_interleave(rep, 1),
+                                 Cm.repeat_interleave(rep, 1), hh, dy, dh))
+    want[3], want[4] = (t.reshape(B, G, rep, S, N).sum(2)
+                        for t in want[3:5])
+    if hh is None:
+        got, want = got[:5], want[:5]
+    _assert_close(got, want, ALGEBRA_TOL, SSD_NAMES)

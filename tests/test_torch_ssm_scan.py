@@ -212,3 +212,104 @@ def test_smem_bytes_at_the_zamba2_heads():
     # state's two bf16 terms (32 x 64), four warps' seg
     assert K.smem_bytes("mma", 64, 64) == \
         2 * (64 * 32 * 2 + 2 * 64 * 64 * 2 + 256) + 2 * 32 * 64 * 2 + 1024
+
+
+# ---- the backward's variants ------------------------------------------------
+
+@pytest.mark.parametrize("P,N", K.SIZES)
+def test_each_backward_variant_fits_the_sm(P, N):
+    """Shared memory of both backward kernels at every compiled (P, N):
+    within a block's 227 KB; the tensor-core one (``mma_bf16``) two
+    blocks an SM."""
+    simt = K.bwd_smem_bytes(P, N)
+    mma = K.bwd_smem_bytes(P, N, "mma_bf16")
+    assert simt == K.bwd_smem_bytes(P, N, "simt_bf16")
+    assert 0 < simt <= BLOCK_SMEM_MAX and 0 < mma <= BLOCK_SMEM_MAX
+    assert 2 * (mma + BLOCK_RESERVED) <= SM_SMEM
+    with pytest.raises(ValueError, match="variant"):
+        K.bwd_smem_bytes(P, N, "mma")
+
+
+def test_backward_smem_bytes_at_the_zamba2_heads():
+    """The layouts as the sources size them (P = N = 64):
+    ``ssm_scan_bwd.cu``'s ``bwd_smem_floats`` (x, dy, B, C, Gc and the
+    state rows padded by one float; M, Q and Z of 64 x 65; nine rows of
+    64 and eight partials) and ``ssm_scan_bwd_mma.cu``'s ``Tile`` (x and
+    dY's two terms, B and C, Gc's and h_s's two terms, Q^T o dt's two, in
+    bf16; dt, 4 seg and 4 column-sum rows, rect, q, beta, gamma, 4
+    partials, 4 scratch tiles of 16 x 17 and Gc in fp32)."""
+    assert K.bwd_smem_bytes(64, 64) == 4 * (
+        2 * 64 * 65 + 2 * 64 * 65 + 2 * 64 * 65 + 3 * 64 * 65 + 9 * 64 + 8)
+    assert K.bwd_smem_bytes(64, 64) == 152_096
+    assert K.bwd_smem_bytes(64, 64, "mma_bf16") == 114_192 == (
+        2 * (3 * 64 * 64 + 2 * 64 * 64 + 4 * 64 * 64 + 2 * 64 * 64)
+        + 4 * (64 + 3 * 4 * 64 + 4 + 4 * 16 * 17 + 64 * 64))
+
+
+def test_backward_variant_rule():
+    """fp32 takes only ``simt``; bf16 takes ``mma_bf16`` unless
+    ``simt_bf16`` is named; anything else raises."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert K.BWD_VARIANTS == {f32: "simt", bf16: "mma_bf16"}
+    assert K.bwd_variant(f32) == "simt" and K.bwd_variant(bf16) == "mma_bf16"
+    assert K.bwd_variant(bf16, "simt_bf16") == "simt_bf16"
+    for dtype, bad in ((f32, "mma_bf16"), (f32, "simt_bf16"),
+                       (bf16, "simt"), (bf16, "mma")):
+        with pytest.raises(ValueError, match="variant"):
+            K.bwd_variant(dtype, bad)
+    with pytest.raises(TypeError):
+        K.bwd_variant(torch.float16)
+    assert set(K.bwd_launches.by_variant) == {"simt", "mma_bf16",
+                                              "simt_bf16"}
+
+
+@pytest.mark.parametrize("B,H,G,hpb", [
+    (32, 64, 1, 8),      # zamba2-1.2b's training step: 256 blocks
+    (4, 64, 1, 1),       # its full layer: 256 blocks of one head
+    (16, 64, 2, 4),      # 256 blocks of four heads
+    (64, 64, 1, 8),      # at most MMA_MAX_HEADS
+    (64, 12, 4, 1),      # 3 heads a group: no power of two above 1
+    (8, 64, 1, 2),
+    (2, 4, 2, 1),
+])
+def test_heads_per_block(B, H, G, hpb):
+    """A block walks the largest power of two of one group's heads, up
+    to MMA_MAX_HEADS, that leaves MMA_MIN_BLOCKS blocks."""
+    got = K.heads_per_block(B, H, G)
+    assert got == hpb
+    assert (H // G) % got == 0 and got <= K.MMA_MAX_HEADS
+    assert got == 1 or B * H // got >= K.MMA_MIN_BLOCKS
+
+
+def test_block_partials_sum_to_the_group_sum():
+    """``sum_partials`` on one fp32 partial a block of heads (the mma
+    kernel's (B, H / hpb, S, N), each block's heads added in order) equals
+    the group sum of the per-head gradients, in fp32, then one rounding;
+    the block partials of a group are consecutive."""
+    B, S, H, G, N, hpb = 2, 5, 8, 2, 4, 2
+    rng = np.random.RandomState(0)
+    heads = torch.tensor(rng.randn(B, S, H, N), dtype=torch.float32)
+    blocks = heads.reshape(B, S, H // hpb, hpb, N)
+    part = blocks[..., 0, :] + blocks[..., 1, :]          # in head order
+    got = K.sum_partials(part.transpose(1, 2), G, torch.bfloat16)
+    want = heads.transpose(1, 2).reshape(B, G, H // G, S, N).sum(2)
+    assert got.shape == (B, G, S, N) and got.dtype == torch.bfloat16
+    assert float((got.float() - want).abs().max()) <= \
+        2.0 ** -8 * float(want.abs().max())
+
+
+def test_rows_error_names_what_16_byte_rows_need():
+    """The mma kernels read rows 16 bytes at a time: bf16 x, B and C
+    (cp.async) and the backward's fp32 dy (float4) need every stride but
+    the last a multiple of 16 bytes and a 16-byte-aligned base."""
+    for dtype, per in ((torch.bfloat16, 8), (torch.float32, 4)):
+        t = torch.zeros((2, 16, 3, 64), dtype=dtype)
+        assert K.rows_error(t) is None
+        assert K.rows_error(t.transpose(1, 2)) is None    # model layout
+        wide = torch.zeros((2, 3, 16, 64 + per // 2), dtype=dtype)
+        assert "multiples of" in K.rows_error(wide[..., :64])
+        flat = torch.zeros(2 * 3 * 16 * 64 + per, dtype=dtype)
+        assert K.rows_error(flat[per:].view(2, 3, 16, 64)) is None
+        assert "aligned" in K.rows_error(
+            flat[per // 2:per // 2 + 2 * 3 * 16 * 64].view(2, 3, 16, 64))
+        assert K.rows_error(t.transpose(-1, -2)) is not None
