@@ -248,15 +248,23 @@ FLASH_BWD_SHAPES = [
     ("100m S2048", 8, 12, 4, 2048, 64, None),
     ("100m S2048 window 1024", 8, 12, 4, 2048, 64, 1024),
 ]
-# the fp32 flash kernels (flash_fwd_simt with its lse, the three kernels
-# of csrc/flash_attention_bwd.cu) and the plain fp32 attention, each held
-# to a float64 truth on the same fp32 inputs (attention_ref and its
-# autograd in float64 on the card): zamba2-1.2b's training shape and its
-# serve shape at B 1, causal.  (label, B, Hq, Hkv, S, D)
+# the fp32 flash kernels (flash_fwd_simt with its lse, the backward's
+# wgmma_f32 kernels, and its SIMT ones by name) and the plain fp32
+# attention, each held to a float64 truth on the same fp32 inputs
+# (attention_ref and its autograd in float64 on the card): zamba2-1.2b's
+# training shape and its serve shape at B 1, and 100m's training shape
+# (GQA), causal.  The backward's dq, dk and dv may lie no more than 2x
+# as far as the plain fp32 attention's (stated in PERF.md before the
+# first run).  (label, B, Hq, Hkv, S, D)
 FLASH_F64_SHAPES = [
     ("zamba2 training", 32, 32, 32, 128, 64),
     ("zamba2 serve B 1", 1, 32, 32, 4096, 64),
+    ("100m training", 32, 12, 4, 128, 64),
 ]
+# the fp32 tensor-core floor of the flash backward's counted work: six
+# bf16 products (three terms a factor) for one fp32-accurate one, 989 / 6
+# TFLOP/s (495 / 3 for 3xTF32 comes to the same)
+H100_F32_TC_FLOPS = H100_BF16_FLOPS / 6
 # the scans' backward kernels (ssm_scan_bwd_cuda, rwkv6_scan_bwd_cuda)
 # against autograd through the per-step oracles, fp32 on the card, per
 # gradient tensor: the SSD within SSM_BWD_TOL of max(1, max |g|) (the
@@ -534,23 +542,28 @@ def check_flash_build(report):
 
 
 def check_flash_bwd_build(report):
-    """Each flash_bwd_wgmma kernel's registers, shared memory and spills;
-    raises on a ptxas line saying wgmma instructions were serialised and
-    on any spill at the training head dims (64, 80, 128)."""
+    """Each tensor-core backward kernel's registers, shared memory and
+    spills (bf16 ``flash_bwd_wgmma_*``, fp32 ``flash_bwd_f32_*``); raises
+    on a ptxas line saying wgmma instructions were serialised and on any
+    spill at the training head dims (bf16 64, 80, 128; fp32 32 to 128:
+    at D 192 the fp32 dq kernel's 96-register sum and its tile's partial
+    spill, logged)."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import bwd_smem_bytes
+    gated = {"wgmma": (64, 80, 128), "f32": (32, 64, 80, 128)}
     for name, k in sorted(_build.ptxas_kernels(report).items()):
-        m = re.search(r"flash_bwd_wgmma_(dq|dkdv)ILi(\d+)E", name)
+        m = re.search(r"flash_bwd_(wgmma|f32)_(dq|dkdv)ILi(\d+)E", name)
         if not m:
             continue
-        kernel, D = m.group(1), int(m.group(2))
-        log(f"[build] flash_bwd_wgmma_{kernel}<{D}>: {k.registers} registers "
-            f"at launch, {bwd_smem_bytes(D, 'wgmma_' + kernel)} bytes of "
-            f"dynamic shared memory, spills {k.spill_stores} / "
-            f"{k.spill_loads} bytes")
-        if D in (64, 80, 128) and (k.spill_stores or k.spill_loads):
-            raise RuntimeError(f"flash_bwd_wgmma_{kernel}<{D}> spills "
+        kind, kernel, D = m.group(1), m.group(2), int(m.group(3))
+        log(f"[build] flash_bwd_{kind}_{kernel}<{D}>: {k.registers} "
+            f"registers at launch, "
+            f"{bwd_smem_bytes(D, kind + '_' + kernel)} bytes of dynamic "
+            f"shared memory, spills {k.spill_stores} / {k.spill_loads} "
+            f"bytes")
+        if D in gated[kind] and (k.spill_stores or k.spill_loads):
+            raise RuntimeError(f"flash_bwd_{kind}_{kernel}<{D}> spills "
                                f"registers")
     serialised = _build.wgmma_serialised(report)
     if serialised:
@@ -2506,20 +2519,22 @@ def phase_serve_card_vs_cpu():
                                f"differ by {rel:.3e} or ids differ")
 
 
-def flash_bwd_bounds(B, Hq, Hkv, S, D, window, dtype=torch.float32):
-    """(bytes, flops, bytes ms, ops ms) of one backward: fp32, q, k, v, o,
-    dO and lse read once, dq, dk and dv written once; bf16, q, k, v, dO
-    (bf16) and lse (fp32) read, dq, dk, dv (bf16) written (the bf16
-    kernels read no o); the five products (S and dP recomputed, dV, dK,
-    dQ) over the visible pairs, 10·pairs·D flops, at the input type's
-    rate (fp32's 67 TFLOP/s, bf16 tensor cores' 989)."""
-    if dtype == torch.bfloat16:
-        nbytes = 2 * (3 * B * Hq * S * D + 4 * B * Hkv * S * D) \
-            + 4 * B * Hq * S
-    else:
-        nbytes = 4 * (4 * B * Hq * S * D + 4 * B * Hkv * S * D + B * Hq * S)
+def flash_bwd_bounds(B, Hq, Hkv, S, D, window, dtype=torch.float32,
+                     reads_out=False, rate=None):
+    """(bytes, flops, bytes ms, ops ms) of one backward: q, k, v, dO and
+    lse (fp32) read once, dq, dk and dv written once, in the input type
+    (the wgmma kernels, bf16 and fp32 alike, read no o); ``reads_out``
+    adds the read of o (the SIMT kernels' delta = dO . o); the five
+    products (S and dP recomputed, dV, dK, dQ) over the visible pairs,
+    10·pairs·D flops, at ``rate`` (default the input type's: fp32's 67
+    TFLOP/s, bf16 tensor cores' 989)."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    nbytes = esize * ((3 + reads_out) * B * Hq * S * D + 4 * B * Hkv * S * D) \
+        + 4 * B * Hq * S
     flops = 10 * B * Hq * D * visible_pairs(S, S, 0, True, window)
-    rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    if rate is None:
+        rate = H100_BF16_FLOPS if dtype == torch.bfloat16 \
+            else H100_FP32_FLOPS
     return (nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3,
             flops / rate * 1e3)
 
@@ -2572,11 +2587,22 @@ def time_flash_bwd(tag, label, B, Hq, Hkv, S, D, window, dtype, other=None):
     ms, library_ms = sum(kern) / 2, sum(lib) / 2
     plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, dout, **kw),
                        reps=3, warmup=1)
-    nbytes, flops, bytes_ms, ops_ms = flash_bwd_bounds(B, Hq, Hkv, S, D,
-                                                       window, dtype)
+    f32 = dtype == torch.float32
+    # fp32: the kernel's bound is the tensor-core floor of fp32-accurate
+    # work (six bf16 term products at 989 TFLOP/s, 165 TFLOP/s in all);
+    # the 67 TFLOP/s fp32 bound is kept beside it to read against the
+    # SIMT rows, and a tensor-core kernel's share of it can pass 100%
+    nbytes, flops, bytes_ms, ops_ms = flash_bwd_bounds(
+        B, Hq, Hkv, S, D, window, dtype,
+        rate=H100_F32_TC_FLOPS if f32 else None)
     bound_ms = max(bytes_ms, ops_ms)
-    rate = "989 TFLOP/s bf16" if dtype == torch.bfloat16 \
-        else "67 TFLOP/s fp32"
+    rate = "989 / 6 = 165 TFLOP/s of fp32-accurate tensor-core products" \
+        if f32 else "989 TFLOP/s bf16"
+    if f32:
+        fp32_ms = max(bytes_ms, flops / H100_FP32_FLOPS * 1e3)
+        log(f"[{tag}] {label} fp32 bound {fp32_ms * 1e3:.1f} us ({flops:.4e} "
+            f"flops at 67 TFLOP/s fp32, no o read): kernel at "
+            f"{fp32_ms / ms:.1%} of it (can pass 100% on the tensor cores)")
     log(f"[{tag}] {label} timing (B{B} Hq{Hq}/{Hkv} S{S} D{D} window "
         f"{window}): kernel {ms:.4f} ms ({kern[0]:.4f} / {kern[1]:.4f}), "
         f"plain {plain_ms:.3f} ms, {what} {str(dtype)[6:]} backward "
@@ -2589,12 +2615,19 @@ def time_flash_bwd(tag, label, B, Hq, Hkv, S, D, window, dtype, other=None):
     timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                   bound_ms=bound_ms,
                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    if f32:
+        timing["fp32_bound_ms"] = fp32_ms
     if other is not None:
         alt_ms = sum(alt) / 2
+        # the SIMT kernels read o: their bound at 67 TFLOP/s with it
+        _, _, alt_bytes, alt_ops = flash_bwd_bounds(
+            B, Hq, Hkv, S, D, window, dtype, reads_out=True)
+        alt_bound = max(alt_bytes, alt_ops)
         log(f"[{tag}] {label} timing, in the same turns: {other} "
             f"{alt_ms:.4f} ms ({alt[0]:.4f} / {alt[1]:.4f}), at "
-            f"{bound_ms / alt_ms:.1%} of the bound; kernel / {other} "
-            f"{ms / alt_ms:.3f}")
+            f"{alt_bound / alt_ms:.1%} of its own bound ("
+            f"{alt_bound * 1e3:.1f} us at {str(dtype)[6:]}'s rate, o read); "
+            f"kernel / {other} {ms / alt_ms:.3f}")
         timing[f"{other}_ms"] = alt_ms
     return timing
 
@@ -2654,19 +2687,72 @@ def phase_flash_fwd_fp32():
     return timings
 
 
+def phase_scan_fwd_fp32():
+    """The fp32 SIMT scan forwards at the training shapes that launch them
+    (twice a layer a step under remat): ``ssd_fwd_simt`` at zamba2 100m
+    (B 32, S 128, H 24, P = N = 64, G 1) and ``wkv_fwd_simt`` at rwkv6
+    100m (B 32, S 128, H 12, D 64), each through its op in the model's
+    layout, timed twice beside the plain chunked form and the bound (the
+    larger of its bytes at 3.35 TB/s and its fp32 operations at 67
+    TFLOP/s: the SSD's chunk-64 products, the WKV's per-step 5·D² a step
+    and head).  No single PyTorch call computes either.  Returns
+    {"ssm_scan": timing, "rwkv6_scan": timing}."""
+    from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    f32 = torch.float32
+    out = {}
+    B, S, H, P, N, G = 32, 128, 24, 64, 64, 1
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(B, S, H, P, N, G, f32, seed=11)
+    kern = [cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm), reps=20,
+                    warmup=3) for _ in range(2)]
+    plain_ms = cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, impl="torch"),
+                       reps=3, warmup=1)
+    nbytes, _, bytes_ms, _, ops_ms = ssd_bounds(B, S, H, P, N, G, f32, False)
+    out["ssm_scan"] = ("zamba2 100m training (B 32, S 128, H 24, P = N = 64, "
+                       "G 1, fp32)", kern, plain_ms, bytes_ms, ops_ms, nbytes)
+    del x, dt, A, Bm, Cm
+    B, S, H, D = 32, 128, 12, 64
+    r, k, v, logw, u, _ = _wkv_inputs(B, S, H, D, f32, seed=12)
+    fn, plain = wkv_kernel_adapter("cuda"), wkv_kernel_adapter("torch")
+    kern = [cuda_ms(lambda: fn(r, k, v, logw, u, None), reps=20, warmup=3)
+            for _ in range(2)]
+    plain_ms = cuda_ms(lambda: plain(r, k, v, logw, u, None), reps=3,
+                       warmup=1)
+    nbytes, _, bytes_ms, _, ops_ms = wkv_bounds(B, S, H, D, f32, False)
+    out["rwkv6_scan"] = ("rwkv6 100m training (B 32, S 128, H 12, D 64, "
+                         "fp32)", kern, plain_ms, bytes_ms, ops_ms, nbytes)
+    timings = {}
+    for name, (at, kern, plain_ms, bytes_ms, ops_ms, nbytes) in out.items():
+        ms = sum(kern) / 2
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"[scan_fwd fp32] {name} at {at}: kernel {ms:.4f} ms "
+            f"({kern[0]:.4f} / {kern[1]:.4f}), plain {plain_ms:.3f} ms; "
+            f"bound {bound_ms * 1e3:.1f} us ({nbytes} bytes take "
+            f"{bytes_ms * 1e3:.1f} us at 3.35 TB/s, the fp32 operations "
+            f"{ops_ms * 1e3:.1f} us at 67 TFLOP/s); kernel at "
+            f"{bound_ms / ms:.1%} of the bound")
+        timings[name] = dict(at=at, ms=ms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=bound_ms,
+                             bound_by="bytes" if bytes_ms >= ops_ms
+                             else "operations")
+    return timings
+
+
 def check_flash_bwd(label, got, want):
-    """Raise unless each of dq, dk, dv is finite and within FLASH_BWD_TOL
-    of max(1, max |g|); returns the largest absolute error."""
+    """Raise unless each of dq, dk, dv is finite, within FLASH_BWD_TOL of
+    max(1, max |g|) and within GRAD_ATTN_REL_TOL of its own max |g| (which
+    a zero or lost gradient fails); returns the largest absolute error."""
     worst = 0.0
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         if g.shape != w.shape or not bool(torch.isfinite(g).all()):
             raise RuntimeError(f"flash_bwd {label}: {name} "
                                f"{tuple(g.shape)} or non-finite")
         err = float((g - w).abs().max())
-        bound = FLASH_BWD_TOL * max(1.0, float(w.abs().max()))
+        top = float(w.abs().max())
+        bound = min(FLASH_BWD_TOL * max(1.0, top), GRAD_ATTN_REL_TOL * top)
         if err > bound:
             raise RuntimeError(f"flash_bwd {label}: {name} error {err:.3e} "
-                               f"above {bound:.3e}")
+                               f"above {bound:.3e} (max |g| {top:.3e})")
         worst = max(worst, err)
     return worst
 
@@ -2680,10 +2766,12 @@ def f64_share(x, truth):
 def flash_f64_distances():
     """Each output of the fp32 flash path (out, lse, dq, dk, dv) from a
     float64 truth at FLASH_F64_SHAPES, as a share of max(1, max |x|), for
-    the kernels and for the plain fp32 attention; and the backward kernels
-    alone, fed the truth's out and lse rounded to fp32.  Logs which
-    kernel output lies more than 2x as far as the plain version's (ROADMAP
-    Queue C).  Returns {shape: {way: {output: share}}}."""
+    the kernels (the backward's default, ``wgmma_f32``), for the SIMT
+    backward by name and for the plain fp32 attention; and the default
+    backward alone, fed the truth's out and lse rounded to fp32.  Logs
+    which kernel output lies more than 2x as far as the plain version's
+    and raises if dq, dk or dv of the default backward does.  Returns
+    {shape: {way: {output: share}}}."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
                                                          attention_ref)
@@ -2708,6 +2796,8 @@ def flash_f64_distances():
         o, lse = FK.flash_attention_cuda(q, k, v, with_lse=True)
         ways["kernels"] = (o, lse, *FK.flash_attention_bwd_cuda(
             q, k, v, o, lse, dout))
+        ways["kernels, simt backward"] = (o, lse, *FK.flash_attention_bwd_cuda(
+            q, k, v, o, lse, dout, variant="simt"))
         o32, lse32 = truth[0].float(), truth[1].float()
         ways["bwd kernels on the truth's out, lse"] = (
             o32, lse32, *FK.flash_attention_bwd_cuda(q, k, v, o32, lse32,
@@ -2727,7 +2817,15 @@ def flash_f64_distances():
         log(f"[flash_bwd] float64 truth, {label}: kernel outputs more than "
             f"2x as far as the plain fp32 version's: "
             + (", ".join(f"{n} ({r:.2f}x)" for n, r in worse.items())
-               if worse else "none"))
+               if worse else "none") + "; the backward's ratios "
+            + ", ".join(f"{n} {dist['kernels'][n] / dist['plain fp32'][n]:.3f}"
+                        for n in ("dq", "dk", "dv")))
+        grads = [n for n in ("dq", "dk", "dv") if n in worse]
+        if grads:
+            raise RuntimeError(f"flash_bwd float64 truth, {label}: "
+                               f"{', '.join(grads)} of the wgmma_f32 "
+                               f"backward more than 2x as far from float64 "
+                               f"as the plain fp32 attention's")
         del q, k, v, dout, ways, truth, o, lse, o32, lse32
         gc.collect()
         torch.cuda.empty_cache()
@@ -2735,12 +2833,14 @@ def flash_f64_distances():
 
 
 def phase_flash_bwd():
-    """The backward kernel against autograd through the plain version at
-    the training shapes and at ragged ones (GQA, q_offset, windows,
-    non-causal, every head dim), reruns bit-identical; timings at the
-    training shapes beside SDPA's fp32 backward, the plain backward and
-    the bound.  Returns its kernels-line entry (``launches`` filled in
-    by the training runs)."""
+    """The fp32 backward (its default variant, ``wgmma_f32``) against
+    autograd through the plain version at the training shapes and at
+    ragged ones (GQA, q_offset, windows, non-causal, every head dim),
+    reruns bit-identical; timings at the training shapes in turns with
+    SDPA's fp32 backward and the SIMT backward by name, beside the plain
+    backward, the fp32 bound and the tensor-core floor; the float64
+    truth.  Returns its kernels-line entry (``launches`` filled in by the
+    training runs)."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     f32 = torch.float32
@@ -2778,7 +2878,7 @@ def phase_flash_bwd():
     timings = {}
     for label, B, Hq, Hkv, S, D, window in FLASH_BWD_SHAPES:
         timings[label] = time_flash_bwd("flash_bwd", label, B, Hq, Hkv, S, D,
-                                        window, f32)
+                                        window, f32, other="simt")
         torch.cuda.empty_cache()
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2786,7 +2886,7 @@ def phase_flash_bwd():
             "replaces_note": "the gradient of flash_attention_pallas; the "
             "JAX package has no backward kernel (it trains through plain "
             "JAX attention and autodiff)",
-            "counted_variant": "simt",
+            "counted_variant": "wgmma_f32",
             "launches": None, "max_abs_err": max_err, **timings["100m"],
             "at": "100m training shape (B 32, Hq 12 / Hkv 4, S 128, D 64, "
             "causal)", "by_shape": timings,
@@ -3115,7 +3215,8 @@ def phase_flash_bwd_bf16():
                                f"did not run one wgmma and one SIMT launch")
         ran = {n: c - bwd_before[n]
                for n, c in FK.bwd_launches.by_variant.items()}
-        if ran != {"simt": 0, "wgmma_bf16": 2, "simt_bf16": 1}:
+        if ran != {"wgmma_f32": 0, "simt": 0, "wgmma_bf16": 2,
+                   "simt_bf16": 1}:
             raise RuntimeError(f"flash_bwd bf16 {label}: backward launches "
                                f"{ran}, expected two wgmma_bf16 and one "
                                f"simt_bf16")
@@ -3296,14 +3397,15 @@ def train_step_launches(cfg):
 def train_step_variants(cfg):
     """The variant each kernel of a training step of ``cfg`` launches: the
     forward kernels by the compute dtype (fp32 SIMT, bf16 tensor cores),
-    the backward kernels SIMT on fp32, and on bf16 inputs flash's and the
-    SSD's on the tensor cores."""
+    flash's backward on the tensor cores for both dtypes (fp32 in three
+    bf16 terms), the scans' backwards SIMT on fp32 and the SSD's on the
+    tensor cores on bf16 inputs."""
     bf16 = cfg.compute_dtype == "bfloat16"
     return {"flash_attention": "wgmma" if bf16 else "simt",
             "flash_attention_lse": "wgmma" if bf16 else "simt",
             "ssm_scan": "mma" if bf16 else "simt",
             "rwkv6_scan": "mma" if bf16 else "simt",
-            "flash_attention_bwd": "wgmma_bf16" if bf16 else "simt",
+            "flash_attention_bwd": "wgmma_bf16" if bf16 else "wgmma_f32",
             "ssm_scan_bwd": "mma_bf16" if bf16 else "simt",
             "rwkv6_scan_bwd": "simt"}
 
@@ -4017,6 +4119,8 @@ def main():
                "rwkv6_scan_bwd": phase_rwkv6_scan_bwd()}
     entries["flash_attention"]["fp32_training_forward_by_shape"] = \
         phase_flash_fwd_fp32()
+    for k, timing in phase_scan_fwd_fp32().items():
+        entries[k]["fp32_training_forward"] = timing
     data, main = phase_main_path(counters)
     dyn, dyn_rows, dyn_peaks = phase_dynamics(data, counters)
     paths = {"main": main, **phase_robust(data, counters), **dyn,

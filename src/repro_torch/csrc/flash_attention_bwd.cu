@@ -31,10 +31,11 @@
  * sum runs in an order fixed by the shapes and there are no atomics, so
  * two launches give bit-identical gradients.
  *
- * Two variants, chosen by the wrapper (kernel.py, flash_attention_bwd_cuda):
+ * Three variants, chosen by the wrapper (kernel.py, flash_attention_bwd_cuda):
  *
- * SIMT (fp32; bf16 only where asked for by name, "simt_bf16", as the
- * yardstick of the bf16 variant).  Three kernels for fp32, two for bf16:
+ * SIMT (only where asked for by name, "simt" on fp32 and "simt_bf16" on
+ * bf16, the yardsticks of the tensor-core variants).  Three kernels for
+ * fp32, two for bf16:
  *   flash_bwd_delta (fp32 only): delta = rowsum(dO o), one warp a row.
  *   flash_bwd_dq<T, D>: one block of 256 threads owns one (batch, query
  *   head, 64-row query tile) and walks the key tiles the forward walks,
@@ -97,13 +98,58 @@
  *   the gate; so delta = sum_j P_ij dP_ij from walk 1, the same number for
  *   the exact o.
  *
+ * flash_bwd_f32 (fp32, "wgmma_f32", every fp32 training path): the same
+ * tensor-core design on fp32 inputs, every factor of every product in
+ * three bf16 terms, t0 = bf16(x), t1 = bf16(x - t0), t2 = bf16(x - t0 -
+ * t1), and the term products with i + j <= 2 (six a product) summed into
+ * the fp32 accumulators.
+ *   flash_bwd_split3: q, k, v and dO into three bf16 planes each, a
+ *   workspace of 6 bytes an element that the wrapper allocates, read by
+ *   TMA as (3 B, H, S, D) tensors; P and dS are split in registers.
+ *   flash_bwd_f32_dq<D>: as flash_bwd_wgmma_dq, but walk 1 also takes
+ *   each row's l = sum_j e and u = sum_j e dP of e = exp(S scale - lse),
+ *   and writes r = 1 / l and delta = u r; walk 2 and dk/dv use P = e r.
+ *   The forward's lse comes from the SIMT forward's own fp32 scores, so
+ *   exp(S - lse) of these scores does not sum to 1 to fp32 accuracy, and
+ *   delta = dO . o would not match their P: in a float64 mirror
+ *   (ref.py's attention_bwd_f32_mirror) that put dq up to 2.4x as far
+ *   from float64 as the plain fp32 attention.  Each tile's products run
+ *   one after another (S and dP, then dQ += dS K), with no overlap
+ *   inside a warpgroup: three stages of three terms do not fit.
+ *   flash_bwd_f32_dkdv<D>: as flash_bwd_wgmma_dkdv, P^T = e r; a GQA
+ *   group a block unless that gives under one wave of blocks (the
+ *   wrapper's per_head_blocks).
+ *   Tiles in three terms are three times the bf16 ones: at D <= 64 dq
+ *   keeps 128 query rows (two consumer warpgroups) and streams 64 keys
+ *   in 2 stages, dk/dv streams 64 queries in 3; above D 64 dq keeps 64
+ *   rows (one consumer), both stream 32 rows, 2 stages at D 80 and 128
+ *   and 1 at D 192 (about 217 KB a block); dk/dv splits the roles above
+ *   D 64 as the bf16 kernel does at 192.  exp is expf, 1 / l rcp.approx
+ *   with a Newton step.
+ *   Numerics: the tensor cores truncate each wgmma's fp32 sum, so no
+ *   accumulator runs through more than one tile (wgmma_ss3, below): with
+ *   dQ, dK and dV each chained through one accumulator they lay 2.3-5.9x
+ *   as far from float64 as plain fp32 on an H100, growing with S; with a
+ *   partial a tile 0.11-0.74x (chip_smoke.py's flash_f64_distances).  In
+ *   the float64 mirror, which models that truncation, two bf16 terms put
+ *   dq, dk or dv 7-60x as far from float64 as plain fp32 and three
+ *   0.2-1.1x: three it is.  3xTF32 would need Q, K and dO transposed in
+ *   shared memory (wgmma takes tf32 only K-major).
+ *
  * What bounds it.  The five products over the visible (query, key)
  * pairs are 10 * pairs * D flops; in bf16 at 989 TFLOP/s the Qwen2-7B
  * heads (B 1, Hq 28 / Hkv 4, S 2048, D 128, causal) are bound at 76.0 us
  * by operations against 15.7 us for their bytes at 3.35 TB/s, Danube's
  * (B 1, 32 / 8, S 6144, D 80, window 4096) at 434 us; zamba2-1.2b's
  * training shape (B 32, 32 / 32, S 128, D 64) is bound by its 118 MB of
- * bytes, 35.2 us (chip_smoke.py computes each from its inputs).  The
+ * bytes, 35.2 us (chip_smoke.py computes each from its inputs).  In
+ * fp32 the counted work reads against the 67 TFLOP/s of fp32 FMAs (1.924
+ * ms at 100m S 2048, 1.29e11 flops), and its tensor-core floor is 989 /
+ * 6 = 165 TFLOP/s of fp32-accurate products (0.78 ms there), which is
+ * the fp32 variant's bound: it reads q, k, v, dO and lse and writes dq,
+ * dk and dv, and reads no o (the SIMT kernels do, for delta).  The fp32
+ * variant does 9 products of the tile where the count has 5 (S and dP
+ * in both walks of dq and again in dk/dv), six term products each.  The
  * wgmma variant does about 2.4x the counted work (S and dP formed in
  * both walks of dq and again in dk/dv; dQ, dK and dV in two terms).
  * What the SIMT bf16 variant lost to, and what this design does about
@@ -119,8 +165,9 @@
  * block an SM: 384 threads at 168 registers).
  *
  * Lines "// @probe <name>" mark where tools/flash_bwd_probe.py inserts
- * clock reads, or drops the low term, in a copy of this source; they are
- * comments and compile to nothing.
+ * clock reads, or drops the low term, in a copy of this source (the
+ * "f32-" ones in the fp32 kernels, read with --fp32); they are comments
+ * and compile to nothing.
  */
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -638,6 +685,10 @@ struct WgParams {
   int causal;
   int per_head;                  // dk/dv blocks own one query head each
   float scale;
+  // the fp32 variant only: each row's 1 / sum_j P_ij (dq writes, dk/dv
+  // reads) and B (the term planes are (3 B, H, S, D))
+  float* rinv;
+  int64_t batch;
 };
 
 // Tile sizes of both kernels at head dim D: D in boxes of 64 bf16
@@ -1469,6 +1520,831 @@ int launch_wgmma_d(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// flash_bwd_wgmma on fp32 inputs ("wgmma_f32"): every factor in three bf16
+// terms
+// ---------------------------------------------------------------------------
+
+constexpr int kTerms = 3;
+
+// fp32 q, k, v and dO as three bf16 planes each, t0 = bf16(x), t1 =
+// bf16(x - t0), t2 = bf16(x - t0 - t1) (each remainder exact in fp32),
+// into (3, B, H, S, D) contiguous buffers that TMA reads as (3 B, H, S,
+// D).  Memory-bound (4 bytes an element in, 6 out): a lane takes four
+// columns of a row at a time (a float4 in, three 8-byte stores out), the
+// warps walk the four tensors' rows
+struct SplitParams {
+  const float* src[4];           // q, k, v, dout: strided, last axis contiguous
+  __nv_bfloat16* dst[4];
+  int64_t st[4][3];              // element strides (batch, head, seq)
+  int64_t H[4], S[4], rows[4];   // rows = B H S
+  int D;
+};
+
+__device__ __forceinline__ void split3_bf16(float a, float b, uint32_t& t0,
+                                            uint32_t& t1, uint32_t& t2) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  a -= hf.x;
+  b -= hf.y;
+  __nv_bfloat162 m = __floats2bfloat162_rn(a, b);
+  const float2 mf = __bfloat1622float2(m);
+  __nv_bfloat162 l = __floats2bfloat162_rn(a - mf.x, b - mf.y);
+  t0 = *reinterpret_cast<uint32_t*>(&h);
+  t1 = *reinterpret_cast<uint32_t*>(&m);
+  t2 = *reinterpret_cast<uint32_t*>(&l);
+}
+
+__global__ void __launch_bounds__(kThreads) flash_bwd_split3(const SplitParams p) {
+  // a warp takes 32 / (D / 4) rows at once where that divides (D 32, 64,
+  // 128), else one row at a time, a lane a float4 of a row
+  const int q4 = p.D / 4;
+  const int lane = threadIdx.x & 31;
+  const int per = 32 % q4 == 0 ? 32 / q4 : 1;
+  const int c0 = per > 1 ? lane % q4 : lane;
+  const int64_t warps = (int64_t)gridDim.x * (kThreads / 32) * per;
+  const int64_t first = ((int64_t)blockIdx.x * (kThreads / 32) +
+                         threadIdx.x / 32) * per + (per > 1 ? lane / q4 : 0);
+  for (int x = 0; x < 4; ++x) {
+    const int64_t S = p.S[x], H = p.H[x];
+    const int64_t plane = p.rows[x] * q4;       // uint2 (4 bf16) a plane
+    uint2* dst = reinterpret_cast<uint2*>(p.dst[x]);
+    for (int64_t row = first; row < p.rows[x]; row += warps) {
+      const float4* src = reinterpret_cast<const float4*>(
+          p.src[x] + (row / (S * H)) * p.st[x][0] +
+          ((row / S) % H) * p.st[x][1] + (row % S) * p.st[x][2]);
+      for (int c = c0; c < q4; c += 32) {
+        const float4 v = src[c];
+        uint2 t0, t1, t2;
+        split3_bf16(v.x, v.y, t0.x, t1.x, t2.x);
+        split3_bf16(v.z, v.w, t0.y, t1.y, t2.y);
+        const int64_t o = row * q4 + c;
+        dst[o] = t0;
+        dst[plane + o] = t1;
+        dst[2 * plane + o] = t2;
+      }
+    }
+  }
+}
+
+// Tiles of the fp32 variant at head dim D.  A tile holds its three terms
+// one after another ([term][box][rows][128 B]), so it is three times the
+// bf16 variant's: dq keeps 128 query rows (two consumer warpgroups) only
+// at D <= 64 and 64 (one) above; the streamed tiles are 64 rows at D <=
+// 64 and 32 above, in 3, 2 or 1 stages as 227 KB allows
+template <int D>
+struct Bf {
+  static constexpr int NB = (D + kBox - 1) / kBox;
+  static constexpr int NR = D == 80 ? 80 : NB * kBox;
+  static constexpr int KS = (D + 15) / 16;
+  static constexpr int WG = NB == 1 ? 2 : 1;          // dq's consumers
+  static constexpr int ROWS = 64 * WG;                // query rows of a dq block
+  static constexpr int BT = NB == 1 ? 64 : 32;        // rows of a streamed tile
+  static constexpr int DQ_STAGES = NB == 3 ? 1 : 2;
+  static constexpr int KV_STAGES = NB == 1 ? 3 : NB == 2 ? 2 : 1;
+  static constexpr int ROW_BOX = ROWS * 128;          // dq's Q, dO
+  static constexpr int KEY_BOX = 64 * 128;            // dk/dv's K, V
+  static constexpr int T_BOX = BT * 128;              // a streamed box
+  static constexpr int ROW_PLANE = NB * ROW_BOX;      // one term of a tile
+  static constexpr int KEY_PLANE = NB * KEY_BOX;
+  static constexpr int T_PLANE = NB * T_BOX;
+  static constexpr int T_BYTES = kTerms * T_PLANE;    // a streamed tile
+  static constexpr int STAGE_BYTES = 2 * T_BYTES;
+  static constexpr int SMEM_DQ = 1024 + 2 * kTerms * ROW_PLANE +
+                                 DQ_STAGES * STAGE_BYTES + 8 * (2 * DQ_STAGES + 1);
+  static constexpr int SMEM_DKDV = 1024 + 2 * kTerms * KEY_PLANE +
+                                   KV_STAGES * STAGE_BYTES + 8 * (2 * KV_STAGES + 1);
+  static_assert(SMEM_DQ <= 232448 && SMEM_DKDV <= 232448, "227 KB a block");
+};
+
+// The tensor cores' fp32 sum is not fp32's: a wgmma adds its products to
+// the accumulator and truncates, so a sum that runs through hundreds of
+// wgmma drifts toward zero (a float64 model of truncation after each
+// k-step puts dq, dk and dv 4-19x as far from float64 as plain fp32; an
+// H100 read 2.3-5.9x, growing with S, before the next two rules).  So
+// (1) the small term products (i + j >= 1, 2^-8 of the main one and
+// below) go first, while the accumulator is small, and the main one t0
+// t0 last; (2) no accumulator runs through more than one tile: each
+// tile's dQ, dK or dV lands in a zeroed partial that is added to the
+// gradient's fp32 sum in registers (round to nearest).
+
+// acc = A B^T over D from the terms of both factors (A_i B_j, i + j <= 2,
+// the main pair last), into the zeroed accumulator; A and B K-major,
+// their boxes a_box / b_box and their term planes a_plane / b_plane
+// bytes apart; launched, not committed
+template <int N, int KS>
+__device__ __forceinline__ void wgmma_ss3(float (&acc)[N / 2], uint32_t a_addr,
+                                          int a_box, int a_plane,
+                                          uint32_t b_addr, int b_box,
+                                          int b_plane) {
+#pragma unroll
+  for (int main = 0; main < 2; ++main)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+#pragma unroll
+      for (int i = 0; i < kTerms; ++i)
+#pragma unroll
+        for (int j = 0; i + j < kTerms; ++j)
+          if ((i + j == 0) == (main == 1))
+            mma_ss<N>(acc,
+                      desc_sw128(a_addr + i * a_plane + (kk >> 2) * a_box + off,
+                                 16, 1024),
+                      desc_sw128(b_addr + j * b_plane + (kk >> 2) * b_box + off,
+                                 16, 1024),
+                      main || kk > 0 || i + j > 1 || i > 0);
+    }
+}
+
+// acc += A B, A from registers in its three terms (K columns), B (K rows
+// x N) MN-major in its three term planes b_plane bytes apart, the pairs
+// as in wgmma_ss3; acc is a tile's zeroed partial; launched, not
+// committed
+template <int K, int N>
+__device__ __forceinline__ void wgmma_rs3(float (&acc)[N / 2],
+                                          const uint32_t (&a)[kTerms][K / 16][4],
+                                          uint32_t b_addr, int b_box,
+                                          int b_plane) {
+#pragma unroll
+  for (int main = 0; main < 2; ++main)
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < kTerms; ++i)
+#pragma unroll
+        for (int j = 0; i + j < kTerms; ++j)
+          if ((i + j == 0) == (main == 1))
+            mma_rs<N>(acc, a[i][kk],
+                      desc_sw128(b_addr + j * b_plane + kk * 16 * 128, b_box,
+                                 1024));
+}
+
+// acc += the tile's partial dQ, dK or dV (RS), in fp32 registers: part is
+// zeroed, the product launched, committed and waited for, then added
+template <int K, int N>
+__device__ __forceinline__ void add_tile_rs3(float (&acc)[N / 2],
+                                             float (&part)[N / 2],
+                                             const uint32_t (&a)[kTerms][K / 16][4],
+                                             uint32_t b_addr, int b_box,
+                                             int b_plane) {
+  zero(part);
+  fence_regs(part);
+  wgmma_fence();
+  wgmma_rs3<K, N>(part, a, b_addr, b_box, b_plane);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(part);
+#pragma unroll
+  for (int c = 0; c < N / 2; ++c) acc[c] += part[c];
+}
+
+// the accumulator of BK columns as the A fragments of BK / 16 k-steps, in
+// three bf16 terms (pack_p's layout)
+template <int BK>
+__device__ __forceinline__ void pack3(const float (&x)[BK / 2],
+                                      uint32_t (&a)[kTerms][BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split3_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1], a[0][kk][i],
+                  a[1][kk][i], a[2][kk][i]);
+}
+
+// 1 / x to within an ulp: rcp.approx and one Newton step, so that no
+// division's slow path (a call) sits in a kernel that runs wgmma
+__device__ __forceinline__ float recip(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return fmaf(y, fmaf(-x, y, 1.f), y);
+}
+
+// The fp32 dq kernel.  One block owns one (batch, query head, ROWS-row
+// query tile), longest first: warpgroups w < WG own rows 64w..64w+63 and
+// warpgroup WG is the producer (Q and dO once, the K and V tiles twice).
+// Walk 1: S = Q K^T and dP = dO V^T (SS), e = exp(S scale - lse) and each
+// row's l = sum_j e and u = sum_j e dP, then r = 1 / l and delta = u r,
+// written for dk/dv.  Walk 2: S and dP again, P = e r, dS = P (dP -
+// delta), dQ += dS K (RS), one tile after another.  dq = scale dQ.
+template <int D>
+__global__ void __maxnreg__(168)
+flash_bwd_f32_dq(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const WgParams p) {
+  using W = Bf<D>;
+  constexpr int BK = W::BT;
+  constexpr int ST = W::DQ_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;                              // [3][NB][ROWS][128 B]
+  uint8_t* dos = qs + kTerms * W::ROW_PLANE;       // [3][NB][ROWS][128 B]
+  uint8_t* kvs = dos + kTerms * W::ROW_PLANE;      // [ST][K, V][3][NB][BK][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(kvs + ST * W::STAGE_BYTES);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+
+  const int tid = threadIdx.x;
+  const int64_t h = blockIdx.x;
+  const int64_t q0 = ((int64_t)gridDim.y - 1 - blockIdx.y) * W::ROWS;
+  const int64_t b = blockIdx.z;
+  const int64_t hk = h / p.group;
+
+  const int64_t qlo = p.q_offset + q0;
+  const int64_t qhi = qlo + min64(W::ROWS, p.Sq - q0) - 1;
+  int64_t kt_first = 0;
+  int64_t kt_last = (p.Sk - 1) / BK;
+  if (p.window > 0) kt_first = max64(0, qlo - p.window + 1) / BK;
+  if (p.causal) kt_last = min64(p.Sk - 1, qhi) / BK;
+  const int n_tiles = (int)(kt_last - kt_first + 1);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W::WG);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wgi == W::WG) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == W::WG * 128) {
+      const int cb = (int)b, ch = (int)h, chk = (int)hk, nb = (int)p.batch;
+      mbar_expect_tx(qbar, 2 * kTerms * W::ROW_PLANE);
+#pragma unroll
+      for (int u = 0; u < kTerms; ++u)
+#pragma unroll
+        for (int x = 0; x < W::NB; ++x) {
+          const int off = u * W::ROW_PLANE + x * W::ROW_BOX;
+          tma_load(qs + off, &tq, qbar, x * kBox, (int)q0, ch, u * nb + cb);
+          tma_load(dos + off, &tdo, qbar, x * kBox, (int)q0, ch, u * nb + cb);
+        }
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        const int s = i % ST;
+        mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        const int k0 = (int)((kt_first + i % n_tiles) * BK);
+        uint8_t* ks = kvs + s * W::STAGE_BYTES;
+#pragma unroll
+        for (int u = 0; u < kTerms; ++u)
+#pragma unroll
+          for (int x = 0; x < W::NB; ++x) {
+            const int off = u * W::T_PLANE + x * W::T_BOX;
+            tma_load(ks + off, &tk, &full[s], x * kBox, k0, chk, u * nb + cb);
+            tma_load(ks + W::T_BYTES + off, &tv, &full[s], x * kBox, k0, chk,
+                     u * nb + cb);
+          }
+      }
+    }
+    return;
+  }
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  // @probe f32-dq-start
+  const int t = tid & 127;
+  const int qd = t & 3;
+  const int r = wgi * 64 + (t >> 5) * 16 + ((t & 31) >> 2);  // rows r, r+8
+  const int64_t row_base = (b * p.Hq + h) * p.Sq;
+  int64_t qp[2];
+  float lse[2];    // +inf past Sq, where e is then 0
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t row = q0 + r + 8 * hh;
+    qp[hh] = p.q_offset + row;
+    lse[hh] = row < p.Sq ? p.lse[row_base + row] : INFINITY;
+  }
+  const uint32_t q_addr = smem_u32(qs) + wgi * 64 * 128;
+  const uint32_t do_addr = smem_u32(dos) + wgi * 64 * 128;
+  auto edge_tile = [&](int64_t k0) {
+    return k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > qlo) ||
+           (p.window > 0 && k0 <= qhi - p.window);
+  };
+  // sc = e of the tile at key k0, from S in sc; masked only on a tile
+  // that crosses the diagonal, the window's edge or Sk
+  auto exps = [&](float (&sc)[BK / 2], int64_t k0) {
+    if (edge_tile(k0)) {
+      const Cols cols[2] = {key_cols(p, qp[0], k0, BK),
+                            key_cols(p, qp[1], k0, BK)};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[4 * j + 2 * hh + e];
+            const int col = 8 * j + 2 * qd + e;
+            x = col < cols[hh].lo || col > cols[hh].hi
+                    ? 0.f : expf(fmaf(x, p.scale, -lse[hh]));
+          }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[4 * j + 2 * hh + e];
+            x = expf(fmaf(x, p.scale, -lse[hh]));
+          }
+    }
+  };
+  // S and dP of the tile in stage s into sc and dp, waited for
+  auto scores = [&](float (&sc)[BK / 2], float (&dp)[BK / 2], uint32_t k_addr) {
+    zero(sc);
+    zero(dp);
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    wgmma_ss3<BK, W::KS>(sc, q_addr, W::ROW_BOX, W::ROW_PLANE, k_addr,
+                         W::T_BOX, W::T_PLANE);
+    wgmma_ss3<BK, W::KS>(dp, do_addr, W::ROW_BOX, W::ROW_PLANE,
+                         k_addr + W::T_BYTES, W::T_BOX, W::T_PLANE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+  };
+  float sc[BK / 2], dp[BK / 2];
+
+  mbar_wait(qbar, 0);
+  // @probe f32-dq-loaded
+  // walk 1: l = sum_j e, u = sum_j e dP
+  float lsum[2] = {0.f, 0.f}, usum[2] = {0.f, 0.f};
+  for (int n = 0; n < n_tiles; ++n) {
+    const int s = n % ST;
+    mbar_wait(&full[s], (n / ST) & 1);
+    scores(sc, dp, smem_u32(kvs + s * W::STAGE_BYTES));
+    if (t == 0) mbar_arrive(&empty[s]);
+    exps(sc, (kt_first + n) * BK);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 4 * j + 2 * hh + e;
+          lsum[hh] += sc[c];
+          usum[hh] = fmaf(sc[c], dp[c], usum[hh]);
+        }
+  }
+  float rr[2], delta[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = lsum[hh], u = usum[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    u += __shfl_xor_sync(0xffffffffu, u, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    u += __shfl_xor_sync(0xffffffffu, u, 2);
+    const int64_t row = q0 + r + 8 * hh;
+    rr[hh] = row < p.Sq ? recip(l) : 0.f;
+    delta[hh] = u * rr[hh];
+    if (qd == 0 && row < p.Sq) {
+      p.rinv[row_base + row] = rr[hh];
+      p.delta[row_base + row] = delta[hh];
+    }
+  }
+  // @probe f32-dq-walk1
+
+  // walk 2: dQ += dS K, dS = P (dP - delta), P = e r
+  float acc[W::NR / 2], part[W::NR / 2];
+  zero(acc);
+  uint32_t a3[kTerms][BK / 16][4];
+  for (int n = 0; n < n_tiles; ++n) {
+    const int i = n_tiles + n;
+    const int s = i % ST;
+    const uint32_t k_addr = smem_u32(kvs + s * W::STAGE_BYTES);
+    mbar_wait(&full[s], (i / ST) & 1);
+    scores(sc, dp, k_addr);
+    exps(sc, (kt_first + n) * BK);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 4 * j + 2 * hh + e;
+          sc[c] = (sc[c] * rr[hh]) * (dp[c] - delta[hh]);
+        }
+    fence_regs(sc);
+    pack3<BK>(sc, a3);
+    add_tile_rs3<BK, W::NR>(acc, part, a3, k_addr, W::T_BOX, W::T_PLANE);
+    if (t == 0) mbar_arrive(&empty[s]);
+  }
+  // @probe f32-dq-walk2
+
+  float* dqg = static_cast<float*>(p.dq) + b * p.sdq[0] + h * p.sdq[1];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t row = q0 + r + 8 * hh;
+    if (row < p.Sq) {
+      float* drow = dqg + row * p.sdq[2] + 2 * qd;
+#pragma unroll
+      for (int j = 0; j < W::NR / 8; ++j)
+        if (8 * j < D)
+          *reinterpret_cast<float2*>(drow + 8 * j) =
+              make_float2(acc[4 * j + 2 * hh] * p.scale,
+                          acc[4 * j + 2 * hh + 1] * p.scale);
+    }
+  }
+  // @probe f32-dq-end
+}
+
+// The per-column values of a dk/dv consumer for the queries q0 + c0 + 8j
+// + 2qd + e (column 2j + e): lse (+inf past Sq), r and delta (0 past Sq)
+template <int NQ>
+__device__ __forceinline__ void column_rows(const WgParams& p, int64_t row_base,
+                                            int64_t first, int qd,
+                                            float (&lse)[NQ / 4],
+                                            float (&rr)[NQ / 4],
+                                            float (&dl)[NQ / 4]) {
+#pragma unroll
+  for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int64_t row = first + 8 * j + 2 * qd + e;
+      const bool in = row < p.Sq;
+      lse[2 * j + e] = in ? p.lse[row_base + row] : INFINITY;
+      rr[2 * j + e] = in ? p.rinv[row_base + row] : 0.f;
+      dl[2 * j + e] = in ? p.delta[row_base + row] : 0.f;
+    }
+}
+
+// One (key row, gradient) sum of a dk/dv consumer to global memory: the
+// whole group's in fp32 to dk or dv, or this query head's to the
+// partials; f = scale for dK, 1 for dV
+template <int D, int NR>
+__device__ __forceinline__ void store_f32_rows(const WgParams& p,
+                                               const float (&acc)[NR / 2],
+                                               bool dk, float f, int64_t b,
+                                               int64_t hk, int64_t h_first,
+                                               const int64_t (&kp)[2], int qd) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (kp[hh] >= p.Sk) continue;
+    float* grow;
+    if (p.per_head) {
+      grow = (dk ? p.dk_part : p.dv_part) +
+             ((b * p.Hq + h_first) * p.Sk + kp[hh]) * D;
+    } else {
+      const int64_t* st = dk ? p.sdk : p.sdv;
+      grow = static_cast<float*>(dk ? p.dk : p.dv) + b * st[0] + hk * st[1] +
+             kp[hh] * st[2];
+    }
+#pragma unroll
+    for (int j = 0; j < NR / 8; ++j)
+      if (8 * j < D)
+        *reinterpret_cast<float2*>(grow + 8 * j + 2 * qd) =
+            make_float2(acc[4 * j + 2 * hh] * f, acc[4 * j + 2 * hh + 1] * f);
+  }
+}
+
+// One consumer warpgroup w of flash_bwd_f32_dkdv at D <= 64: it owns
+// queries 32w..32w+31 of every streamed tile of 64, forms S^T and dP^T
+// over them (SS, N 32), P^T = e r and dS^T, then dV += P^T dO and dK +=
+// dS^T Q (RS), both accumulators in its registers, one tile after
+// another.  At the end warpgroup 1 hands its sums to warpgroup 0 through
+// shared memory, which adds them, its own first, and stores.
+template <int D>
+__device__ __forceinline__ void f32_dkdv_split(
+    const WgParams& p, uint8_t* ks, uint8_t* vs, uint8_t* qds,
+    uint64_t* full, uint64_t* empty, uint64_t* kbar, int64_t k0, int64_t b,
+    int64_t hk, int64_t h_first, int64_t t_first, int n_t, int n_iter,
+    int wgi) {
+  using W = Bf<D>;
+  constexpr int BQ = W::BT;
+  constexpr int BH = BQ / 2;           // queries of a warpgroup
+  constexpr int NR = W::NR;
+  constexpr int ST = W::KV_STAGES;
+  static_assert(BQ == 64, "the split walk takes streamed tiles of 64");
+  const int t = threadIdx.x & 127;
+  const int qd = t & 3;
+  const int r = (t >> 5) * 16 + ((t & 31) >> 2);   // keys k0 + r, + r + 8
+  const uint32_t k_addr = smem_u32(ks);
+  const uint32_t v_addr = smem_u32(vs);
+  const int64_t kp[2] = {k0 + r, k0 + r + 8};
+  const int wq = wgi * BH;             // this warpgroup's first query
+
+  float acc_k[NR / 2], acc_v[NR / 2], part[NR / 2];
+  zero(acc_k);
+  zero(acc_v);
+  float sc[BH / 2], dp[BH / 2];
+  float lse[BH / 4], rr[BH / 4], dl[BH / 4];   // by column: 2j + e
+  uint32_t pa[kTerms][BH / 16][4], sa[kTerms][BH / 16][4];
+
+  // @probe f32-kv-start
+  mbar_wait(kbar, 0);
+  // @probe f32-kv-loaded
+  for (int i = 0; i < n_iter; ++i) {
+    const int s = i % ST;
+    const int64_t h = h_first + i / n_t;
+    const int64_t q0 = (t_first + i % n_t) * BQ;
+    column_rows<BH>(p, (b * p.Hq + h) * p.Sq, q0 + wq, qd, lse, rr, dl);
+    const uint32_t q_addr = smem_u32(qds + s * W::STAGE_BYTES) + wq * 128;
+    const uint32_t do_addr = q_addr + W::T_BYTES;
+    // @probe f32-kv-tile-wait
+    mbar_wait(&full[s], (i / ST) & 1);
+    // @probe f32-kv-tile-ready
+    zero(sc);
+    zero(dp);
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    wgmma_ss3<BH, W::KS>(sc, k_addr, W::KEY_BOX, W::KEY_PLANE, q_addr,
+                         W::T_BOX, W::T_PLANE);
+    wgmma_ss3<BH, W::KS>(dp, v_addr, W::KEY_BOX, W::KEY_PLANE, do_addr,
+                         W::T_BOX, W::T_PLANE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    // @probe f32-kv-scores
+    // P^T into sc, dS^T into dp; masked on the tiles that cross the
+    // diagonal or the window
+    const int64_t qlo = p.q_offset + q0;
+    const bool edge = (p.causal && k0 + 63 > qlo) ||
+                      (p.window > 0 && k0 <= qlo + BQ - 1 - p.window);
+    Cols cols[2] = {{0, BQ - 1}, {0, BQ - 1}};
+    if (edge)
+      for (int hh = 0; hh < 2; ++hh) cols[hh] = query_cols(p, kp[hh], qlo, BQ);
+#pragma unroll
+    for (int j = 0; j < BH / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 4 * j + 2 * hh + e;
+          const int col = wq + 8 * j + 2 * qd + e;
+          float x = expf(fmaf(sc[c], p.scale, -lse[2 * j + e])) * rr[2 * j + e];
+          if (col < cols[hh].lo || col > cols[hh].hi) x = 0.f;
+          sc[c] = x;
+          dp[c] = x * (dp[c] - dl[2 * j + e]);
+        }
+    // @probe f32-kv-formed
+    fence_regs(sc);
+    fence_regs(dp);
+    pack3<BH>(sc, pa);
+    pack3<BH>(dp, sa);
+    // @probe f32-kv-packed
+    add_tile_rs3<BH, NR>(acc_v, part, pa, do_addr, W::T_BOX, W::T_PLANE);
+    add_tile_rs3<BH, NR>(acc_k, part, sa, q_addr, W::T_BOX, W::T_PLANE);
+    // @probe f32-kv-products
+    if (t == 0) mbar_arrive(&empty[s]);
+  }
+  // @probe f32-kv-loop-end
+
+  // warpgroup 1's sums to warpgroup 0 ([reg][t]), once both are done
+  // reading the stages
+  float* xfer = reinterpret_cast<float*>(qds);
+  named_barrier(1, 256);
+  if (wgi == 1) {
+#pragma unroll
+    for (int c = 0; c < NR / 2; ++c) {
+      xfer[c * 128 + t] = acc_k[c];
+      xfer[(NR / 2 + c) * 128 + t] = acc_v[c];
+    }
+  }
+  named_barrier(2, 256);
+  if (wgi == 1) return;
+#pragma unroll
+  for (int c = 0; c < NR / 2; ++c) {
+    acc_k[c] += xfer[c * 128 + t];
+    acc_v[c] += xfer[(NR / 2 + c) * 128 + t];
+  }
+  store_f32_rows<D, NR>(p, acc_k, true, p.scale, b, hk, h_first, kp, qd);
+  store_f32_rows<D, NR>(p, acc_v, false, 1.f, b, hk, h_first, kp, qd);
+  // @probe f32-kv-end
+}
+
+// One consumer warpgroup of flash_bwd_f32_dkdv at D > 64, where two 64 x D
+// accumulators do not fit one warpgroup's registers: S^T and dP^T (SS)
+// over the whole tile of 32 queries in both, then warpgroup 1 forms dK +=
+// dS^T Q and warpgroup 0 dV += P^T dO (RS).  The role is data (an
+// operand's address, a factor of 0 or 1 on dP^T - delta), not a branch,
+// as in dkdv_consumer.
+template <int D>
+__device__ __forceinline__ void f32_dkdv_role(
+    const WgParams& p, uint8_t* ks, uint8_t* vs, uint8_t* qds,
+    uint64_t* full, uint64_t* empty, uint64_t* kbar, int64_t k0, int64_t b,
+    int64_t hk, int64_t h_first, int64_t t_first, int n_t, int n_iter,
+    bool dk) {
+  using W = Bf<D>;
+  constexpr int BQ = W::BT;
+  constexpr int NR = W::NR;
+  constexpr int ST = W::KV_STAGES;
+  const int t = threadIdx.x & 127;
+  const int qd = t & 3;
+  const int r = (t >> 5) * 16 + ((t & 31) >> 2);   // keys k0 + r, + r + 8
+  const uint32_t k_addr = smem_u32(ks);
+  const uint32_t v_addr = smem_u32(vs);
+  const int64_t kp[2] = {k0 + r, k0 + r + 8};
+  // dS^T = P^T (sel (dP^T - delta) + 1 - sel): dS^T for dK, P^T for dV
+  const float sel = dk ? 1.f : 0.f;
+
+  float acc[NR / 2], part[NR / 2];
+  zero(acc);
+  float sc[BQ / 2], dp[BQ / 2];
+  float lse[BQ / 4], rr[BQ / 4], dl[BQ / 4];
+  uint32_t a3[kTerms][BQ / 16][4];
+
+  mbar_wait(kbar, 0);
+  for (int i = 0; i < n_iter; ++i) {
+    const int s = i % ST;
+    const int64_t h = h_first + i / n_t;
+    const int64_t q0 = (t_first + i % n_t) * BQ;
+    column_rows<BQ>(p, (b * p.Hq + h) * p.Sq, q0, qd, lse, rr, dl);
+    const uint32_t q_addr = smem_u32(qds + s * W::STAGE_BYTES);
+    const uint32_t do_addr = q_addr + W::T_BYTES;
+    mbar_wait(&full[s], (i / ST) & 1);
+    zero(sc);
+    zero(dp);
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    wgmma_ss3<BQ, W::KS>(sc, k_addr, W::KEY_BOX, W::KEY_PLANE, q_addr,
+                         W::T_BOX, W::T_PLANE);
+    wgmma_ss3<BQ, W::KS>(dp, v_addr, W::KEY_BOX, W::KEY_PLANE, do_addr,
+                         W::T_BOX, W::T_PLANE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    const int64_t qlo = p.q_offset + q0;
+    const bool edge = (p.causal && k0 + 63 > qlo) ||
+                      (p.window > 0 && k0 <= qlo + BQ - 1 - p.window);
+    Cols cols[2] = {{0, BQ - 1}, {0, BQ - 1}};
+    if (edge)
+      for (int hh = 0; hh < 2; ++hh) cols[hh] = query_cols(p, kp[hh], qlo, BQ);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 4 * j + 2 * hh + e;
+          const int col = 8 * j + 2 * qd + e;
+          float x = expf(fmaf(sc[c], p.scale, -lse[2 * j + e])) * rr[2 * j + e];
+          if (col < cols[hh].lo || col > cols[hh].hi) x = 0.f;
+          sc[c] = x * fmaf(sel, dp[c] - dl[2 * j + e], 1.f - sel);
+        }
+    fence_regs(sc);
+    pack3<BQ>(sc, a3);
+    add_tile_rs3<BQ, NR>(acc, part, a3, dk ? q_addr : do_addr, W::T_BOX,
+                         W::T_PLANE);
+    if (t == 0) mbar_arrive(&empty[s]);
+  }
+  store_f32_rows<D, NR>(p, acc, dk, dk ? p.scale : 1.f, b, hk, h_first, kp,
+                        qd);
+}
+
+// The fp32 dk/dv kernel: one block of 384 threads owns one (batch, kv
+// head or, with per_head, query head, 64-key tile); K and V of the tile,
+// in their three terms, stay in shared memory, and the Q and dO tiles of
+// every query head of the group (or of the one head) that can see these
+// keys stream through a ring of KV_STAGES.  dP^T, P^T and dS^T take lse,
+// r and delta from the dq kernel's walk 1.
+template <int D>
+__global__ void __maxnreg__(168)
+flash_bwd_f32_dkdv(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const WgParams p) {
+  using W = Bf<D>;
+  constexpr int BQ = W::BT;
+  constexpr int ST = W::KV_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = smem;                              // [3][NB][64][128 B]
+  uint8_t* vs = ks + kTerms * W::KEY_PLANE;        // [3][NB][64][128 B]
+  uint8_t* qds = vs + kTerms * W::KEY_PLANE;       // [ST][Q, dO][3][NB][BQ][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(qds + ST * W::STAGE_BYTES);
+  uint64_t* empty = full + ST;
+  uint64_t* kbar = empty + ST;
+
+  const int tid = threadIdx.x;
+  const int64_t k0 = (int64_t)blockIdx.y * 64;
+  const int64_t b = blockIdx.z;
+  const int64_t hk = p.per_head ? blockIdx.x / p.group : blockIdx.x;
+  const int64_t h_first = p.per_head ? blockIdx.x : hk * p.group;
+  const int n_heads = p.per_head ? 1 : p.group;
+
+  // the query rows that see some key of this tile, in tiles of BQ
+  const int64_t k_last = min64(k0 + 64, p.Sk) - 1;
+  int64_t i_lo = 0, i_hi = p.Sq - 1;
+  if (p.causal) i_lo = max64(i_lo, k0 - p.q_offset);
+  if (p.window > 0) i_hi = min64(i_hi, k_last + p.window - 1 - p.q_offset);
+  const int64_t t_first = i_lo <= i_hi ? i_lo / BQ : 0;
+  const int n_t = i_lo <= i_hi ? (int)(i_hi / BQ - i_lo / BQ + 1) : 0;
+  const int n_iter = n_heads * n_t;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(kbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wgi == 2) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 2 * 128) {
+      const int cb = (int)b, chk = (int)hk, nb = (int)p.batch;
+      mbar_expect_tx(kbar, 2 * kTerms * W::KEY_PLANE);
+#pragma unroll
+      for (int u = 0; u < kTerms; ++u)
+#pragma unroll
+        for (int x = 0; x < W::NB; ++x) {
+          const int off = u * W::KEY_PLANE + x * W::KEY_BOX;
+          tma_load(ks + off, &tk, kbar, x * kBox, (int)k0, chk, u * nb + cb);
+          tma_load(vs + off, &tv, kbar, x * kBox, (int)k0, chk, u * nb + cb);
+        }
+      for (int i = 0; i < n_iter; ++i) {
+        const int s = i % ST;
+        mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        const int ch = (int)(h_first + i / n_t);
+        const int q0 = (int)((t_first + i % n_t) * BQ);
+        uint8_t* st = qds + s * W::STAGE_BYTES;
+#pragma unroll
+        for (int u = 0; u < kTerms; ++u)
+#pragma unroll
+          for (int x = 0; x < W::NB; ++x) {
+            const int off = u * W::T_PLANE + x * W::T_BOX;
+            tma_load(st + off, &tq, &full[s], x * kBox, q0, ch, u * nb + cb);
+            tma_load(st + W::T_BYTES + off, &tdo, &full[s], x * kBox, q0, ch,
+                     u * nb + cb);
+          }
+      }
+    }
+    return;
+  }
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  if constexpr (W::NB == 1)
+    f32_dkdv_split<D>(p, ks, vs, qds, full, empty, kbar, k0, b, hk, h_first,
+                      t_first, n_t, n_iter, wgi);
+  else
+    f32_dkdv_role<D>(p, ks, vs, qds, full, empty, kbar, k0, b, hk, h_first,
+                     t_first, n_t, n_iter, wgi == 1);
+}
+
+// planes: the (3 B, H, S, D) bf16 term planes of q, k, v and dout
+template <int D>
+int launch_f32_d(void* const (&planes)[4], const WgParams& p, int64_t B,
+                 int64_t Hkv, cudaStream_t stream) {
+  using W = Bf<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  auto maps = [&](int q_rows, int k_rows) {
+    const int64_t nq = p.Sq * D, nk = p.Sk * D;
+    int err = encode_map(&mq, planes[0], D, p.Sq, p.Hq, 3 * B, D, nq,
+                         p.Hq * nq, q_rows);
+    if (!err) err = encode_map(&mdo, planes[3], D, p.Sq, p.Hq, 3 * B, D, nq,
+                               p.Hq * nq, q_rows);
+    if (!err) err = encode_map(&mk, planes[1], D, p.Sk, Hkv, 3 * B, D, nk,
+                               Hkv * nk, k_rows);
+    if (!err) err = encode_map(&mv, planes[2], D, p.Sk, Hkv, 3 * B, D, nk,
+                               Hkv * nk, k_rows);
+    return err;
+  };
+  cudaError_t cerr = cudaFuncSetAttribute(
+      flash_bwd_f32_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::SMEM_DQ);
+  if (cerr == cudaSuccess)
+    cerr = cudaFuncSetAttribute(flash_bwd_f32_dkdv<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                W::SMEM_DKDV);
+  if (cerr != cudaSuccess) return (int)cerr;
+  // dq first: it writes the r and delta that dk/dv read
+  int err = maps(W::ROWS, W::BT);
+  if (err) return err;
+  const dim3 gq((unsigned)p.Hq, (unsigned)((p.Sq + W::ROWS - 1) / W::ROWS),
+                (unsigned)B);
+  flash_bwd_f32_dq<D><<<gq, 128 * (W::WG + 1), W::SMEM_DQ, stream>>>(
+      mq, mk, mv, mdo, p);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return (int)cerr;
+  err = maps(W::BT, 64);
+  if (err) return err;
+  const dim3 gkv((unsigned)(p.per_head ? p.Hq : Hkv),
+                 (unsigned)((p.Sk + 63) / 64), (unsigned)B);
+  flash_bwd_f32_dkdv<D><<<gkv, kWgThreads, W::SMEM_DKDV, stream>>>(
+      mq, mk, mv, mdo, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, the type of q, k, v, o, dout and of
@@ -1578,6 +2454,82 @@ extern "C" int flash_attention_bwd_wgmma(
     case 80: return launch_wgmma_d<80>(q, k, v, dout, strides, p, B, Hkv, s);
     case 128: return launch_wgmma_d<128>(q, k, v, dout, strides, p, B, Hkv, s);
     case 192: return launch_wgmma_d<192>(q, k, v, dout, strides, p, B, Hkv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The fp32 backward on the tensor cores: flash_bwd_split3 (q, k, v and
+// dout into three bf16 term planes each, q3, k3, v3 and do3: (3, B, H,
+// S, D) contiguous bf16 workspaces), then flash_bwd_f32_dq and
+// flash_bwd_f32_dkdv.  strides: 21 element strides, (batch, head, seq)
+// of q, k, v, dout, dq, dk and dv in that order; the last axis of each is
+// contiguous and every other stride and base is 4-element aligned.  lse:
+// the forward's; rinv and delta: scratch that the dq kernel writes; all
+// three contiguous (B, Hq, Sq) fp32.  per_head, dk_part and dv_part as in
+// flash_attention_bwd_wgmma (fp32 dk and dv get each group's sum
+// otherwise).  window <= 0 means none.  Every query row must see at
+// least one key.  Returns 0, a CUDA runtime error code, or 10000 / 20000
+// + a CUresult.  The caller handles Sq == 0 and Sk == 0 without a launch.
+extern "C" int flash_attention_bwd_f32(
+    int D, const void* q, const void* k, const void* v, const void* dout,
+    void* q3, void* k3, void* v3, void* do3, const float* lse, float* rinv,
+    float* delta, void* dq, void* dk, void* dv, float* dk_part,
+    float* dv_part, const int64_t* strides, int64_t B, int64_t Hq,
+    int64_t Hkv, int64_t Sq, int64_t Sk, int64_t q_offset, int64_t window,
+    int causal, float scale, int per_head, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || Hq % Hkv ||
+      B > 65535 || Sq > 0x7fffffffLL || Sk > 0x7fffffffLL ||
+      (Sq + 63) / 64 > 65535 || (Sk + 63) / 64 > 65535 ||
+      (per_head && (dk_part == nullptr || dv_part == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  SplitParams sp;
+  const void* src[4] = {q, k, v, dout};
+  void* const planes[4] = {q3, k3, v3, do3};
+  for (int x = 0; x < 4; ++x) {
+    const bool kv = x == 1 || x == 2;
+    sp.src[x] = static_cast<const float*>(src[x]);
+    sp.dst[x] = static_cast<__nv_bfloat16*>(planes[x]);
+    for (int j = 0; j < 3; ++j) sp.st[x][j] = strides[3 * x + j];
+    sp.H[x] = kv ? Hkv : Hq;
+    sp.S[x] = kv ? Sk : Sq;
+    sp.rows[x] = B * sp.H[x] * sp.S[x];
+  }
+  sp.D = D;
+  // 8 blocks of 256 an SM of the H100's 132, each thread 16 bytes at a time
+  flash_bwd_split3<<<132 * 8, kThreads, 0, s>>>(sp);
+  const cudaError_t cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return (int)cerr;
+  WgParams p;
+  p.lse = lse;
+  p.delta = delta;
+  p.rinv = rinv;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.dk_part = dk_part;
+  p.dv_part = dv_part;
+  for (int j = 0; j < 3; ++j) {
+    p.sdq[j] = strides[12 + j];
+    p.sdk[j] = strides[15 + j];
+    p.sdv[j] = strides[18 + j];
+  }
+  p.Hq = Hq;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.q_offset = q_offset;
+  p.window = window;
+  p.group = (int)(Hq / Hkv);
+  p.causal = causal;
+  p.per_head = per_head;
+  p.scale = scale;
+  p.batch = B;
+  switch (D) {
+    case 32: return launch_f32_d<32>(planes, p, B, Hkv, s);
+    case 64: return launch_f32_d<64>(planes, p, B, Hkv, s);
+    case 80: return launch_f32_d<80>(planes, p, B, Hkv, s);
+    case 128: return launch_f32_d<128>(planes, p, B, Hkv, s);
+    case 192: return launch_f32_d<192>(planes, p, B, Hkv, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

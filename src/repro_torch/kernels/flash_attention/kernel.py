@@ -13,14 +13,17 @@ without a transpose; see the source for the design and its bound.
 
 Either variant can also write each row's log-sum-exp (``with_lse``),
 which ``flash_attention_bwd_cuda`` (``csrc/flash_attention_bwd.cu``)
-takes to form dq, dk and dv: the backward of the training forward.  fp32
-runs SIMT kernels; bf16 runs ``flash_bwd_wgmma`` (TMA and wgmma, P and
-dS passed to the tensor cores as two bf16 terms, each gradient rounded
-to bf16 once), and the SIMT kernels on bf16 values widened as they load
-only where asked for by name (``variant="simt_bf16"``, the yardstick of
-the tests and ``chip_smoke.py``).  The JAX package has no backward
-kernel (its model trains through plain JAX attention); ``bwd_launches``
-counts this one's calls by the variant they took.
+takes to form dq, dk and dv: the backward of the training forward.  Both
+dtypes run it on the tensor cores (TMA and wgmma): bf16 as
+``flash_bwd_wgmma`` (P and dS as two bf16 terms, each gradient rounded
+to bf16 once), fp32 as ``flash_bwd_f32`` (every factor, the inputs and
+P and dS, as three bf16 terms, the term products with i + j <= 2 summed
+in fp32; a pre-pass writes the inputs' terms to bf16 workspaces).  The
+SIMT kernels run only where asked for by name (``variant="simt"`` on
+fp32, ``"simt_bf16"`` on bf16 values widened as they load), the
+yardsticks of the tests and ``chip_smoke.py``.  The JAX package has no
+backward kernel (its model trains through plain JAX attention);
+``bwd_launches`` counts this one's calls by the variant they took.
 """
 from __future__ import annotations
 
@@ -44,17 +47,20 @@ launches_by_variant = launches.by_variant
 # the launches above that also wrote each row's log-sum-exp (``with_lse``,
 # the training forward), by variant
 lse_launches = _build.LaunchCounter(variants=("wgmma", "simt"))
-# one count a call of flash_attention_bwd_cuda (its kernels: fp32's delta,
-# dq, dk/dv), by variant: SIMT on fp32 inputs, tensor cores on bf16 ones
-# (the default), SIMT on bf16 ones where asked for by name
-BWD_VARIANTS = {torch.float32: "simt", torch.bfloat16: "wgmma_bf16"}
-bwd_launches = _build.LaunchCounter(variants=("simt", "wgmma_bf16",
-                                              "simt_bf16"))
+# one count a call of flash_attention_bwd_cuda (its kernels: the fp32
+# variant's split, dq, dk/dv), by variant: the tensor cores by default on
+# either dtype, SIMT only where asked for by name
+BWD_VARIANTS = {torch.float32: "wgmma_f32", torch.bfloat16: "wgmma_bf16"}
+bwd_launches = _build.LaunchCounter(variants=("wgmma_f32", "simt",
+                                              "wgmma_bf16", "simt_bf16"))
 # the wgmma backward's dk/dv blocks own one query head each (fp32
 # partials, summed over the group by ``sum_group_partials``) where a
 # block a (batch, kv head, 64-key tile) would make fewer than this many
-# blocks: two waves of the H100's 132 SMs
+# blocks: two waves of the H100's 132 SMs for bf16, one for fp32 (whose
+# three-term K and V tiles make a head's own block dearer: at the fp32
+# training shapes a group a block was 1.06-1.33x faster, PERF.md)
 PER_HEAD_BELOW = 264
+PER_HEAD_BELOW_F32 = 132
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,6 +83,16 @@ def _bwd_entry():
     fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
         ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 7 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_f32_entry():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_f32
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 16 + [
+        ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 7 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -112,10 +128,23 @@ def bwd_smem_bytes(D: int, kernel: str = "simt") -> int:
     tiles of 128 rows and 3 stages of K and V tiles; ``"wgmma_dkdv"``:
     the K and V tiles of 64 keys and 3 stages of Q and dO tiles; bf16 in
     64-column boxes, the streamed tiles 64 rows (32 at D 192), 1024 bytes
-    of alignment slack and 7 mbarriers."""
+    of alignment slack and 7 mbarriers.  ``"f32_dq"`` / ``"f32_dkdv"``
+    (the fp32 variant): the same tiles in three bf16 terms each, dq's
+    resident tiles 128 rows at D <= 64 and 64 above, the streamed tiles 64
+    rows at D <= 64 and 32 above, in 2 / 3 stages at D <= 64, 2 / 2 at D
+    80 and 128, 1 / 1 at D 192."""
     if kernel == "simt":
         return (2 * 64 * D + 2 * D * 68 + 64 * 68 + 2 * 64) * 4
     boxes = -(-D // 64)
+    if kernel in ("f32_dq", "f32_dkdv"):
+        streamed = 64 if boxes == 1 else 32
+        if kernel == "f32_dq":
+            rows, stages = (128 if boxes == 1 else 64), (1 if boxes == 3
+                                                         else 2)
+        else:
+            rows, stages = 64, {1: 3, 2: 2}.get(boxes, 1)
+        return 1024 + 2 * 3 * boxes * rows * 128 \
+            + stages * 2 * 3 * boxes * streamed * 128 + 8 * (2 * stages + 1)
     rows = {"wgmma_dq": 128, "wgmma_dkdv": 64}[kernel]
     streamed = 32 if boxes == 3 else 64
     return 1024 + 2 * boxes * rows * 128 + 3 * 2 * boxes * streamed * 128 \
@@ -124,14 +153,15 @@ def bwd_smem_bytes(D: int, kernel: str = "simt") -> int:
 
 def bwd_variant(dtype: torch.dtype, variant: Optional[str] = None) -> str:
     """The backward variant a call of ``flash_attention_bwd_cuda`` runs:
-    ``BWD_VARIANTS[dtype]`` unless one is named; bf16 takes
-    ``"wgmma_bf16"`` or ``"simt_bf16"``, fp32 only ``"simt"``."""
+    ``BWD_VARIANTS[dtype]`` unless one is named; fp32 takes
+    ``"wgmma_f32"`` or ``"simt"``, bf16 ``"wgmma_bf16"`` or
+    ``"simt_bf16"``."""
     if dtype not in BWD_VARIANTS:
         raise TypeError(f"flash_attention_bwd cuda: takes float32 or "
                         f"bfloat16, got {dtype}")
     if variant is None:
         return BWD_VARIANTS[dtype]
-    allowed = ("simt",) if dtype == torch.float32 \
+    allowed = ("wgmma_f32", "simt") if dtype == torch.float32 \
         else ("wgmma_bf16", "simt_bf16")
     if variant not in allowed:
         raise ValueError(f"flash_attention_bwd cuda: variant {variant!r} "
@@ -139,20 +169,22 @@ def bwd_variant(dtype: torch.dtype, variant: Optional[str] = None) -> str:
     return variant
 
 
-def per_head_blocks(B: int, Hq: int, Hkv: int, Sk: int) -> bool:
-    """Do the wgmma backward's dk/dv blocks own one query head each?  Where
-    G = Hq / Hkv > 1 and one block a (batch, kv head, 64-key tile) would
-    give under ``PER_HEAD_BELOW`` blocks: then a block walks one head of
-    its group instead of all G in turn, and the G fp32 partials are summed
-    by ``sum_group_partials``."""
-    return Hq > Hkv and B * Hkv * -(-Sk // 64) < PER_HEAD_BELOW
+def per_head_blocks(B: int, Hq: int, Hkv: int, Sk: int,
+                    dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Do the tensor-core backwards' dk/dv blocks own one query head each?
+    Where G = Hq / Hkv > 1 and one block a (batch, kv head, 64-key tile)
+    would give under ``PER_HEAD_BELOW`` blocks (``PER_HEAD_BELOW_F32`` for
+    fp32): then a block walks one head of its group instead of all G in
+    turn, and the G fp32 partials are summed by ``sum_group_partials``."""
+    below = PER_HEAD_BELOW_F32 if dtype == torch.float32 else PER_HEAD_BELOW
+    return Hq > Hkv and B * Hkv * -(-Sk // 64) < below
 
 
 def sum_group_partials(part: torch.Tensor, Hkv: int) -> torch.Tensor:
     """(B, Hq, Sk, D) fp32 per-query-head partials of dK or dV -> (B,
     Hkv, Sk, D) fp32: each group's G heads summed in fp32 by ``torch.sum``
-    over the group axis (an order fixed by the shapes), before the one
-    rounding to bf16."""
+    over the group axis (an order fixed by the shapes), before a bf16
+    gradient's one rounding."""
     B, Hq, Sk, D = part.shape
     return part.view(B, Hkv, Hq // Hkv, Sk, D).sum(2)
 
@@ -317,14 +349,19 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     (dq, dk, dv), each laid out like its input (``empty_like``) and in
     its dtype, each rounded once from its fp32 sum.
 
-    ``variant`` (default ``BWD_VARIANTS[dtype]``): ``"simt"`` for fp32
-    (delta from ``out``); for bf16 ``"wgmma_bf16"``, the tensor-core
-    kernels (delta from P and dP in a first walk of the dq kernel; a GQA
-    group's dK and dV summed in fp32 inside a block, or per query head
-    and then by ``sum_group_partials`` where ``per_head_blocks``), or
-    ``"simt_bf16"``, the SIMT kernels on the values widened as they load,
-    which nothing but a comparison asks for.  bf16 dout must be readable
-    by TMA (``tma_layout_error``) for the wgmma variant.
+    ``variant`` (default ``BWD_VARIANTS[dtype]``): the tensor-core
+    kernels, ``"wgmma_f32"`` for fp32 and ``"wgmma_bf16"`` for bf16 (a
+    first walk of the dq kernel forms delta from P and dP, and for fp32
+    also each row's sum of P, so that P and delta come from the kernel's
+    own scores; a GQA group's dK and dV summed in fp32 inside a block, or
+    per query head and then by ``sum_group_partials`` where
+    ``per_head_blocks``); or the SIMT kernels, which nothing but a
+    comparison asks for: ``"simt"`` for fp32 (delta from ``out``),
+    ``"simt_bf16"`` on bf16 values widened as they load.  bf16 dout must
+    be readable by TMA (``tma_layout_error``) for the wgmma variant.
+    ``"wgmma_f32"`` first writes q, k, v and dout as three bf16 terms
+    each to a workspace of 6 bytes an element of the four
+    (``flash_bwd_split3``), with two (B, Hq, Sq) fp32 vectors beside it.
 
     It computes what autodiff of ``ref.attention_ref`` computes, except
     for a query row that sees no key, where the plain version averages V
@@ -365,7 +402,29 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         scale = D ** -0.5
     delta = _build.empty((B, Hq, Sq), torch.float32, q.device)
     window = 0 if window is None else int(window)
-    if variant == "wgmma_bf16":
+    if variant == "wgmma_f32":
+        per_head = per_head_blocks(B, Hq, Hkv, Sk, torch.float32)
+        parts = [_build.empty((B, Hq, Sk, D), torch.float32, q.device)
+                 for _ in range(2)] \
+            if per_head else [None, None]
+        planes = [_build.empty((3, *x.shape), torch.bfloat16, q.device)
+                  for x in (q, k, v, dout)]
+        rinv = _build.empty((B, Hq, Sq), torch.float32, q.device)
+        strides = (ctypes.c_int64 * 21)(*(st for x in (q, k, v, dout, dq,
+                                                       dk, dv)
+                                          for st in x.stride()[:3]))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _bwd_f32_entry()(
+                D, *(x.data_ptr() for x in (q, k, v, dout, *planes, lse,
+                                            rinv, delta, dq, dk, dv)),
+                *(None if x is None else x.data_ptr() for x in parts),
+                strides, B, Hq, Hkv, Sq, Sk, int(q_offset), window,
+                int(causal), float(scale), int(per_head), stream)
+        if err == 0 and per_head:
+            dk.copy_(sum_group_partials(parts[0], Hkv))
+            dv.copy_(sum_group_partials(parts[1], Hkv))
+    elif variant == "wgmma_bf16":
         per_head = per_head_blocks(B, Hq, Hkv, Sk)
         parts = [_build.empty((B, Hq, Sk, D), torch.float32, q.device)
                  for _ in range(2)] \

@@ -11,9 +11,10 @@ which non-causal calls are refused.
 Gradients.  On a CUDA tensor under grad, fp32 and bf16 go through
 ``FlashAttentionFn``: the forward kernel of the dtype (SIMT for fp32,
 wgmma for bf16), which also writes each row's log-sum-exp, and the
-hand-written backward kernels (``kernel.flash_attention_bwd_cuda``: SIMT
-for fp32, ``flash_bwd_wgmma`` on the tensor cores for bf16, its
-gradients rounded once from fp32).  ``impl="torch"`` and CPU tensors
+hand-written backward kernels (``kernel.flash_attention_bwd_cuda``, on
+the tensor cores for both: ``flash_bwd_f32`` for fp32, every factor in
+three bf16 terms, and ``flash_bwd_wgmma`` for bf16, its gradients
+rounded once from fp32).  ``impl="torch"`` and CPU tensors
 differentiate the plain version by autograd.
 """
 from __future__ import annotations
@@ -34,8 +35,8 @@ class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on the card with a hand-written backward: the
     forward kernel (``flash_fwd_simt`` for fp32, ``flash_fwd_wgmma`` for
     bf16, each with the rows' log-sum-exp) saves q, k, v, o and lse; the
-    backward kernel of the dtype (``BWD_VARIANTS``: SIMT for fp32,
-    ``flash_bwd_wgmma`` for bf16, never the SIMT bf16 one) forms dq, dk
+    backward kernel of the dtype (``BWD_VARIANTS``: ``flash_bwd_f32`` for
+    fp32, ``flash_bwd_wgmma`` for bf16, never a SIMT one) forms dq, dk
     and dv from them in q's dtype (``csrc/flash_attention_bwd.cu``)."""
 
     @staticmethod

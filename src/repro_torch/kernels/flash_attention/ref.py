@@ -85,13 +85,119 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
+def _bf16_split(x: torch.Tensor, terms: int):
+    """fp32 ``x`` as ``terms`` bf16 terms, each float64: t0 = bf16(x),
+    t1 = bf16(x - t0), t2 = bf16(x - t0 - t1) (each remainder exact in
+    fp32), as the kernels split their factors for the tensor cores."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16)
+        out.append(t.double())
+        rest = rest - t.float()
+    return out
+
+
 def _bf16_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
-    """fp32 ``x`` as the tensor cores take it: one bf16 term, bf16(x), or
-    two, hi = bf16(x) and lo = bf16(x - hi), returned summed (float64)."""
-    hi = x.to(torch.bfloat16)
-    if terms == 1:
-        return hi.double()
-    return hi.double() + (x - hi.float()).to(torch.bfloat16).double()
+    """fp32 ``x`` as the tensor cores take it in ``terms`` bf16 terms
+    (``_bf16_split``), returned summed (float64)."""
+    return sum(_bf16_split(x, terms))
+
+
+def _toward_zero(y: torch.Tensor) -> torch.Tensor:
+    """float64 ``y`` rounded to fp32 toward zero."""
+    f = y.float()
+    return torch.where(f.double().abs() > y.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tc_product(a: torch.Tensor, b: torch.Tensor, terms: int,
+                tile: int) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) of fp32 factors as the fp32 wgmma
+    backward forms it: each factor in ``terms`` bf16 terms; K in tiles of
+    ``tile``, each tile's term products (i + j <= terms - 1) summed into
+    a zeroed partial one wgmma at a time, 16 columns of K a wgmma, the
+    small pairs first and the main pair (0, 0) last; each wgmma's sum
+    exact and then truncated to fp32 toward zero (Hopper's tensor cores
+    truncate their sums; this is the worst case of that), and each tile's
+    partial added to an fp32 sum rounded to nearest.  Returns fp32."""
+    ai, bj = _bf16_split(a, terms), _bf16_split(b, terms)
+    pairs = [(i, j) for i in range(terms) for j in range(terms)
+             if 0 < i + j <= terms - 1] + [(0, 0)]
+    K = a.shape[-1]
+    shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) \
+        + (a.shape[-2], b.shape[-1])
+    acc = torch.zeros(shape, dtype=torch.float32)
+    for t0 in range(0, K, tile):
+        part = torch.zeros(shape, dtype=torch.float32)
+        for i, j in pairs:
+            for c0 in range(t0, min(t0 + tile, K), 16):
+                part = _toward_zero(part.double()
+                                    + ai[i][..., c0:c0 + 16]
+                                    @ bj[j][..., c0:c0 + 16, :])
+        acc = (acc.double() + part.double()).float()
+    return acc
+
+
+def attention_bwd_f32_mirror(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None,
+                             q_offset: int = 0, terms: int = 3):
+    """The rounding points of the fp32 tensor-core backward (variant
+    ``wgmma_f32`` of ``csrc/flash_attention_bwd.cu``), for tests only.
+
+    Every factor of the products (Q, K, V, dO; P and dS formed in fp32)
+    goes in ``terms`` bf16 terms, the term products with i + j <= terms
+    - 1 summed as ``_tc_product`` sums them: S and dP over all of D, dQ
+    in tiles of the kernel's key tile (64 keys at D <= 64, 32 above), dK
+    and dV in tiles of 32 queries.
+
+    lse is the plain fp32 forward's, from its own fp32 scores, so it
+    does not quite normalise these scores: e = exp(fp32(S scale - lse)),
+    and a first walk over the keys takes each row's l = sum_j e and u =
+    sum_j e dP in fp32; then r = 1 / l, delta = u r, P = e r and dS = P
+    (dP - delta), all fp32, and dq = scale dQ, dk = scale dK.  Taking
+    delta and the row sum from the same P keeps dS a softmax gradient
+    (its row sums 0), which ``dO . out`` and the forward's lse alone do
+    not: those put dq up to 2.4x as far from float64 as the plain fp32
+    attention.  q, k, v, dout: fp32, (B, H, S, D) with GQA groups as in
+    ``attention_ref``; a group's dK and dV summed over its heads in
+    order, as one block of the kernel walks them."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    lse = attention_lse_ref(q, k, causal=causal, window=window,
+                            scale=scale, q_offset=q_offset)
+    qg = q.float().reshape(B, Hkv, G, Sq, D)
+    dog = dout.float().reshape(B, Hkv, G, Sq, D)
+    s = _tc_product(qg, k.float().transpose(-1, -2)[:, :, None], terms, D)
+    dp = _tc_product(dog, v.float().transpose(-1, -2)[:, :, None], terms,
+                     D)
+    qp = q_offset + torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    arg = (s.double() * scale
+           - lse.reshape(B, Hkv, G, Sq, 1).double()).float()
+    e = torch.where(ok, torch.exp(arg.double()).float(), 0.0)
+    row = e.double().sum(-1, keepdim=True).float()
+    u = (e.double() * dp.double()).sum(-1, keepdim=True).float()
+    r = 1.0 / row
+    p = e * r
+    ds = p * (dp - u * r)
+    # dV and dK: the group's heads one after another along the sum
+    pt = p.permute(0, 1, 4, 2, 3).reshape(B, Hkv, Sk, G * Sq)
+    dst = ds.permute(0, 1, 4, 2, 3).reshape(B, Hkv, Sk, G * Sq)
+    dv = _tc_product(pt, dog.reshape(B, Hkv, G * Sq, D), terms, 32)
+    dk = _tc_product(dst, qg.reshape(B, Hkv, G * Sq, D), terms, 32)
+    dq = _tc_product(ds, k.float()[:, :, None], terms, 64 if D <= 64 else 32)
+    return dq.reshape(q.shape) * scale, dk * scale, dv
 
 
 def attention_bwd_wgmma_mirror(q: torch.Tensor, k: torch.Tensor,

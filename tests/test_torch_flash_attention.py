@@ -19,6 +19,8 @@ On the same numpy inputs:
 The CUDA kernel itself is held to its plain version on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -400,6 +402,22 @@ def test_backward_kernels_fit_shared_memory():
         1024 + 2 * 3 * 64 * 128 + 3 * 2 * 3 * 32 * 128 + 56
 
 
+@pytest.mark.parametrize("D", K.HEAD_DIMS)
+def test_fp32_backward_kernels_fit_shared_memory(D):
+    """The fp32 tensor-core kernels hold every tile in three bf16 terms:
+    dq's 128-row Q and dO (64 above D 64) and its K and V stages, dk/dv's
+    K and V and its Q and dO stages, within a block's 227 KB at every
+    head dim, as the source's static_assert holds them."""
+    for kernel in ("f32_dq", "f32_dkdv"):
+        assert 0 < K.bwd_smem_bytes(D, kernel) <= 232_448
+    # D 64: 3 terms of 128-row Q and dO, 2 stages of 64-key K and V
+    assert K.bwd_smem_bytes(64, "f32_dq") == \
+        1024 + 2 * 3 * 128 * 128 + 2 * 2 * 3 * 64 * 128 + 40
+    # D 192: 3 boxes, one stage of 32-row Q and dO beside K and V
+    assert K.bwd_smem_bytes(192, "f32_dkdv") == \
+        1024 + 2 * 3 * 3 * 64 * 128 + 2 * 3 * 3 * 32 * 128 + 24
+
+
 def test_cpu_tensors_under_grad_differentiate_the_plain_version():
     """On the CPU ``impl="cuda"`` takes the plain version, so a gradient
     flows by autograd, the same as ``impl="torch"``'s."""
@@ -574,6 +592,159 @@ def test_bf16_backward_mirror_in_one_term_fails_the_gate(
     assert not all(ok for _, _, ok in gates), gates
 
 
+# The fp32 tensor-core backward's rounding mirrored on the CPU
+# (ref.attention_bwd_f32_mirror: every fp32 factor in bf16 terms, the term
+# products with i + j <= terms - 1 summed as the card's tensor cores sum
+# them, in tiles, P and delta from the kernel's own scores), held to a
+# float64 truth on the same fp32 inputs against the plain fp32
+# attention's distance: the
+# rule chip_smoke.py's flash_f64_distances holds the kernel to on the
+# card, each of dq, dk and dv no more than 2x as far as plain fp32's.
+# Three terms pass it (0.2-1.1x here), two fail it (7-60x)
+F32_MIRROR_SHAPES = [
+    # (B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset)
+    (1, 2, 2, 128, 128, 64, True, None, 0),     # causal
+    (2, 6, 2, 128, 128, 64, True, None, 0),     # 100m's GQA, group 3
+    (1, 4, 4, 256, 256, 64, True, 64, 0),       # window 64
+    (1, 7, 1, 130, 190, 64, True, 50, 60),      # group 7, q_offset 60
+    (2, 4, 2, 128, 128, 32, True, None, 0),     # flude-paper's D 32
+    (1, 4, 2, 65, 128, 80, False, None, 0),     # D 80, non-causal
+]
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """The mirror's many small float64 products on one thread: under a
+    loaded machine (the suite's parallel workers) a thread pool's waits
+    make each of them orders of magnitude slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _f64_share(x, truth):
+    return float((x.double() - truth).abs().max()) / max(
+        1.0, float(truth.abs().max()))
+
+
+def _f32_mirror_ratios(B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset,
+                       terms):
+    """dq, dk and dv of the mirror in ``terms`` terms: each one's float64
+    distance over the plain fp32 attention's."""
+    q, k, v = (torch.from_numpy(x)
+               for x in _inputs(B, Hq, Hkv, Sq, Sk, D, seed=Sq + D + 5))
+    dout = torch.from_numpy(np.random.RandomState(Sk + 1).randn(
+        B, Hq, Sq, D).astype(np.float32))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    with _one_thread():
+        truth = _ref.attention_bwd_ref(q.double(), k.double(), v.double(),
+                                       dout.double(), **kw)
+        plain = _ref.attention_bwd_ref(q, k, v, dout, **kw)
+        got = _ref.attention_bwd_f32_mirror(q, k, v, dout, terms=terms,
+                                            **kw)
+    for g in got:
+        assert g.dtype == torch.float32
+    return [_f64_share(g, t) / _f64_share(p, t)
+            for g, p, t in zip(got, plain, truth)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset",
+                         F32_MIRROR_SHAPES)
+def test_fp32_backward_mirror_in_three_terms_is_within_2x_of_plain(
+        B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset):
+    ratios = _f32_mirror_ratios(B, Hq, Hkv, Sq, Sk, D, causal, window,
+                                q_offset, terms=3)
+    assert max(ratios) <= 2.0, ratios
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset",
+                         F32_MIRROR_SHAPES)
+def test_fp32_backward_mirror_in_two_terms_fails_the_2x_rule(
+        B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset):
+    """hi + lo of each fp32 factor (2^-17 of it) is not fp32: every
+    gradient lands several times as far from float64 as plain fp32's."""
+    ratios = _f32_mirror_ratios(B, Hq, Hkv, Sq, Sk, D, causal, window,
+                                q_offset, terms=2)
+    assert min(ratios) > 2.0, ratios
+
+
+def test_tensor_core_sums_are_kept_short():
+    """``ref._tc_product`` models the card's tensor cores, which truncate
+    each wgmma's sum to fp32: run through one accumulator over K = 2048,
+    the sum drifts toward zero (here more than 4x as far from float64 as
+    an fp32 matmul); in the kernel's tiles of 64, each added to an fp32
+    sum rounded to nearest, it is no further than the fp32 matmul."""
+    rng = np.random.RandomState(12)
+    a = torch.from_numpy(rng.rand(16, 2048).astype(np.float32))
+    b = torch.from_numpy(rng.rand(2048, 16).astype(np.float32))
+    with _one_thread():
+        truth = a.double() @ b.double()
+        plain = _f64_share(a @ b, truth)
+        chained = _f64_share(_ref._tc_product(a, b, 3, 2048), truth)
+        tiled = _f64_share(_ref._tc_product(a, b, 3, 64), truth)
+    assert chained > 4 * plain
+    assert tiled <= plain
+
+
+def test_bf16_terms_split_fp32_exactly():
+    """``ref._bf16_split``: three bf16 terms hold an fp32 value to within
+    2^-24 of it (the kernels' split3), two to within 2^-16, one is
+    bf16(x); each remainder is exact in fp32."""
+    x = torch.from_numpy(np.random.RandomState(7).randn(4096).astype(
+        np.float32) * 10.0 ** np.random.RandomState(8).randint(
+            -20, 20, size=4096).astype(np.float32))
+    for terms, rel in ((1, 2.0 ** -8), (2, 2.0 ** -16), (3, 2.0 ** -24)):
+        parts = _ref._bf16_split(x, terms)
+        assert len(parts) == terms
+        for t in parts:
+            assert torch.equal(t, t.to(torch.bfloat16).double())
+        err = (sum(parts) - x.double()).abs()
+        assert bool((err <= rel * x.double().abs()).all()), terms
+    assert torch.equal(_ref._bf16_terms(x, 2), sum(_ref._bf16_split(x, 2)))
+
+
+def test_function_plumbing_in_fp32_runs_the_wgmma_f32_variant(monkeypatch):
+    """``FlashAttentionFn`` on fp32 asks the backward for no variant, so
+    the wrapper takes ``BWD_VARIANTS[fp32]``, the tensor-core kernels,
+    and counts the call under ``wgmma_f32``: the launch replaced by a CPU
+    stand-in with the wrapper's rule and count, returning the mirror of
+    the kernel's rounding, which autograd hands back unchanged."""
+    seen = {}
+
+    def fwd(q, k, v, with_lse=False, **kw):
+        o = attention_ref(q, k, v, **kw)
+        return (o, _ref.attention_lse_ref(q, k, **kw)) if with_lse else o
+
+    def bwd(q, k, v, out, lse, dout, variant=None, **kw):
+        seen["asked"] = variant
+        K.bwd_launches.add(K.bwd_variant(q.dtype, variant))
+        seen["grads"] = _ref.attention_bwd_f32_mirror(q, k, v, dout, **kw)
+        return seen["grads"]
+    monkeypatch.setattr(ops, "flash_attention_cuda", fwd)
+    monkeypatch.setattr(ops, "flash_attention_bwd_cuda", bwd)
+    q, k, v = (torch.from_numpy(x).requires_grad_(True)
+               for x in _inputs(1, 6, 2, 50, 50, 64, seed=11))
+    dout = torch.from_numpy(np.random.RandomState(11).randn(
+        1, 6, 50, 64).astype(np.float32))
+    before = dict(K.bwd_launches.by_variant)
+    with _one_thread():
+        out = ops.FlashAttentionFn.apply(q, k, v, True, None, None, 0)
+        got = torch.autograd.grad(out, (q, k, v), dout)
+    ran = {n: c - before[n] for n, c in K.bwd_launches.by_variant.items()}
+    assert seen["asked"] is None
+    assert ran == {"wgmma_f32": 1, "simt": 0, "wgmma_bf16": 0,
+                   "simt_bf16": 0}
+    for g, m in zip(got, seen["grads"]):
+        assert g.dtype == torch.float32 and torch.equal(g, m)
+    want = _ref.attention_bwd_ref(q.detach(), k.detach(), v.detach(), dout)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * max(1.0, float(
+            w.abs().max()))
+
+
 def test_bf16_grad_gate_is_the_one_rule():
     """``ref.bf16_grad_gate``: the excess beyond one bf16 ulp of the truth
     within tol of max(1, max |truth|) and within 1e-3 of max |truth|; a
@@ -593,21 +764,23 @@ def test_bf16_grad_gate_is_the_one_rule():
 
 
 def test_bwd_variant_rule():
-    """bf16 runs the tensor-core backward unless the SIMT one is named;
-    fp32 has only SIMT."""
+    """Both dtypes run the tensor-core backward unless the SIMT one of
+    their dtype is named."""
     bf16, f32 = torch.bfloat16, torch.float32
-    assert K.BWD_VARIANTS == {f32: "simt", bf16: "wgmma_bf16"}
+    assert K.BWD_VARIANTS == {f32: "wgmma_f32", bf16: "wgmma_bf16"}
     assert K.bwd_variant(bf16) == "wgmma_bf16"
     assert K.bwd_variant(bf16, "simt_bf16") == "simt_bf16"
-    assert K.bwd_variant(f32) == "simt"
+    assert K.bwd_variant(f32) == "wgmma_f32"
+    assert K.bwd_variant(f32, "simt") == "simt"
     for dtype, variant in ((bf16, "simt"), (f32, "wgmma_bf16"),
-                           (f32, "simt_bf16"), (bf16, "mma")):
+                           (f32, "simt_bf16"), (bf16, "mma"),
+                           (bf16, "wgmma_f32")):
         with pytest.raises(ValueError, match="variant"):
             K.bwd_variant(dtype, variant)
     with pytest.raises(TypeError):
         K.bwd_variant(torch.float16)
-    assert set(K.bwd_launches.by_variant) == {"simt", "wgmma_bf16",
-                                              "simt_bf16"}
+    assert set(K.bwd_launches.by_variant) == {"wgmma_f32", "simt",
+                                              "wgmma_bf16", "simt_bf16"}
 
 
 def test_function_plumbing_in_bf16_runs_the_wgmma_variant(monkeypatch):
@@ -639,7 +812,8 @@ def test_function_plumbing_in_bf16_runs_the_wgmma_variant(monkeypatch):
     got = torch.autograd.grad(out, (q, k, v), dout)
     ran = {n: c - before[n] for n, c in K.bwd_launches.by_variant.items()}
     assert seen == {"asked": None}
-    assert ran == {"simt": 0, "wgmma_bf16": 1, "simt_bf16": 0}
+    assert ran == {"wgmma_f32": 0, "simt": 0, "wgmma_bf16": 1,
+                   "simt_bf16": 0}
     want = _ref.attention_bwd_ref(q.double(), k.double(), v.double(),
                                   dout.double())
     for g, w in zip(got, want):
@@ -655,6 +829,17 @@ def test_function_plumbing_in_bf16_runs_the_wgmma_variant(monkeypatch):
 ])
 def test_per_head_blocks_under_two_waves(B, Hq, Hkv, Sk, per_head):
     assert K.per_head_blocks(B, Hq, Hkv, Sk) == per_head
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sk,per_head", [
+    (32, 8, 4, 128, False),      # flude-paper training: 256 blocks
+    (32, 12, 4, 128, False),     # 100m training: 256
+    (8, 12, 4, 2048, False),     # 100m S 2048: 1024
+    (1, 12, 4, 2048, True),      # 128 blocks, under one wave
+    (1, 12, 12, 2048, False),    # G = 1
+])
+def test_fp32_per_head_blocks_under_one_wave(B, Hq, Hkv, Sk, per_head):
+    assert K.per_head_blocks(B, Hq, Hkv, Sk, torch.float32) == per_head
 
 
 def test_group_partials_sum_in_a_fixed_order():

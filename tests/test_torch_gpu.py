@@ -1044,13 +1044,90 @@ def test_flash_backward_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D,
                    seed=Sq + D)
     dout = torch.randn_like(q)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    before = FK.bwd_launches.count
+    before = dict(FK.bwd_launches.by_variant)
     out, got = _flash_grads(q, k, v, dout, "cuda", **kw)
     torch.cuda.synchronize()
-    assert FK.bwd_launches.count == before + 1
+    ran = {n: c - before[n] for n, c in FK.bwd_launches.by_variant.items()}
+    assert ran == {n: int(n == "wgmma_f32") for n in ran}
     _check_flash(out, q, k, v, **kw)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     _check_grads(got, attention_bwd_ref(q, k, v, dout, **kw))
+
+
+FP32_BWD_CASES = [
+    (32, 8, 4, 128, 128, 32, 0, True, None),     # flude-paper training
+    (2, 12, 4, 300, 300, 64, 0, True, None),     # 100m's heads
+    (1, 7, 1, 130, 190, 64, 60, True, 50),       # group 7, q_offset
+    (2, 4, 2, 97, 97, 80, 0, True, 40),          # D 80, window
+    (1, 4, 2, 65, 128, 80, 0, False, None),      # non-causal
+    (1, 4, 4, 1, 77, 128, 76, True, None),       # one query
+    (1, 8, 2, 200, 200, 128, 0, True, None),     # D 128
+    (1, 6, 2, 150, 150, 192, 0, True, 64),       # D 192
+    (2, 8, 2, 70, 107, 32, 37, True, None),      # D 32, Sq < Sk
+    (4, 8, 4, 1100, 1100, 64, 0, True, None),    # a group a dk/dv block
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,q_offset,causal,window",
+                         FP32_BWD_CASES)
+def test_flash_backward_fp32_variants_pass_one_gate(cuda, B, Hq, Hkv, Sq,
+                                                    Sk, D, q_offset, causal,
+                                                    window):
+    """The fp32 tensor-core kernels (``wgmma_f32``, every factor in three
+    bf16 terms) and the SIMT ones asked for by name, on the same inputs,
+    lse and output: each within FLASH_BWD_TOL of max(1, max |g|) and 1e-3
+    of its own max |g| of autograd through the plain version, the two
+    within FLASH_BWD_TOL of each other, each counted under its own
+    variant; reruns bit-identical; the bf16 variants refuse fp32."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Sk, D, torch.float32, cuda, seed=Sq + 9)
+    dout = torch.randn_like(q)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    want = attention_bwd_ref(q, k, v, dout, **kw)
+    got = {}
+    for variant in ("wgmma_f32", "simt"):
+        before = dict(FK.bwd_launches.by_variant)
+        got[variant] = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                   variant=variant, **kw)
+        torch.cuda.synchronize()
+        ran = {n: c - before[n] for n, c in FK.bwd_launches.by_variant.items()}
+        assert ran == {n: int(n == variant) for n in ran}
+        _check_grads(got[variant], want)
+        for g, w in zip(got[variant], want):
+            assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max())
+    _check_grads(got["wgmma_f32"], got["simt"])
+    again = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got["wgmma_f32"], again))
+    for variant in ("wgmma_bf16", "simt_bf16"):
+        with pytest.raises(ValueError, match="variant"):
+            FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                        variant=variant, **kw)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(4, 12, 4, 256, 64),
+                                          (8, 8, 4, 128, 32)])
+def test_flash_backward_fp32_is_as_near_float64_as_plain(cuda, B, Hq, Hkv,
+                                                         S, D):
+    """dq, dk and dv of the fp32 kernels (the forward's out and lse, then
+    ``wgmma_f32``) no more than 2x as far from a float64 truth (autograd
+    through the plain version in float64) as the plain fp32 attention's,
+    each as a share of max(1, max |g|): the rule chip_smoke.py holds it
+    to at its larger shapes."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    q, k, v = _qkv(B, Hq, Hkv, S, S, D, torch.float32, cuda, seed=S + 1)
+    dout = torch.randn_like(q)
+    truth = attention_bwd_ref(q.double(), k.double(), v.double(),
+                              dout.double())
+    plain = attention_bwd_ref(q, k, v, dout)
+    out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True)
+    got = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+
+    def share(x, t):
+        return float((x.double() - t).abs().max()) / max(
+            1.0, float(t.abs().max()))
+    for name, g, p, t in zip(("dq", "dk", "dv"), got, plain, truth):
+        assert share(g, t) <= 2 * share(p, t), name
 
 
 def test_flash_backward_kernel_is_deterministic(cuda):
@@ -1399,10 +1476,11 @@ def test_flash_backward_kernel_in_bf16_matches_plain(cuda, B, Hq, Hkv, Sq,
             FK.lse_launches.by_variant["wgmma"],
             FK.bwd_launches.by_variant["wgmma_bf16"],
             FK.bwd_launches.by_variant["simt_bf16"],
-            FK.bwd_launches.by_variant["simt"]) == (
+            FK.bwd_launches.by_variant["simt"],
+            FK.bwd_launches.by_variant["wgmma_f32"]) == (
         before[0]["wgmma"] + 1, before[1]["wgmma"] + 1,
         before[2]["wgmma_bf16"] + 1, before[2]["simt_bf16"],
-        before[2]["simt"])
+        before[2]["simt"], before[2]["wgmma_f32"])
     _check_flash(out, q, k, v, **kw)
     _check_bf16_grads(got, attention_bwd_ref(q.float(), k.float(), v.float(),
                                              dout.float(), **kw),
@@ -1592,7 +1670,8 @@ def test_bf16_training_step_of_narrow_zamba2_runs_the_kernels(cuda):
     torch.cuda.synchronize()
     ran = [{v: c[v] - b[v] for v in c} for c, b in zip(counts, before)]
     assert ran == [{"wgmma": 4, "simt": 0},
-                   {"simt": 0, "wgmma_bf16": 2, "simt_bf16": 0},
+                   {"wgmma_f32": 0, "simt": 0, "wgmma_bf16": 2,
+                    "simt_bf16": 0},
                    {"mma": 8, "simt": 0},
                    {"simt": 0, "mma_bf16": 4, "simt_bf16": 0}]
     assert bool(torch.isfinite(loss))

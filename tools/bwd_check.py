@@ -5,9 +5,12 @@ it to autograd through its plain version, on the card.
     python3 tools/bwd_check.py                     # build, check, report
     compute-sanitizer --tool memcheck python3 tools/bwd_check.py
 
-The kernels: the three of ``csrc/flash_attention_bwd.cu`` (one call of
-``flash_attention_bwd_cuda``, D 32, a window, a q_offset, ragged Sq and
-Sk, after ``flash_fwd_simt`` with and without its log-sum-exp),
+The kernels: those of ``csrc/flash_attention_bwd.cu`` on fp32 (one call
+of ``flash_attention_bwd_cuda`` for each fp32 variant, ``wgmma_f32``,
+what training runs, with its term-plane workspace and per-head partials,
+and ``simt`` by name; D 32, a window, a q_offset, ragged Sq and Sk, after
+``flash_fwd_simt`` with and without its log-sum-exp; and ``wgmma_f32`` at
+D 80, where its dk/dv warpgroups split the two gradients),
 ``ssd_bwd_simt`` (``csrc/ssm_scan_bwd.cu``: S 130, G 2 with H 4, P 32 /
 N 16, h0 and dh_f set), ``ssd_bwd_mma`` (``csrc/ssm_scan_bwd_mma.cu``,
 bf16 x, B and C: the same shape, and B 16, S 200, H 64 with P = N = 64,
@@ -98,9 +101,20 @@ def run_checks():
     FK.flash_attention_cuda(q, k, v, **kw)
     out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
     dout = rn(*q.shape)
+    want = attention_bwd_ref(q, k, v, dout, **kw)
+    for variant in ("wgmma_f32", "simt"):
+        got = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                          variant=variant, **kw)
+        torch.cuda.synchronize()
+        check(f"flash_attention_bwd {variant} D32 window 50 q_offset 33",
+              got, want)
+    q, k, v, dout = rn(2, 4, 97, 80), rn(2, 2, 97, 80), rn(2, 2, 97, 80), \
+        rn(2, 4, 97, 80)
+    kw = dict(causal=True, window=40)
+    out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
     got = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
-    check("flash_attention_bwd D32 window 50 q_offset 33", got,
+    check("flash_attention_bwd wgmma_f32 D80 window 40", got,
           attention_bwd_ref(q, k, v, dout, **kw))
 
     # ssm_scan: kernel layout, groups by index
