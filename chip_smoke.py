@@ -10,15 +10,17 @@ Phases, each of which raises on failure:
 2. build: every CUDA kernel of the port, compiled from ``src/repro_torch/
    csrc`` by ``nvcc`` (seconds and the ``-Xptxas -v`` report; each
    flash_attention variant's registers, shared memory and spills, and a
-   failure on serialised wgmma or on a spill of the wgmma variant at D
-   64, 80 or 128; each scan variant's registers and spills, and a
+   failure on serialised wgmma, on a spill of the bf16 wgmma variant at
+   D 64, 80 or 128 and on one of the fp32 ``flash_fwd_f32`` at D 32 to
+   128; each scan variant's registers and spills, and a
    failure on a spill of ``ssd_bwd_mma`` at P = N = 64);
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes and at ragged ones, bit-identical reruns, and timings
    (kernel, plain version, one PyTorch library call, in turns) beside
    the bound: ``fed_agg`` (odd D, each D mod 4, misaligned rows),
-   ``residual_norms``, ``flash_attention`` (which variant ran: SIMT for
-   fp32, wgmma for bf16, the latter held to its bf16-P plain version)
+   ``residual_norms``, ``flash_attention`` (which variant ran: the
+   tensor-core ``wgmma_f32`` for fp32, also run through ``simt`` by name,
+   wgmma for bf16, the latter held to its bf16-P plain version)
    at the three serve prefills' shapes (SDPA as the library call) and
    once at Qwen2-7B's through the model-layout adapter on strided views,
    and ``ssm_scan`` and ``rwkv6_scan`` at the zamba2-1.2b and rwkv6-7b
@@ -94,7 +96,8 @@ Phases, each of which raises on failure:
    (``simt_bf16``), at zamba2-1.2b's training shape and full layer and
    ragged ones (every (P, N), groups, states, S 1, several heads a
    block), the two timed in turns; ``[flash_fwd fp32]`` the fp32 flash
-   forward with its lse at the fp32 training shapes beside SDPA's;
+   forward with its lse (``wgmma_f32``) at the fp32 training shapes in
+   turns with SDPA's and with ``flash_fwd_simt`` by name;
    ``[train flude-paper]``, ``[train 100m]``, ``[train 100m S2048]``,
    ``[train zamba2 10m]``, ``[train zamba2 100m]``, ``[train rwkv6
    10m]`` and ``[train rwkv6 100m]``: the driver's rounds with every
@@ -124,7 +127,8 @@ Phases, each of which raises on failure:
    devices: logits teacher-forced on the CPU's ids held together, ids
    compared with each step's top-2 margin, each checkpoint's SHA-256
    logged; ``[poison]`` every output and workspace the kernel wrappers
-   allocate filled with NaN (``_build.poisoned``): ``tools/bwd_check.py``,
+   allocate filled with NaN (``_build.poisoned``): the fp32 forward at
+   three ragged shapes, ``tools/bwd_check.py``,
    the bf16 SSD backward at a ragged shape and ``[serve ckpt]`` again, at
    their gates;
 7. card against CPU: the golden FL setup (N = 24, 5 rounds) for FLUDE
@@ -164,9 +168,10 @@ MAIN_D = 22026                  # packed parameters of the default model
 # the default classifier on dim-4, 2-class data packs D = 17,410
 COHORT_X = 512
 N_1M, D_1M, ROUNDS_1M = 1_000_000, 17410, 3
-# flash_attention against attention_ref.  fp32 (flash_fwd_simt): both
-# compute in fp32 and differ in summation order; within 1e-5 of max(1,
-# |o|).  bf16 (flash_fwd_wgmma) carries P to the tensor cores in two bf16
+# flash_attention against attention_ref.  fp32 (flash_fwd_f32, and
+# flash_fwd_simt by name): both compute to fp32 accuracy (the tensor-core
+# variant in three bf16 terms a factor) and differ in summation order;
+# within 1e-5 of max(1, |o|).  bf16 (flash_fwd_wgmma) carries P to the tensor cores in two bf16
 # terms (16 significant bits) and rounds its output to bf16 once, so it
 # is held to the fp32 truth, attention_ref on the same bf16 inputs with
 # fp32 P and an fp32 output, element by element: |o - truth| within one
@@ -248,14 +253,14 @@ FLASH_BWD_SHAPES = [
     ("100m S2048", 8, 12, 4, 2048, 64, None),
     ("100m S2048 window 1024", 8, 12, 4, 2048, 64, 1024),
 ]
-# the fp32 flash kernels (flash_fwd_simt with its lse, the backward's
-# wgmma_f32 kernels, and its SIMT ones by name) and the plain fp32
-# attention, each held to a float64 truth on the same fp32 inputs
-# (attention_ref and its autograd in float64 on the card): zamba2-1.2b's
-# training shape and its serve shape at B 1, and 100m's training shape
-# (GQA), causal.  The backward's dq, dk and dv may lie no more than 2x
-# as far as the plain fp32 attention's (stated in PERF.md before the
-# first run).  (label, B, Hq, Hkv, S, D)
+# the fp32 flash kernels (the wgmma_f32 forward with its lse and
+# backward, and the SIMT ones by name) and the plain fp32 attention, each
+# held to a float64 truth on the same fp32 inputs (attention_ref and its
+# autograd in float64 on the card): zamba2-1.2b's training shape and its
+# serve shape at B 1, and 100m's training shape (GQA), causal.  The
+# default forward's out and lse and the backward's dq, dk and dv may lie
+# no more than 2x as far as the plain fp32 attention's (stated in
+# PERF.md before the first run).  (label, B, Hq, Hkv, S, D)
 FLASH_F64_SHAPES = [
     ("zamba2 training", 32, 32, 32, 128, 64),
     ("zamba2 serve B 1", 1, 32, 32, 4096, 64),
@@ -519,23 +524,31 @@ def phase_build():
 def check_flash_build(report):
     """Each flash_attention variant's registers, shared memory and
     spills; raises on a ptxas line saying wgmma instructions were
-    serialised and on any spill of the wgmma variant at the serve head
-    dims."""
+    serialised, on any spill of the bf16 wgmma variant at the serve head
+    dims (64, 80, 128) and on any spill of the fp32 tensor-core variant
+    (``flash_fwd_f32``) at D 32 to 128 (at D 192, not a training shape,
+    logged)."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import smem_bytes
     serialised = _build.wgmma_serialised(report)
+    gated = {"wgmma": (64, 80, 128), "f32": (32, 64, 80, 128)}
+    seen = 0
     for name, k in sorted(_build.ptxas_kernels(report).items()):
-        m = re.search(r"flash_fwd_(wgmma|simt)ILi(\d+)E", name)
+        m = re.search(r"flash_fwd_(wgmma|f32|simt)ILi(\d+)E", name)
         if not m:
             continue
-        variant, D = m.group(1), int(m.group(2))
-        log(f"[build] flash_fwd_{variant}<{D}>: {k.registers} registers at "
+        kind, D = m.group(1), int(m.group(2))
+        seen += kind == "f32"
+        variant = "wgmma_f32" if kind == "f32" else kind
+        log(f"[build] flash_fwd_{kind}<{D}>: {k.registers} registers at "
             f"launch, {smem_bytes(variant, D)} bytes of dynamic shared "
             f"memory, spills {k.spill_stores} / {k.spill_loads} bytes")
-        if variant == "wgmma" and D in (64, 80, 128) \
-                and (k.spill_stores or k.spill_loads):
-            raise RuntimeError(f"flash_fwd_wgmma<{D}> spills registers")
+        if D in gated.get(kind, ()) and (k.spill_stores or k.spill_loads):
+            raise RuntimeError(f"flash_fwd_{kind}<{D}> spills registers")
+    if seen != 5:
+        raise RuntimeError(f"flash_fwd_f32: {seen} instantiations in the "
+                           f"ptxas report, expected 5 (one a head dim)")
     if serialised:
         raise RuntimeError("ptxas serialised wgmma instructions: "
                            + "; ".join(serialised))
@@ -912,8 +925,19 @@ def phase_flash_attention():
          1000, 128, bf16, 667, True, 100),
         ("bf16 D 128, non-causal, ragged Sq", 1, 4, 2, 130, 256, 128, bf16,
          0, False, None),
+        # fp32 at the other head dims and at the 100m S 2048 training shape
+        ("fp32 D 128, one query, q_offset 76", 1, 4, 4, 1, 77, 128, f32, 76,
+         True, None),
+        ("fp32 D 128, causal, group 4", 2, 8, 2, 300, 300, 128, f32, 0, True,
+         None),
+        ("fp32 D 192, ragged, window 64, group 3", 1, 6, 2, 150, 150, 192,
+         f32, 0, True, 64),
+        ("fp32 D 80, ragged, window 300", 1, 8, 2, 777, 777, 80, f32, 0,
+         True, 300),
+        ("fp32 100m S 2048 training", 8, 12, 4, 2048, 2048, 64, f32, 0, True,
+         None),
     ]
-    max_err = 0.0
+    max_err, max_err_f32 = 0.0, 0.0
     for label, B, Hq, Hkv, Sq, Sk, D, dt, off, causal, window in cases:
         q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dt, seed=Sq + Sk + D)
         kw = dict(causal=causal, window=window, q_offset=off)
@@ -929,6 +953,14 @@ def phase_flash_attention():
         err, note = check_flash(label, got, q, k, v, **kw)
         same = bool(torch.equal(got, again))
         max_err = max(max_err, err)
+        if dt == f32:
+            max_err_f32 = max(max_err_f32, err)
+            # the SIMT variant by name, the yardstick, at the same gate
+            simt = flash_attention_cuda(q, k, v, variant="simt", **kw)
+            torch.cuda.synchronize()
+            _, simt_note = check_flash(f"{label}, simt", simt, q, k, v, **kw)
+            note += f"; simt {simt_note}"
+            del simt
         log(f"[flash_attention] {label} (B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Sk{Sk} "
             f"D{D} {str(dt)[6:]} q_offset {off} causal {causal} window "
             f"{window}), {ran[0]}: {note}; reruns bit-identical {same}")
@@ -990,7 +1022,8 @@ def phase_flash_attention():
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
             "launches": None, "max_abs_err": max_err, **head,
-            "at": "qwen2-7b prefill shape", "by_shape": timings}
+            "at": "qwen2-7b prefill shape", "by_shape": timings,
+            "fp32_max_abs_err": max_err_f32}
 
 
 def phase_flash_model_layout():
@@ -2358,9 +2391,9 @@ def phase_serve(label, arch, B, S, N, n_params, per_prefill, gate,
     want = {name: per_prefill.get(name, 0) for name in counters}
     if launches != want:          # one prefill, nothing in a decode step
         raise RuntimeError(f"{tag}: launches {launches}, expected {want}")
-    # a bf16 prefill goes to the tensor-core variants, never SIMT
-    want = {name: {v: per_prefill.get(name, 0) if v != "simt" else 0
-                   for v in by_variant}
+    # a bf16 prefill goes to the bf16 tensor-core variants, never SIMT
+    want = {name: {v: per_prefill.get(name, 0) if v in ("wgmma", "mma")
+                   else 0 for v in by_variant}
             for name, by_variant in variants.items()}
     log(f"[{tag}] launches by variant {variants}")
     if variants != want:
@@ -2489,8 +2522,11 @@ def profile_serve(tag, model, params, tokens, steps=4, top=12):
 def phase_serve_card_vs_cpu():
     """The reduced configs in fp32 on both devices from the same
     parameters and prompt: logits within SERVE_F32_TOL of max(1,
-    |logit|), ids equal."""
+    |logit|), ids equal; the card's flash launches all ``wgmma_f32``
+    (one a prefill's attention layer or shared-attention application),
+    none ``simt``."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
@@ -2504,8 +2540,16 @@ def phase_serve_card_vs_cpu():
         tokens = torch.randint(0, cfg.vocab_size, (2, prompt),
                                generator=torch.Generator().manual_seed(1))
         cpu = serve(model, params, tokens, 20, device="cpu")
+        before = dict(FK.launches_by_variant)
         card = serve(model, tree_map(lambda t: t.to("cuda"), params),
                      tokens, 20, device="cuda")
+        ran = {v: n - before[v] for v, n in FK.launches_by_variant.items()}
+        log(f"[serve card vs CPU] {cfg.name}: flash launches by variant "
+            f"{ran}")
+        if ran["simt"] or ran["wgmma"] or (arch != "rwkv6-7b"
+                                           and not ran["wgmma_f32"]):
+            raise RuntimeError(f"serve card vs CPU {cfg.name}: flash "
+                               f"launches {ran}, expected wgmma_f32 only")
         err = (card.logits.cpu() - cpu.logits).abs()
         rel = float((err / cpu.logits.abs().clamp_min(1.0)).max())
         same = bool(torch.equal(card.ids.cpu(), cpu.ids))
@@ -2633,13 +2677,18 @@ def time_flash_bwd(tag, label, B, Hq, Hkv, S, D, window, dtype, other=None):
 
 
 def phase_flash_fwd_fp32():
-    """``flash_fwd_simt`` with its log-sum-exp (the forward fp32 training
-    runs under grad, twice a layer a step under remat) at the fp32
-    training shapes (FLASH_BWD_SHAPES without the window), timed in turns
-    with SDPA's fp32 forward (library, kernel, kernel, library) beside the
-    plain attention and the bound: q, k, v read and out and lse written
-    once, QK^T and P.V over the visible pairs at fp32's 67 TFLOP/s.
-    Returns {label: timing}."""
+    """The fp32 flash forward with its log-sum-exp (the forward fp32
+    training runs under grad, twice a layer a step under remat) at the
+    fp32 training shapes (FLASH_BWD_SHAPES without the window): the
+    default variant (``wgmma_f32``: the split pre-pass and
+    ``flash_fwd_f32``) timed in turns with SDPA's fp32 forward and with
+    ``flash_fwd_simt`` by name (library, kernel, simt, kernel, simt,
+    library), beside the plain attention and the bound: the larger of the
+    bytes (q, k, v read and out and lse written once) at 3.35 TB/s and
+    QK^T and P.V over the visible pairs at the tensor-core floor of
+    fp32-accurate products (989 / 6 TFLOP/s); the 67 TFLOP/s fp32 bound
+    beside it as ``fp32_bound_ms``, which SIMT reads against.  Returns
+    {label: timing}."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -2653,35 +2702,49 @@ def phase_flash_fwd_fp32():
             return FK.flash_attention_cuda(q, k, v, causal=True,
                                            with_lse=True)
 
+        def simt():
+            return FK.flash_attention_cuda(q, k, v, causal=True,
+                                           with_lse=True, variant="simt")
+
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
         reps = 20 if S <= 128 else 5
         lib = [cuda_ms(library, reps=reps, warmup=2)]
-        kern = [cuda_ms(kernel, reps=reps, warmup=2) for _ in range(2)]
+        kern, alt = [], []
+        for _ in range(2):
+            kern.append(cuda_ms(kernel, reps=reps, warmup=2))
+            alt.append(cuda_ms(simt, reps=reps, warmup=2))
         lib.append(cuda_ms(library, reps=reps, warmup=2))
         ms, library_ms = sum(kern) / 2, sum(lib) / 2
+        simt_ms = sum(alt) / 2
         plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True),
                            reps=3, warmup=1)
         nbytes = 4 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D + B * Hq * S)
         flops = 4 * B * Hq * D * visible_pairs(S, S, 0, True, None)
         bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        ops_ms = flops / H100_FP32_FLOPS * 1e3
+        ops_ms = flops / H100_F32_TC_FLOPS * 1e3
         bound_ms = max(bytes_ms, ops_ms)
+        fp32_ms = max(bytes_ms, flops / H100_FP32_FLOPS * 1e3)
         log(f"[flash_fwd fp32] {label} (B{B} Hq{Hq}/{Hkv} S{S} D{D}, causal, "
-            f"with lse): kernel {ms:.4f} ms ({kern[0]:.4f} / {kern[1]:.4f}), "
-            f"plain {plain_ms:.3f} ms, sdpa(is_causal, enable_gqa) fp32 "
-            f"forward {library_ms:.4f} ms ({lib[0]:.4f} / {lib[1]:.4f}); "
-            f"bound {bound_ms * 1e3:.1f} us ({flops:.4e} flops take "
-            f"{ops_ms * 1e3:.1f} us at 67 TFLOP/s fp32; {nbytes} bytes take "
+            f"with lse): kernel (wgmma_f32) {ms:.4f} ms ({kern[0]:.4f} / "
+            f"{kern[1]:.4f}), simt {simt_ms:.4f} ms ({alt[0]:.4f} / "
+            f"{alt[1]:.4f}), plain {plain_ms:.3f} ms, sdpa(is_causal, "
+            f"enable_gqa) fp32 forward {library_ms:.4f} ms ({lib[0]:.4f} / "
+            f"{lib[1]:.4f}); bound {bound_ms * 1e3:.1f} us ({flops:.4e} "
+            f"flops take {ops_ms * 1e3:.1f} us at 989 / 6 = 165 TFLOP/s of "
+            f"fp32-accurate tensor-core products; {nbytes} bytes take "
             f"{bytes_ms * 1e3:.1f} us at 3.35 TB/s); kernel at "
             f"{bound_ms / ms:.1%} of the bound, sdpa at "
-            f"{bound_ms / library_ms:.1%}; kernel / sdpa "
-            f"{ms / library_ms:.3f}")
+            f"{bound_ms / library_ms:.1%}; kernel / simt "
+            f"{ms / simt_ms:.3f}, kernel / sdpa {ms / library_ms:.3f}; the "
+            f"fp32 bound (67 TFLOP/s) {fp32_ms * 1e3:.1f} us: kernel at "
+            f"{fp32_ms / ms:.1%}, simt at {fp32_ms / simt_ms:.1%}")
         timings[label] = dict(ms=ms, plain_ms=plain_ms,
                               library_ms=library_ms, bound_ms=bound_ms,
                               bound_by="bytes" if bytes_ms >= ops_ms
-                              else "operations")
+                              else "operations", fp32_bound_ms=fp32_ms,
+                              simt_ms=simt_ms)
         del q, k, v
         torch.cuda.empty_cache()
     return timings
@@ -2766,11 +2829,12 @@ def f64_share(x, truth):
 def flash_f64_distances():
     """Each output of the fp32 flash path (out, lse, dq, dk, dv) from a
     float64 truth at FLASH_F64_SHAPES, as a share of max(1, max |x|), for
-    the kernels (the backward's default, ``wgmma_f32``), for the SIMT
-    backward by name and for the plain fp32 attention; and the default
+    the kernels (the defaults, ``wgmma_f32`` forward and backward), for
+    the SIMT backward by name, for the SIMT forward by name with the
+    default backward, and for the plain fp32 attention; and the default
     backward alone, fed the truth's out and lse rounded to fp32.  Logs
     which kernel output lies more than 2x as far as the plain version's
-    and raises if dq, dk or dv of the default backward does.  Returns
+    and raises if out, lse, dq, dk or dv of the defaults does.  Returns
     {shape: {way: {output: share}}}."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
@@ -2798,6 +2862,10 @@ def flash_f64_distances():
             q, k, v, o, lse, dout))
         ways["kernels, simt backward"] = (o, lse, *FK.flash_attention_bwd_cuda(
             q, k, v, o, lse, dout, variant="simt"))
+        os_, ls_ = FK.flash_attention_cuda(q, k, v, with_lse=True,
+                                           variant="simt")
+        ways["simt forward, default backward"] = (
+            os_, ls_, *FK.flash_attention_bwd_cuda(q, k, v, os_, ls_, dout))
         o32, lse32 = truth[0].float(), truth[1].float()
         ways["bwd kernels on the truth's out, lse"] = (
             o32, lse32, *FK.flash_attention_bwd_cuda(q, k, v, o32, lse32,
@@ -2817,16 +2885,16 @@ def flash_f64_distances():
         log(f"[flash_bwd] float64 truth, {label}: kernel outputs more than "
             f"2x as far as the plain fp32 version's: "
             + (", ".join(f"{n} ({r:.2f}x)" for n, r in worse.items())
-               if worse else "none") + "; the backward's ratios "
+               if worse else "none") + "; the ratios "
             + ", ".join(f"{n} {dist['kernels'][n] / dist['plain fp32'][n]:.3f}"
-                        for n in ("dq", "dk", "dv")))
-        grads = [n for n in ("dq", "dk", "dv") if n in worse]
-        if grads:
+                        for n in names))
+        if worse:
             raise RuntimeError(f"flash_bwd float64 truth, {label}: "
-                               f"{', '.join(grads)} of the wgmma_f32 "
-                               f"backward more than 2x as far from float64 "
-                               f"as the plain fp32 attention's")
-        del q, k, v, dout, ways, truth, o, lse, o32, lse32
+                               f"{', '.join(worse)} of the wgmma_f32 "
+                               f"forward and backward more than 2x as far "
+                               f"from float64 as the plain fp32 "
+                               f"attention's")
+        del q, k, v, dout, ways, truth, o, lse, o32, lse32, os_, ls_
         gc.collect()
         torch.cuda.empty_cache()
     return found
@@ -3203,14 +3271,15 @@ def phase_flash_bwd_bf16():
         bwd_before = dict(FK.bwd_launches.by_variant)
         out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
         lse32 = FK.flash_attention_cuda(q.float(), k.float(), v.float(),
-                                        with_lse=True, **kw)[1]
+                                        with_lse=True, variant="simt",
+                                        **kw)[1]
         got = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
         again = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
         simt = FK.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                                            variant="simt_bf16", **kw)
         torch.cuda.synchronize()
         if {n: c - before[n] for n, c in FK.launches_by_variant.items()} \
-                != {"wgmma": 1, "simt": 1}:
+                != {"wgmma": 1, "wgmma_f32": 0, "simt": 1}:
             raise RuntimeError(f"flash_bwd bf16 {label}: the lse forwards "
                                f"did not run one wgmma and one SIMT launch")
         ran = {n: c - bwd_before[n]
@@ -3395,14 +3464,14 @@ def train_step_launches(cfg):
 
 
 def train_step_variants(cfg):
-    """The variant each kernel of a training step of ``cfg`` launches: the
-    forward kernels by the compute dtype (fp32 SIMT, bf16 tensor cores),
-    flash's backward on the tensor cores for both dtypes (fp32 in three
-    bf16 terms), the scans' backwards SIMT on fp32 and the SSD's on the
-    tensor cores on bf16 inputs."""
+    """The variant each kernel of a training step of ``cfg`` launches:
+    flash forward and backward on the tensor cores for both dtypes (fp32
+    in three bf16 terms), the scans' forwards by the compute dtype (fp32
+    SIMT, bf16 tensor cores), their backwards SIMT on fp32 and the SSD's
+    on the tensor cores on bf16 inputs."""
     bf16 = cfg.compute_dtype == "bfloat16"
-    return {"flash_attention": "wgmma" if bf16 else "simt",
-            "flash_attention_lse": "wgmma" if bf16 else "simt",
+    return {"flash_attention": "wgmma" if bf16 else "wgmma_f32",
+            "flash_attention_lse": "wgmma" if bf16 else "wgmma_f32",
             "ssm_scan": "mma" if bf16 else "simt",
             "rwkv6_scan": "mma" if bf16 else "simt",
             "flash_attention_bwd": "wgmma_bf16" if bf16 else "wgmma_f32",
@@ -3415,8 +3484,8 @@ def phase_train(label, extra, rounds, counters, ckpt=None):
     every kernel count set to 0 just before it and read just after: a
     finite loss that falls (the last quarter's mean below round 0's),
     ``train_step_launches`` a round, each of the variant
-    ``train_step_variants`` names (fp32 SIMT; bf16 the tensor-core
-    forwards and the backwards on bf16 inputs); ms/round
+    ``train_step_variants`` names (flash's tensor-core variants of the
+    dtype, no SIMT flash launch; the scans' by dtype); ms/round
     over rounds 1 to rounds - 2 (host clock; each round's plan read-back
     waits for the previous round's step), tokens/s, peak device memory.
     Returns the launches, the by-variant launches, the final state and
@@ -3832,6 +3901,7 @@ def phase_train_profile(timed_ms, rounds=7, active=(3, 6), top=12):
     busy = sum(e.self_device_time_total for e in device) / 1e3 / n
     groups = {"flash forward": ("flash_fwd",),
               "flash backward": ("flash_bwd",),
+              "flash split pre-passes": ("flash_split3",),
               "cuBLAS products": ("gemm", "xmma", "cutlass", "sm90_"),
               "optimizer multi-tensor": ("multi_tensor", "foreach")}
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
@@ -4011,10 +4081,43 @@ def phase_serve_ckpt_card_vs_cpu(ckpt_small):
                            f"that is no near tie: {flips}")
 
 
+def poison_flash_fwd():
+    """The fp32 forward (``wgmma_f32``: its term planes, out and lse) at
+    ragged shapes, rows that see no key among them, each at the fp32 gate
+    and its lse within FLASH_F32_TOL of max(1, |lse|): ``[poison]`` runs
+    it with every allocation NaN-filled."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    for label, B, Hq, Hkv, Sq, Sk, D, off, causal, window in (
+            ("D 64, q_offset 60, window 50, group 7", 1, 7, 1, 130, 190,
+             64, 60, True, 50),
+            ("D 80, non-causal window, rows 33.. see no key", 1, 4, 2,
+             65, 64, 80, 50, False, 20),
+            ("D 32, ragged, group 2", 3, 8, 4, 77, 77, 32, 0, True,
+             None)):
+        q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, torch.float32,
+                                seed=Sq + 3)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        got, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        torch.cuda.synchronize()
+        _, note = check_flash(f"poison wgmma_f32 {label}", got, q, k, v,
+                              **kw)
+        want = attention_lse_ref(q, k, **kw)
+        gap = float(((lse - want).abs()
+                     / want.abs().clamp_min(1.0)).max())
+        log(f"[poison] flash forward wgmma_f32 {label}: {note}; lse "
+            f"within {gap:.3e} of max(1, |lse|)")
+        if not gap <= FLASH_F32_TOL:
+            raise RuntimeError(f"poison flash forward {label}: lse off "
+                               f"by {gap:.3e}")
+        del q, k, v, got, lse, want
+
+
 def phase_poison(ckpt_100m, state_100m, ckpt_small):
     """The kernels with every output and workspace their wrappers allocate
     filled with NaN (``_build.poisoned()``, in the place of a memory
-    checker, which refuses the card): ``tools/bwd_check.py``'s checks
+    checker, which refuses the card): the fp32 forward (``wgmma_f32``,
+    out and lse) at three ragged shapes, ``tools/bwd_check.py``'s checks
     (each backward kernel at a ragged shape, ``ssd_bwd_mma`` at two), the
     bf16 SSD backward at SSD_BWD_BF16_CASES' ragged S 300 (four heads a
     block, a workspace) against the per-step oracle, and ``[serve ckpt]``
@@ -4030,6 +4133,7 @@ def phase_poison(ckpt_100m, state_100m, ckpt_small):
     spec.loader.exec_module(bwd_check)
     t0 = time.perf_counter()
     with _build.poisoned():
+        poison_flash_fwd()
         bwd_check.run_checks()
         label, B, S, H, P, N, G, _, _, dt_dtype = next(
             c for c in SSD_BWD_BF16_CASES if c[0].startswith("ragged S 300"))
@@ -4117,8 +4221,19 @@ def main():
                "ssm_scan_bwd": phase_ssm_scan_bwd(),
                "ssm_scan_bwd_bf16": phase_ssm_scan_bwd_bf16(),
                "rwkv6_scan_bwd": phase_rwkv6_scan_bwd()}
-    entries["flash_attention"]["fp32_training_forward_by_shape"] = \
-        phase_flash_fwd_fp32()
+    # the fp32 forward (wgmma_f32, what fp32 training and serving run) as
+    # an entry of its own: its launches are the wgmma_f32 ones
+    fwd32 = phase_flash_fwd_fp32()
+    entries["flash_attention_f32"] = {
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+        "counter": "flash_attention", "counted_variant": "wgmma_f32",
+        "launches": None,
+        "max_abs_err": entries["flash_attention"].pop("fp32_max_abs_err"),
+        **fwd32["100m S2048"],
+        "at": "100m S 2048 training shape (B 8, Hq 12 / Hkv 4, S 2048, D "
+        "64, causal, with lse)", "by_shape": fwd32}
     for k, timing in phase_scan_fwd_fp32().items():
         entries[k]["fp32_training_forward"] = timing
     data, main = phase_main_path(counters)
@@ -4170,8 +4285,8 @@ def main():
         # launches over the driven paths: the FL main, robust, dynamics,
         # cohort, thompson, telemetry (update_norm's fed_agg and
         # residual_norms) and debug_checks runs, the four serve runs and
-        # the eight training runs; a backward entry counts its variant's
-        # launches only (fp32 SIMT, or SIMT on bf16 inputs)
+        # the eight training runs; an entry with a counted variant (the
+        # fp32 forward, the backwards) counts that variant's launches only
         counter = entry.pop("counter", k)
         only = entry.get("counted_variant")
         by_path = {p: n[counter] if only is None else

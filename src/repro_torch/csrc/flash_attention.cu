@@ -18,9 +18,12 @@
  * take no part at all: where the Pallas wrapper pads K and V with zeros
  * and relies on the causal mask to hide them, this kernel masks them.
  *
- * Two variants, chosen by the input dtype with no fallback between them:
+ * Three variants, with no fallback between them: each dtype has its
+ * default (bf16 flash_fwd_wgmma, fp32 flash_fwd_f32), and the fp32
+ * SIMT kernel runs only where a caller names it:
  *
- * flash_fwd_simt<D>, fp32 inputs.  The Pallas kernel's arithmetic step
+ * flash_fwd_simt<D>, fp32 inputs, only by name ("simt", the yardstick of
+ * the tests and chip_smoke.py).  The Pallas kernel's arithmetic step
  * for step: q is scaled in fp32, scores, the running max m, the running
  * sum l, p and the accumulator are fp32, and l is clamped at 1e-30
  * before the division.  One block of 256 threads owns one (batch, query
@@ -81,7 +84,37 @@
  * within one bf16 ulp plus 2^-12 of its row's largest |o|, a gate that
  * the one-term kernel fails (chip_smoke.py, tools/flash_probe.py).
  *
- * Shared by both: GQA is an index (kv head = q head / G, query heads
+ * flash_fwd_f32<D>, fp32 inputs ("wgmma_f32": every fp32 training and
+ * serve path).  flash_fwd_wgmma's design on the fp32 backward's numerics
+ * (csrc/wgmma3.cuh): flash_split3 first writes k and v as three bf16
+ * term planes each (t0 = bf16(x), t1 = bf16(x - t0), t2 = bf16(x - t0 -
+ * t1)), contiguous (3 B, H, S, D) workspaces that TMA reads whatever the
+ * strides of the model's views.  A block of 384 threads (D <= 64: two
+ * consumer warpgroups, 128 query rows, kv tiles of 64 keys) or 256 (one
+ * consumer, 64 rows, 32 keys) owns one (batch, query head, query tile);
+ * each consumer reads its 64 rows of q and writes their three terms into
+ * shared memory in TMA's swizzled layout itself (once a block, where a
+ * pre-pass would move 10 bytes an element of q), and the producer
+ * streams K's and V's terms through 3 stages (2 at D 192).
+ * Per kv tile: S = Q K^T as the six term products with i + j <= 2 (small
+ * pairs first, the main one last), the scores the fp32 backward forms
+ * bit for bit; the bf16 variant's masks and online softmax in the log2
+ * domain (a masked score kNegInfLog2); P split into three bf16 terms in
+ * registers; its six term products with V into a zeroed partial, then O
+ * = fma(O, alpha, partial) in fp32, since the tensor cores truncate
+ * their sums and O chained through every tile drifts (3.4x plain fp32's
+ * float64 distance at S 512 in the mirror).  S_n is issued beside
+ * P_{n-1} V_{n-1}, as in the bf16 variant, except at D 192, whose P V
+ * runs as three products of 64 columns after the softmax (O, its
+ * partial and P's terms would not fit the registers).  The epilogue is
+ * the bf16 variant's, stored as fp32.  Numerics, in a float64 mirror of
+ * these rounding points (ref.py's attention_fwd_f32_mirror): o and lse
+ * 0.46-1.11x as far from float64 as the plain fp32 attention; P and the
+ * inputs in two terms 5-28x.  Bound: the tensor-core floor of
+ * fp32-accurate products, 989 / 6 TFLOP/s (312.7 us at 100m S 2048: B 8,
+ * Hq 12 / Hkv 4, D 64, causal), the bytes at S 128.
+ *
+ * Shared by all: GQA is an index (kv head = q head / G, query heads
  * ordered hk * G + g as repro's flash_attention_model_layout orders
  * them); kv tiles wholly above the causal diagonal or wholly left of the
  * window are skipped (exact: a masked key adds exp(-1e30 - m) = 0 once a
@@ -115,11 +148,14 @@
  * CUDA runtime.  They are encoded on the host at every call (a few us)
  * and passed by value as __grid_constant__ parameters.  The TMA, mbarrier
  * and wgmma helpers and split_bf16 live in csrc/wgmma.cuh, shared with
- * the bf16 backward (csrc/flash_attention_bwd.cu).
+ * the bf16 backward (csrc/flash_attention_bwd.cu); the three-term
+ * helpers and the split pre-pass in csrc/wgmma3.cuh, shared with the
+ * fp32 backward.
  *
  * Lines "// @probe <name>" mark where tools/flash_probe.py inserts clock
- * reads, or its deliberate faults, into a copy of this source; they are
- * comments and compile to nothing.
+ * reads, or its deliberate faults, into a copy of this source (the
+ * "f32-" ones in flash_fwd_f32, read with --fp32); they are comments and
+ * compile to nothing.
  */
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -127,12 +163,17 @@
 #include <stdint.h>
 
 #include "wgmma.cuh"
+#include "wgmma3.cuh"
 
 namespace {
 
 using namespace hopper;
 
 constexpr float kNegInf = -1e30f;
+// a masked score in the log2 domain of the fp32 variant: kNegInf log2(e),
+// so that a row that sees no key gets the lse m ln 2 + log l = -1e30 +
+// log Sk, the plain version's
+constexpr float kNegInfLog2 = kNegInf * 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -473,11 +514,14 @@ __device__ __forceinline__ TileMask tile_mask(const Params& p, int64_t k0,
 // alpha is the factor the accumulator of each of the thread's two rows
 // must be rescaled by.  Touches neither O nor the P registers, so it runs
 // while the previous tile's P V is in flight.  Only tiles on an edge
-// (``edge``) take the masks, in a branch of their own.
+// (``edge``) take the masks, in a branch of their own.  A masked score
+// becomes ``neg`` (the bf16 variant's kNegInf, the fp32 one's kNegInfLog2,
+// each also the start of m).
 template <int BK>
 __device__ __forceinline__ void online_softmax(
     float (&sc)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
-    bool edge, const TileMask& mask, int qd, float sl2) {
+    bool edge, const TileMask& mask, int qd, float sl2,
+    float neg = kNegInf) {
   float mx[2] = {m[0], m[1]};
   if (edge) {
 #pragma unroll
@@ -488,7 +532,7 @@ __device__ __forceinline__ void online_softmax(
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * j + 2 * qd + e;
           float x = sc[4 * j + 2 * hh + e] * sl2;
-          if (col < mask.lo[hh] || col > mask.hi[hh]) x = kNegInf;
+          if (col < mask.lo[hh] || col > mask.hi[hh]) x = neg;
           if (col > mask.kmax) x = -INFINITY;
           sc[4 * j + 2 * hh + e] = x;
           mx[hh] = fmaxf(mx[hh], x);
@@ -763,6 +807,325 @@ int launch_wgmma(Params p, int64_t B, int64_t Hq, int64_t Hkv,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// flash_fwd_f32: fp32 inputs on the tensor cores, three bf16 terms a factor
+// ---------------------------------------------------------------------------
+
+// Tiles of the fp32 variant at head dim D.  K and V arrive as three bf16
+// term planes (flash_split3), Q is split into its three terms by the
+// consumers (split_q), a tile its terms one after another ([term][box]
+// [rows][128 B]), so a tile is three times the bf16
+// variant's: 128 query rows (two consumer warpgroups) at D <= 64 and 64
+// (one) above; kv tiles of 64 keys at D <= 64 and 32 above, in 3 stages
+// (2 at D 192).  P V is one product of N = NR columns, but at D 192 three
+// of 64 (PN), so that O, its tile's partial and P's terms fit the
+// registers
+template <int D>
+struct Ff {
+  static constexpr int NB = (D + kBox - 1) / kBox;
+  static constexpr int NR = D == 80 ? 80 : NB * kBox;   // O's columns
+  static constexpr int KS = (D + 15) / 16;              // k-steps of S
+  static constexpr int WG = NB == 1 ? 2 : 1;            // consumers
+  static constexpr int ROWS = 64 * WG;
+  static constexpr int BK = NB == 1 ? 64 : 32;
+  static constexpr int STAGES = NB == 3 ? 2 : 3;
+  static constexpr int PN = NB == 3 ? kBox : NR;        // N of a P V product
+  static constexpr int Q_BOX = ROWS * 128;
+  static constexpr int Q_PLANE = NB * Q_BOX;            // one term
+  static constexpr int T_BOX = BK * 128;
+  static constexpr int T_PLANE = NB * T_BOX;
+  static constexpr int T_BYTES = kTerms * T_PLANE;      // K (or V) of a stage
+  static constexpr int STAGE_BYTES = 2 * T_BYTES;
+  static constexpr int SMEM = 1024 + kTerms * Q_PLANE + STAGES * STAGE_BYTES +
+                              8 * 2 * STAGES;
+  static_assert(SMEM <= 232448, "227 KB a block");
+};
+
+// O = O alpha + P V of one tile: P's three terms from registers, V's term
+// planes from shared memory (MN-major), each product of PN columns into
+// the zeroed partial, committed and waited for, then O = fma(O, alpha,
+// partial) in fp32 (the tile's rescale of O by the softmax's alpha rides
+// on the add)
+template <int BK, int NR, int PN>
+__device__ __forceinline__ void pv_tile(float (&o)[NR / 2], float (&part)[PN / 2],
+                                        const uint32_t (&a)[kTerms][BK / 16][4],
+                                        uint32_t v_addr, int t_box,
+                                        int t_plane, const float (&alpha)[2]) {
+#pragma unroll
+  for (int x = 0; x < NR / PN; ++x) {
+    zero(part);
+    fence_regs(part);
+    wgmma_fence();
+    // @probe f32-pv-issue (the next line)
+    wgmma_rs3<BK, PN>(part, a, v_addr + x * t_box, t_box, t_plane);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int j = 0; j < PN / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& y = o[x * PN / 2 + 4 * j + 2 * hh + e];
+          y = fmaf(y, alpha[hh], part[4 * j + 2 * hh + e]);
+        }
+  }
+}
+
+// A consumer warpgroup's 64 query rows of the block's tile (rows0..+63),
+// read as fp32 from q's strided view and written as three bf16 term
+// planes into qs in the layout a 128-byte-swizzled TMA box has (row r's
+// 16-byte chunk c at chunk c ^ (r % 8)); rows past Sq are zeros, as TMA
+// would fill them, and the box's columns past D are left unwritten (no
+// k-step of S reads them).  Then the async proxy (wgmma) may read them
+// once the warpgroup has passed its named barrier.  This saves the split
+// pre-pass q's 4 + 6 bytes an element for 4 here, once a block.
+template <int D, int Q_BOX, int Q_PLANE>
+__device__ __forceinline__ void split_q(const Params& p, uint8_t* qs,
+                                        int64_t b, int64_t h, int64_t q0,
+                                        int rows0, int t, int bar) {
+  constexpr int C4 = D / 4;                        // float4s of a row
+  constexpr int N = 64 * C4 / 128;                 // float4s of a thread
+  const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  // every load in flight before the first store
+  float4 x[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int i = t + 128 * j;
+    const int row = rows0 + i / C4;
+    x[j] = q0 + row < p.Sq ? *reinterpret_cast<const float4*>(
+                                 qg + (q0 + row) * p.sqs + (i % C4) * 4)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int i = t + 128 * j;
+    const int row = rows0 + i / C4;
+    const int c = (i % C4) * 4;
+    uint2 t0, t1, t2;
+    split3_bf16(x[j].x, x[j].y, t0.x, t1.x, t2.x);
+    split3_bf16(x[j].z, x[j].w, t0.y, t1.y, t2.y);
+    const int cc = c % kBox;
+    const int off = (c / kBox) * Q_BOX + row * 128 +
+                    ((((cc >> 3) ^ (row & 7)) << 4) | ((cc & 7) * 2));
+    *reinterpret_cast<uint2*>(qs + off) = t0;
+    *reinterpret_cast<uint2*>(qs + Q_PLANE + off) = t1;
+    *reinterpret_cast<uint2*>(qs + 2 * Q_PLANE + off) = t2;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, %1;\n" :: "r"(bar), "n"(128) : "memory");
+}
+
+// One block owns one (batch, query head, ROWS-row query tile), longest
+// first: warpgroups w < WG own rows 64w..64w+63 and split them into Q's
+// terms themselves (split_q); warpgroup WG is the producer (one thread:
+// K's and V's terms of every kv tile through the ring).  A consumer, per
+// kv tile n: S_n = Q K_n^T (SS, six term products, wgmma_ss3) issued
+// together with the previous tile's P V
+// into a zeroed partial (RS, six term products), so the tensor cores run
+// that product while the warpgroup does S_n's softmax (bf16's
+// online_softmax: the masks on edge tiles only, exp2 in the log2
+// domain); then O = fma(O, alpha_{n-1}, partial) and P_n into three bf16
+// terms.  At D 192 the two do not overlap (pv_tile's three products)
+template <int D>
+__global__ void __maxnreg__(168)
+flash_fwd_f32(const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const Params p,
+              int64_t batch) {
+  using W = Ff<D>;
+  constexpr int BK = W::BK;
+  constexpr int ST = W::STAGES;
+  constexpr bool kOverlap = W::PN == W::NR;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;                              // [3][NB][ROWS][128 B]
+  uint8_t* kvs = qs + kTerms * W::Q_PLANE;         // [ST][K, V][3][NB][BK][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(kvs + ST * W::STAGE_BYTES);
+  uint64_t* empty = full + ST;
+
+  const int tid = threadIdx.x;
+  const int64_t h = blockIdx.x;
+  const int64_t q0 = ((int64_t)gridDim.y - 1 - blockIdx.y) * W::ROWS;
+  const int64_t b = blockIdx.z;
+  const int64_t hk = h / p.group;
+
+  // the kv tiles of this query tile, as flash_fwd_wgmma walks them
+  const int64_t n_rows = min64(W::ROWS, p.Sq - q0);
+  const int64_t qlo = p.q_offset + q0;
+  const int64_t qhi = qlo + n_rows - 1;
+  const bool any_empty = (p.causal && qlo < 0) ||
+                         (p.window > 0 && qhi >= p.Sk + p.window - 1);
+  int64_t kt_first = 0;
+  int64_t kt_last = (p.Sk - 1) / BK;
+  if (!any_empty) {
+    if (p.window > 0) kt_first = max64(0, qlo - p.window + 1) / BK;
+    if (p.causal) kt_last = min64(p.Sk - 1, qhi) / BK;
+  }
+  const int n_tiles = (int)(kt_last - kt_first + 1);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W::WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wgi == W::WG) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == W::WG * 128) {
+      const int cb = (int)b, chk = (int)hk, nb = (int)batch;
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % ST;
+        mbar_wait(&empty[s], ((n / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        const int k0 = (int)((kt_first + n) * BK);
+        uint8_t* ks = kvs + s * W::STAGE_BYTES;
+#pragma unroll
+        for (int u = 0; u < kTerms; ++u)
+#pragma unroll
+          for (int x = 0; x < W::NB; ++x) {
+            const int off = u * W::T_PLANE + x * W::T_BOX;
+            tma_load(ks + off, &tk, &full[s], x * kBox, k0, chk, u * nb + cb);
+            tma_load(ks + W::T_BYTES + off, &tv, &full[s], x * kBox, k0, chk,
+                     u * nb + cb);
+          }
+      }
+    }
+    return;
+  }
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  // @probe f32-start
+  const int t = tid & 127;
+  const int qd = t & 3;
+  const int r = wgi * 64 + (t >> 5) * 16 + ((t & 31) >> 2);  // rows r, r+8
+  const float sl2 = p.scale * 1.4426950408889634f;           // scale log2(e)
+  const uint32_t q_addr = smem_u32(qs) + wgi * 64 * 128;
+  int64_t qp[2];
+  qp[0] = qlo + r;
+  qp[1] = qlo + r + 8;
+  auto edge_tile = [&](int64_t k0) {
+    return k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > qlo) ||
+           (p.window > 0 && k0 <= qhi - p.window);
+  };
+  auto stage = [&](int n) { return smem_u32(kvs + (n % ST) * W::STAGE_BYTES); };
+
+  float o[W::NR / 2], part[W::PN / 2], sc[BK / 2];
+  uint32_t a3[kTerms][BK / 16][4];
+  float m[2] = {kNegInfLog2, kNegInfLog2};
+  float l[2] = {0.f, 0.f};
+  float alpha[2], alpha_prev[2] = {1.f, 1.f};
+  split_q<D, W::Q_BOX, W::Q_PLANE>(p, qs, b, h, q0, wgi * 64, t, 1 + wgi);
+  zero(o);
+  zero(sc);
+  // @probe f32-loop
+  for (int n = 0; n < n_tiles; ++n) {
+    const int64_t k0 = (kt_first + n) * BK;
+    // @probe f32-tile-wait
+    mbar_wait(&full[n % ST], (n / ST) & 1);
+    // @probe f32-tile-ready
+    fence_regs(sc);
+    wgmma_fence();
+    wgmma_ss3<BK, W::KS>(sc, q_addr, W::Q_BOX, W::Q_PLANE, stage(n),
+                         W::T_BOX, W::T_PLANE);
+    wgmma_commit();
+    const bool pv = kOverlap && n > 0;
+    if (pv) {
+      // the previous tile's P V beside S_n
+      zero(part);
+      fence_regs(part);
+      wgmma_rs3<BK, W::PN>(part, a3, stage(n - 1) + W::T_BYTES, W::T_BOX,
+                           W::T_PLANE);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(sc);
+    // @probe f32-scores
+    online_softmax<BK>(sc, m, l, alpha, edge_tile(k0),
+                       tile_mask<BK>(p, k0, qp), qd, sl2, kNegInfLog2);
+    // @probe f32-softmax
+    if (n > 0) {
+      if (pv) {
+        wgmma_wait<0>();
+        fence_regs(part);
+#pragma unroll
+        for (int c = 0; c < W::NR / 2; ++c)
+          o[c] = fmaf(o[c], alpha_prev[(c >> 1) & 1], part[c]);
+      } else {
+        pv_tile<BK, W::NR, W::PN>(o, part, a3, stage(n - 1) + W::T_BYTES,
+                                  W::T_BOX, W::T_PLANE, alpha_prev);
+      }
+      if (t == 0) mbar_arrive(&empty[(n - 1) % ST]);
+    }
+    // @probe f32-pv-done
+    alpha_prev[0] = alpha[0];
+    alpha_prev[1] = alpha[1];
+    pack3<BK>(sc, a3);
+    // @probe f32-packed
+  }
+  // the last tile's P V
+  pv_tile<BK, W::NR, W::PN>(o, part, a3, stage(n_tiles - 1) + W::T_BYTES,
+                            W::T_BOX, W::T_PLANE, alpha_prev);
+  if (t == 0) mbar_arrive(&empty[(n_tiles - 1) % ST]);
+
+  // @probe f32-epilogue
+  // the 4 threads of a row hold parts of its l
+  float* og = static_cast<float*>(p.o) + b * p.sob + h * p.soh;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt = fmaxf(lt, 1e-30f);
+    const int64_t row = q0 + r + 8 * hh;
+    if (row < p.Sq) {
+      if (p.lse != nullptr && qd == 0)
+        p.lse[(b * gridDim.x + h) * p.Sq + row] =
+            fmaf(m[hh], 0.6931471805599453f, logf(lt));
+      float* orow = og + row * p.sos + 2 * qd;
+#pragma unroll
+      for (int j = 0; j < W::NR / 8; ++j)
+        if (8 * j < D)
+          *reinterpret_cast<float2*>(orow + 8 * j) =
+              make_float2(o[4 * j + 2 * hh] / lt, o[4 * j + 2 * hh + 1] / lt);
+    }
+  }
+  // @probe f32-end
+}
+
+// planes: the (3 B, Hkv, Sk, D) bf16 term planes of k and v
+template <int D>
+int launch_f32(const Params& p, void* const (&planes)[2], int64_t B,
+               int64_t Hq, int64_t Hkv, cudaStream_t stream) {
+  using W = Ff<D>;
+  CUtensorMap tk, tv;
+  const int64_t nk = p.Sk * D;
+  int err = encode_map(&tk, planes[0], D, p.Sk, Hkv, 3 * B, D, nk, Hkv * nk,
+                       W::BK);
+  if (!err) err = encode_map(&tv, planes[1], D, p.Sk, Hkv, 3 * B, D, nk,
+                             Hkv * nk, W::BK);
+  if (err) return err;
+  if ((p.Sq + W::ROWS - 1) / W::ROWS > 65535)          // grid.y
+    return (int)cudaErrorInvalidValue;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const dim3 grid((unsigned)Hq, (unsigned)((p.Sq + W::ROWS - 1) / W::ROWS),
+                  (unsigned)B);
+  flash_fwd_f32<D><<<grid, 128 * (W::WG + 1), W::SMEM, stream>>>(tk, tv, p,
+                                                                 B);
+  return (int)cudaGetLastError();
+}
+
 int launch_simt(Params p, int D, int64_t B, int64_t Hq,
                 cudaStream_t stream) {
   p.n_qtiles = (int)((p.Sq + kBQ - 1) / kBQ);
@@ -799,7 +1162,8 @@ int launch_wgmma_d(const Params& p, int D, int64_t B, int64_t Hq,
 
 }  // namespace
 
-// dtype: 0 = float32 (flash_fwd_simt), 1 = bfloat16 (flash_fwd_wgmma).
+// dtype: 0 = float32 (flash_fwd_simt, by name only), 1 = bfloat16
+// (flash_fwd_wgmma); fp32's default is flash_attention_fwd_f32, below.
 // strides: 12 element strides, (batch, head, seq) of q, k, v and o in that
 // order; the last axis of each is contiguous, and for bf16 every stride of
 // an axis longer than 1 is a multiple of 8 elements and q, k and v start
@@ -845,4 +1209,69 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q,
     return launch_wgmma_d(p, D, B, Hq, Hkv, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The fp32 forward on the tensor cores (variant "wgmma_f32"):
+// flash_split3 writes k and v as three bf16 term planes each into k3 and
+// v3 ((3, B, Hkv, Sk, D) contiguous bf16 workspaces), then flash_fwd_f32
+// reads them by TMA and q itself, splitting it once a block.  strides:
+// 12 element strides, (batch,
+// head, seq) of q, k, v and o in that order; the last axis of each is
+// contiguous and every other stride and base is 4-element aligned.  lse:
+// null or a contiguous (B, Hq, Sq) fp32 output, as flash_attention_fwd.
+// window <= 0 means none.  Returns 0, a CUDA runtime error code, or 10000
+// / 20000 + a CUresult (no tensor-map encoder / a tensor map refused).
+// The caller handles Sq == 0 and Sk == 0 without a launch.
+extern "C" int flash_attention_fwd_f32(int D, const void* q, const void* k,
+                                       const void* v, void* o, float* lse,
+                                       void* k3, void* v3,
+                                       const int64_t* strides, int64_t B,
+                                       int64_t Hq, int64_t Hkv, int64_t Sq,
+                                       int64_t Sk, int64_t q_offset,
+                                       int64_t window, int causal,
+                                       float scale, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || Hq % Hkv ||
+      B > 65535 || Hq > 65535 || Sq > 0x7fffffffLL || Sk > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  SplitParams sp;
+  const void* src[2] = {k, v};
+  void* const planes[2] = {k3, v3};
+  for (int x = 0; x < 2; ++x) {
+    sp.src[x] = static_cast<const float*>(src[x]);
+    sp.dst[x] = static_cast<__nv_bfloat16*>(planes[x]);
+    for (int j = 0; j < 3; ++j) sp.st[x][j] = strides[3 + 3 * x + j];
+    sp.H[x] = Hkv;
+    sp.S[x] = Sk;
+    sp.rows[x] = B * Hkv * Sk;
+  }
+  sp.count = 2;
+  sp.D = D;
+  const int serr = launch_split3(sp, s);
+  if (serr) return serr;
+  Params p;
+  p.q = q;
+  p.k = k3;
+  p.v = v3;
+  p.o = o;
+  p.lse = lse;
+  p.sqb = strides[0]; p.sqh = strides[1]; p.sqs = strides[2];
+  p.skb = p.skh = p.sks = p.svb = p.svh = p.svs = 0;   // read by TMA
+  p.sob = strides[9]; p.soh = strides[10]; p.sos = strides[11];
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.q_offset = q_offset;
+  p.window = window;
+  p.group = (int)(Hq / Hkv);
+  p.causal = causal;
+  p.n_qtiles = 0;
+  p.scale = scale;
+  switch (D) {
+    case 32: return launch_f32<32>(p, planes, B, Hq, Hkv, s);
+    case 64: return launch_f32<64>(p, planes, B, Hq, Hkv, s);
+    case 80: return launch_f32<80>(p, planes, B, Hq, Hkv, s);
+    case 128: return launch_f32<128>(p, planes, B, Hq, Hkv, s);
+    case 192: return launch_f32<192>(p, planes, B, Hq, Hkv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -16,7 +16,7 @@
  * flash_attention_pallas, which has no backward: the JAX package trains
  * through plain JAX attention (repro/models/transformer.py, attn_impl
  * "chunked") and autodiff.  The port's model runs the hand-written
- * forward (csrc/flash_attention.cu: flash_fwd_simt for fp32,
+ * forward (csrc/flash_attention.cu: flash_fwd_f32 for fp32,
  * flash_fwd_wgmma for bf16, both writing lse, each row's log-sum-exp of
  * the scaled, masked scores in natural-log units), so its gradient comes
  * from here: what autodiff of repro_torch's attention_ref computes in
@@ -103,17 +103,21 @@
  * three bf16 terms, t0 = bf16(x), t1 = bf16(x - t0), t2 = bf16(x - t0 -
  * t1), and the term products with i + j <= 2 (six a product) summed into
  * the fp32 accumulators.
- *   flash_bwd_split3: q, k, v and dO into three bf16 planes each, a
- *   workspace of 6 bytes an element that the wrapper allocates, read by
- *   TMA as (3 B, H, S, D) tensors; P and dS are split in registers.
+ *   flash_split3 (csrc/wgmma3.cuh, shared with the fp32 forward): q, k,
+ *   v and dO into three bf16 planes each, a workspace of 6 bytes an
+ *   element that the wrapper allocates, read by TMA as (3 B, H, S, D)
+ *   tensors; P and dS are split in registers.
  *   flash_bwd_f32_dq<D>: as flash_bwd_wgmma_dq, but walk 1 also takes
  *   each row's l = sum_j e and u = sum_j e dP of e = exp(S scale - lse),
  *   and writes r = 1 / l and delta = u r; walk 2 and dk/dv use P = e r.
- *   The forward's lse comes from the SIMT forward's own fp32 scores, so
- *   exp(S - lse) of these scores does not sum to 1 to fp32 accuracy, and
- *   delta = dO . o would not match their P: in a float64 mirror
- *   (ref.py's attention_bwd_f32_mirror) that put dq up to 2.4x as far
- *   from float64 as the plain fp32 attention.  Each tile's products run
+ *   The walk was built when the forward's lse came from the SIMT
+ *   forward's own fp32 scores, for which exp(S - lse) of these scores
+ *   does not sum to 1 to fp32 accuracy and delta = dO . o does not match
+ *   their P: in a float64 mirror (ref.py's attention_bwd_f32_mirror) that
+ *   put dq up to 2.4x as far from float64 as the plain fp32 attention.
+ *   The forward is now flash_fwd_f32, whose scores are these bit for
+ *   bit; fed its lse and o, the mirror keeps dq within 1.4x without the
+ *   walk, so the walk could go (not yet measured on the card).  Each tile's products run
  *   one after another (S and dP, then dQ += dS K), with no overlap
  *   inside a warpgroup: three stages of three terms do not fit.
  *   flash_bwd_f32_dkdv<D>: as flash_bwd_wgmma_dkdv, P^T = e r; a GQA
@@ -127,7 +131,7 @@
  *   D 64 as the bf16 kernel does at 192.  exp is expf, 1 / l rcp.approx
  *   with a Newton step.
  *   Numerics: the tensor cores truncate each wgmma's fp32 sum, so no
- *   accumulator runs through more than one tile (wgmma_ss3, below): with
+ *   accumulator runs through more than one tile (wgmma3.cuh): with
  *   dQ, dK and dV each chained through one accumulator they lay 2.3-5.9x
  *   as far from float64 as plain fp32 on an H100, growing with S; with a
  *   partial a tile 0.11-0.74x (chip_smoke.py's flash_f64_distances).  In
@@ -175,6 +179,7 @@
 #include <stdint.h>
 
 #include "wgmma.cuh"
+#include "wgmma3.cuh"
 
 namespace {
 
@@ -748,12 +753,6 @@ __device__ __forceinline__ void issue_rs(float (&acc)[N / 2],
     // @probe lo-term (the next line)
     mma_rs<N>(acc, lo[kk], db);
   }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
 // bar.sync on barrier id among count threads (the consumer warpgroups)
@@ -1525,68 +1524,6 @@ int launch_wgmma_d(const void* q, const void* k, const void* v,
 // terms
 // ---------------------------------------------------------------------------
 
-constexpr int kTerms = 3;
-
-// fp32 q, k, v and dO as three bf16 planes each, t0 = bf16(x), t1 =
-// bf16(x - t0), t2 = bf16(x - t0 - t1) (each remainder exact in fp32),
-// into (3, B, H, S, D) contiguous buffers that TMA reads as (3 B, H, S,
-// D).  Memory-bound (4 bytes an element in, 6 out): a lane takes four
-// columns of a row at a time (a float4 in, three 8-byte stores out), the
-// warps walk the four tensors' rows
-struct SplitParams {
-  const float* src[4];           // q, k, v, dout: strided, last axis contiguous
-  __nv_bfloat16* dst[4];
-  int64_t st[4][3];              // element strides (batch, head, seq)
-  int64_t H[4], S[4], rows[4];   // rows = B H S
-  int D;
-};
-
-__device__ __forceinline__ void split3_bf16(float a, float b, uint32_t& t0,
-                                            uint32_t& t1, uint32_t& t2) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  a -= hf.x;
-  b -= hf.y;
-  __nv_bfloat162 m = __floats2bfloat162_rn(a, b);
-  const float2 mf = __bfloat1622float2(m);
-  __nv_bfloat162 l = __floats2bfloat162_rn(a - mf.x, b - mf.y);
-  t0 = *reinterpret_cast<uint32_t*>(&h);
-  t1 = *reinterpret_cast<uint32_t*>(&m);
-  t2 = *reinterpret_cast<uint32_t*>(&l);
-}
-
-__global__ void __launch_bounds__(kThreads) flash_bwd_split3(const SplitParams p) {
-  // a warp takes 32 / (D / 4) rows at once where that divides (D 32, 64,
-  // 128), else one row at a time, a lane a float4 of a row
-  const int q4 = p.D / 4;
-  const int lane = threadIdx.x & 31;
-  const int per = 32 % q4 == 0 ? 32 / q4 : 1;
-  const int c0 = per > 1 ? lane % q4 : lane;
-  const int64_t warps = (int64_t)gridDim.x * (kThreads / 32) * per;
-  const int64_t first = ((int64_t)blockIdx.x * (kThreads / 32) +
-                         threadIdx.x / 32) * per + (per > 1 ? lane / q4 : 0);
-  for (int x = 0; x < 4; ++x) {
-    const int64_t S = p.S[x], H = p.H[x];
-    const int64_t plane = p.rows[x] * q4;       // uint2 (4 bf16) a plane
-    uint2* dst = reinterpret_cast<uint2*>(p.dst[x]);
-    for (int64_t row = first; row < p.rows[x]; row += warps) {
-      const float4* src = reinterpret_cast<const float4*>(
-          p.src[x] + (row / (S * H)) * p.st[x][0] +
-          ((row / S) % H) * p.st[x][1] + (row % S) * p.st[x][2]);
-      for (int c = c0; c < q4; c += 32) {
-        const float4 v = src[c];
-        uint2 t0, t1, t2;
-        split3_bf16(v.x, v.y, t0.x, t1.x, t2.x);
-        split3_bf16(v.z, v.w, t0.y, t1.y, t2.y);
-        const int64_t o = row * q4 + c;
-        dst[o] = t0;
-        dst[plane + o] = t1;
-        dst[2 * plane + o] = t2;
-      }
-    }
-  }
-}
-
 // Tiles of the fp32 variant at head dim D.  A tile holds its three terms
 // one after another ([term][box][rows][128 B]), so it is three times the
 // bf16 variant's: dq keeps 128 query rows (two consumer warpgroups) only
@@ -1617,68 +1554,6 @@ struct Bf {
   static_assert(SMEM_DQ <= 232448 && SMEM_DKDV <= 232448, "227 KB a block");
 };
 
-// The tensor cores' fp32 sum is not fp32's: a wgmma adds its products to
-// the accumulator and truncates, so a sum that runs through hundreds of
-// wgmma drifts toward zero (a float64 model of truncation after each
-// k-step puts dq, dk and dv 4-19x as far from float64 as plain fp32; an
-// H100 read 2.3-5.9x, growing with S, before the next two rules).  So
-// (1) the small term products (i + j >= 1, 2^-8 of the main one and
-// below) go first, while the accumulator is small, and the main one t0
-// t0 last; (2) no accumulator runs through more than one tile: each
-// tile's dQ, dK or dV lands in a zeroed partial that is added to the
-// gradient's fp32 sum in registers (round to nearest).
-
-// acc = A B^T over D from the terms of both factors (A_i B_j, i + j <= 2,
-// the main pair last), into the zeroed accumulator; A and B K-major,
-// their boxes a_box / b_box and their term planes a_plane / b_plane
-// bytes apart; launched, not committed
-template <int N, int KS>
-__device__ __forceinline__ void wgmma_ss3(float (&acc)[N / 2], uint32_t a_addr,
-                                          int a_box, int a_plane,
-                                          uint32_t b_addr, int b_box,
-                                          int b_plane) {
-#pragma unroll
-  for (int main = 0; main < 2; ++main)
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint32_t off = (kk & 3) * 32;
-#pragma unroll
-      for (int i = 0; i < kTerms; ++i)
-#pragma unroll
-        for (int j = 0; i + j < kTerms; ++j)
-          if ((i + j == 0) == (main == 1))
-            mma_ss<N>(acc,
-                      desc_sw128(a_addr + i * a_plane + (kk >> 2) * a_box + off,
-                                 16, 1024),
-                      desc_sw128(b_addr + j * b_plane + (kk >> 2) * b_box + off,
-                                 16, 1024),
-                      main || kk > 0 || i + j > 1 || i > 0);
-    }
-}
-
-// acc += A B, A from registers in its three terms (K columns), B (K rows
-// x N) MN-major in its three term planes b_plane bytes apart, the pairs
-// as in wgmma_ss3; acc is a tile's zeroed partial; launched, not
-// committed
-template <int K, int N>
-__device__ __forceinline__ void wgmma_rs3(float (&acc)[N / 2],
-                                          const uint32_t (&a)[kTerms][K / 16][4],
-                                          uint32_t b_addr, int b_box,
-                                          int b_plane) {
-#pragma unroll
-  for (int main = 0; main < 2; ++main)
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < kTerms; ++i)
-#pragma unroll
-        for (int j = 0; i + j < kTerms; ++j)
-          if ((i + j == 0) == (main == 1))
-            mma_rs<N>(acc, a[i][kk],
-                      desc_sw128(b_addr + j * b_plane + kk * 16 * 128, b_box,
-                                 1024));
-}
-
 // acc += the tile's partial dQ, dK or dV (RS), in fp32 registers: part is
 // zeroed, the product launched, committed and waited for, then added
 template <int K, int N>
@@ -1696,19 +1571,6 @@ __device__ __forceinline__ void add_tile_rs3(float (&acc)[N / 2],
   fence_regs(part);
 #pragma unroll
   for (int c = 0; c < N / 2; ++c) acc[c] += part[c];
-}
-
-// the accumulator of BK columns as the A fragments of BK / 16 k-steps, in
-// three bf16 terms (pack_p's layout)
-template <int BK>
-__device__ __forceinline__ void pack3(const float (&x)[BK / 2],
-                                      uint32_t (&a)[kTerms][BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      split3_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1], a[0][kk][i],
-                  a[1][kk][i], a[2][kk][i]);
 }
 
 // 1 / x to within an ulp: rcp.approx and one Newton step, so that no
@@ -2458,7 +2320,7 @@ extern "C" int flash_attention_bwd_wgmma(
   }
 }
 
-// The fp32 backward on the tensor cores: flash_bwd_split3 (q, k, v and
+// The fp32 backward on the tensor cores: flash_split3 (q, k, v and
 // dout into three bf16 term planes each, q3, k3, v3 and do3: (3, B, H,
 // S, D) contiguous bf16 workspaces), then flash_bwd_f32_dq and
 // flash_bwd_f32_dkdv.  strides: 21 element strides, (batch, head, seq)
@@ -2495,11 +2357,10 @@ extern "C" int flash_attention_bwd_f32(
     sp.S[x] = kv ? Sk : Sq;
     sp.rows[x] = B * sp.H[x] * sp.S[x];
   }
+  sp.count = 4;
   sp.D = D;
-  // 8 blocks of 256 an SM of the H100's 132, each thread 16 bytes at a time
-  flash_bwd_split3<<<132 * 8, kThreads, 0, s>>>(sp);
-  const cudaError_t cerr = cudaGetLastError();
-  if (cerr != cudaSuccess) return (int)cerr;
+  const int serr = launch_split3(sp, s);
+  if (serr) return serr;
   WgParams p;
   p.lse = lse;
   p.delta = delta;

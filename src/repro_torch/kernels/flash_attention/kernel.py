@@ -2,16 +2,23 @@
 (``csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention/kernel.py:69
-flash_attention_pallas``.  Two variants, chosen by dtype with no fallback
-between them: fp32 inputs launch ``flash_fwd_simt`` (SIMT fp32, the
-Pallas kernel's arithmetic), bf16 inputs launch ``flash_fwd_wgmma``
-(tensor cores, TMA; P carried as two bf16 terms, each output held to
-one bf16 ulp of ``attention_ref``'s fp32 result plus a small floor, see
-``ref.bf16_excess``).  Both take strided (B, H, S, D) views whose last
-axis is contiguous, so the model's (B, S, H, D) projections go in
-without a transpose; see the source for the design and its bound.
+flash_attention_pallas``.  The variant follows the dtype
+(``VARIANTS``), with no fallback between variants: bf16 inputs launch
+``flash_fwd_wgmma`` (tensor cores, TMA; P carried as two bf16 terms,
+each output held to one bf16 ulp of ``attention_ref``'s fp32 result
+plus a small floor, see ``ref.bf16_excess``), fp32 inputs
+``flash_fwd_f32`` (``"wgmma_f32"``: the same design on fp32 values, a
+pre-pass writing k and v as three bf16 terms each to workspaces, q split
+so by the kernel once a block, P in registers, the term products with i
++ j <= 2 summed in fp32, each kv tile's P V into a zeroed partial;
+float64 mirror ``ref.attention_fwd_f32_mirror``).  ``flash_fwd_simt``, the
+Pallas kernel's fp32 arithmetic on SIMT FMAs, runs only where asked for
+by name (``variant="simt"``), the yardstick of the tests and
+``chip_smoke.py``.  All take strided (B, H, S, D) views whose last axis
+is contiguous, so the model's (B, S, H, D) projections go in without a
+transpose; see the source for the design and its bound.
 
-Either variant can also write each row's log-sum-exp (``with_lse``),
+Every variant can also write each row's log-sum-exp (``with_lse``),
 which ``flash_attention_bwd_cuda`` (``csrc/flash_attention_bwd.cu``)
 takes to form dq, dk and dv: the backward of the training forward.  Both
 dtypes run it on the tensor cores (TMA and wgmma): bf16 as
@@ -40,13 +47,17 @@ from repro_torch.kernels import _build
 # 128, nemotron-4-340b 192)
 HEAD_DIMS = (32, 64, 80, 128, 192)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-VARIANTS = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+# the forward variant of each dtype, and those a caller may name
+VARIANTS = {torch.float32: "wgmma_f32", torch.bfloat16: "wgmma"}
+FWD_ALLOWED = {torch.float32: ("wgmma_f32", "simt"),
+               torch.bfloat16: ("wgmma",)}
 
-launches = _build.LaunchCounter(variants=("wgmma", "simt"))
+launches = _build.LaunchCounter(variants=("wgmma", "wgmma_f32", "simt"))
 launches_by_variant = launches.by_variant
 # the launches above that also wrote each row's log-sum-exp (``with_lse``,
 # the training forward), by variant
-lse_launches = _build.LaunchCounter(variants=("wgmma", "simt"))
+lse_launches = _build.LaunchCounter(variants=("wgmma", "wgmma_f32",
+                                              "simt"))
 # one count a call of flash_attention_bwd_cuda (its kernels: the fp32
 # variant's split, dq, dk/dv), by variant: the tensor cores by default on
 # either dtype, SIMT only where asked for by name
@@ -73,6 +84,16 @@ def _entry():
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_f32_entry():
+    fn = _build.load("flash_attention").flash_attention_fwd_f32
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+        ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 7 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -112,10 +133,18 @@ def smem_bytes(variant: str, D: int) -> int:
     sizes it: SIMT, the fp32 Q, K^T and V tiles; wgmma, the Q tile of 128
     rows and 3 stages of K and V tiles of 64 keys (128 at D <= 64, 32 at
     D 192) in
-    64-column boxes, 1024 bytes of alignment slack and the mbarriers."""
+    64-column boxes, 1024 bytes of alignment slack and the mbarriers;
+    wgmma_f32, the same in three bf16 terms: the Q tile of 128 rows at D
+    <= 64 and 64 above, K and V tiles of 64 keys at D <= 64 and 32 above,
+    in 3 stages (2 at D 192)."""
     if variant == "simt":
         return (64 * D + max(D, 64) * 68 + 64 * D) * 4
     boxes = -(-D // 64)
+    if variant == "wgmma_f32":
+        rows, keys = (128, 64) if boxes == 1 else (64, 32)
+        stages = 2 if boxes == 3 else 3
+        return 1024 + 3 * boxes * rows * 128 \
+            + stages * 2 * 3 * boxes * keys * 128 + 8 * 2 * stages
     keys = {1: 128, 2: 64}.get(boxes, 32)
     return 1024 + boxes * 128 * 128 + 3 * 2 * boxes * keys * 128 + 8 * 7
 
@@ -149,6 +178,21 @@ def bwd_smem_bytes(D: int, kernel: str = "simt") -> int:
     streamed = 32 if boxes == 3 else 64
     return 1024 + 2 * boxes * rows * 128 + 3 * 2 * boxes * streamed * 128 \
         + 8 * 7
+
+
+def fwd_variant(dtype: torch.dtype, variant: Optional[str] = None) -> str:
+    """The forward variant a call of ``flash_attention_cuda`` runs:
+    ``VARIANTS[dtype]`` unless one is named; fp32 takes ``"wgmma_f32"``
+    or ``"simt"``, bf16 ``"wgmma"``."""
+    if dtype not in VARIANTS:
+        raise TypeError(f"flash_attention cuda: takes float32 or bfloat16, "
+                        f"got {dtype}")
+    if variant is None:
+        return VARIANTS[dtype]
+    if variant not in FWD_ALLOWED[dtype]:
+        raise ValueError(f"flash_attention cuda: variant {variant!r} does "
+                         f"not take {dtype} (one of {FWD_ALLOWED[dtype]})")
+    return variant
 
 
 def bwd_variant(dtype: torch.dtype, variant: Optional[str] = None) -> str:
@@ -212,10 +256,11 @@ def tma_layout_error(shape, strides, data_ptr: int,
 
 
 def _check_layout(name: str, x: torch.Tensor):
-    """The SIMT kernels (the fp32 forward, the backward) read rows of 4
-    elements at a time: the last axis contiguous, the other strides and
-    the base address aligned to 4 elements.  bf16 q, k and v are read by
-    the wgmma variant's TMA (``tma_layout_error``), which asks more."""
+    """The fp32 kernels (the SIMT ones, the split pre-passes of the
+    tensor-core ones) read rows of 4 elements at a time and store rows of
+    2: the last axis contiguous, the other strides and the base address
+    aligned to 4 elements.  bf16 q, k and v are read by the wgmma
+    variant's TMA (``tma_layout_error``), which asks more."""
     strides = x.stride()
     if x.dtype == torch.bfloat16 and name in ("q", "k", "v"):
         why = tma_layout_error(tuple(x.shape), strides, x.data_ptr(),
@@ -271,16 +316,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
                          scale: Optional[float] = None,
-                         q_offset: int = 0, with_lse: bool = False):
+                         q_offset: int = 0, with_lse: bool = False,
+                         variant: Optional[str] = None):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) on one CUDA device ->
     (B, Hq, Sq, D) in q's dtype, laid out like q (``empty_like``); with
     ``with_lse`` also each row's log-sum-exp of the scaled, masked scores
-    (natural log, from either variant), a contiguous (B, Hq, Sq) fp32
+    (natural log, from any variant), a contiguous (B, Hq, Sq) fp32
     tensor, as a pair.
 
-    fp32 launches the SIMT variant, bf16 the wgmma one.  Launches on the
-    current stream and does not synchronise."""
+    ``variant`` (default ``VARIANTS[dtype]``, ``fwd_variant``): bf16
+    launches ``"wgmma"``; fp32 launches ``"wgmma_f32"``, which first
+    writes k and v as three bf16 terms each to workspaces of 6 bytes an
+    element (``flash_split3``; the kernel splits q itself), or ``"simt"``
+    where a comparison names it.  A failed launch raises; no variant stands in for another.
+    Launches on the current stream and does not synchronise."""
     B, Hq, Hkv, Sq, Sk, D = _check_inputs(q, k, v, window)
+    variant = fwd_variant(q.dtype, variant)
     dev = q.device
     out = _build.empty_like(q)
     lse = _build.empty((B, Hq, Sq), torch.float32, dev) \
@@ -301,25 +352,35 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = D ** -0.5
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry()(DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), out.data_ptr(),
-                       None if lse is None else lse.data_ptr(), strides,
-                       B, Hq, Hkv,
-                       Sq, Sk, int(q_offset),
-                       0 if window is None else int(window), int(causal),
-                       float(scale), stream)
+    window = 0 if window is None else int(window)
+    lse_ptr = None if lse is None else lse.data_ptr()
+    if variant == "wgmma_f32":
+        planes = [_build.empty((3, *x.shape), torch.bfloat16, dev)
+                  for x in (k, v)]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _fwd_f32_entry()(
+                D, *(x.data_ptr() for x in (q, k, v, out)), lse_ptr,
+                *(x.data_ptr() for x in planes), strides, B, Hq, Hkv, Sq,
+                Sk, int(q_offset), window, int(causal), float(scale),
+                stream)
+    else:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _entry()(DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
+                           v.data_ptr(), out.data_ptr(), lse_ptr, strides,
+                           B, Hq, Hkv, Sq, Sk, int(q_offset), window,
+                           int(causal), float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention cuda: {VARIANTS[q.dtype]} "
+        raise RuntimeError(f"flash_attention cuda: {variant} "
                            f"launch failed with error {err} (a CUDA error; "
                            f"10000: no tensor-map encoder, 20000 + n: "
                            f"CUresult n encoding a tensor map) at q "
                            f"{tuple(q.shape)}, k {tuple(k.shape)}, "
                            f"{q.dtype}")
-    launches.add(VARIANTS[q.dtype])
+    launches.add(variant)
     if with_lse:
-        lse_launches.add(VARIANTS[q.dtype])
+        lse_launches.add(variant)
     return result()
 
 
@@ -361,7 +422,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     be readable by TMA (``tma_layout_error``) for the wgmma variant.
     ``"wgmma_f32"`` first writes q, k, v and dout as three bf16 terms
     each to a workspace of 6 bytes an element of the four
-    (``flash_bwd_split3``), with two (B, Hq, Sq) fp32 vectors beside it.
+    (``flash_split3``), with two (B, Hq, Sq) fp32 vectors beside it.
 
     It computes what autodiff of ``ref.attention_ref`` computes, except
     for a query row that sees no key, where the plain version averages V

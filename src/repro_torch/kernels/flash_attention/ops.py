@@ -9,8 +9,10 @@ masks the ragged ends of Sq and Sk itself, so nothing is padded here;
 which non-causal calls are refused.
 
 Gradients.  On a CUDA tensor under grad, fp32 and bf16 go through
-``FlashAttentionFn``: the forward kernel of the dtype (SIMT for fp32,
-wgmma for bf16), which also writes each row's log-sum-exp, and the
+``FlashAttentionFn``: the forward kernel of the dtype (both on the
+tensor cores: ``flash_fwd_f32`` for fp32, every factor in three bf16
+terms, and ``flash_fwd_wgmma`` for bf16), which also writes each row's
+log-sum-exp, and the
 hand-written backward kernels (``kernel.flash_attention_bwd_cuda``, on
 the tensor cores for both: ``flash_bwd_f32`` for fp32, every factor in
 three bf16 terms, and ``flash_bwd_wgmma`` for bf16, its gradients
@@ -33,8 +35,9 @@ IMPLS = ("cuda", "torch")
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on the card with a hand-written backward: the
-    forward kernel (``flash_fwd_simt`` for fp32, ``flash_fwd_wgmma`` for
-    bf16, each with the rows' log-sum-exp) saves q, k, v, o and lse; the
+    forward kernel (``VARIANTS``: ``flash_fwd_f32`` for fp32,
+    ``flash_fwd_wgmma`` for bf16, never the SIMT one, each with the rows'
+    log-sum-exp) saves q, k, v, o and lse; the
     backward kernel of the dtype (``BWD_VARIANTS``: ``flash_bwd_f32`` for
     fp32, ``flash_bwd_wgmma`` for bf16, never a SIMT one) forms dq, dk
     and dv from them in q's dtype (``csrc/flash_attention_bwd.cu``)."""

@@ -110,10 +110,30 @@ def _toward_zero(y: torch.Tensor) -> torch.Tensor:
                        torch.nextafter(f, torch.zeros_like(f)), f)
 
 
+def _tc_pairs(terms: int):
+    """The term products (i, j) with i + j <= terms - 1, the small ones
+    first and the main pair (0, 0) last, as the kernels issue them."""
+    return [(i, j) for i in range(terms) for j in range(terms)
+            if 0 < i + j <= terms - 1] + [(0, 0)]
+
+
+def _tc_into(acc: torch.Tensor, ai, bj, terms: int, lo: int,
+             hi: int) -> torch.Tensor:
+    """``acc`` (fp32) plus the term products of K columns lo..hi-1 of
+    the split factors ``ai`` and ``bj``, one wgmma of 16 columns at a
+    time, each sum exact and then truncated to fp32 toward zero."""
+    for i, j in _tc_pairs(terms):
+        for c0 in range(lo, hi, 16):
+            c1 = min(c0 + 16, hi)
+            acc = _toward_zero(acc.double() + ai[i][..., c0:c1]
+                               @ bj[j][..., c0:c1, :])
+    return acc
+
+
 def _tc_product(a: torch.Tensor, b: torch.Tensor, terms: int,
                 tile: int) -> torch.Tensor:
     """a (..., M, K) @ b (..., K, N) of fp32 factors as the fp32 wgmma
-    backward forms it: each factor in ``terms`` bf16 terms; K in tiles of
+    kernels form it: each factor in ``terms`` bf16 terms; K in tiles of
     ``tile``, each tile's term products (i + j <= terms - 1) summed into
     a zeroed partial one wgmma at a time, 16 columns of K a wgmma, the
     small pairs first and the main pair (0, 0) last; each wgmma's sum
@@ -121,21 +141,105 @@ def _tc_product(a: torch.Tensor, b: torch.Tensor, terms: int,
     truncate their sums; this is the worst case of that), and each tile's
     partial added to an fp32 sum rounded to nearest.  Returns fp32."""
     ai, bj = _bf16_split(a, terms), _bf16_split(b, terms)
-    pairs = [(i, j) for i in range(terms) for j in range(terms)
-             if 0 < i + j <= terms - 1] + [(0, 0)]
     K = a.shape[-1]
     shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) \
         + (a.shape[-2], b.shape[-1])
     acc = torch.zeros(shape, dtype=torch.float32)
     for t0 in range(0, K, tile):
-        part = torch.zeros(shape, dtype=torch.float32)
-        for i, j in pairs:
-            for c0 in range(t0, min(t0 + tile, K), 16):
-                part = _toward_zero(part.double()
-                                    + ai[i][..., c0:c0 + 16]
-                                    @ bj[j][..., c0:c0 + 16, :])
+        part = _tc_into(torch.zeros(shape, dtype=torch.float32), ai, bj,
+                        terms, t0, min(t0 + tile, K))
         acc = (acc.double() + part.double()).float()
     return acc
+
+
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+LN2 = torch.tensor(0.6931471805599453, dtype=torch.float32)
+
+
+def fwd_f32_key_tile(D: int) -> int:
+    """The kv tile of the fp32 tensor-core forward (``flash_fwd_f32``):
+    64 keys at D <= 64, 32 above."""
+    return 64 if D <= 64 else 32
+
+
+def attention_fwd_f32_mirror(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None,
+                             q_offset: int = 0, terms: int = 3,
+                             chained: bool = False):
+    """The rounding points of the fp32 tensor-core forward (variant
+    ``wgmma_f32``, ``flash_fwd_f32`` in ``csrc/flash_attention.cu``), for
+    tests only.  Returns (o, lse), fp32.
+
+    S = Q K^T with Q and K in ``terms`` bf16 terms, summed as
+    ``_tc_product`` sums them over all of D (bit for bit the scores the
+    fp32 backward forms).  The online softmax runs over the kernel's kv
+    tiles (``fwd_f32_key_tile``) in the log2 domain: x = fp32(S sl2) with
+    sl2 = fp32(scale) * fp32(log2 e), a masked pair at fp32(-1e30 log2 e)
+    (so a row that sees no key has lse -1e30 + log Sk); per tile the
+    row max m, alpha = exp2(m_old - m) and p = exp2(x - m), each rounded
+    to fp32 (the kernel's ex2.approx is within 2 ulp of that; not
+    modelled); l kept as the four per-thread fp32 sums of the kernel's
+    accumulator layout (columns 8j + 2qd + e of thread qd, added in
+    order, l = fma(l, alpha, sum)) and reduced ((l0 + l1) + (l2 + l3)) at
+    the end.  P V of each tile: P in ``terms`` terms into a zeroed
+    partial (``_tc_product`` over the tile), then O = fma(O, alpha,
+    partial) in fp32; with ``chained`` the products run straight into O
+    instead (O rescaled in fp32, then every term product of every tile
+    truncated into it), the design the kernel avoids.  o = O / max(l,
+    1e-30) and lse = fma(m, ln 2, log l), as the kernel's epilogue.  q, k,
+    v: fp32, (B, H, S, D) with GQA groups as in ``attention_ref``."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    bk = fwd_f32_key_tile(D)
+    qg = q.float().reshape(B, Hkv, G, Sq, D)
+    s = _tc_product(qg, k.float().transpose(-1, -2)[:, :, None], terms, D)
+    sl2 = (torch.tensor(scale, dtype=torch.float32) * LOG2E).double()
+    x = (s.double() * sl2).float()
+    qp = q_offset + torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    neg = torch.tensor(NEG_INF, dtype=torch.float32) * LOG2E
+    x = torch.where(ok, x, neg)
+    vg = v.float()[:, :, None]
+    m = torch.full((B, Hkv, G, Sq, 1), float(neg), dtype=torch.float32)
+    lt = torch.zeros((B, Hkv, G, Sq, 4), dtype=torch.float32)
+    o = torch.zeros((B, Hkv, G, Sq, D), dtype=torch.float32)
+    for k0 in range(0, Sk, bk):
+        k1 = min(k0 + bk, Sk)
+        xt = x[..., k0:k1]
+        mx = torch.maximum(m, xt.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - mx).double()).float()
+        p = torch.exp2((xt - mx).double()).float()
+        sums = torch.zeros_like(lt)
+        for j in range(0, k1 - k0, 8):
+            for e in range(2):
+                for qd in range(4):
+                    c = j + 2 * qd + e
+                    if c < k1 - k0:
+                        sums[..., qd] = sums[..., qd] + p[..., c]
+        lt = (lt.double() * alpha.double() + sums.double()).float()
+        if chained:
+            o = _tc_into(o * alpha, _bf16_split(p, terms),
+                         _bf16_split(vg[..., k0:k1, :], terms), terms, 0,
+                         k1 - k0)
+        else:
+            part = _tc_product(p, vg[..., k0:k1, :], terms, bk)
+            o = (o.double() * alpha.double() + part.double()).float()
+        m = mx
+    l = (lt[..., 0] + lt[..., 1]) + (lt[..., 2] + lt[..., 3])
+    l = l.clamp_min(1e-30)[..., None]
+    lse = (m.double() * LN2.double()
+           + torch.log(l.double()).float().double()).float()
+    return (o / l).reshape(q.shape), lse.reshape(B, Hq, Sq)
 
 
 def attention_bwd_f32_mirror(q: torch.Tensor, k: torch.Tensor,
@@ -143,7 +247,10 @@ def attention_bwd_f32_mirror(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True,
                              window: Optional[int] = None,
                              scale: Optional[float] = None,
-                             q_offset: int = 0, terms: int = 3):
+                             q_offset: int = 0, terms: int = 3,
+                             lse: Optional[torch.Tensor] = None,
+                             out: Optional[torch.Tensor] = None,
+                             first_walk: bool = True):
     """The rounding points of the fp32 tensor-core backward (variant
     ``wgmma_f32`` of ``csrc/flash_attention_bwd.cu``), for tests only.
 
@@ -153,24 +260,30 @@ def attention_bwd_f32_mirror(q: torch.Tensor, k: torch.Tensor,
     in tiles of the kernel's key tile (64 keys at D <= 64, 32 above), dK
     and dV in tiles of 32 queries.
 
-    lse is the plain fp32 forward's, from its own fp32 scores, so it
-    does not quite normalise these scores: e = exp(fp32(S scale - lse)),
-    and a first walk over the keys takes each row's l = sum_j e and u =
-    sum_j e dP in fp32; then r = 1 / l, delta = u r, P = e r and dS = P
-    (dP - delta), all fp32, and dq = scale dQ, dk = scale dK.  Taking
-    delta and the row sum from the same P keeps dS a softmax gradient
-    (its row sums 0), which ``dO . out`` and the forward's lse alone do
-    not: those put dq up to 2.4x as far from float64 as the plain fp32
-    attention.  q, k, v, dout: fp32, (B, H, S, D) with GQA groups as in
-    ``attention_ref``; a group's dK and dV summed over its heads in
+    ``lse`` is the forward's (B, Hq, Sq); by default the plain fp32
+    attention's (``attention_lse_ref``), and the tests hand in
+    ``attention_fwd_f32_mirror``'s, the pipeline as the port runs it.
+    Either comes from other scores or sums than these, so it does not
+    quite normalise them: e = exp(fp32(S scale - lse)), and a first walk
+    over the keys takes each row's l = sum_j e and u = sum_j e dP in
+    fp32; then r = 1 / l, delta = u r, P = e r and dS = P (dP - delta),
+    all fp32, and dq = scale dQ, dk = scale dK.  Taking delta and the
+    row sum from the same P keeps dS a softmax gradient (its row sums 0),
+    which ``dO . out`` and the plain forward's lse alone do not: those put
+    dq up to 2.4x as far from float64 as the plain fp32 attention.  With
+    ``first_walk=False`` the dq kernel's first walk is left out: P = e
+    and delta = fp32(sum_d dO out) from the forward's ``out``, which must
+    then be given.  q, k, v, dout: fp32, (B, H, S, D) with GQA groups as
+    in ``attention_ref``; a group's dK and dV summed over its heads in
     order, as one block of the kernel walks them."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
     if scale is None:
         scale = D ** -0.5
-    lse = attention_lse_ref(q, k, causal=causal, window=window,
-                            scale=scale, q_offset=q_offset)
+    if lse is None:
+        lse = attention_lse_ref(q, k, causal=causal, window=window,
+                                scale=scale, q_offset=q_offset)
     qg = q.float().reshape(B, Hkv, G, Sq, D)
     dog = dout.float().reshape(B, Hkv, G, Sq, D)
     s = _tc_product(qg, k.float().transpose(-1, -2)[:, :, None], terms, D)
@@ -186,11 +299,17 @@ def attention_bwd_f32_mirror(q: torch.Tensor, k: torch.Tensor,
     arg = (s.double() * scale
            - lse.reshape(B, Hkv, G, Sq, 1).double()).float()
     e = torch.where(ok, torch.exp(arg.double()).float(), 0.0)
-    row = e.double().sum(-1, keepdim=True).float()
-    u = (e.double() * dp.double()).sum(-1, keepdim=True).float()
-    r = 1.0 / row
-    p = e * r
-    ds = p * (dp - u * r)
+    if first_walk:
+        row = e.double().sum(-1, keepdim=True).float()
+        u = (e.double() * dp.double()).sum(-1, keepdim=True).float()
+        r = 1.0 / row
+        p = e * r
+        ds = p * (dp - u * r)
+    else:
+        delta = (dog.double() * out.float().reshape(dog.shape).double()
+                 ).sum(-1, keepdim=True).float()
+        p = e
+        ds = p * (dp - delta)
     # dV and dK: the group's heads one after another along the sum
     pt = p.permute(0, 1, 4, 2, 3).reshape(B, Hkv, Sk, G * Sq)
     dst = ds.permute(0, 1, 4, 2, 3).reshape(B, Hkv, Sk, G * Sq)

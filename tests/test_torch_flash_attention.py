@@ -316,6 +316,38 @@ ptxas info    : Used 110 registers, 1024 bytes smem, 400 bytes cmem[0]
 """
 
 
+PTXAS_F32_REPORT = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113flash_fwd_f32ILi64EEEv14CUtensorMap_stS1_S1_NS_6ParamsEl' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113flash_fwd_f32ILi64EEEv14CUtensorMap_stS1_S1_NS_6ParamsEl
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113flash_fwd_f32ILi192EEEv14CUtensorMap_stS1_S1_NS_6ParamsEl' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113flash_fwd_f32ILi192EEEv14CUtensorMap_stS1_S1_NS_6ParamsEl
+    24 bytes stack frame, 40 bytes spill stores, 44 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN6hopperL12flash_split3ENS_11SplitParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN6hopperL12flash_split3ENS_11SplitParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, 624 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_is_read_per_kernel_for_the_fp32_forward():
+    """The fp32 forward's instantiations and the shared split pre-pass are
+    read apart, each with its own spills, as the build gate of
+    ``chip_smoke.py`` reads them (``flash_fwd_(wgmma|f32|simt)ILi<D>E``)."""
+    import re
+    got = _build.ptxas_kernels(PTXAS_F32_REPORT)
+    assert len(got) == 3
+    by_d = {int(m.group(1)): r for n, r in got.items()
+            if (m := re.search(r"flash_fwd_f32ILi(\d+)E", n))}
+    assert by_d == {64: _build.KernelReport(168, 0, 0),
+                    192: _build.KernelReport(168, 40, 44)}
+    split = [r for n, r in got.items() if "flash_split3" in n]
+    assert split == [_build.KernelReport(32, 0, 0)]
+    assert _build.wgmma_serialised(PTXAS_F32_REPORT) == []
+
+
 def test_ptxas_report_is_read_per_kernel():
     got = _build.ptxas_kernels(PTXAS_REPORT)
     wg = "_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi128EEEv14CUtensorMap_stS1_S1_NS_6ParamsE"
@@ -631,9 +663,10 @@ def _f64_share(x, truth):
 
 
 def _f32_mirror_ratios(B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset,
-                       terms):
-    """dq, dk and dv of the mirror in ``terms`` terms: each one's float64
-    distance over the plain fp32 attention's."""
+                       terms, first_walk=True):
+    """dq, dk and dv of the mirror in ``terms`` terms, fed the forward
+    mirror's lse (and its out where ``first_walk`` is False): each one's
+    float64 distance over the plain fp32 attention's."""
     q, k, v = (torch.from_numpy(x)
                for x in _inputs(B, Hq, Hkv, Sq, Sk, D, seed=Sq + D + 5))
     dout = torch.from_numpy(np.random.RandomState(Sk + 1).randn(
@@ -643,8 +676,11 @@ def _f32_mirror_ratios(B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset,
         truth = _ref.attention_bwd_ref(q.double(), k.double(), v.double(),
                                        dout.double(), **kw)
         plain = _ref.attention_bwd_ref(q, k, v, dout, **kw)
+        # the lse of the forward as the port runs it (wgmma_f32)
+        out, lse = _ref.attention_fwd_f32_mirror(q, k, v, **kw)
         got = _ref.attention_bwd_f32_mirror(q, k, v, dout, terms=terms,
-                                            **kw)
+                                            lse=lse, out=out,
+                                            first_walk=first_walk, **kw)
     for g in got:
         assert g.dtype == torch.float32
     return [_f64_share(g, t) / _f64_share(p, t)
@@ -669,6 +705,155 @@ def test_fp32_backward_mirror_in_two_terms_fails_the_2x_rule(
     ratios = _f32_mirror_ratios(B, Hq, Hkv, Sq, Sk, D, causal, window,
                                 q_offset, terms=2)
     assert min(ratios) > 2.0, ratios
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset",
+                         F32_MIRROR_SHAPES)
+def test_fp32_backward_mirror_without_its_first_walk_is_within_2x(
+        B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset):
+    """Fed the tensor-core forward's lse and out, the backward could drop
+    the dq kernel's first walk (P = exp(S scale - lse) unnormalised,
+    delta = dO . out) and keep every gradient within 2x of plain fp32's
+    float64 distance: that forward's lse comes from the same tensor-core
+    scores, where the SIMT forward's put dq at 2.35x.  The kernel keeps
+    the walk; this records that it could go."""
+    ratios = _f32_mirror_ratios(B, Hq, Hkv, Sq, Sk, D, causal, window,
+                                q_offset, terms=3, first_walk=False)
+    assert max(ratios) <= 2.0, ratios
+
+
+# ---- the tensor-core fp32 forward (flash_fwd_f32, "wgmma_f32") -------------
+# Its rounding mirrored on the CPU (ref.attention_fwd_f32_mirror: S from
+# three-term factors as the backward forms it, the online softmax over the
+# kernel's kv tiles in the log2 domain, P in three terms, each tile's P V
+# into a zeroed partial) against float64 attention on the same fp32
+# inputs, over the plain fp32 attention's distance: the rule
+# chip_smoke.py's flash_f64_distances holds the kernel's out and lse to.
+# Three terms pass it (0.46-1.11x here), two fail it (5-28x)
+F32_FWD_MIRROR_SHAPES = F32_MIRROR_SHAPES + [
+    (1, 2, 2, 64, 64, 128, True, None, 0),      # D 128, 32-key tiles
+]
+
+
+def _f32_fwd_ratios(B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset,
+                    **mirror):
+    """(o, lse) of the forward mirror: each one's float64 distance over
+    the plain fp32 attention's."""
+    q, k, v = (torch.from_numpy(x)
+               for x in _inputs(B, Hq, Hkv, Sq, Sk, D, seed=Sq + D + 5))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    with _one_thread():
+        truth = (attention_ref(q.double(), k.double(), v.double(), **kw),
+                 _ref.attention_lse_ref(q.double(), k.double(), **kw))
+        plain = (attention_ref(q, k, v, **kw),
+                 _ref.attention_lse_ref(q, k, **kw))
+        got = _ref.attention_fwd_f32_mirror(q, k, v, **kw, **mirror)
+    assert got[0].shape == q.shape and got[1].shape == (B, Hq, Sq)
+    for g in got:
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+    return [_f64_share(g, t) / _f64_share(p, t)
+            for g, p, t in zip(got, plain, truth)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset",
+                         F32_FWD_MIRROR_SHAPES)
+def test_fp32_forward_mirror_in_three_terms_is_within_2x_of_plain(
+        B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset):
+    ratios = _f32_fwd_ratios(B, Hq, Hkv, Sq, Sk, D, causal, window,
+                             q_offset, terms=3)
+    assert max(ratios) <= 2.0, ratios
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset",
+                         F32_FWD_MIRROR_SHAPES)
+def test_fp32_forward_mirror_in_two_terms_fails_the_2x_rule(
+        B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset):
+    """Q, K, V and P in hi + lo (2^-17 of each): both o and lse land
+    several times as far from float64 as plain fp32's."""
+    ratios = _f32_fwd_ratios(B, Hq, Hkv, Sq, Sk, D, causal, window,
+                             q_offset, terms=2)
+    assert min(ratios) > 2.0, ratios
+
+
+def test_fp32_forward_mirror_chained_through_the_tiles_fails_the_2x_rule():
+    """O run through every kv tile's truncating tensor-core sums (no
+    zeroed partial a tile): o drifts toward zero with S, past 2x of plain
+    fp32's float64 distance at S 512 (1.0-2.0x at S <= 256); the lse,
+    which P V does not touch, stays where it was."""
+    shape = (1, 2, 2, 512, 512, 64, True, None, 0)
+    chained = _f32_fwd_ratios(*shape, terms=3, chained=True)
+    tiled = _f32_fwd_ratios(*shape, terms=3)
+    assert chained[0] > 2.0 and tiled[0] <= 2.0, (chained, tiled)
+    assert chained[1] == tiled[1]
+
+
+def test_fp32_forward_mirror_is_the_plain_attention_with_exact_terms():
+    """The mirror's online softmax over the kernel's kv tiles is the
+    plain attention: o and lse within fp32 rounding of float64
+    attention, rows that see no key averaging V over every key as
+    ``attention_ref`` does, their lse -1e30 + log Sk as its own (a masked
+    score is -1e30 log2(e) in the log2 domain)."""
+    q, k, v = (torch.from_numpy(x)
+               for x in _inputs(1, 4, 2, 70, 130, 64, seed=21))
+    kw = dict(causal=False, window=30, q_offset=100)   # rows 0..~ see none
+    with _one_thread():
+        o, lse = _ref.attention_fwd_f32_mirror(q, k, v, **kw)
+        want = attention_ref(q.double(), k.double(), v.double(), **kw)
+        wl = _ref.attention_lse_ref(q.double(), k.double(), **kw)
+    assert float((o.double() - want).abs().max()) < 1e-5
+    seen = wl > -1e29              # rows with a visible key
+    assert bool(seen.any()) and not bool(seen.all())
+    assert float((lse.double() - wl)[seen].abs().max()) < 1e-5
+    assert bool(((lse.double() - wl).abs() <= 1e-6 * wl.abs())[~seen].all())
+    assert _ref.fwd_f32_key_tile(64) == 64
+    assert [_ref.fwd_f32_key_tile(D) for D in (32, 80, 128, 192)] == [
+        64, 32, 32, 32]
+
+
+@pytest.mark.parametrize("D", K.HEAD_DIMS)
+def test_fp32_forward_kernel_fits_shared_memory(D):
+    """``flash_fwd_f32``'s tiles in three bf16 terms (Q 128 rows at D <=
+    64, 64 above; kv tiles of 64 keys at D <= 64, 32 above; 3 stages, 2
+    at D 192) fit a block's 227 KB."""
+    got = K.smem_bytes("wgmma_f32", D)
+    assert 0 < got <= 232_448
+    boxes = -(-D // 64)
+    rows, keys = (128, 64) if D <= 64 else (64, 32)
+    stages = 2 if D == 192 else 3
+    assert got == 1024 + 3 * boxes * rows * 128 \
+        + stages * 2 * 3 * boxes * keys * 128 + 8 * 2 * stages
+    assert K.smem_bytes("wgmma_f32", 64) == 1024 + 49152 + 3 * 49152 + 48
+
+
+def test_fwd_variant_rule():
+    """fp32 runs the tensor-core forward unless ``"simt"`` is named, bf16
+    the wgmma one; no other name is taken, and the counters know all
+    three."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert K.VARIANTS == {f32: "wgmma_f32", bf16: "wgmma"}
+    assert K.fwd_variant(f32) == "wgmma_f32"
+    assert K.fwd_variant(f32, "simt") == "simt"
+    assert K.fwd_variant(bf16) == "wgmma"
+    for dtype, variant in ((bf16, "simt"), (bf16, "wgmma_f32"),
+                           (f32, "wgmma"), (f32, "wgmma_bf16")):
+        with pytest.raises(ValueError, match="variant"):
+            K.fwd_variant(dtype, variant)
+    with pytest.raises(TypeError):
+        K.fwd_variant(torch.float16)
+    for counter in (K.launches, K.lse_launches):
+        assert set(counter.by_variant) == {"wgmma", "wgmma_f32", "simt"}
+
+
+def test_fp32_forward_refuses_cpu_tensors_for_every_variant():
+    """Named or not, a variant runs only on a CUDA tensor: CPU tensors
+    raise before any launch is counted."""
+    q, k, v = (_torch(x, torch.float32)
+               for x in _inputs(1, 2, 2, 8, 8, 64, seed=3))
+    before = dict(K.launches.by_variant)
+    for variant in (None, "wgmma_f32", "simt"):
+        with pytest.raises(ValueError, match="CUDA device"):
+            K.flash_attention_cuda(q, k, v, variant=variant)
+    assert K.launches.by_variant == before
 
 
 def test_tensor_core_sums_are_kept_short():

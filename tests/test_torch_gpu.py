@@ -19,6 +19,7 @@ from repro_torch.kernels.fed_agg.ref import fed_agg_ref
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as FO
 from repro_torch.kernels.flash_attention.ref import (BF16_FLOOR,
+                                                     attention_lse_ref,
                                                      attention_ref,
                                                      bf16_excess)
 from repro_torch.kernels.robust_agg import kernel as RK
@@ -298,11 +299,23 @@ def _check_flash(got, q, k, v, **kw):
 ])
 def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D, dtype,
                                     q_offset, causal, window):
+    """Every variant of the dtype against the plain version: bf16's
+    wgmma; fp32's wgmma_f32 (the default) and simt (by name), each with
+    its lse against the plain one within 1e-5 of max(1, |lse|)."""
     q, k, v = _qkv(B, Hq, Hkv, Sq, Sk, D, dtype, cuda, seed=Sq + Sk)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    got = FK.flash_attention_cuda(q, k, v, **kw)
-    torch.cuda.synchronize()
-    _check_flash(got, q, k, v, **kw)
+    for variant in FK.FWD_ALLOWED[dtype]:
+        before = dict(FK.launches_by_variant)
+        got, lse = FK.flash_attention_cuda(q, k, v, variant=variant,
+                                           with_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert {n: c - before[n] for n, c in FK.launches_by_variant.items()
+                if c != before[n]} == {variant: 1}
+        _check_flash(got, q, k, v, **kw)
+        if dtype == torch.float32:
+            want = attention_lse_ref(q, k, **kw)
+            assert bool(((lse - want).abs()
+                         <= 1e-5 * want.abs().clamp_min(1.0)).all())
 
 
 def test_flash_bf16_rows_without_a_visible_key_average_v(cuda):
@@ -317,6 +330,32 @@ def test_flash_bf16_rows_without_a_visible_key_average_v(cuda):
     torch.testing.assert_close(got[:, :, 29:].float(),
                                mean_v.expand(-1, -1, 131, -1),
                                rtol=2 ** -7, atol=2 ** -7)
+
+
+def test_flash_fp32_reads_model_layout_views_in_place(cuda):
+    """The fp32 training path's call: (B, S, Hk, G, D) and (B, S, Hk, D)
+    fp32 projections, strided (B, H, S, D) views, through the tensor-core
+    variant (its split pre-pass reads the views, TMA the term planes) and
+    its lse, at 100m's heads (group 3, D 64) with a ragged S."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((3, 200, 4, 3, 64), (3, 200, 4, 64),
+                             (3, 200, 4, 64)))
+    B, S, Hk, G, D = q.shape
+    qh = q.reshape(B, S, Hk * G, D).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    assert not qh.is_contiguous() and not kh.is_contiguous()
+    before = dict(FK.launches_by_variant)
+    got, lse = FK.flash_attention_cuda(qh, kh, vh, causal=True,
+                                       with_lse=True)
+    assert FK.launches_by_variant["wgmma_f32"] == before["wgmma_f32"] + 1
+    assert got.stride() == qh.stride()
+    _check_flash(got, qh, kh, vh, causal=True)
+    want = attention_lse_ref(qh, kh, causal=True)
+    assert bool(((lse - want).abs() <= 1e-5 * want.abs().clamp_min(1.0))
+                .all())
+    again = FO.flash_attention_model_layout(q, k, v, causal=True)
+    assert torch.equal(again, got.transpose(1, 2).reshape(q.shape))
 
 
 def test_flash_kernel_reads_model_layout_views_in_place(cuda):
@@ -355,6 +394,11 @@ def test_flash_kernel_is_deterministic(cuda):
     q, k, v = _qkv(2, 8, 2, 500, 500, 128, torch.bfloat16, cuda)
     assert torch.equal(FK.flash_attention_cuda(q, k, v),
                        FK.flash_attention_cuda(q, k, v))
+    q, k, v = (x.float() for x in (q, k, v))
+    for variant in ("wgmma_f32", "simt"):
+        a = FK.flash_attention_cuda(q, k, v, variant=variant, with_lse=True)
+        b = FK.flash_attention_cuda(q, k, v, variant=variant, with_lse=True)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_flash_kernel_counts_each_launch(cuda):
@@ -371,9 +415,15 @@ def test_flash_bf16_goes_to_wgmma_and_fp32_to_simt(cuda):
     total = FK.launches.count
     for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
         FO.flash_attention(*_qkv(1, 4, 2, 70, 70, 64, dtype, cuda))
-    assert FK.launches_by_variant == {"wgmma": before["wgmma"] + 2,
-                                      "simt": before["simt"] + 1}
-    assert FK.launches.count == total + 3
+    FK.flash_attention_cuda(*_qkv(1, 4, 2, 70, 70, 64, torch.float32,
+                                  cuda), variant="simt")
+    assert FK.launches_by_variant == {
+        "wgmma": before["wgmma"] + 2, "wgmma_f32": before["wgmma_f32"] + 1,
+        "simt": before["simt"] + 1}
+    assert FK.launches.count == total + 4
+    with pytest.raises(ValueError, match="variant"):
+        FK.flash_attention_cuda(*_qkv(1, 4, 2, 70, 70, 64, torch.bfloat16,
+                                      cuda), variant="simt")
 
 
 def test_flash_bf16_refuses_what_tma_cannot_read(cuda):
@@ -424,6 +474,7 @@ def test_bf16_prefill_launches_only_the_wgmma_variant(cuda, arch):
         pos = torch.full((2, 1), 140, dtype=torch.int32, device=cuda)
         model.decode_step(params, tokens[:, :1], pos, cache)
     assert FK.launches_by_variant == {"wgmma": before["wgmma"] + n,
+                                      "wgmma_f32": before["wgmma_f32"],
                                       "simt": before["simt"]}
 
 
@@ -1529,7 +1580,8 @@ def test_wgmma_lse_equals_simt_lse(cuda, B, Hq, Hkv, S, D, window):
     q, k, v = _qkv(B, Hq, Hkv, S, S, D, torch.bfloat16, cuda, seed=S)
     lse = FK.flash_attention_cuda(q, k, v, window=window, with_lse=True)[1]
     want = FK.flash_attention_cuda(q.float(), k.float(), v.float(),
-                                   window=window, with_lse=True)[1]
+                                   window=window, with_lse=True,
+                                   variant="simt")[1]
     assert lse.shape == (B, Hq, S) and lse.dtype == torch.float32
     assert bool(((lse - want).abs() <= 1e-5 * want.abs().clamp_min(1.0))
                 .all()), float((lse - want).abs().max())
@@ -1669,7 +1721,7 @@ def test_bf16_training_step_of_narrow_zamba2_runs_the_kernels(cuda):
     grads = torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
     ran = [{v: c[v] - b[v] for v in c} for c, b in zip(counts, before)]
-    assert ran == [{"wgmma": 4, "simt": 0},
+    assert ran == [{"wgmma": 4, "wgmma_f32": 0, "simt": 0},
                    {"wgmma_f32": 0, "simt": 0, "wgmma_bf16": 2,
                     "simt_bf16": 0},
                    {"mma": 8, "simt": 0},

@@ -9,7 +9,8 @@ The kernels: those of ``csrc/flash_attention_bwd.cu`` on fp32 (one call
 of ``flash_attention_bwd_cuda`` for each fp32 variant, ``wgmma_f32``,
 what training runs, with its term-plane workspace and per-head partials,
 and ``simt`` by name; D 32, a window, a q_offset, ragged Sq and Sk, after
-``flash_fwd_simt`` with and without its log-sum-exp; and ``wgmma_f32`` at
+the fp32 forward, ``flash_fwd_f32``, with and without its log-sum-exp,
+its out and lse held to the plain version's; and ``wgmma_f32`` at
 D 80, where its dk/dv warpgroups split the two gradients),
 ``ssd_bwd_simt`` (``csrc/ssm_scan_bwd.cu``: S 130, G 2 with H 4, P 32 /
 N 16, h0 and dh_f set), ``ssd_bwd_mma`` (``csrc/ssm_scan_bwd_mma.cu``,
@@ -82,7 +83,8 @@ def run_checks():
     """Build and check each backward kernel once (raises on a fault)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_lse_ref, attention_ref)
     from repro_torch.kernels.rwkv6_scan import kernel as WK
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
     from repro_torch.kernels.ssm_scan import kernel as SK
@@ -98,8 +100,12 @@ def run_checks():
     # flash: the forward without and with lse, then the backward
     q, k, v = rn(2, 4, 97, 32), rn(2, 2, 130, 32), rn(2, 2, 130, 32)
     kw = dict(causal=True, window=50, q_offset=33)
-    FK.flash_attention_cuda(q, k, v, **kw)
+    alone = FK.flash_attention_cuda(q, k, v, **kw)
     out, lse = FK.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    check("flash_attention wgmma_f32 D32 window 50 q_offset 33 (out, lse)",
+          (alone, out, lse), (attention_ref(q, k, v, **kw),) * 2
+          + (attention_lse_ref(q, k, **kw),))
     dout = rn(*q.shape)
     want = attention_bwd_ref(q, k, v, dout, **kw)
     for variant in ("wgmma_f32", "simt"):

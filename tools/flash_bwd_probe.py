@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the tensor-core flash backwards goes, on one card: the
 bf16 one (``flash_bwd_wgmma``) or, with ``--fp32``, the fp32 one
-(``flash_bwd_f32``: ``flash_bwd_split3``, ``_dq``, ``_dkdv``).
+(``flash_bwd_f32``: ``flash_split3``, ``_dq``, ``_dkdv``).
 
     python3 tools/flash_bwd_probe.py [--fp32] [--out DIR]
 

@@ -2,7 +2,7 @@
 """Where the time of the bf16 ``flash_attention`` kernel goes, and what its
 gate catches, on one card.
 
-    python3 tools/flash_probe.py [--out DIR]
+    python3 tools/flash_probe.py [--fp32] [--out DIR]
 
 No profiler sees inside a kernel on the machine with the card (``ncu`` does
 not run there), so this script builds copies of
@@ -28,6 +28,20 @@ elsewhere in the kernel leaves the probe working.  The outputs of
 ``kernel``, ``one_term`` and ``skip_tile`` are held to the bf16 gate of
 ``chip_smoke.py`` (``ref.bf16_excess`` <= ``ref.BF16_FLOOR``): the script
 fails unless the kernel passes it and both faults fail it.
+
+``--fp32`` does the same for the fp32 tensor-core forward
+(``flash_fwd_f32``, variant ``wgmma_f32``) at ``chip_smoke.py``'s fp32
+training shapes (``FLASH_BWD_SHAPES`` without the window), with the
+source's ``// @probe f32-...`` lines: ``kernel`` timed in turns with
+``flash_fwd_simt`` by name (CUDA events), each kernel of a call by
+``torch.profiler`` (the split pre-pass ``flash_split3`` and
+``flash_fwd_f32``), and ``probed``: per kv tile of a consumer warpgroup
+the wait for its TMA copies, S from issue to completion (six term
+products, with the previous tile's P V issued beside it), the softmax,
+the wait for that P V and O's fma update, and P's split into three bf16
+terms; per warpgroup the prologue (the Q tile's wait), the loop with
+the last tile's P V, and the epilogue; and blocks, waves of one block
+an SM and a warpgroup's cycles times waves against the kernel's time.
 
 Nothing here is used by the port.  It needs the CUDA toolkit and a card.
 """
@@ -102,6 +116,48 @@ def probed(src):
                   '}\n')
 
 
+F32_PHASES = ("full barrier", "S (P V beside it)", "softmax",
+              "P V wait + O update", "split P")
+F32_SLOTS = 10
+
+
+def probed_f32(src):
+    """The source with clock64() probes in the fp32 consumer's loop."""
+    src = ("__device__ unsigned long long g_probe[%d];\n" % F32_SLOTS) + src
+    src = at(src, "f32-start", "  const long long c_start = clock64();\n"
+             "  long long pf[5] = {0, 0, 0, 0, 0};")
+    src = at(src, "f32-loop", "  const long long c_loop = clock64();")
+    src = at(src, "f32-tile-wait", "    const long long c0 = clock64();")
+    src = at(src, "f32-tile-ready", "    const long long c1 = clock64();")
+    src = at(src, "f32-scores", "    const long long c2 = clock64();")
+    src = at(src, "f32-softmax", "    const long long c3 = clock64();")
+    src = at(src, "f32-pv-done", "    const long long c4 = clock64();")
+    src = at(src, "f32-packed",
+             "    const long long c5 = clock64();\n"
+             "    pf[0] += c1 - c0; pf[1] += c2 - c1; pf[2] += c3 - c2;\n"
+             "    pf[3] += c4 - c3; pf[4] += c5 - c4;")
+    src = at(src, "f32-epilogue", "  const long long c_epi = clock64();")
+    src = at(src, "f32-end",
+             "  if (t == 0) {\n"
+             "    for (int i = 0; i < 5; ++i)\n"
+             "      atomicAdd(&g_probe[i], (unsigned long long)pf[i]);\n"
+             "    atomicAdd(&g_probe[5], (unsigned long long)(c_loop - "
+             "c_start));\n"
+             "    atomicAdd(&g_probe[6], (unsigned long long)(c_epi - "
+             "c_loop));\n"
+             "    atomicAdd(&g_probe[7], (unsigned long long)(clock64() - "
+             "c_epi));\n"
+             "    atomicAdd(&g_probe[8], (unsigned long long)n_tiles);\n"
+             "    atomicAdd(&g_probe[9], 1ull);\n  }")
+    return src + ('\nextern "C" int probe_read(unsigned long long* out) {\n'
+                  '  return (int)cudaMemcpyFromSymbol(out, g_probe, '
+                  'sizeof(g_probe));\n}\n'
+                  'extern "C" int probe_reset() {\n'
+                  '  unsigned long long z[%d] = {0};\n'
+                  '  return (int)cudaMemcpyToSymbol(g_probe, z, sizeof(z));\n'
+                  '}\n' % F32_SLOTS)
+
+
 def skip_tile(src):
     """The second kv tile of every query tile scores -inf: its keys drop
     out of both the softmax's sum and P·V."""
@@ -136,17 +192,81 @@ def build(out, variants):
 
 
 @contextlib.contextmanager
-def entry(lib):
-    """The wrapper launches ``lib``'s kernel inside the block."""
-    fn = lib.flash_attention_fwd
-    fn.argtypes = FK._entry().argtypes
+def entry(lib, fp32=False):
+    """The wrapper launches ``lib``'s kernel inside the block (with
+    ``fp32``, its tensor-core fp32 forward)."""
+    name = "_fwd_f32_entry" if fp32 else "_entry"
+    fn = getattr(lib, "flash_attention_fwd_f32" if fp32
+                 else "flash_attention_fwd")
+    fn.argtypes = getattr(FK, name)().argtypes
     fn.restype = ctypes.c_int
-    saved = FK._entry
-    FK._entry = lambda: fn
+    saved = getattr(FK, name)
+    setattr(FK, name, lambda: fn)
     try:
         yield
     finally:
-        FK._entry = saved
+        setattr(FK, name, saved)
+
+
+def main_fp32(src, out):
+    sys.path.insert(0, ROOT)
+    import chip_smoke as CS
+    from flash_bwd_probe import kernel_us
+    libs = build(out, {"kernel": src, "probed": probed_f32(src)})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"[device] {smi}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_khz = torch.cuda.get_device_properties(0).clock_rate
+    for label, B, Hq, Hkv, S, D, W in CS.FLASH_BWD_SHAPES:
+        if W is not None:
+            continue
+        q, k, v = CS._flash_inputs(B, Hq, Hkv, S, S, D, torch.float32,
+                                   seed=4)
+
+        def call():
+            return FK.flash_attention_cuda(q, k, v, causal=True,
+                                           with_lse=True)
+
+        def simt():
+            return FK.flash_attention_cuda(q, k, v, causal=True,
+                                           with_lse=True, variant="simt")
+        reps = 20 if S <= 128 else 5
+        times = {}
+        with entry(libs["kernel"], fp32=True):
+            for _ in range(2):            # in turns: a, b, a, b
+                times.setdefault("kernel", []).append(ms(call, reps))
+                times.setdefault("simt", []).append(ms(simt, reps))
+            split = kernel_us(call, r"(flash_split3|flash_fwd_f32)")
+        with entry(libs["probed"], fp32=True):
+            call()
+            torch.cuda.synchronize()
+            libs["probed"].probe_reset()
+            call()
+            torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * F32_SLOTS)()
+        libs["probed"].probe_read(buf)
+        tiles, wgs = max(buf[8], 1), max(buf[9], 1)
+        rows = 128 if D <= 64 else 64
+        blocks = B * Hq * -(-S // rows)
+        per = (buf[5] + buf[6] + buf[7]) / wgs
+        waves = blocks / sms
+        print(f"[{label}] (B{B} Hq{Hq}/{Hkv} S{S} D{D}, causal, with lse) "
+              f"ms {times}; by kernel (us) {split}")
+        print(f"[{label}] cycles per kv tile of a consumer warpgroup "
+              f"({tiles / wgs:.2f} tiles a warpgroup): "
+              + ", ".join(f"{p} {buf[i] / tiles:.0f}"
+                          for i, p in enumerate(F32_PHASES)))
+        print(f"[{label}] per warpgroup: prologue {buf[5] / wgs:.0f}, loop "
+              f"and last P V {buf[6] / wgs:.0f}, epilogue {buf[7] / wgs:.0f}"
+              f" cycles; {blocks} blocks, {waves:.2f} waves of one block an "
+              f"SM, cycles of a block x waves {per * waves:.0f} "
+              f"({per * waves / clock_khz:.4f} ms at the "
+              f"{clock_khz / 1e3:.0f} MHz the device reports)")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return 0
 
 
 def ms(fn, reps=10):
@@ -166,6 +286,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "probe"),
                     help="where the copies of the source are built")
+    ap.add_argument("--fp32", action="store_true",
+                    help="the fp32 tensor-core forward at the fp32 "
+                    "training shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_probe: no CUDA card visible", file=sys.stderr)
@@ -174,6 +297,8 @@ def main():
                         "flash_attention.cu")
     with open(path) as f:
         src = f.read()
+    if args.fp32:
+        return main_fp32(src, args.out)
     libs = build(args.out, {"kernel": src,
                             "one_term": at(src, "lo-term", drop_next=True),
                             "skip_tile": skip_tile(src),
