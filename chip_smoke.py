@@ -13,7 +13,8 @@ Phases, each of which raises on failure:
    failure on serialised wgmma, on a spill of the bf16 wgmma variant at
    D 64, 80 or 128 and on one of the fp32 ``flash_fwd_f32`` at D 32 to
    128; each scan variant's registers and spills, and a
-   failure on a spill of ``ssd_bwd_mma`` at P = N = 64);
+   failure on a spill of ``ssd_bwd_mma`` or ``ssd_bwd_mma_f32`` at P = N
+   = 64);
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes and at ragged ones, bit-identical reruns, and timings
    (kernel, plain version, one PyTorch library call, in turns) beside
@@ -90,7 +91,12 @@ Phases, each of which raises on failure:
    and D 32, and one full-width zamba2-1.2b / rwkv6-7b layer (per
    gradient within 2e-4 / 1e-4 of max(1, max |g|) and 1e-3 of its own
    max |g|), reruns bit-identical, timed beside the plain autograd
-   backward and the bound; ``[ssm_scan_bwd bf16]`` the SSD backward on
+   backward and the bound (the SSD's default on fp32, ``mma_f32`` on the
+   tensor cores, and ``ssd_bwd_simt`` by name, both held to the oracle
+   and timed in turns against the tensor-core floor and the fp32 bound;
+   each gradient of ``mma_f32`` within 2x of the SIMT kernel's distance
+   from a float64 truth, ``ssd_f64_distances``); ``[ssm_scan_bwd
+   bf16]`` the SSD backward on
    bf16 x, B and C the same way (one bf16 ulp plus 2e-4), the
    tensor-core kernel (``mma_bf16``) and the SIMT one on the same values
    (``simt_bf16``), at zamba2-1.2b's training shape and full layer and
@@ -294,6 +300,19 @@ SSD_BWD_CASES = [
     ("ragged S 77, P 64 / N 16, G 4, h0", 1, 77, 8, 64, 16, 4, True, False),
     ("S 1, P 32 / N 64, h0, dh_f", 3, 1, 2, 32, 64, 1, True, True),
     ("zamba2-1.2b layer", 4, 4096, 64, 64, 64, 1, False, False),
+]
+# The fp32 SSD backward's default (mma_f32, the tensor cores with every
+# factor in bf16 terms) against ssd_bwd_simt, each held to a float64 truth
+# on the same fp32 inputs (autograd through the per-step oracle in
+# float64): every gradient of the default no more than SSD_F64_RATIO
+# times as far as the SIMT kernel's (stated in PERF.md before the first
+# run; the plain fp32 autograd logged beside).  The 100m training shape,
+# one full zamba2-1.2b layer, and ragged S with G > 1 and both states
+SSD_F64_RATIO = 2.0
+SSD_F64_CASES = [
+    ("100m training", 32, 128, 24, 64, 64, 1, False, False),
+    ("zamba2-1.2b layer", 4, 4096, 64, 64, 64, 1, False, False),
+    ("ragged S 300, G 2, h0, dh_f", 4, 300, 8, 64, 64, 2, True, True),
 ]
 # (label, B, S, H, D, s0, dS_f): rwkv6 at --scale (heads of 64), ragged
 # S, states, D 32, one full-width rwkv6-7b layer
@@ -586,31 +605,34 @@ def check_flash_bwd_build(report):
 
 def check_ssd_bwd_build(report):
     """Each ssd_bwd_mma instantiation's registers, shared memory and
-    spills (by dt dtype, P and N); raises on any spill at P = N = 64,
-    zamba2-1.2b's heads."""
+    spills (by x dtype, dt dtype, P and N: ``ssd_bwd_mma`` on bf16 x, B
+    and C, ``ssd_bwd_mma_f32`` on fp32 ones); raises on any spill at P =
+    N = 64, zamba2-1.2b's heads, and unless each kernel has its 8
+    instantiations."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssm_scan.kernel import bwd_smem_bytes
-    seen = 0
+    seen = {"bf16": 0, "fp32": 0}
     for name, k in sorted(_build.ptxas_kernels(report).items()):
-        m = re.search(r"ssd_bwd_mmaI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
-                      name)
+        m = re.search(r"ssd_bwd_mma(_f32)?I(f|13__nv_bfloat16)Li(\d+)ELi"
+                      r"(\d+)E", name)
         if not m:
             continue
-        seen += 1
-        dt, P, N = ("fp32" if m.group(1) == "f" else "bf16",
-                    int(m.group(2)), int(m.group(3)))
-        log(f"[build] ssd_bwd_mma<{dt} dt, P {P}, N {N}>: {k.registers} "
-            f"registers at launch, {bwd_smem_bytes(P, N, 'mma_bf16')} bytes "
-            f"of dynamic shared memory, spills {k.spill_stores} / "
-            f"{k.spill_loads} bytes")
+        x = "fp32" if m.group(1) else "bf16"
+        seen[x] += 1
+        dt, P, N = ("fp32" if m.group(2) == "f" else "bf16",
+                    int(m.group(3)), int(m.group(4)))
+        kernel = f"ssd_bwd_mma{m.group(1) or ''}<{dt} dt, P {P}, N {N}>"
+        variant = "mma_f32" if m.group(1) else "mma_bf16"
+        log(f"[build] {kernel}: {k.registers} registers at launch, "
+            f"{bwd_smem_bytes(P, N, variant)} bytes of dynamic shared "
+            f"memory, spills {k.spill_stores} / {k.spill_loads} bytes")
         if P == 64 and N == 64 and (k.spill_stores or k.spill_loads):
-            raise RuntimeError(f"ssd_bwd_mma<{dt} dt, 64, 64> spills "
-                               f"registers")
-    if seen != 8:
-        raise RuntimeError(f"ssd_bwd_mma: {seen} instantiations in the "
-                           f"ptxas report, expected 8 (2 dt dtypes x 4 "
-                           f"(P, N))")
+            raise RuntimeError(f"{kernel} spills registers")
+    if seen != {"bf16": 8, "fp32": 8}:
+        raise RuntimeError(f"ssd_bwd_mma: {seen} instantiations by x dtype "
+                           f"in the ptxas report, expected 8 each (2 dt "
+                           f"dtypes x 4 (P, N))")
 
 
 def ptxas_lines(report):
@@ -2962,25 +2984,34 @@ def phase_flash_bwd():
 
 
 def ssd_bwd_bounds(B, S, H, P, N, G, esize=4, dt_esize=4,
-                   rate=H100_FP32_FLOPS):
+                   rate=H100_FP32_FLOPS, split=False):
     """(bytes, flops, bytes ms, ops ms) of one ssm_scan backward with no
     h0 and no dh_f: x, dt, A, B, C and dy (fp32) read once, dx, ddt, dA,
     dB and dC written once, x, B, C and their gradients ``esize`` bytes an
-    element, dt and ddt ``dt_esize``; the chunked form's products at chunk
-    64 (the last chunk ragged), per chunk of L rows over the L(L+1)/2
-    pairs l <= t: C.B^T, dY.X^T, M^T.dY, Q^T.C and Q.(dt B), 3N + 2P
-    multiply-adds a pair; and five L x P x N products (B.Gc^T, X.Gc,
-    dY.h_s, the Gc update and the forward walk's state update), 2 flops a
+    element, dt and ddt ``dt_esize``; the products of the chunked form at
+    chunk 64 (the last chunk ragged) whose results such a call reads, per
+    chunk of L rows: over the L(L+1)/2 pairs l <= t, C.B^T, dY.X^T,
+    M^T.dY, Q^T.C and Q.(dt B), 3N + 2P multiply-adds a pair; and the L x
+    P x N products B.Gc^T and X.Gc and the forward walk's state update on
+    every chunk but the last (Gc = dh_f = 0 there, and the final state is
+    not read), dY.h_s and the Gc update on every chunk but the first (h_s
+    = h0 = 0 there, and the update would only make dh0); 2 flops a
     multiply-add, at ``rate`` (fp32's 67 TFLOP/s; for bf16 inputs the
-    tensor cores' 989)."""
+    tensor cores' 989).  With ``split`` (fp32 on the tensor cores, at
+    989) the flops of its bf16 term products: six for a product of two
+    three-term factors, five for the walk and dY.h_s, whose second factor
+    has two terms (``ref.F32_TERMS``)."""
     nbytes = (esize * (2 * B * S * H * P + 4 * B * S * G * N)
               + 4 * B * S * H * P + dt_esize * 2 * B * S * H + 4 * 2 * H)
-    flops = 0
-    for c0 in range(0, S, 64):
-        L = min(64, S - c0)
-        tri = L * (L + 1) // 2
-        flops += 2 * (tri * (3 * N + 2 * P) + 5 * L * P * N)
-    flops *= B * H
+    three = two = 0    # multiply-adds with three-term / two-term factors
+    n = -(-S // 64)
+    for c in range(n):
+        L = min(64, S - 64 * c)
+        lpn = L * P * N
+        three += (L * (L + 1) // 2 * (3 * N + 2 * P)
+                  + lpn * (2 * (c < n - 1) + (c > 0)))
+        two += lpn * ((c < n - 1) + (c > 0))
+    flops = 2 * (6 * three + 5 * two if split else three + two) * B * H
     return (nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3,
             flops / rate * 1e3)
 
@@ -3035,11 +3066,14 @@ def check_scan_grads(tag, label, names, got, want, tol):
 
 
 def _time_bwd(tag, label, kernel, plain, bounds,
-              rate_name="fp32's 67 TFLOP/s", other=None):
+              rate_name="fp32's 67 TFLOP/s", other=None, fp32_bounds=None):
     """Device times of the backward kernel and of the plain autograd
     backward (``plain`` None: not timed), beside the bound (its operations
     at ``rate_name``); with ``other`` (name, call), a second variant timed
-    in turns with the kernel (kernel, other, kernel, other); the
+    in turns with the kernel (kernel, other, kernel, other); with
+    ``fp32_bounds`` (the same work at fp32's 67 TFLOP/s, for a kernel
+    bound by the tensor cores' fp32-accurate rate) that bound as
+    ``fp32_bound_ms``, the one the other variant is read against; the
     kernels-line numbers (and the other's time as ``<name>_ms``)."""
     nbytes, flops, bytes_ms, fp32_ms = bounds
     bound_ms = max(bytes_ms, fp32_ms)
@@ -3059,27 +3093,113 @@ def _time_bwd(tag, label, kernel, plain, bounds,
         f"{bound_ms / ms:.1%} of the bound")
     timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                   bound_by="bytes" if bytes_ms >= fp32_ms else "operations")
+    alt_bound = bound_ms
+    if fp32_bounds is not None:
+        alt_bound = max(fp32_bounds[2], fp32_bounds[3])
+        timing["fp32_bound_ms"] = alt_bound
+        log(f"[{tag}] {label} fp32 bound {alt_bound * 1e3:.1f} us (the same "
+            f"flops at fp32's 67 TFLOP/s): kernel at {alt_bound / ms:.1%} "
+            f"of it (can pass 100% on the tensor cores)")
     if other is not None:
         alt_ms = sum(alt) / 2
         log(f"[{tag}] {label} timing, in the same turns: {other[0]} "
             f"{alt_ms:.4f} ms ({alt[0]:.4f} / {alt[1]:.4f}), at "
-            f"{bound_ms / alt_ms:.1%} of the bound; kernel / {other[0]} "
-            f"{ms / alt_ms:.3f}")
+            f"{alt_bound / alt_ms:.1%} of "
+            + ("the fp32 bound" if fp32_bounds is not None else "the bound")
+            + f"; kernel / {other[0]} {ms / alt_ms:.3f}")
         timing[f"{other[0]}_ms"] = alt_ms
     return timing
 
 
-def phase_ssm_scan_bwd():
-    """The SSD backward kernel (``ssd_bwd_simt``, through ``SSDScanFn``
-    under autograd in the model's layout) against autograd through the
-    per-step oracle at SSD_BWD_CASES, reruns bit-identical; the kernel
-    timed at the 100m training shape and at zamba2's full layer, beside
-    the bound and (at 100m) the plain autograd backward.  Returns its
-    kernels-line entry (``launches`` filled in by the training runs)."""
+def ssd_f64_ways(x, dt, A, Bm, Cm, h0, dy, dhf, ways=()):
+    """The SSD gradients (dx, ddt, dA, dB, dC, dh0) in the model's layout
+    at fp32 inputs four ways, each held to a float64 truth (autograd
+    through the per-step oracle in float64 on the same values): the
+    plain fp32 autograd (``"plain fp32"``), the default kernel through
+    ``SSDScanFn`` (``"mma_f32"``), ``ssd_bwd_simt`` asked for by name
+    (``"simt"``), and each (name, gradients) of ``ways``.  Returns
+    {way: {gradient: max |g - truth| / max(1, max |truth|)}}, dh0 only
+    where h0 is given."""
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
-    max_err, timings = 0.0, {}
+    args = [x, dt, A, Bm, Cm, h0]
+
+    def plain(*a):
+        return ssm_scan(*a, impl="torch")
+    truth = _grads(plain, [None if t is None else t.double() for t in args],
+                   dy.double(), None if dhf is None else dhf.double())
+    got = {"plain fp32": _grads(plain, args, dy, dhf),
+           "mma_f32": _grads(ssm_scan, args, dy, dhf)}
+    k = [t.transpose(1, 2) for t in (x, dt, Bm, Cm, dy)]
+    simt = SK.ssm_scan_bwd_cuda(k[0], k[1], A, k[2], k[3], h0, k[4], dhf,
+                                variant="simt")
+    got["simt"] = [t.transpose(1, 2) if i in (0, 1, 3, 4) else t
+                   for i, t in enumerate(simt)]
+    got.update(ways)
+    torch.cuda.synchronize()
+    return {way: {n: f64_share(g, t) for n, g, t in zip(names, gs, truth)
+                  if t is not None}
+            for way, gs in got.items()}
+
+
+def ssd_f64_distances():
+    """Each gradient of the fp32 SSD backward from a float64 truth
+    (``ssd_f64_ways``) at SSD_F64_CASES: the default (``mma_f32``), the
+    SIMT kernel by name and the plain fp32 autograd.  Logs each way and
+    the default's ratio to the SIMT kernel's distance, and raises if any
+    gradient of the default lies more than SSD_F64_RATIO times as far
+    from float64 as the SIMT kernel's.  Returns {case: {way: {gradient:
+    share}}}."""
+    found = {}
+    for label, B, S, H, P, N, G, with_h0, with_dhf in SSD_F64_CASES:
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, G, torch.float32,
+                                           seed=S + H + 5, with_h0=with_h0)
+        gen = torch.Generator(device="cuda").manual_seed(S + 5)
+        dy = torch.randn(x.shape, generator=gen, device="cuda")
+        dhf = torch.randn((B, H, P, N), generator=gen, device="cuda") \
+            if with_dhf else None
+        dist = ssd_f64_ways(x, dt, A, Bm, Cm, h0, dy, dhf)
+        found[label] = dist
+        for way, d in dist.items():
+            log(f"[ssm_scan_bwd] float64 truth, {label} (B{B} S{S} H{H} P{P} "
+                f"N{N} G{G}, h0 {with_h0}, dh_f {with_dhf}), {way}: "
+                + ", ".join(f"{n} {v:.3e}" for n, v in d.items())
+                + " of max(1, max |g|)")
+        ratio = {n: dist["mma_f32"][n] / max(dist["simt"][n], 1e-300)
+                 for n in dist["mma_f32"]}
+        worse = [n for n, r in ratio.items() if r > SSD_F64_RATIO]
+        log(f"[ssm_scan_bwd] float64 truth, {label}: mma_f32 over simt "
+            + ", ".join(f"{n} {r:.3f}" for n, r in ratio.items())
+            + "; over plain fp32 " + ", ".join(
+                f"{n} {dist['mma_f32'][n] / max(dist['plain fp32'][n], 1e-300):.3f}"
+                for n in ratio)
+            + f"; more than {SSD_F64_RATIO}x simt's: "
+            + (", ".join(worse) if worse else "none"))
+        if worse:
+            raise RuntimeError(f"ssm_scan_bwd float64 truth, {label}: "
+                               f"{', '.join(worse)} of mma_f32 more than "
+                               f"{SSD_F64_RATIO}x as far from float64 as "
+                               f"ssd_bwd_simt's")
+        del x, dt, A, Bm, Cm, h0, dy, dhf
+        torch.cuda.empty_cache()
+    return found
+
+
+def phase_ssm_scan_bwd():
+    """The fp32 SSD backward: its default kernel (``ssd_bwd_mma_f32``,
+    variant ``mma_f32``, through ``SSDScanFn`` under autograd in the
+    model's layout) and ``ssd_bwd_simt`` asked for by name, each against
+    autograd through the per-step oracle at SSD_BWD_CASES, reruns of the
+    default bit-identical; the two timed in turns at the 10m and 100m
+    training shapes and at zamba2's full layer, beside the tensor-core
+    bound, the fp32 bound and (at 100m) the plain autograd backward; the
+    float64 truth (``ssd_f64_distances``).  Returns its kernels-line
+    entry (``launches`` filled in by the training runs)."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    max_err, simt_worst, timings = 0.0, 0.0, {}
     for label, B, S, H, P, N, G, with_h0, with_dhf in SSD_BWD_CASES:
         x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, G, torch.float32,
                                            seed=S + H, with_h0=with_h0)
@@ -3088,28 +3208,36 @@ def phase_ssm_scan_bwd():
         dhf = torch.randn((B, H, P, N), generator=gen, device="cuda") \
             if with_dhf else None
         args = [x, dt, A, Bm, Cm, h0]
-        before = SK.bwd_launches.count
+        before = dict(SK.bwd_launches.by_variant)
         got = _grads(ssm_scan, args, dy, dhf)
         again = _grads(ssm_scan, args, dy, dhf)
+        xk, dtk = x.transpose(1, 2), dt.transpose(1, 2)
+        Bk, Ck, dyk = Bm.transpose(1, 2), Cm.transpose(1, 2), \
+            dy.transpose(1, 2)
+        simt = SK.ssm_scan_bwd_cuda(xk, dtk, A, Bk, Ck, h0, dyk, dhf,
+                                    variant="simt")
+        simt = [t.transpose(1, 2) if i in (0, 1, 3, 4) else t
+                for i, t in enumerate(simt)]       # to the model's layout
         torch.cuda.synchronize()
-        if SK.bwd_launches.count != before + 2:
-            raise RuntimeError(f"ssm_scan_bwd {label}: the backward kernel "
-                               f"did not launch once a call")
+        ran = {v: n - before[v] for v, n in SK.bwd_launches.by_variant.items()}
+        if ran != {"simt": 1, "mma_bf16": 0, "simt_bf16": 0, "mma_f32": 2}:
+            raise RuntimeError(f"ssm_scan_bwd {label}: launches {ran}: the "
+                               f"default did not run mma_f32 once a call")
         want = _grads(lambda *a: ssm_scan(*a, impl="torch"), args, dy, dhf)
         err, rel = check_scan_grads("ssm_scan_bwd", label, names, got, want,
                                     SSM_BWD_TOL)
+        s_err, s_rel = check_scan_grads("ssm_scan_bwd simt", label, names,
+                                        simt, want, SSM_BWD_TOL)
         same = all(g is None or torch.equal(g, a) for g, a in zip(got, again))
-        max_err = max(max_err, err)
+        max_err, simt_worst = max(max_err, err), max(simt_worst, s_err)
         log(f"[ssm_scan_bwd] {label} (B{B} S{S} H{H} P{P} N{N} G{G}, h0 "
-            f"{with_h0}, dh_f {with_dhf}): max abs err {err:.3e} ({rel:.3e} "
-            f"of max(1, max |g|)); reruns bit-identical {same}")
+            f"{with_h0}, dh_f {with_dhf}): max abs err, mma_f32 {err:.3e} "
+            f"({rel:.3e} of max(1, max |g|)), simt {s_err:.3e} "
+            f"({s_rel:.3e}); reruns bit-identical {same}")
         if not same:
             raise RuntimeError(f"ssm_scan_bwd {label}: two launches differ")
-        del got, again, want
-        if label in ("100m training", "zamba2-1.2b layer"):
-            xk, dtk = x.transpose(1, 2), dt.transpose(1, 2)
-            Bk, Ck, dyk = Bm.transpose(1, 2), Cm.transpose(1, 2), \
-                dy.transpose(1, 2)
+        del got, again, want, simt
+        if label in ("10m training", "100m training", "zamba2-1.2b layer"):
             plain = None
             if label == "100m training":
                 leaves = [t.detach().requires_grad_(True) for t in args[:5]]
@@ -3118,24 +3246,40 @@ def phase_ssm_scan_bwd():
                 def plain():
                     return torch.autograd.grad(y_plain, leaves, dy,
                                                retain_graph=True)
+            # the bound: the tensor-core floor of the fp32-accurate
+            # products (their bf16 term products at 989 TFLOP/s), or the
+            # bytes
             timings[label] = _time_bwd(
                 "ssm_scan_bwd", label,
                 lambda: SK.ssm_scan_bwd_cuda(xk, dtk, A, Bk, Ck, None, dyk),
-                plain, ssd_bwd_bounds(B, S, H, P, N, G))
+                plain, ssd_bwd_bounds(B, S, H, P, N, G,
+                                      rate=H100_BF16_FLOPS, split=True),
+                rate_name="989 TFLOP/s of bf16 term products (six for "
+                "an fp32-accurate product, five where a factor has two "
+                "terms)",
+                other=("simt", lambda: SK.ssm_scan_bwd_cuda(
+                    xk, dtk, A, Bk, Ck, None, dyk, variant="simt")),
+                fp32_bounds=ssd_bwd_bounds(B, S, H, P, N, G))
             del plain
-        del x, dt, A, Bm, Cm, h0, dy, dhf, args
+        del x, dt, A, Bm, Cm, h0, dy, dhf, args, xk, dtk, Bk, Ck, dyk
         torch.cuda.empty_cache()
     return {"name": "ssm_scan_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+            "source": "src/repro_torch/csrc/ssm_scan_bwd_mma.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:66",
-            "replaces_note": "the gradient of ssm_scan_pallas; the JAX "
-            "package has no backward kernel (it trains through plain JAX "
-            "and autodiff)",
-            "counted_variant": "simt",
+            "replaces_note": "the gradient of ssm_scan_pallas on fp32 x, B "
+            "and C (ssd_bwd_mma_f32: the chunk products on mma.sync with "
+            "every factor as bf16 terms, three for x, B, C, dY, M, Q, Gc "
+            "and e o dY, two for h_s and the forward walk's B o w o dt); "
+            "the JAX package has no backward kernel (it trains through "
+            "plain JAX and autodiff); ssd_bwd_simt (csrc/ssm_scan_bwd.cu) "
+            "by name as the yardstick",
+            "counted_variant": "mma_f32",
             "launches": None, "max_abs_err": max_err,
+            "simt_max_abs_err": simt_worst,
             **timings["100m training"], "library_ms": None,
             "at": "zamba2 100m training shape (B 32, S 128, H 24, P 64, "
-            "N 64, G 1)", "by_shape": timings}
+            "N 64, G 1)", "by_shape": timings,
+            "float64_distances": ssd_f64_distances()}
 
 
 def phase_rwkv6_scan_bwd():
@@ -3379,7 +3523,7 @@ def phase_ssm_scan_bwd_bf16():
         torch.cuda.synchronize()
         ran = {v: n - before[v] for v, n in SK.bwd_launches.by_variant.items()}
         fwd = {v: n - fwd_before[v] for v, n in SK.launches.by_variant.items()}
-        if ran != {"simt": 0, "mma_bf16": 2, "simt_bf16": 1} \
+        if ran != {"simt": 0, "mma_bf16": 2, "simt_bf16": 1, "mma_f32": 0} \
                 or fwd != {"mma": 2, "simt": 0}:
             raise RuntimeError(f"ssm_scan_bwd bf16 {label}: launches {fwd} "
                                f"forward, {ran} backward")
@@ -3465,17 +3609,17 @@ def train_step_launches(cfg):
 
 def train_step_variants(cfg):
     """The variant each kernel of a training step of ``cfg`` launches:
-    flash forward and backward on the tensor cores for both dtypes (fp32
-    in three bf16 terms), the scans' forwards by the compute dtype (fp32
-    SIMT, bf16 tensor cores), their backwards SIMT on fp32 and the SSD's
-    on the tensor cores on bf16 inputs."""
+    flash forward and backward and the SSD backward on the tensor cores
+    for both dtypes (fp32 in bf16 terms), the scans' forwards by the
+    compute dtype (fp32 SIMT, bf16 tensor cores), the WKV backward SIMT
+    on fp32."""
     bf16 = cfg.compute_dtype == "bfloat16"
     return {"flash_attention": "wgmma" if bf16 else "wgmma_f32",
             "flash_attention_lse": "wgmma" if bf16 else "wgmma_f32",
             "ssm_scan": "mma" if bf16 else "simt",
             "rwkv6_scan": "mma" if bf16 else "simt",
             "flash_attention_bwd": "wgmma_bf16" if bf16 else "wgmma_f32",
-            "ssm_scan_bwd": "mma_bf16" if bf16 else "simt",
+            "ssm_scan_bwd": "mma_bf16" if bf16 else "mma_f32",
             "rwkv6_scan_bwd": "simt"}
 
 

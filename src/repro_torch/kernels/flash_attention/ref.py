@@ -110,23 +110,33 @@ def _toward_zero(y: torch.Tensor) -> torch.Tensor:
                        torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def _tc_pairs(terms: int):
-    """The term products (i, j) with i + j <= terms - 1, the small ones
-    first and the main pair (0, 0) last, as the kernels issue them."""
-    return [(i, j) for i in range(terms) for j in range(terms)
-            if 0 < i + j <= terms - 1] + [(0, 0)]
+def _tc_pairs(terms: int, terms_b: Optional[int] = None):
+    """The term products (i, j) of a factor in ``terms`` terms and one in
+    ``terms_b`` (default the same) with i + j <= max(terms, terms_b) - 1,
+    the small ones first and the main pair (0, 0) last, as the kernels
+    issue them."""
+    kb = terms if terms_b is None else terms_b
+    top = max(terms, kb) - 1
+    return [(i, j) for i in range(terms) for j in range(kb)
+            if 0 < i + j <= top] + [(0, 0)]
 
 
-def _tc_into(acc: torch.Tensor, ai, bj, terms: int, lo: int,
-             hi: int) -> torch.Tensor:
+def _tc_into(acc: torch.Tensor, ai, bj, lo: int, hi: int,
+             k_outer: bool = False) -> torch.Tensor:
     """``acc`` (fp32) plus the term products of K columns lo..hi-1 of
-    the split factors ``ai`` and ``bj``, one wgmma of 16 columns at a
-    time, each sum exact and then truncated to fp32 toward zero."""
-    for i, j in _tc_pairs(terms):
-        for c0 in range(lo, hi, 16):
-            c1 = min(c0 + 16, hi)
-            acc = _toward_zero(acc.double() + ai[i][..., c0:c1]
-                               @ bj[j][..., c0:c1, :])
+    the split factors ``ai`` and ``bj`` (``_tc_pairs`` of their term
+    counts), one tensor-core product of 16 columns at a time, each sum
+    exact and then truncated to fp32 toward zero: every pair over all of
+    K in turn, or with ``k_outer`` every pair of one 16 columns before
+    the next 16 (the order of an ``mma.sync`` kernel that loads each
+    k-step's fragments once)."""
+    pairs = _tc_pairs(len(ai), len(bj))
+    steps = [(c0, min(c0 + 16, hi)) for c0 in range(lo, hi, 16)]
+    order = [(p, s) for s in steps for p in pairs] if k_outer else \
+        [(p, s) for p in pairs for s in steps]
+    for (i, j), (c0, c1) in order:
+        acc = _toward_zero(acc.double() + ai[i][..., c0:c1]
+                           @ bj[j][..., c0:c1, :])
     return acc
 
 
@@ -147,7 +157,7 @@ def _tc_product(a: torch.Tensor, b: torch.Tensor, terms: int,
     acc = torch.zeros(shape, dtype=torch.float32)
     for t0 in range(0, K, tile):
         part = _tc_into(torch.zeros(shape, dtype=torch.float32), ai, bj,
-                        terms, t0, min(t0 + tile, K))
+                        t0, min(t0 + tile, K))
         acc = (acc.double() + part.double()).float()
     return acc
 
@@ -229,8 +239,7 @@ def attention_fwd_f32_mirror(q: torch.Tensor, k: torch.Tensor,
         lt = (lt.double() * alpha.double() + sums.double()).float()
         if chained:
             o = _tc_into(o * alpha, _bf16_split(p, terms),
-                         _bf16_split(vg[..., k0:k1, :], terms), terms, 0,
-                         k1 - k0)
+                         _bf16_split(vg[..., k0:k1, :], terms), 0, k1 - k0)
         else:
             part = _tc_product(p, vg[..., k0:k1, :], terms, bk)
             o = (o.double() * alpha.double() + part.double()).float()

@@ -14,16 +14,22 @@ with the (P, N) fp32 state on the SM, read B and C per group (no
 design and its bound.
 
 ``ssm_scan_bwd_cuda`` launches the gradient of either variant, the
-backward of the training forward: fp32 runs ``ssd_bwd_simt``
-(``csrc/ssm_scan_bwd.cu``, fp32 SIMT walks); bf16 runs ``ssd_bwd_mma``
-(``csrc/ssm_scan_bwd_mma.cu``: the chunk products on tensor cores with
-the fp32 factors as two bf16 terms, a block walking ``heads_per_block``
-heads of a group and summing their dB and dC on the chip), and the SIMT
-kernel on bf16 values widened as they load only where asked for by name
-(``variant="simt_bf16"``, the yardstick of the tests and
-``chip_smoke.py``).  Each gradient is rounded once to its input's dtype.
-The JAX package has no backward kernel (its model trains through plain
-JAX); ``bwd_launches`` counts this one's calls by the variant they took.
+backward of the training forward, on the tensor cores for both dtypes
+(``csrc/ssm_scan_bwd_mma.cu``): fp32 runs ``ssd_bwd_mma_f32`` (variant
+``mma_f32``: every factor of the chunk products as bf16 terms, three for
+x, B, C and the fp32 factors, two for the chunk-start state and the
+forward walk's B o w o dt, the products of a chunk into zeroed partials,
+the within-chunk cumsum of dt A kept as a compensated pair, one head a
+block); bf16 runs ``ssd_bwd_mma`` (variant ``mma_bf16``: the fp32
+factors as two bf16 terms, a block walking ``heads_per_block`` heads of
+a group and summing their dB and dC on the chip).  ``ssd_bwd_simt``
+(``csrc/ssm_scan_bwd.cu``, fp32 SIMT walks) runs only where asked for
+by name, on fp32 values (``variant="simt"``) or on bf16 ones widened as
+they load (``"simt_bf16"``): the yardstick of the tests and
+``chip_smoke.py``.
+Each gradient is rounded once to its input's dtype.  The JAX package has
+no backward kernel (its model trains through plain JAX);
+``bwd_launches`` counts this one's calls by the variant they took.
 """
 from __future__ import annotations
 
@@ -43,12 +49,15 @@ VARIANTS = {torch.float32: "simt", torch.bfloat16: "mma"}
 CHUNK = 64                      # rows of a chunk inside the kernel
 
 launches = _build.LaunchCounter(variants=("mma", "simt"))
-# one count a call of ssm_scan_bwd_cuda, by variant: SIMT on fp32 x, B
-# and C, tensor cores on bf16 ones (the default), SIMT on bf16 ones where
-# asked for by name
-BWD_VARIANTS = {torch.float32: "simt", torch.bfloat16: "mma_bf16"}
+# one count a call of ssm_scan_bwd_cuda, by variant: the tensor cores on
+# fp32 x, B and C (the default) and on bf16 ones (the default), the SIMT
+# kernel on either where asked for by name
+BWD_VARIANTS = {torch.float32: "mma_f32", torch.bfloat16: "mma_bf16"}
+MMA_BWD = ("mma_bf16", "mma_f32")        # the tensor-core backwards
+BWD_ALLOWED = {torch.float32: ("mma_f32", "simt"),
+               torch.bfloat16: ("mma_bf16", "simt_bf16")}
 bwd_launches = _build.LaunchCounter(variants=("simt", "mma_bf16",
-                                              "simt_bf16"))
+                                              "simt_bf16", "mma_f32"))
 # ssd_bwd_mma: a block walks up to this many heads of one group, adding
 # their dB and dC into one fp32 partial, while that leaves at least
 # MMA_MIN_BLOCKS blocks (about one wave at two blocks an SM of the H100's
@@ -58,6 +67,9 @@ bwd_launches = _build.LaunchCounter(variants=("simt", "mma_bf16",
 # 1.41 ms at one head, 2.00 at two
 MMA_MAX_HEADS = 8
 MMA_MIN_BLOCKS = 256
+# ssd_bwd_mma_f32 (one block of 191,008 bytes an SM at P = N = 64) walks
+# one head a block: on the H100 two and four heads a block were slower at
+# zamba2 10m's and 100m's training shapes and at the full layer (PERF.md)
 
 
 def smem_bytes(variant: str, P: int, N: int) -> int:
@@ -87,29 +99,39 @@ def bwd_smem_bytes(P: int, N: int, variant: str = "simt") -> int:
     [64][N], Gc's and h_s's two terms [P][N], Q^T o dt's two terms
     [64][64], bf16; then fp32 dt, each of the 4 warps' seg and column
     sums, the rectangle sums, q, beta and gamma (64 each), 4 partials, 4
-    scratch tiles of 16 x 17 and Gc [P][N]."""
+    scratch tiles of 16 x 17 and Gc [P][N].  ``"mma_f32"``
+    (``ssd_bwd_mma_f32``, ``TileF32``): three bf16 terms each of x and dY
+    [64][P], B and C [64][N], Gc [P][N] and Q^T o dt [64][64], two of h_s
+    [P][N]; then fp32 dt, each of the 8 warps' seg twice (hi and lo),
+    pass A's 4 column-sum rows, the rectangle sums, q, beta and gamma (64
+    each), 8 partials, pass A's 4 scratch tiles of 16 x 17 and Gc [P][N]
+    (1,024 floats at P 32 / N 16: a warp's state tile at least)."""
     L = CHUNK
     if variant in ("simt", "simt_bf16"):
         return 4 * (2 * L * (P + 1) + 2 * L * (N + 1) + 2 * P * (N + 1)
                     + 3 * L * (L + 1) + 9 * L + 8)
-    if variant != "mma_bf16":
-        raise ValueError(f"unknown ssm_scan backward variant {variant!r}")
-    tiles = 2 * (3 * L * P + 2 * L * N + 4 * P * N + 2 * L * L)
-    return tiles + 4 * (L + 4 * L + 4 * L + 4 * L + 4 + 4 * 16 * 17
-                        + P * N)
+    floats = L + 4 * L + 4 * L + 4 * L + 4 + 4 * 16 * 17 + P * N
+    if variant == "mma_bf16":
+        return 2 * (3 * L * P + 2 * L * N + 4 * P * N + 2 * L * L) \
+            + 4 * floats
+    if variant == "mma_f32":
+        gc = -(-(N // 8) * (P // 16) // 8) * 4 * 256
+        return 2 * (6 * L * P + 6 * L * N + 5 * P * N + 3 * L * L) \
+            + 4 * (floats + 12 * L + 4 - P * N + gc)
+    raise ValueError(f"unknown ssm_scan backward variant {variant!r}")
 
 
 def bwd_variant(dtype: torch.dtype, variant: Optional[str] = None) -> str:
     """The backward variant a call of ``ssm_scan_bwd_cuda`` runs on x, B
-    and C of ``dtype``: ``BWD_VARIANTS[dtype]`` unless one is named; bf16
-    takes ``"mma_bf16"`` or ``"simt_bf16"``, fp32 only ``"simt"``."""
+    and C of ``dtype``: ``BWD_VARIANTS[dtype]`` unless one is named; fp32
+    takes ``"mma_f32"`` or ``"simt"``, bf16 ``"mma_bf16"`` or
+    ``"simt_bf16"`` (``BWD_ALLOWED``)."""
     if dtype not in BWD_VARIANTS:
         raise TypeError(f"ssm_scan_bwd cuda: takes float32 or bfloat16 x, "
                         f"Bm and Cm, got {dtype}")
     if variant is None:
         return BWD_VARIANTS[dtype]
-    allowed = ("simt",) if dtype == torch.float32 \
-        else ("mma_bf16", "simt_bf16")
+    allowed = BWD_ALLOWED[dtype]
     if variant not in allowed:
         raise ValueError(f"ssm_scan_bwd cuda: variant {variant!r} does not "
                          f"take {dtype} (one of {allowed})")
@@ -129,19 +151,27 @@ def heads_per_block(B: int, H: int, G: int) -> int:
     return hpb
 
 
-def launch_shape(variant: str, B: int, H: int):
-    """(grid, threads a block) of one launch: SIMT one block a (batch,
-    head), mma two (each half of P)."""
+def launch_shape(variant: str, B: int, H: int, G: int = 1):
+    """(grid, threads a block) of one launch: the SIMT forward one block
+    a (batch, head), the mma forward two (each half of P); the bf16
+    tensor-core backward one block of 128 threads a (batch,
+    ``heads_per_block`` heads of a group), the fp32 one a block of 256
+    (passes A and B on a warpgroup each) a (batch, head)."""
     if variant == "simt":
+        return (H, B), 256
+    if variant == "mma_bf16":
+        return (H // heads_per_block(B, H, G), B), 128
+    if variant == "mma_f32":
         return (H, B), 256
     return (2 * H, B), 128
 
 
 def rows_error(t: torch.Tensor) -> Optional[str]:
     """Why the mma kernels cannot read the rows of ``t`` 16 bytes at a
-    time (cp.async of bf16 x, B and C; float4 loads of the backward's fp32
-    dy), or None if they can: the last axis contiguous, every other
-    stride a multiple of 16 bytes, a 16-byte-aligned base."""
+    time (cp.async of bf16 x, B and C; float4 loads of the backwards' fp32
+    dy and of ``mma_f32``'s fp32 x, B and C), or None if they can: the
+    last axis contiguous, every other stride a multiple of 16 bytes, a
+    16-byte-aligned base."""
     per = 16 // t.element_size()
     if t.stride(-1) != 1 or any(s % per for s in t.stride()[:-1]) \
             or t.data_ptr() % 16:
@@ -264,11 +294,14 @@ def _bwd_entry():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_mma_entry():
-    fn = _build.load("ssm_scan_bwd_mma").ssm_scan_bwd_mma
+def _bwd_mma_entry(variant: str = "mma_bf16"):
+    lib = _build.load("ssm_scan_bwd_mma")
+    f32 = variant == "mma_f32"
+    fn = lib.ssm_scan_bwd_mma_f32 if f32 else lib.ssm_scan_bwd_mma
+    # B, H, G, S (and the bf16 kernel's heads a block)
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 15 + [
-        ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 5 + [
-        ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * (
+            4 if f32 else 5) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -286,16 +319,18 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     the model's (B, S, ·) memory as y is.  x, Bm and Cm are fp32 or bf16
     (one dtype), dt fp32 or bf16, as ``ssm_scan_cuda`` takes them; A, h0,
     dy and dhf fp32.  ``variant`` (``bwd_variant``): fp32 runs
-    ``"simt"``; bf16 ``"mma_bf16"`` unless ``"simt_bf16"`` is named.
+    ``"mma_f32"`` unless ``"simt"`` is named; bf16 ``"mma_bf16"`` unless
+    ``"simt_bf16"`` is named.
 
     The kernels compute in fp32 and write dx and ddt in their inputs'
     dtypes, dA per (batch, head) and dB and dC as fp32 partial sums (one a
-    head for SIMT, one a block of ``heads_per_block`` heads for mma); the
-    partials of a group and the batch are then summed here in fp32 by
-    ``torch.sum``, whose reduction order is fixed (no atomics anywhere),
-    so reruns are bit-identical, and dB and dC rounded once to Bm's dtype
-    after the sum (``sum_partials``).  Launches one kernel on the current
-    stream (plus those sums) and does not synchronise."""
+    head for SIMT and ``mma_f32``, one a block of ``heads_per_block``
+    heads for ``mma_bf16``); the partials of a group and the batch are
+    then summed here in fp32 by ``torch.sum``, whose reduction order is
+    fixed (no atomics anywhere), so reruns are bit-identical, and dB and
+    dC rounded once to Bm's dtype after the sum (``sum_partials``).
+    Launches one kernel on the current stream (plus those sums) and does
+    not synchronise."""
     dev = x.device
     tensors = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
                ("dy", dy)) + ((("h0", h0),) if h0 is not None else ()) + \
@@ -339,7 +374,7 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"ssm_scan_bwd cuda: {name} must have a "
                              f"contiguous last axis, got strides "
                              f"{t.stride()}")
-        if variant == "mma_bf16":
+        if variant in MMA_BWD:
             _check_rows(name, t, "ssm_scan_bwd cuda")
     if S == 0 or B == 0 or H == 0:
         dx = _build.empty((B, S, H, P), x.dtype, dev).transpose(1, 2)
@@ -350,7 +385,8 @@ def ssm_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return dx, ddt, A.new_zeros(A.shape), zero, zero.clone(), dh0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        entry = _bwd_mma_entry() if variant == "mma_bf16" else _bwd_entry()
+        entry = _bwd_mma_entry(variant) if variant in MMA_BWD \
+            else _bwd_entry()
         out = launch_bwd(entry, variant, x, dt, A, Bm, Cm, h0, dy, dhf,
                          stream)
     bwd_launches.add(variant)
@@ -365,8 +401,8 @@ def launch_bwd(entry, variant: str, x, dt, A, Bm, Cm, h0, dy, dhf,
     B, H, S, P = x.shape
     G, N = Bm.shape[1], Bm.shape[3]
     dev = x.device
-    mma = variant == "mma_bf16"
-    hpb = heads_per_block(B, H, G) if mma else 1
+    mma = variant in MMA_BWD
+    hpb = heads_per_block(B, H, G) if variant == "mma_bf16" else 1
     dx = _build.empty((B, S, H, P), x.dtype, dev).transpose(1, 2)
     ddt = _build.empty((B, S, H), dt.dtype, dev).transpose(1, 2)
     dBp, dCp = (_build.empty((B, S, H // hpb, N), torch.float32,
@@ -387,8 +423,11 @@ def launch_bwd(entry, variant: str, x, dt, A, Bm, Cm, h0, dy, dhf,
                                       for s in t.stride()[:3]))
     ptrs = [t if t is None else t.data_ptr() for t in (
         x, dt, A32, Bm, Cm, h0c, dy, dhfc, dx, ddt, dA, dBp, dCp, dh0, ws)]
-    if mma:
+    if variant == "mma_bf16":
         err = entry(DTYPES[dt.dtype], P, N, *ptrs, strides, B, H, G, S, hpb,
+                    stream)
+    elif mma:
+        err = entry(DTYPES[dt.dtype], P, N, *ptrs, strides, B, H, G, S,
                     stream)
     else:
         err = entry(DTYPES[x.dtype], DTYPES[dt.dtype], P, N, *ptrs, strides,

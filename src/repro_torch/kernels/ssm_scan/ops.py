@@ -7,11 +7,13 @@ the CPU has no kernel to run and takes the plain version.
 Gradients.  On a CUDA tensor under grad, with an input that requires it,
 fp32 and bf16 go through ``SSDScanFn``: the forward kernel of the dtype
 (``ssd_fwd_simt`` for fp32, ``ssd_fwd_mma`` for bf16) and the
-hand-written backward kernel of the dtype (``kernel.ssm_scan_bwd_cuda``:
-``ssd_bwd_simt``'s fp32 walks for fp32, ``ssd_bwd_mma``'s tensor-core
-chunk products for bf16; each gradient rounded once to its input's
-dtype).  ``impl="torch"`` and CPU tensors differentiate the plain
-version by autograd.
+hand-written backward kernel of the dtype (``kernel.ssm_scan_bwd_cuda``,
+both on the tensor cores: ``ssd_bwd_mma_f32`` for fp32, every factor of
+its chunk products in bf16 terms, variant ``mma_f32``; ``ssd_bwd_mma``
+for bf16, variant ``mma_bf16``; each gradient rounded once to its
+input's dtype; ``ssd_bwd_simt``'s SIMT walks only where asked for by
+name).  ``impl="torch"`` and CPU tensors differentiate the plain version
+by autograd.
 
 ``impl="torch"`` is the plain version (the per-step oracle
 ``ssm_scan_ref``) on either device.  The kernel's variant follows the
@@ -40,9 +42,9 @@ class SSDScanFn(torch.autograd.Function):
     """The SSD scan on the card with a hand-written backward, in the
     kernel layout: the forward kernel (``ssd_fwd_simt`` for fp32 x, B and
     C, ``ssd_fwd_mma`` for bf16) saves its inputs; the backward kernel
-    (``ssd_bwd_simt`` for fp32, ``ssd_bwd_mma`` for bf16) rebuilds the
-    chunk-start states from them in fp32 and forms every input's
-    gradient in that input's dtype."""
+    (``ssd_bwd_mma_f32`` for fp32, ``ssd_bwd_mma`` for bf16, both on the
+    tensor cores) rebuilds the chunk-start states from them in fp32 and
+    forms every input's gradient in that input's dtype."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, h0):
@@ -62,6 +64,10 @@ class SSDScanFn(torch.autograd.Function):
             dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
         elif rows_error(dy) is not None:
             dy = dy.contiguous()
+        # so are fp32 x, B and C, which the SIMT forward takes in any
+        # layout with a contiguous last axis
+        x, Bm, Cm = (t if rows_error(t) is None else t.contiguous()
+                     for t in (x, Bm, Cm))
         return ssm_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dhf)
 
 

@@ -286,3 +286,190 @@ def ssm_scan_bwd_mma_mirror(x: torch.Tensor, dt: torch.Tensor,
     f = torch.float64 if out64 else torch.float32
     return (dx.to(dtypes[0]), ddt.to(dtypes[1]), dA.sum(0).to(f),
             dB.to(dtypes[2]), dC.to(dtypes[2]), gc.to(h0_dtype))
+
+
+# The factors of the fp32 tensor-core backward's products (``ssd_bwd_mma``
+# on fp32 x, B and C, variant ``mma_f32``): x, B and C themselves, and the
+# fp32 factors of the bf16 kernel (``MMA_FACTORS``).  The kernel's terms,
+# the fewest with which ``ssm_scan_bwd_f32_mirror`` lies within 2x of
+# ``ssm_scan_bwd_ref``'s fp32 distance from float64 at every shape of
+# tests/test_torch_scan_grad.py: three for each factor, two for the chunk-
+# start state h_s and the forward walk's B o w o dt
+F32_FACTORS = ("x", "b", "c") + MMA_FACTORS
+F32_TERMS = dict({f: 3 for f in F32_FACTORS}, hs=2, bstate=2)
+
+
+def _tc_mm(a: torch.Tensor, b: torch.Tensor, ka: Optional[int],
+           kb: Optional[int], acc: Optional[torch.Tensor] = None,
+           per_step: bool = False):
+    """a (..., M, K) @ b (..., K, N) as ``ssd_bwd_mma_f32`` forms it:
+    a in ``ka`` and b in ``kb`` bf16 terms, each k-step of 16 columns'
+    term products (``flash_attention.ref._tc_pairs``) issued small pairs
+    first, every ``mma``'s sum exact and then truncated to fp32 toward
+    zero, into ``acc`` (fp32) or a zeroed partial; with ``per_step`` each
+    k-step's products into a zeroed partial of their own, added to
+    ``acc`` rounded to nearest.  ``ka`` None: exact (no terms, no
+    truncation), in a's dtype."""
+    from repro_torch.kernels.flash_attention.ref import (_bf16_split,
+                                                         _tc_into)
+    if ka is None:
+        out = a @ b
+        return out if acc is None else acc + out
+    shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) \
+        + (a.shape[-2], b.shape[-1])
+    if acc is None:
+        acc = torch.zeros(shape, dtype=torch.float32)
+    ai, bj = _bf16_split(a, ka), _bf16_split(b, kb)
+    K = a.shape[-1]
+    if not per_step:
+        return _tc_into(acc, ai, bj, 0, K, k_outer=True)
+    for c0 in range(0, K, 16):
+        acc = acc + _tc_into(torch.zeros(shape, dtype=torch.float32), ai,
+                             bj, c0, min(c0 + 16, K))
+    return acc
+
+
+def _seg2(a: torch.Tensor):
+    """The inclusive cumsum of ``a`` (fp32) over its last axis as the
+    kernel's compensated scan keeps it: an unevaluated sum hi + lo of two
+    fp32 values, modelled as the float64 cumsum split once (float64 a:
+    (cumsum, 0))."""
+    s = torch.cumsum(a.double(), -1)
+    if a.dtype == torch.float64:
+        return s, torch.zeros_like(s)
+    hi = s.float()
+    return hi, (s - hi.double()).float()
+
+
+def _sub2(a, b):
+    """(a_hi - b_hi) + (a_lo - b_lo) in the working dtype: the difference
+    of two compensated sums, which keeps the digits a plain difference of
+    two large cumsums cancels."""
+    return (a[0] - b[0]) + (a[1] - b[1])
+
+
+def _exp2(a):
+    """exp2 of a value or of a compensated sum (hi, lo): exp2(hi)
+    exp2(lo)."""
+    if isinstance(a, tuple):
+        return torch.exp2(a[0]) * torch.exp2(a[1])
+    return torch.exp2(a)
+
+
+def _fma(a, b, c):
+    """a b + c rounded once, in a's dtype (fp32: an ``fmaf``)."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def ssm_scan_bwd_f32_mirror(x: torch.Tensor, dt: torch.Tensor,
+                            A: torch.Tensor, Bm: torch.Tensor,
+                            Cm: torch.Tensor, h0: Optional[torch.Tensor],
+                            dy: torch.Tensor,
+                            dhf: Optional[torch.Tensor] = None,
+                            terms=F32_TERMS, chained: bool = False,
+                            chunk: int = 64):
+    """The rounding points of the fp32 tensor-core backward
+    (``ssd_bwd_mma_f32`` in ``csrc/ssm_scan_bwd_mma.cu``, variant
+    ``mma_f32``), for tests only.  x (B, H, S, P), dt (B, H, S), A (H,),
+    Bm, Cm (B, G, S, N) with head h reading group h // (H / G), h0 (B, H,
+    P, N) or None, dy (B, H, S, P), dhf or None, all fp32 (dt fp32 or
+    bf16).
+
+    ``ssm_scan_bwd_mma_mirror``'s algebra, with its rounding where the
+    fp32 kernel rounds: every product's factors (``F32_FACTORS``, x, B
+    and C among them) in ``terms[factor]`` bf16 terms (``terms`` an int
+    for all, or None: exact), summed as ``_tc_mm`` sums them, each
+    chunk's products into a zeroed partial; the within-chunk cumsum of dt
+    A log2 e kept as a compensated pair (``_seg2``) and every decay exp2
+    of a difference of two such (``_sub2``); λ, Z's rectangle sums and
+    every elementwise step in fp32, the kernel's fmas rounded once.  The
+    two sums carried from chunk to chunk, h ← e_last h + Xᵀ (B ∘ w ∘ dt)
+    walking forward and Gc ← e_last Gc + (e ∘ dY)ᵀ C walking back, take
+    each k-step's products as a zeroed partial added rounded to nearest;
+    with ``chained`` the products run straight into e_last h and e_last
+    Gc instead (the bf16 kernel's form).  dB and dC are summed over each
+    group's heads in fp32, dA over the batch.  Float64 inputs with
+    ``terms=None`` run all of it in float64: ``ssm_scan_bwd_ref``'s
+    algebra.  Returns dx, ddt, dA (H,), dB, dC, dh0 (fp32; float64 for
+    float64 x)."""
+    if isinstance(terms, int) or terms is None:
+        terms = {f: terms for f in F32_FACTORS}
+    t = terms
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    dt_dtype = dt.dtype
+    Bsz, H, S, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[-1]
+    rep = H // G
+    x, dt, dy = (v.to(f) for v in (x, dt, dy))
+    A = A.to(f)
+    A2 = A * torch.tensor(1.4426950408889634, dtype=f)
+    Bh, Ch = (v.to(f).repeat_interleave(rep, 1) for v in (Bm, Cm))
+    L = chunk
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool))   # [τ, t]: t ≤ τ
+    upper = tri.T                                            # [t, τ]: τ ≥ t
+    h = torch.zeros((Bsz, H, P, N), dtype=f) if h0 is None else h0.to(f)
+    chunks = []
+    for c0 in range(0, S, L):
+        sl = slice(c0, min(c0 + L, S))
+        pad = L - (sl.stop - sl.start)
+
+        def take(v, sl=sl, pad=pad):
+            v = v[:, :, sl]
+            return torch.nn.functional.pad(v, (0, 0, 0, pad)) \
+                if v.ndim == 4 else torch.nn.functional.pad(v, (0, pad))
+        xc, dtc, bc, cc, dyc = (take(v) for v in (x, dt, Bh, Ch, dy))
+        seg = _seg2(dtc * A2[None, :, None])                # log2 units
+        e = _exp2(seg)
+        wl = _exp2(_sub2(tuple(v[..., -1:] for v in seg), seg))
+        chunks.append((sl, h, xc, dtc, bc, cc, dyc, seg, e, wl))
+        if c0 + L < S:
+            bw = bc * (wl * dtc)[..., None]
+            h = _tc_mm(xc.transpose(-1, -2), bw, t["x"], t["bstate"],
+                       acc=h * e[..., -1, None, None], per_step=not chained)
+    gc = torch.zeros_like(h) if dhf is None else dhf.to(f)
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
+    dB, dC = torch.zeros_like(Bh), torch.zeros_like(Ch)
+    dA = torch.zeros((Bsz, H), dtype=f)
+    for sl, hs, xc, dtc, bc, cc, dyc, seg, e, wl in reversed(chunks):
+        n = sl.stop - sl.start
+        dmt = torch.where(upper, _exp2(_sub2(
+            tuple(v[..., None, :] for v in seg),
+            tuple(v[..., :, None] for v in seg)).masked_fill(~upper, 0)),
+            0)                                               # Dᵀ[t, τ]
+        cbt = _tc_mm(bc, cc.transpose(-1, -2), t["b"], t["c"])  # B_t·C_τ
+        qt = _tc_mm(xc, dyc.transpose(-1, -2), t["x"], t["dy"]) * dmt
+        mt = cbt * dmt
+        z = cbt * qt * dtc[..., None]                        # Zᵀ[t, τ]
+        sfx = z.flip(-1).cumsum(-1).flip(-1)                 # Σ_{τ≥u}
+        rect = torch.cat([torch.zeros_like(sfx[..., 0, :1]),
+                          torch.diagonal(sfx.cumsum(-2)[..., :-1, 1:],
+                                         dim1=-2, dim2=-1)], -1)
+        gbo = _tc_mm(bc, gc.transpose(-1, -2), t["b"], t["gc"])  # B Gcᵀ
+        g = _fma(wl[..., None].expand_as(gbo), gbo,
+                 _tc_mm(mt, dyc, t["m"], t["dy"]))           # G_t B_t
+        gxo = _tc_mm(xc, gc, t["x"], t["gc"])                # X Gc
+        gx = _fma(wl[..., None].expand_as(gxo), gxo,
+                  _tc_mm(qt, cc, t["q"], t["c"]))            # G_tᵀ x_t
+        dco = _tc_mm(dyc, hs, t["dy"], t["hs"])              # dY h_s
+        gamma = (cc * dco).sum(-1)
+        dcc = _tc_mm((qt * dtc[..., None]).transpose(-1, -2), bc, t["q"],
+                     t["b"], acc=dco * e[..., None])
+        q = (xc * g).sum(-1)
+        beta = (xc * gbo).sum(-1)
+        wdb = wl * dtc * beta
+        lam = ((e[..., -1, None] * (gc * hs).sum((-2, -1))[..., None]
+                + torch.cat([torch.zeros_like(wdb[..., :1]),
+                             wdb.cumsum(-1)[..., :-1]], -1))
+               + (e * gamma).flip(-1).cumsum(-1).flip(-1)) + rect
+        dx[:, :, sl] = (dtc[..., None] * g)[:, :, :n]
+        dB[:, :, sl] = (dtc[..., None] * gx)[:, :, :n]
+        dC[:, :, sl] = dcc[:, :, :n]
+        ddt[:, :, sl] = _fma(A[None, :, None].expand_as(lam), lam, q)[:, :,
+                                                                       :n]
+        dA = dA + (dtc * lam).sum(-1)
+        edy = e[..., None] * dyc
+        gc = _tc_mm(edy.transpose(-1, -2), cc, t["edy"], t["c"],
+                    acc=gc * e[..., -1, None, None], per_step=not chained)
+    dB, dC = (v.reshape(Bsz, G, rep, S, N).sum(2) for v in (dB, dC))
+    return dx, ddt.to(dt_dtype if f == torch.float32 else f), dA.sum(0), \
+        dB, dC, gc

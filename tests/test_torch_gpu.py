@@ -1323,6 +1323,83 @@ def test_ssm_scan_backward_kernel_matches_plain(cuda, B, S, H, P, N, G, h0,
     _check_scan_grads(got, want, SSD_BWD_TOL)
 
 
+@pytest.mark.parametrize("B,S,H,P,N,G,h0,dhf", [
+    (2, 130, 4, 32, 16, 2, True, True),             # ragged, G 2, states
+    (4, 300, 8, 64, 64, 2, True, True),             # workspace, G 2
+    (3, 64, 6, 64, 16, 3, False, True),             # 3 heads a group
+    (2, 200, 4, 32, 64, 2, False, False),
+])
+def test_ssm_scan_backward_fp32_variants_pass_one_gate(cuda, B, S, H, P, N,
+                                                      G, h0, dhf):
+    """fp32 under grad runs the tensor-core backward (``mma_f32``); it
+    and ``ssd_bwd_simt`` asked for by name, on the same inputs, each
+    within the gate of autograd through the per-step oracle and counted
+    under its own variant; reruns bit-identical; fp32 refuses the bf16
+    variants."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    x, dt, A, Bm, Cm, hh = _ssd_inputs(B, S, H, P, N, G, torch.float32,
+                                       cuda, seed=S + 9, h0=h0)
+    dy = torch.randn(x.shape, device=cuda)
+    dh = torch.randn((B, H, P, N), device=cuda) if dhf else None
+    args = [x, dt, A, Bm, Cm, hh]
+    want = _scan_grads(_ssd_plain, args, dy, dh)
+    before = dict(SK.bwd_launches.by_variant)
+    got = _scan_grads(ssm_scan, args, dy, dh)
+    again = _scan_grads(ssm_scan, args, dy, dh)
+    torch.cuda.synchronize()
+    ran = {n: c - before[n] for n, c in SK.bwd_launches.by_variant.items()}
+    assert ran == {n: 2 * (n == "mma_f32") for n in ran}
+    _check_scan_grads(got, want, SSD_BWD_TOL)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+    k = [t.transpose(1, 2) for t in (x, dt, Bm, Cm, dy)]
+
+    def model_layout(out):
+        return [t.transpose(1, 2) if i in (0, 1, 3, 4) else t
+                for i, t in enumerate(out)]
+    for variant in ("mma_f32", "simt"):
+        before = dict(SK.bwd_launches.by_variant)
+        out = SK.ssm_scan_bwd_cuda(k[0], k[1], A, k[2], k[3], hh, k[4], dh,
+                                   variant=variant)
+        torch.cuda.synchronize()
+        ran = {n: c - before[n] for n, c in SK.bwd_launches.by_variant.items()}
+        assert ran == {n: int(n == variant) for n in ran}
+        _check_scan_grads(model_layout(out), want, SSD_BWD_TOL)
+    for bad in ("mma_bf16", "simt_bf16"):
+        with pytest.raises(ValueError, match="variant"):
+            SK.ssm_scan_bwd_cuda(k[0], k[1], A, k[2], k[3], hh, k[4], dh,
+                                 variant=bad)
+
+
+def test_ssm_scan_backward_fp32_rows_it_cannot_read(cuda):
+    """``mma_f32`` reads the rows of fp32 x, B, C and dy as float4: a row
+    stride that is no multiple of 16 bytes raises before a launch, the
+    SIMT variant takes it, and ``SSDScanFn`` copies such an input (the
+    fp32 forward takes any layout), its gradient still the oracle's."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    B, S, H, P, N = 1, 70, 2, 32, 16
+    wide = torch.randn((B, S, H * P + 2 * N + 2), device=cuda) * 0.5
+    x, Bm, Cm, _ = torch.split(wide, [H * P, N, N, 2], -1)
+    x, Bm, Cm = x.reshape(B, S, H, P), Bm.reshape(B, S, 1, N), \
+        Cm.reshape(B, S, 1, N)                      # a 98-float row
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), device=cuda))
+    A = -(torch.rand((H,), device=cuda) * 4 + 0.5)
+    dy = torch.randn((B, S, H, P), device=cuda)
+    k = [t.transpose(1, 2) for t in (x, dt, Bm, Cm, dy)]
+    with pytest.raises(ValueError, match="16 bytes"):
+        SK.ssm_scan_bwd_cuda(k[0], k[1], A, k[2], k[3], None, k[4])
+    simt = SK.ssm_scan_bwd_cuda(k[0], k[1], A, k[2], k[3], None, k[4],
+                                variant="simt")
+    assert bool(torch.isfinite(simt[0]).all())
+    args = [x, dt, A, Bm, Cm, None]
+    before = SK.bwd_launches.by_variant["mma_f32"]
+    got = _scan_grads(ssm_scan, args, dy, None)
+    assert SK.bwd_launches.by_variant["mma_f32"] == before + 1
+    _check_scan_grads(got, _scan_grads(_ssd_plain, args, dy, None),
+                      SSD_BWD_TOL)
+
+
 @pytest.mark.parametrize("B,S,H,D,s0,dsf", [
     (1, 100, 4, 32, True, True),                    # ragged, D 32, states
     (4, 128, 3, 64, False, False),                  # a training shape
@@ -1725,7 +1802,7 @@ def test_bf16_training_step_of_narrow_zamba2_runs_the_kernels(cuda):
                    {"wgmma_f32": 0, "simt": 0, "wgmma_bf16": 2,
                     "simt_bf16": 0},
                    {"mma": 8, "simt": 0},
-                   {"simt": 0, "mma_bf16": 4, "simt_bf16": 0}]
+                   {"simt": 0, "mma_bf16": 4, "simt_bf16": 0, "mma_f32": 0}]
     assert bool(torch.isfinite(loss))
     for g in grads:
         assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())

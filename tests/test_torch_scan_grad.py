@@ -22,6 +22,8 @@
 The kernels themselves are held to autograd through the oracles on the
 card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -569,5 +571,147 @@ def test_ssd_mma_mirror_unrounded_is_the_reference(shape):
     want[3], want[4] = (t.reshape(B, G, rep, S, N).sum(2)
                         for t in want[3:5])
     if hh is None:
+        got, want = got[:5], want[:5]
+    _assert_close(got, want, ALGEBRA_TOL, SSD_NAMES)
+
+
+# ---- the fp32 tensor-core backward's rounding points -------------------------
+# ssd_bwd_mma on fp32 x, B and C (variant mma_f32) passes every factor of
+# its chunk products to the tensor cores as bf16 terms (x, B and C too),
+# sums each chunk's products into a zeroed partial (the carried h and Gc a
+# k-step at a time), truncating each mma's sum, and keeps the within-chunk
+# cumsum of dt A as a compensated pair.  ref.ssm_scan_bwd_f32_mirror
+# models those points; held here to float64 autograd through the per-step
+# oracle against ssm_scan_bwd_ref in fp32 (the SIMT kernel's algebra, the
+# yardstick): each gradient of the mirror no more than F32_RATIO times as
+# far from float64 (dh0 where there is an h0).
+
+F32_RATIO = 2.0
+# (B, H, S, P, N, G, h0, dh_f, bf16 dt): zamba2 100m's heads at S 128, S
+# 1024, ragged S with G > 1 and both states, P 32 / N 16 (with bf16 dt),
+# P 32 / N 16 with h0 alone, and two chunks and more with both states
+F32_MIRROR_SHAPES = [
+    (1, 2, 128, 64, 64, 1, False, False, False),
+    (1, 2, 1024, 64, 64, 1, False, False, False),
+    (1, 4, 300, 64, 64, 2, True, True, False),
+    (2, 4, 130, 32, 16, 2, True, True, True),
+    (1, 2, 200, 32, 16, 1, True, False, False),
+    (2, 2, 256, 64, 64, 1, True, True, False),
+]
+
+
+def _f32_case(B, H, S, P, N, G, h0, dhf, dt_bf16):
+    """fp32 x, B, C (per group), A, h0, dy and dh_f, fp32 or bf16 dt."""
+    rng = np.random.RandomState(S + N + H)
+    f32 = torch.float32
+    x = torch.tensor(rng.randn(B, H, S, P) * 0.5, dtype=f32)
+    dt = torch.tensor(np.log1p(np.exp(rng.randn(B, H, S))), dtype=f32)
+    if dt_bf16:
+        dt = dt.to(torch.bfloat16)
+    A = torch.tensor(-np.exp(rng.rand(H) * 2.8), dtype=f32)
+    Bm, Cm = (torch.tensor(rng.randn(B, G, S, N) * 0.5, dtype=f32)
+              for _ in range(2))
+    hh = torch.tensor(rng.randn(B, H, P, N), dtype=f32) if h0 else None
+    dy = torch.tensor(rng.randn(B, H, S, P), dtype=f32)
+    dh = torch.tensor(rng.randn(B, H, P, N), dtype=f32) if dhf else None
+    return [x, dt, A, Bm, Cm, hh], dy, dh
+
+
+def _ref_grads(args, dy, dh, G):
+    """``ssm_scan_bwd_ref`` on ``args`` (groups expanded), its dB and dC
+    summed over each group's heads."""
+    x, dt, A, Bm, Cm, hh = args
+    B, H, S, _ = x.shape
+    rep = H // G
+    got = list(ssm_scan_bwd_ref(x, dt, A, Bm.repeat_interleave(rep, 1),
+                                Cm.repeat_interleave(rep, 1), hh, dy, dh))
+    got[3], got[4] = (t.reshape(B, G, rep, S, -1).sum(2) for t in got[3:5])
+    return got
+
+
+def _f32_ratios(shape, **mirror):
+    """{gradient: the mirror's float64 distance over ssm_scan_bwd_ref's in
+    fp32}, each distance max |g - truth|."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_f32_mirror
+    args, dy, dh = _f32_case(*shape)
+    G = shape[5]
+
+    def d(t):
+        return None if t is None else t.double()
+    with _one_thread():
+        truth = _ref_grads([d(a) for a in args], d(dy), d(dh), G)
+        plain = _ref_grads(args, dy, dh, G)
+        got = ssm_scan_bwd_f32_mirror(*args, dy, dh, **mirror)
+    out = {}
+    for name, g, p, t in zip(SSD_NAMES, got, plain, truth):
+        if name == "dh0" and args[5] is None:
+            continue
+        assert g.dtype == p.dtype and bool(torch.isfinite(g).all())
+        out[name] = float((g.double() - t).abs().max()) / max(
+            float((p.double() - t).abs().max()), 1e-300)
+    return out
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """The mirror's many small products on one thread (a thread pool's
+    waits slow them by orders of magnitude under the parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("shape", F32_MIRROR_SHAPES)
+def test_ssd_f32_mirror_in_the_kernels_terms_passes_the_gate(shape):
+    ratios = _f32_ratios(shape)
+    print(f"fp32 mirror {shape}: " + ", ".join(
+        f"{n} {r:.3f}" for n, r in ratios.items()))
+    assert max(ratios.values()) <= F32_RATIO, ratios
+
+
+@pytest.mark.parametrize("factor", ["x", "b", "c", "dy", "m", "q", "gc",
+                                    "hs", "edy", "bstate"])
+def test_ssd_f32_mirror_with_a_factor_in_one_term_fewer(factor):
+    """Each factor one term fewer than the kernel's (``F32_TERMS``, the
+    fewest that pass), reported at every shape: each then fails the gate
+    at one shape at least."""
+    from repro_torch.kernels.ssm_scan.ref import F32_TERMS
+    terms = dict(F32_TERMS, **{factor: F32_TERMS[factor] - 1})
+    worst = {}
+    for shape in F32_MIRROR_SHAPES:
+        for name, r in _f32_ratios(shape, terms=terms).items():
+            worst[name] = max(worst.get(name, 0.0), r)
+    print(f"fp32 mirror, {factor} in {terms[factor]} terms: " + ", ".join(
+        f"{n} {r:.3f}" for n, r in worst.items()))
+    assert max(worst.values()) > F32_RATIO, worst
+
+
+def test_ssd_f32_mirror_chained_through_the_chunks():
+    """h and Gc carried with each chunk's products run straight into the
+    decayed sum (no zeroed partial, the bf16 kernel's form): reported,
+    and dh0 then lies further from float64 than with the partials, past
+    the gate at two chunks and more with both states."""
+    shape = F32_MIRROR_SHAPES[-1]
+    tiled, chained = _f32_ratios(shape), _f32_ratios(shape, chained=True)
+    print(f"fp32 mirror {shape}: partials {tiled}, chained {chained}")
+    assert chained["dh0"] > F32_RATIO >= tiled["dh0"]
+
+
+@pytest.mark.parametrize("shape", F32_MIRROR_SHAPES)
+def test_ssd_f32_mirror_unrounded_is_the_reference(shape):
+    """terms=None on float64 inputs: the fp32 kernel's algebra (its
+    orientation, λ without the cancelling terms, the compensated cumsum,
+    the k-step partials, the group sums) is ``ssm_scan_bwd_ref``'s, within
+    1e-10 of max(1, max |g|)."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_f32_mirror
+    args, dy, dh = _f32_case(*shape[:8], False)
+    args = [None if a is None else a.double() for a in args]
+    dy, dh = dy.double(), None if dh is None else dh.double()
+    got = list(ssm_scan_bwd_f32_mirror(*args, dy, dh, terms=None))
+    want = _ref_grads(args, dy, dh, shape[5])
+    if args[5] is None:
         got, want = got[:5], want[:5]
     _assert_close(got, want, ALGEBRA_TOL, SSD_NAMES)

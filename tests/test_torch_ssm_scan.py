@@ -247,20 +247,23 @@ def test_backward_smem_bytes_at_the_zamba2_heads():
 
 
 def test_backward_variant_rule():
-    """fp32 takes only ``simt``; bf16 takes ``mma_bf16`` unless
-    ``simt_bf16`` is named; anything else raises."""
+    """fp32 takes ``mma_f32`` unless ``simt`` is named; bf16 takes
+    ``mma_bf16`` unless ``simt_bf16`` is named; anything else raises."""
     f32, bf16 = torch.float32, torch.bfloat16
-    assert K.BWD_VARIANTS == {f32: "simt", bf16: "mma_bf16"}
-    assert K.bwd_variant(f32) == "simt" and K.bwd_variant(bf16) == "mma_bf16"
+    assert K.BWD_VARIANTS == {f32: "mma_f32", bf16: "mma_bf16"}
+    assert K.bwd_variant(f32) == "mma_f32"
+    assert K.bwd_variant(bf16) == "mma_bf16"
+    assert K.bwd_variant(f32, "simt") == "simt"
     assert K.bwd_variant(bf16, "simt_bf16") == "simt_bf16"
     for dtype, bad in ((f32, "mma_bf16"), (f32, "simt_bf16"),
-                       (bf16, "simt"), (bf16, "mma")):
+                       (bf16, "simt"), (bf16, "mma"), (bf16, "mma_f32"),
+                       (f32, "mma")):
         with pytest.raises(ValueError, match="variant"):
             K.bwd_variant(dtype, bad)
     with pytest.raises(TypeError):
         K.bwd_variant(torch.float16)
     assert set(K.bwd_launches.by_variant) == {"simt", "mma_bf16",
-                                              "simt_bf16"}
+                                              "simt_bf16", "mma_f32"}
 
 
 @pytest.mark.parametrize("B,H,G,hpb", [
@@ -313,3 +316,43 @@ def test_rows_error_names_what_16_byte_rows_need():
         assert "aligned" in K.rows_error(
             flat[per // 2:per // 2 + 2 * 3 * 16 * 64].view(2, 3, 16, 64))
         assert K.rows_error(t.transpose(-1, -2)) is not None
+
+
+# ---- the fp32 tensor-core backward (mma_f32) ---------------------------------
+
+@pytest.mark.parametrize("P,N", K.SIZES)
+def test_fp32_backward_fits_a_block(P, N):
+    """``ssd_bwd_mma_f32``'s shared memory at every compiled (P, N):
+    within a block's 227 KB (one block an SM at P = N = 64)."""
+    got = K.bwd_smem_bytes(P, N, "mma_f32")
+    assert 0 < got <= BLOCK_SMEM_MAX
+    assert got > K.bwd_smem_bytes(P, N, "mma_bf16")
+
+
+def test_fp32_backward_smem_bytes_at_the_zamba2_heads():
+    """The layout as ``TileF32`` sizes it (P = N = 64): three bf16 term
+    planes of x, dY, B, C, Gc and Q^T o dt, two of h_s; dt, 8 seg hi, 8
+    seg lo and 4 column-sum rows, rect, q, beta, gamma, 8 partials, 4
+    scratch tiles of 16 x 17 and Gc in fp32."""
+    plane = 64 * 64 * 2
+    floats = 64 + 16 * 64 + 4 * 64 + 4 * 64 + 8 + 4 * 16 * 17 + 64 * 64
+    assert K.bwd_smem_bytes(64, 64, "mma_f32") == 20 * plane + 4 * floats \
+        == 191_008
+
+
+@pytest.mark.parametrize("B,H,G,hpb", [
+    (32, 24, 1, 1),      # zamba2 100m's training step: 768 blocks
+    (32, 12, 1, 1),      # 10m: 384
+    (4, 64, 1, 1),       # zamba2-1.2b's full layer: 256
+    (2, 4, 2, 1),
+    (1, 8, 1, 1),
+])
+def test_fp32_heads_per_block(B, H, G, hpb):
+    """``mma_f32`` walks one head a block (measured on the H100: two and
+    four heads a block were slower at the training shapes and the full
+    layer, PERF.md): one block of 256 threads (two warpgroups) a (batch,
+    head); the bf16 kernel keeps its ``heads_per_block``."""
+    assert K.launch_shape("mma_f32", B, H, G) == ((H // hpb, B), 256)
+    assert K.launch_shape("mma_bf16", B, H, G) == (
+        (H // K.heads_per_block(B, H, G), B), 128)
+    assert K.heads_per_block(32, 64, 1) == 8      # bf16 keeps its own

@@ -13,9 +13,12 @@ the fp32 forward, ``flash_fwd_f32``, with and without its log-sum-exp,
 its out and lse held to the plain version's; and ``wgmma_f32`` at
 D 80, where its dk/dv warpgroups split the two gradients),
 ``ssd_bwd_simt`` (``csrc/ssm_scan_bwd.cu``: S 130, G 2 with H 4, P 32 /
-N 16, h0 and dh_f set), ``ssd_bwd_mma`` (``csrc/ssm_scan_bwd_mma.cu``,
-bf16 x, B and C: the same shape, and B 16, S 200, H 64 with P = N = 64,
-four heads a block, so that its workspace is written) and ``wkv_bwd_simt``
+N 16, h0 and dh_f set, by name), ``ssd_bwd_mma_f32``
+(``csrc/ssm_scan_bwd_mma.cu``, fp32 x, B and C, variant ``mma_f32``, what
+fp32 training runs: the same shape, and S 300 with P = N = 64, so that
+its workspace is written; ``ssd_bwd_simt`` there too), ``ssd_bwd_mma``
+(the same source, bf16 x, B and C: S 130 as above, and B 16, S 200, H 64
+with P = N = 64, four heads a block) and ``wkv_bwd_simt``
 (``csrc/rwkv6_scan_bwd.cu``: S 77, D 32, s0 and dS_f set).  Small
 shapes, so that a sanitizer's slowdown stays within minutes.  Exits
 non-zero if a kernel does not build, does not launch, or is off by more
@@ -123,24 +126,31 @@ def run_checks():
     check("flash_attention_bwd wgmma_f32 D80 window 40", got,
           attention_bwd_ref(q, k, v, dout, **kw))
 
-    # ssm_scan: kernel layout, groups by index
-    B, H, S, P, N, G = 2, 4, 130, 32, 16, 2
-    x, Bm, Cm = rn(B, H, S, P, scale=0.5), rn(B, G, S, N, scale=0.5), \
-        rn(B, G, S, N, scale=0.5)
-    dt = torch.nn.functional.softplus(rn(B, H, S))
-    A = -torch.exp(torch.rand((H,), generator=gen, device="cuda") * 2.8)
-    h0, dy, dhf = rn(B, H, P, N), rn(B, H, S, P), rn(B, H, P, N)
-    SK.ssm_scan_cuda(x, dt, A, Bm, Cm, h0)
-    got = SK.ssm_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dhf)
-    torch.cuda.synchronize()
-    leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm,
-                                                        h0)]
-    rep = H // G
-    y, hf = ssm_scan_ref(leaves[0], leaves[1], leaves[2],
-                         leaves[3].repeat_interleave(rep, 1),
-                         leaves[4].repeat_interleave(rep, 1), leaves[5])
-    want = torch.autograd.grad((y * dy).sum() + (hf * dhf).sum(), leaves)
-    check("ssm_scan_bwd S130 H4 G2 P32 N16, h0, dh_f", got, want)
+    # ssm_scan, fp32: kernel layout, groups by index; the tensor-core
+    # kernel (mma_f32, what training runs) and ssd_bwd_simt by name; at
+    # S 300 mma_f32 writes its workspace
+    for B, H, S, P, N, G in ((2, 4, 130, 32, 16, 2),
+                             (2, 4, 300, 64, 64, 1)):
+        x, Bm, Cm = rn(B, H, S, P, scale=0.5), rn(B, G, S, N, scale=0.5), \
+            rn(B, G, S, N, scale=0.5)
+        dt = torch.nn.functional.softplus(rn(B, H, S))
+        A = -torch.exp(torch.rand((H,), generator=gen, device="cuda") * 2.8)
+        h0, dy, dhf = rn(B, H, P, N), rn(B, H, S, P), rn(B, H, P, N)
+        SK.ssm_scan_cuda(x, dt, A, Bm, Cm, h0)
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm,
+                                                            Cm, h0)]
+        rep = H // G
+        y, hf = ssm_scan_ref(leaves[0], leaves[1], leaves[2],
+                             leaves[3].repeat_interleave(rep, 1),
+                             leaves[4].repeat_interleave(rep, 1), leaves[5])
+        want = torch.autograd.grad((y * dy).sum() + (hf * dhf).sum(),
+                                   leaves)
+        for variant in ("mma_f32", "simt"):
+            got = SK.ssm_scan_bwd_cuda(x, dt, A, Bm, Cm, h0, dy, dhf,
+                                       variant=variant)
+            torch.cuda.synchronize()
+            check(f"ssm_scan_bwd {variant} S{S} H{H} G{G} P{P} N{N}, h0, "
+                  f"dh_f", got, want)
 
     # ssm_scan_bwd_mma: bf16 x, B and C (the tensor-core kernel); at S 200
     # with 16 x 64 heads of one group a block walks four heads and writes

@@ -57,21 +57,23 @@ WARPS = 4                       # warps of a block of either mma kernel
 SLOTS = 8                       # probe slots a warp
 
 
-def probed(src):
-    """The source with clock() reads at its ``// @probe phase:<name>``
-    lines; returns (source, phase names)."""
-    names = re.findall(r"// @probe phase:(\w+)", src)
+def probed(src, tag="", warps=WARPS):
+    """The source with clock() reads at its ``// @probe <tag>phase:<name>``
+    lines (and its ``<tag>start`` and ``<tag>epilogue``: ``tag`` picks
+    one kernel of a source that marks two, of ``warps`` warps a block);
+    returns (source, phase names)."""
+    names = re.findall(rf"// @probe {re.escape(tag)}phase:(\w+)", src)
     if not 0 < len(names) <= SLOTS:
         raise SystemExit(f"scan_probe: {len(names)} phase lines")
-    src = (f"__device__ unsigned long long g_probe[{WARPS * SLOTS}];\n"
+    src = (f"__device__ unsigned long long g_probe[{warps * SLOTS}];\n"
            + src)
-    src = at(src, "start", f"  unsigned pf[{SLOTS}] = {{}};\n"
+    src = at(src, f"{tag}start", f"  unsigned pf[{SLOTS}] = {{}};\n"
              "  unsigned c_prev = clock();")
     for k, name in enumerate(names):
-        src = at(src, f"phase:{name}",
+        src = at(src, f"{tag}phase:{name}",
                  f"    {{ const unsigned c_now = clock(); pf[{k}] += "
                  f"c_now - c_prev; c_prev = c_now; }}")
-    src = at(src, "epilogue",
+    src = at(src, f"{tag}epilogue",
              f"  if (lane == 0)\n"
              f"    for (int k = 0; k < {SLOTS}; ++k)\n"
              f"      atomicAdd(&g_probe[warp * {SLOTS} + k], "
@@ -80,7 +82,7 @@ def probed(src):
             '  return (int)cudaMemcpyFromSymbol(out, g_probe, '
             'sizeof(g_probe));\n}\n'
             'extern "C" int probe_reset() {\n'
-            f'  unsigned long long z[{WARPS * SLOTS}] = {{0}};\n'
+            f'  unsigned long long z[{warps * SLOTS}] = {{0}};\n'
             '  return (int)cudaMemcpyToSymbol(g_probe, z, sizeof(z));\n'
             '}\n')
     return src, names
