@@ -14,7 +14,7 @@ Phases, each of which raises on failure:
    D 64, 80 or 128 and on one of the fp32 ``flash_fwd_f32`` at D 32 to
    128; each scan variant's registers and spills, and a
    failure on a spill of ``ssd_bwd_mma`` or ``ssd_bwd_mma_f32`` at P = N
-   = 64);
+   = 64 and on one of more than 64 bytes of ``ssd_fwd_mma_f32`` there);
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes and at ragged ones, bit-identical reruns, and timings
    (kernel, plain version, one PyTorch library call, in turns) beside
@@ -25,9 +25,10 @@ Phases, each of which raises on failure:
    at the three serve prefills' shapes (SDPA as the library call) and
    once at Qwen2-7B's through the model-layout adapter on strided views,
    and ``ssm_scan`` and ``rwkv6_scan`` at the zamba2-1.2b and rwkv6-7b
-   prefill shapes, each variant held to the per-step oracle (bf16: the
-   tensor-core ``ssd_fwd_mma`` / ``wkv_fwd_mma``, fp32: the SIMT
-   ``ssd_fwd_simt`` / ``wkv_fwd_simt``) and both timed there (no library
+   prefill shapes and ragged ones, each variant held to the per-step
+   oracle (bf16: the tensor-core ``ssd_fwd_mma`` / ``wkv_fwd_mma``; fp32:
+   ``ssd_fwd_mma_f32`` on the tensor cores and ``ssd_fwd_simt`` by name,
+   the SIMT ``wkv_fwd_simt``), the bf16 ones timed there (no library
    call computes either);
 4. main path: ``FleetEngine.run("flude")`` at N = 4096 clients, 512 per
    round, the default classifier (D = 22,026 packed parameters), with
@@ -103,7 +104,13 @@ Phases, each of which raises on failure:
    ragged ones (every (P, N), groups, states, S 1, several heads a
    block), the two timed in turns; ``[flash_fwd fp32]`` the fp32 flash
    forward with its lse (``wgmma_f32``) at the fp32 training shapes in
-   turns with SDPA's and with ``flash_fwd_simt`` by name;
+   turns with SDPA's and with ``flash_fwd_simt`` by name; ``[scan_fwd
+   fp32]`` the fp32 SSD forward (``mma_f32``) in turns with
+   ``ssd_fwd_simt`` by name at zamba2 100m's and 10m's training shapes
+   and one zamba2-1.2b layer, against ``ssd_fwd_bounds``, and y and the
+   final state of both held to a float64 truth (``mma_f32`` within 2x of
+   the SIMT kernel's distance, ``ssd_fwd_f64_distances``), and the fp32
+   WKV forward at rwkv6 100m's;
    ``[train flude-paper]``, ``[train 100m]``, ``[train 100m S2048]``,
    ``[train zamba2 10m]``, ``[train zamba2 100m]``, ``[train rwkv6
    10m]`` and ``[train rwkv6 100m]``: the driver's rounds with every
@@ -133,8 +140,9 @@ Phases, each of which raises on failure:
    devices: logits teacher-forced on the CPU's ids held together, ids
    compared with each step's top-2 margin, each checkpoint's SHA-256
    logged; ``[poison]`` every output and workspace the kernel wrappers
-   allocate filled with NaN (``_build.poisoned``): the fp32 forward at
-   three ragged shapes, ``tools/bwd_check.py``,
+   allocate filled with NaN (``_build.poisoned``): the fp32 flash
+   forward at three ragged shapes and the fp32 SSD forward at two,
+   ``tools/bwd_check.py``,
    the bf16 SSD backward at a ragged shape and ``[serve ckpt]`` again, at
    their gates;
 7. card against CPU: the golden FL setup (N = 24, 5 rounds) for FLUDE
@@ -314,6 +322,26 @@ SSD_F64_CASES = [
     ("zamba2-1.2b layer", 4, 4096, 64, 64, 64, 1, False, False),
     ("ragged S 300, G 2, h0, dh_f", 4, 300, 8, 64, 64, 2, True, True),
 ]
+# The fp32 SSD forward's default (mma_f32) against ssd_fwd_simt, each held
+# to a float64 truth on the same fp32 inputs (the per-step oracle in
+# float64): y and the final state of the default no more than
+# SSD_F64_RATIO times as far as the SIMT kernel's (stated in PERF.md
+# before the first run; the plain fp32 per-step oracle logged beside).
+# (label, B, S, H, P, N, G, h0): the 100m and 10m training shapes, one
+# full zamba2-1.2b layer, ragged S with G > 1 and h0, and S 1
+SSD_FWD_F64_CASES = [
+    ("100m training", 32, 128, 24, 64, 64, 1, False),
+    ("10m training", 32, 128, 12, 64, 64, 1, False),
+    ("zamba2-1.2b layer", 4, 4096, 64, 64, 64, 1, False),
+    ("ragged S 300, G 2, h0", 4, 300, 8, 64, 64, 2, True),
+    ("S 1, h0", 3, 1, 8, 64, 64, 1, True),
+]
+# ssd_fwd_mma_f32 runs three blocks an SM, at most 168 registers a thread:
+# at P = N = 64 ptxas spills 16 bytes (PERF.md); a build of it that held
+# the next chunk's rows in registers spilled 524 bytes and ran 1.26x as
+# long at zamba2 100m's training shape (tools/scan_probe.py --fp32): a
+# spill past this many bytes fails the build phase
+SSD_FWD_SPILL_MAX = 64
 # (label, B, S, H, D, s0, dS_f): rwkv6 at --scale (heads of 64), ragged
 # S, states, D 32, one full-width rwkv6-7b layer
 WKV_BWD_CASES = [
@@ -529,6 +557,7 @@ def phase_build():
     check_flash_build(builds["flash_attention"].report)
     check_flash_bwd_build(builds["flash_attention_bwd"].report)
     check_ssd_bwd_build(builds["ssm_scan_bwd_mma"].report)
+    check_ssd_fwd_build(builds["ssm_scan"].report)
     for name in ("ssm_scan", "rwkv6_scan", "flash_attention_bwd",
                  "ssm_scan_bwd", "rwkv6_scan_bwd"):
         for kernel, k in sorted(_build.ptxas_kernels(
@@ -633,6 +662,37 @@ def check_ssd_bwd_build(report):
         raise RuntimeError(f"ssd_bwd_mma: {seen} instantiations by x dtype "
                            f"in the ptxas report, expected 8 each (2 dt "
                            f"dtypes x 4 (P, N))")
+
+
+def check_ssd_fwd_build(report):
+    """Each ssd_fwd_mma_f32 instantiation's registers, shared memory and
+    spills (by dt dtype, P / 2 and N); raises on a spill of more than
+    SSD_FWD_SPILL_MAX bytes at P = N = 64, zamba2-1.2b's heads, and
+    unless it has its 8 instantiations."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan.kernel import smem_bytes
+    seen = 0
+    for name, k in sorted(_build.ptxas_kernels(report).items()):
+        m = re.search(r"ssd_fwd_mma_f32I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                      name)
+        if not m:
+            continue
+        seen += 1
+        dt, PB, N = ("fp32" if m.group(1) == "f" else "bf16",
+                     int(m.group(2)), int(m.group(3)))
+        kernel = f"ssd_fwd_mma_f32<{dt} dt, P {2 * PB}, N {N}>"
+        log(f"[build] {kernel}: {k.registers} registers at launch, "
+            f"{smem_bytes('mma_f32', 2 * PB, N)} bytes of dynamic shared "
+            f"memory, spills {k.spill_stores} / {k.spill_loads} bytes")
+        if PB == 32 and N == 64 and max(k.spill_stores, k.spill_loads) \
+                > SSD_FWD_SPILL_MAX:
+            raise RuntimeError(f"{kernel} spills more than "
+                               f"{SSD_FWD_SPILL_MAX} bytes of registers")
+    if seen != 8:
+        raise RuntimeError(f"ssd_fwd_mma_f32: {seen} instantiations in the "
+                           f"ptxas report, expected 8 (2 dt dtypes x 4 "
+                           f"(P, N))")
 
 
 def ptxas_lines(report):
@@ -1126,9 +1186,13 @@ def _check_scan(tag, label, got, want, rel):
 def phase_ssm_scan():
     """ssm_scan against ssm_scan_ref on the card at the zamba2-1.2b
     prefill shape and at ragged ones (S off the chunk, G 2 with H 4, P 32
-    / N 16, a nonzero h0 carried across two calls), each variant (bf16:
-    ssd_fwd_mma, fp32: ssd_fwd_simt) at least once, bit-identical reruns,
-    and timings of both variants beside the bound; returns its
+    / N 16, a nonzero h0 carried across two calls, S 1), each case through
+    the op's default variant (bf16: ssd_fwd_mma, fp32: ssd_fwd_mma_f32)
+    and each fp32 case once more through ssd_fwd_simt by name, both held
+    to the plain version at SSM_REL, every call's variant read off the
+    launch counter, reruns of the default bit-identical; the bf16 variant
+    timed at the prefill shape beside the bound (the fp32 ones at the
+    training shapes and the layer: ``phase_scan_fwd_fp32``); returns its
     kernels-line entry (``launches`` is filled in by the serve runs)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssm_scan import kernel as SK
@@ -1153,11 +1217,14 @@ def phase_ssm_scan():
         ("S 1, P 32 / N 64, bf16", 3, 1, 2, 32, 64, 1, bf16, True, None),
         ("h0 carried across two calls (S 130 + 170), fp32", 2, 300, 4, 64,
          64, 2, f32, True, 130),
+        ("training 100m (B 32, S 128, H 24), fp32", 32, 128, 24, 64, 64, 1,
+         f32, False, None),
     ]
-    max_err = 0.0
+    max_err = fp32_max_err = simt_max_err = 0.0
     for label, B, S, H, P, N, G, dt_, with_h0, split in cases:
         x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, G, dt_,
                                            seed=S + H, with_h0=with_h0)
+        before = dict(SK.launches.by_variant)
         if split is None:
             got = ssm_scan(x, dt, A, Bm, Cm, h0)
         else:
@@ -1167,47 +1234,61 @@ def phase_ssm_scan():
                               Bm[:, split:], Cm[:, split:], h1)
             got = (torch.cat([y1, y2], 1), h2)
         again = ssm_scan(x, dt, A, Bm, Cm, h0)
+        third = ssm_scan(x, dt, A, Bm, Cm, h0)
+        simt = None
+        if dt_ == f32:
+            k = [t.transpose(1, 2) for t in (x, dt, Bm, Cm)]
+            ys, hs = SK.ssm_scan_cuda(k[0], k[1], A, k[2], k[3], h0,
+                                      variant="simt")
+            simt = (ys.transpose(1, 2), hs)
         torch.cuda.synchronize()
+        ran = {v: n - before[v] for v, n in SK.launches.by_variant.items()}
+        default = SK.VARIANTS[dt_]
+        calls = 3 if split is None else 4
+        expect = {v: calls if v == default else
+                  int(v == "simt" and simt is not None) for v in ran}
+        if ran != expect:
+            raise RuntimeError(f"ssm_scan {label}: launches {ran}, "
+                               f"expected {expect}")
         want = ssm_scan(x, dt, A, Bm, Cm, h0, impl="torch")
         ey, ry = _check_scan("ssm_scan", label, got[0], want[0], SSM_REL)
         eh, rh = _check_scan("ssm_scan", label + " state", got[1],
                              want[1], SSM_REL)
-        same = bool(torch.equal(again[0], ssm_scan(x, dt, A, Bm, Cm, h0)[0]))
+        same = bool(torch.equal(again[0], third[0])
+                    and torch.equal(again[1], third[1]))
         max_err = max(max_err, ey, eh)
+        note = ""
+        if simt is not None:
+            fp32_max_err = max(fp32_max_err, ey, eh)
+            sy, _ = _check_scan("ssm_scan simt", label, simt[0], want[0],
+                                SSM_REL)
+            sh, _ = _check_scan("ssm_scan simt", label + " state", simt[1],
+                                want[1], SSM_REL)
+            simt_max_err = max(simt_max_err, sy, sh)
+            note = f"; simt by name: y {sy:.3e}, state {sh:.3e}"
         log(f"[ssm_scan] {label} (B{B} S{S} H{H} P{P} N{N} G{G} "
-            f"{str(dt_)[6:]}, {SK.VARIANTS[dt_]}, h0 {with_h0}): y max abs "
+            f"{str(dt_)[6:]}, {default}, h0 {with_h0}): y max abs "
             f"err {ey:.3e} "
-            f"({ry:.3e} of max(1, |y|)), state {eh:.3e} ({rh:.3e}); "
-            f"reruns bit-identical {same}")
+            f"({ry:.3e} of max(1, |y|)), state {eh:.3e} ({rh:.3e}){note}; "
+            f"reruns bit-identical {same}; launches {ran}")
         if not same:
             raise RuntimeError(f"ssm_scan {label}: two launches differ")
-        del x, dt, A, Bm, Cm, h0, got, again, want
+        del x, dt, A, Bm, Cm, h0, got, again, third, want, simt
 
     x, dt, A, Bm, Cm, _ = _ssd_inputs(*SSM_ZAMBA2, seed=1)
-    x32, B32, C32 = x.float(), Bm.float(), Cm.float()
-    ms, simt_ms = [], []
-    for _ in range(2):             # in turns: mma, SIMT, mma, SIMT
-        ms.append(cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm), reps=20,
-                          warmup=3))
-        simt_ms.append(cuda_ms(lambda: ssm_scan(x32, dt, A, B32, C32),
-                               reps=5, warmup=1))
-    ms, simt_ms = min(ms), min(simt_ms)
+    ms = min(cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm), reps=20,
+                     warmup=3) for _ in range(2))
     plain_ms = cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, impl="torch"),
                        reps=2, warmup=1)
     nbytes, flops, bytes_ms, bf16_ms, fp32_ms = ssd_bounds(*SSM_ZAMBA2,
                                                            False)
     bound_ms = max(bytes_ms, bf16_ms)
-    bytes32_ms = ssd_bounds(*SSM_ZAMBA2[:-1], f32, False)[2]
     log(f"[ssm_scan] zamba2-1.2b timing: ssd_fwd_mma (bf16) {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms (the per-step oracle), no library call; "
         f"bound {bound_ms * 1e3:.1f} us ({nbytes} bytes at 3.35 TB/s; "
         f"{flops:.4e} flops take {bf16_ms * 1e3:.1f} us on bf16 tensor "
-        f"cores); kernel at {bound_ms / ms:.1%} of the bound.  "
-        f"ssd_fwd_simt (fp32 x, B, C) {simt_ms:.3f} ms against its bytes' "
-        f"{bytes32_ms * 1e3:.1f} us and fp32's {fp32_ms * 1e3:.1f} us "
-        f"({fp32_ms / simt_ms:.1%} of fp32 peak); mma / SIMT "
-        f"{ms / simt_ms:.3f}")
-    del x, dt, A, Bm, Cm, x32, B32, C32
+        f"cores); kernel at {bound_ms / ms:.1%} of the bound")
+    del x, dt, A, Bm, Cm
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:66",
@@ -1215,7 +1296,8 @@ def phase_ssm_scan():
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= bf16_ms else "operations",
             "library_ms": None, "at": "zamba2-1.2b prefill shape",
-            "variant": "mma", "simt_ms": simt_ms}
+            "variant": "mma", "fp32_max_abs_err": fp32_max_err,
+            "simt_max_abs_err": simt_max_err}
 
 
 def wkv_bounds(B, S, H, D, dtype, with_s0):
@@ -2444,11 +2526,22 @@ def phase_serve(label, arch, B, S, N, n_params, per_prefill, gate,
                                     compute_dtype="float32")
         model32 = build_model(cfg32)
         p32 = tree_map(lambda t: t.float(), params)
+        before = {name: dict(c.by_variant) for name, c in counters.items()
+                  if c.by_variant}
         with torch.inference_mode():
             kern, _ = model32.prefill(p32, {"tokens": tokens}, ExecConfig(),
                                       max_len=S + 1)
             plain32, _ = model32.prefill(p32, {"tokens": tokens},
                                          plain_cfg, max_len=S + 1)
+        ran = {name: {v: n - before[name][v] for v, n in
+                      counters[name].by_variant.items()}
+               for name in before}
+        log(f"[{tag}] fp32 prefill launches by variant {ran}")
+        if "ssm_scan" in per_prefill and ran["ssm_scan"] != {
+                "mma_f32": per_prefill["ssm_scan"], "mma": 0, "simt": 0}:
+            raise RuntimeError(f"{tag}: the fp32 prefill's ssm_scan "
+                               f"launches {ran['ssm_scan']}, expected "
+                               f"{per_prefill['ssm_scan']} mma_f32")
         rel, same = compare_prefill(f"{tag}", "float32", per_prefill,
                                     kern[:, -1], plain32[:, -1])
         del p32, kern
@@ -2546,9 +2639,10 @@ def phase_serve_card_vs_cpu():
     parameters and prompt: logits within SERVE_F32_TOL of max(1,
     |logit|), ids equal; the card's flash launches all ``wgmma_f32``
     (one a prefill's attention layer or shared-attention application),
-    none ``simt``."""
+    none ``simt``, and zamba2's ssm_scan launches all ``mma_f32``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
@@ -2563,11 +2657,17 @@ def phase_serve_card_vs_cpu():
                                generator=torch.Generator().manual_seed(1))
         cpu = serve(model, params, tokens, 20, device="cpu")
         before = dict(FK.launches_by_variant)
+        ssd_before = dict(SK.launches.by_variant)
         card = serve(model, tree_map(lambda t: t.to("cuda"), params),
                      tokens, 20, device="cuda")
         ran = {v: n - before[v] for v, n in FK.launches_by_variant.items()}
+        ssd = {v: n - ssd_before[v] for v, n in SK.launches.by_variant.items()}
         log(f"[serve card vs CPU] {cfg.name}: flash launches by variant "
-            f"{ran}")
+            f"{ran}, ssm_scan {ssd}")
+        if ssd["simt"] or ssd["mma"] or (arch == "zamba2-1.2b"
+                                         and not ssd["mma_f32"]):
+            raise RuntimeError(f"serve card vs CPU {cfg.name}: ssm_scan "
+                               f"launches {ssd}, expected mma_f32 only")
         if ran["simt"] or ran["wgmma"] or (arch != "rwkv6-7b"
                                            and not ran["wgmma_f32"]):
             raise RuntimeError(f"serve card vs CPU {cfg.name}: flash "
@@ -2772,30 +2872,103 @@ def phase_flash_fwd_fp32():
     return timings
 
 
+def ssd_fwd_bounds(B, S, H, P, N, G, with_h0=False, split=True):
+    """(bytes, flops, bytes ms, ops ms) of one fp32 ssm_scan forward: x,
+    dt, A, B and C (and h0 when given) read once, y and the final state
+    written once, fp32; the chunked form's products at chunk 64 (the last
+    chunk ragged) that such a call needs, per chunk of L rows: over the
+    L(L+1)/2 pairs l <= i, C.B^T and M'.x, N + P multiply-adds a pair;
+    the L x P x N state update on every chunk (the final state is an
+    output) and C.state^T on every chunk but the first without h0 (the
+    state is zero there).  2 flops a multiply-add; with ``split``
+    (``ssd_fwd_mma_f32``) the flops of its bf16 term products, six for a
+    product of two three-term factors (``ref.FWD_F32_TERMS``), at the
+    tensor cores' 989 TFLOP/s; without, the products themselves at
+    fp32's 67 TFLOP/s (what ``ssd_fwd_simt`` reads against)."""
+    nbytes = 4 * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H + H
+                  + B * H * P * N * (2 if with_h0 else 1))
+    macs = 0
+    for c0 in range(0, S, 64):
+        L = min(64, S - c0)
+        macs += L * (L + 1) // 2 * (N + P) + L * P * N * (
+            1 + (c0 > 0 or with_h0))
+    flops = 2 * macs * B * H * (6 if split else 1)
+    rate = H100_BF16_FLOPS if split else H100_FP32_FLOPS
+    return (nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3,
+            flops / rate * 1e3)
+
+
+# the fp32 SSD forward's timed shapes: (label, B, S, H): zamba2 at
+# --scale 100m and 10m (8 silos x 4 x 128; heads of 64, N 64, one group)
+# and one full zamba2-1.2b layer at the serve prefill's (B 4, S 4096)
+SSD_FWD_SHAPES = [
+    ("100m training", 32, 128, 24),
+    ("10m training", 32, 128, 12),
+    ("zamba2-1.2b layer", 4, 4096, 64),
+]
+
+
 def phase_scan_fwd_fp32():
-    """The fp32 SIMT scan forwards at the training shapes that launch them
-    (twice a layer a step under remat): ``ssd_fwd_simt`` at zamba2 100m
-    (B 32, S 128, H 24, P = N = 64, G 1) and ``wkv_fwd_simt`` at rwkv6
-    100m (B 32, S 128, H 12, D 64), each through its op in the model's
-    layout, timed twice beside the plain chunked form and the bound (the
-    larger of its bytes at 3.35 TB/s and its fp32 operations at 67
-    TFLOP/s: the SSD's chunk-64 products, the WKV's per-step 5·D² a step
-    and head).  No single PyTorch call computes either.  Returns
-    {"ssm_scan": timing, "rwkv6_scan": timing}."""
+    """The fp32 scan forwards at the training shapes that launch them
+    (twice a layer a step under remat).  The SSD's default
+    (``ssd_fwd_mma_f32``, through its op in the model's layout) and
+    ``ssd_fwd_simt`` by name, timed in turns (kernel, simt, kernel, simt)
+    at SSD_FWD_SHAPES (P = N = 64, G 1), beside the bound
+    (``ssd_fwd_bounds``: the larger of the bytes at 3.35 TB/s and the
+    term products at 989 TFLOP/s), the fp32 bound (the products at 67
+    TFLOP/s, ``fp32_bound_ms``) and, at 100m, the plain per-step oracle;
+    ``wkv_fwd_simt`` at rwkv6 100m (B 32, S 128, H 12, D 64), timed twice
+    beside its plain form and its bound (the larger of its bytes and its
+    per-step 5·D² operations at 67 TFLOP/s).  No single PyTorch call
+    computes either.  Returns {"ssm_scan": {label: timing},
+    "rwkv6_scan": timing}."""
     from repro_torch.kernels.rwkv6_scan.ops import wkv_kernel_adapter
+    from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     f32 = torch.float32
-    out = {}
-    B, S, H, P, N, G = 32, 128, 24, 64, 64, 1
-    x, dt, A, Bm, Cm, _ = _ssd_inputs(B, S, H, P, N, G, f32, seed=11)
-    kern = [cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm), reps=20,
-                    warmup=3) for _ in range(2)]
-    plain_ms = cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm, impl="torch"),
-                       reps=3, warmup=1)
-    nbytes, _, bytes_ms, _, ops_ms = ssd_bounds(B, S, H, P, N, G, f32, False)
-    out["ssm_scan"] = ("zamba2 100m training (B 32, S 128, H 24, P = N = 64, "
-                       "G 1, fp32)", kern, plain_ms, bytes_ms, ops_ms, nbytes)
-    del x, dt, A, Bm, Cm
+    P, N, G = 64, 64, 1
+    ssd = {}
+    for label, B, S, H in SSD_FWD_SHAPES:
+        x, dt, A, Bm, Cm, _ = _ssd_inputs(B, S, H, P, N, G, f32, seed=11)
+        k = [t.transpose(1, 2) for t in (x, dt, Bm, Cm)]
+        reps = 20 if S <= 128 else 5
+        kern, alt = [], []
+        for _ in range(2):
+            kern.append(cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm),
+                                reps=reps, warmup=3))
+            alt.append(cuda_ms(lambda: SK.ssm_scan_cuda(
+                k[0], k[1], A, k[2], k[3], variant="simt"), reps=reps,
+                warmup=3))
+        plain_ms = cuda_ms(lambda: ssm_scan(x, dt, A, Bm, Cm,
+                                            impl="torch"), reps=3,
+                           warmup=1) if label == "100m training" else None
+        nbytes, flops, bytes_ms, ops_ms = ssd_fwd_bounds(B, S, H, P, N, G)
+        _, flops32, _, fp32_ops_ms = ssd_fwd_bounds(B, S, H, P, N, G,
+                                                    split=False)
+        ms, simt_ms = sum(kern) / 2, sum(alt) / 2
+        bound_ms = max(bytes_ms, ops_ms)
+        fp32_ms = max(bytes_ms, fp32_ops_ms)
+        log(f"[scan_fwd fp32] ssm_scan at zamba2 {label} (B{B} S{S} H{H} "
+            f"P{P} N{N} G{G}): mma_f32 {ms:.4f} ms ({kern[0]:.4f} / "
+            f"{kern[1]:.4f}), simt {simt_ms:.4f} ms ({alt[0]:.4f} / "
+            f"{alt[1]:.4f}) in the same turns, plain "
+            + (f"{plain_ms:.3f} ms" if plain_ms else "not timed")
+            + f"; bound {bound_ms * 1e3:.1f} us ({nbytes} bytes take "
+            f"{bytes_ms * 1e3:.1f} us at 3.35 TB/s; {flops:.4e} flops of "
+            f"bf16 term products take {ops_ms * 1e3:.1f} us at 989 "
+            f"TFLOP/s): mma_f32 at {bound_ms / ms:.1%}, simt at "
+            f"{bound_ms / simt_ms:.1%}; fp32 bound {fp32_ms * 1e3:.1f} us "
+            f"({flops32:.4e} flops at 67 TFLOP/s): mma_f32 at "
+            f"{fp32_ms / ms:.1%}, simt at {fp32_ms / simt_ms:.1%}; "
+            f"mma_f32 / simt {ms / simt_ms:.3f}")
+        ssd[label] = dict(at=f"zamba2 {label} (B {B}, S {S}, H {H}, P = N "
+                          f"= 64, G 1, fp32)", ms=ms, plain_ms=plain_ms,
+                          library_ms=None, bound_ms=bound_ms,
+                          bound_by="bytes" if bytes_ms >= ops_ms
+                          else "operations", fp32_bound_ms=fp32_ms,
+                          simt_ms=simt_ms)
+        del x, dt, A, Bm, Cm, k
+        torch.cuda.empty_cache()
     B, S, H, D = 32, 128, 12, 64
     r, k, v, logw, u, _ = _wkv_inputs(B, S, H, D, f32, seed=12)
     fn, plain = wkv_kernel_adapter("cuda"), wkv_kernel_adapter("torch")
@@ -2804,23 +2977,70 @@ def phase_scan_fwd_fp32():
     plain_ms = cuda_ms(lambda: plain(r, k, v, logw, u, None), reps=3,
                        warmup=1)
     nbytes, _, bytes_ms, _, ops_ms = wkv_bounds(B, S, H, D, f32, False)
-    out["rwkv6_scan"] = ("rwkv6 100m training (B 32, S 128, H 12, D 64, "
-                         "fp32)", kern, plain_ms, bytes_ms, ops_ms, nbytes)
-    timings = {}
-    for name, (at, kern, plain_ms, bytes_ms, ops_ms, nbytes) in out.items():
-        ms = sum(kern) / 2
-        bound_ms = max(bytes_ms, ops_ms)
-        log(f"[scan_fwd fp32] {name} at {at}: kernel {ms:.4f} ms "
-            f"({kern[0]:.4f} / {kern[1]:.4f}), plain {plain_ms:.3f} ms; "
-            f"bound {bound_ms * 1e3:.1f} us ({nbytes} bytes take "
-            f"{bytes_ms * 1e3:.1f} us at 3.35 TB/s, the fp32 operations "
-            f"{ops_ms * 1e3:.1f} us at 67 TFLOP/s); kernel at "
-            f"{bound_ms / ms:.1%} of the bound")
-        timings[name] = dict(at=at, ms=ms, plain_ms=plain_ms,
-                             library_ms=None, bound_ms=bound_ms,
-                             bound_by="bytes" if bytes_ms >= ops_ms
-                             else "operations")
-    return timings
+    ms = sum(kern) / 2
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"[scan_fwd fp32] rwkv6_scan at rwkv6 100m training (B 32, S 128, "
+        f"H 12, D 64, fp32): kernel {ms:.4f} ms ({kern[0]:.4f} / "
+        f"{kern[1]:.4f}), plain {plain_ms:.3f} ms; bound "
+        f"{bound_ms * 1e3:.1f} us ({nbytes} bytes take "
+        f"{bytes_ms * 1e3:.1f} us at 3.35 TB/s, the fp32 operations "
+        f"{ops_ms * 1e3:.1f} us at 67 TFLOP/s); kernel at "
+        f"{bound_ms / ms:.1%} of the bound")
+    wkv = dict(at="rwkv6 100m training (B 32, S 128, H 12, D 64, fp32)",
+               ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bound_ms,
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return {"ssm_scan": ssd, "rwkv6_scan": wkv}
+
+
+def ssd_fwd_f64_distances():
+    """y and the final state of the fp32 SSD forward from a float64 truth
+    (the per-step oracle in float64 on the same fp32 values, on the card)
+    at SSD_FWD_F64_CASES, each as max |x - truth| / max(1, max |truth|):
+    the default (``mma_f32``, through the op), ``ssd_fwd_simt`` by name
+    and the plain fp32 per-step oracle.  Logs each way and the default's
+    ratio to the SIMT kernel's distance, and raises if y or the state of
+    the default lies more than SSD_F64_RATIO times as far from float64
+    as the SIMT kernel's.  Returns {case: {way: {output: share}}}."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    found = {}
+    for label, B, S, H, P, N, G, with_h0 in SSD_FWD_F64_CASES:
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, G, torch.float32,
+                                           seed=S + H + 7, with_h0=with_h0)
+        args = [x, dt, A, Bm, Cm, h0]
+        truth = ssm_scan(*[None if t is None else t.double() for t in args],
+                         impl="torch")
+        k = [t.transpose(1, 2) for t in (x, dt, Bm, Cm)]
+        ys, hs = SK.ssm_scan_cuda(k[0], k[1], A, k[2], k[3], h0,
+                                  variant="simt")
+        got = {"mma_f32": ssm_scan(*args),
+               "simt": (ys.transpose(1, 2), hs),
+               "plain fp32": ssm_scan(*args, impl="torch")}
+        torch.cuda.synchronize()
+        dist = {way: {n: f64_share(o, t) for n, o, t in
+                      zip(("y", "state"), outs, truth)}
+                for way, outs in got.items()}
+        found[label] = dist
+        ratio = {n: dist["mma_f32"][n] / max(dist["simt"][n], 1e-300)
+                 for n in ("y", "state")}
+        worse = [n for n, r in ratio.items() if r > SSD_F64_RATIO]
+        log(f"[ssm_scan] float64 truth, {label} (B{B} S{S} H{H} P{P} N{N} "
+            f"G{G}, h0 {with_h0}): " + "; ".join(
+                f"{way} y {d['y']:.3e}, state {d['state']:.3e}"
+                for way, d in dist.items())
+            + " of max(1, max |x|); mma_f32 over simt "
+            + ", ".join(f"{n} {r:.3f}" for n, r in ratio.items())
+            + f"; more than {SSD_F64_RATIO}x simt's: "
+            + (", ".join(worse) if worse else "none"))
+        if worse:
+            raise RuntimeError(f"ssm_scan float64 truth, {label}: "
+                               f"{', '.join(worse)} of mma_f32 more than "
+                               f"{SSD_F64_RATIO}x as far from float64 as "
+                               f"ssd_fwd_simt's")
+        del x, dt, A, Bm, Cm, h0, args, truth, got, ys, hs, k
+        torch.cuda.empty_cache()
+    return found
 
 
 def check_flash_bwd(label, got, want):
@@ -3524,7 +3744,7 @@ def phase_ssm_scan_bwd_bf16():
         ran = {v: n - before[v] for v, n in SK.bwd_launches.by_variant.items()}
         fwd = {v: n - fwd_before[v] for v, n in SK.launches.by_variant.items()}
         if ran != {"simt": 0, "mma_bf16": 2, "simt_bf16": 1, "mma_f32": 0} \
-                or fwd != {"mma": 2, "simt": 0}:
+                or fwd != {"mma_f32": 0, "mma": 2, "simt": 0}:
             raise RuntimeError(f"ssm_scan_bwd bf16 {label}: launches {fwd} "
                                f"forward, {ran} backward")
         want = _grads(lambda *a: ssm_scan(*a, impl="torch"),
@@ -3609,14 +3829,14 @@ def train_step_launches(cfg):
 
 def train_step_variants(cfg):
     """The variant each kernel of a training step of ``cfg`` launches:
-    flash forward and backward and the SSD backward on the tensor cores
-    for both dtypes (fp32 in bf16 terms), the scans' forwards by the
-    compute dtype (fp32 SIMT, bf16 tensor cores), the WKV backward SIMT
-    on fp32."""
+    flash forward and backward and the SSD forward and backward on the
+    tensor cores for both dtypes (fp32 in bf16 terms), the WKV forward by
+    the compute dtype (fp32 SIMT, bf16 tensor cores), the WKV backward
+    SIMT on fp32."""
     bf16 = cfg.compute_dtype == "bfloat16"
     return {"flash_attention": "wgmma" if bf16 else "wgmma_f32",
             "flash_attention_lse": "wgmma" if bf16 else "wgmma_f32",
-            "ssm_scan": "mma" if bf16 else "simt",
+            "ssm_scan": "mma" if bf16 else "mma_f32",
             "rwkv6_scan": "mma" if bf16 else "simt",
             "flash_attention_bwd": "wgmma_bf16" if bf16 else "wgmma_f32",
             "ssm_scan_bwd": "mma_bf16" if bf16 else "mma_f32",
@@ -4257,11 +4477,40 @@ def poison_flash_fwd():
         del q, k, v, got, lse, want
 
 
+def poison_ssd_fwd():
+    """The fp32 SSD forward (``mma_f32``: y and the final state) at a
+    ragged shape (S 300, G 2, h0, P 64 / N 64) and at P 32 / N 16 (S 77,
+    G 4), each within SSM_REL of the plain version: ``[poison]`` runs it
+    with every allocation NaN-filled."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    for label, B, S, H, P, N, G in (("ragged S 300, G 2, h0", 4, 300, 8, 64,
+                                     64, 2),
+                                    ("ragged S 77, P 32 / N 16, G 4, h0",
+                                     1, 77, 8, 32, 16, 4)):
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, G, torch.float32,
+                                           seed=S + 9, with_h0=True)
+        before = SK.launches.by_variant["mma_f32"]
+        got = ssm_scan(x, dt, A, Bm, Cm, h0)
+        torch.cuda.synchronize()
+        if SK.launches.by_variant["mma_f32"] != before + 1:
+            raise RuntimeError(f"poison ssm_scan {label}: no mma_f32 launch")
+        want = ssm_scan(x, dt, A, Bm, Cm, h0, impl="torch")
+        ey, ry = _check_scan("poison ssm_scan", label, got[0], want[0],
+                             SSM_REL)
+        eh, rh = _check_scan("poison ssm_scan", label + " state", got[1],
+                             want[1], SSM_REL)
+        log(f"[poison] ssm_scan forward mma_f32 {label}: y {ry:.3e}, state "
+            f"{rh:.3e} of max(1, |plain|)")
+        del x, dt, A, Bm, Cm, h0, got, want
+
+
 def phase_poison(ckpt_100m, state_100m, ckpt_small):
     """The kernels with every output and workspace their wrappers allocate
     filled with NaN (``_build.poisoned()``, in the place of a memory
-    checker, which refuses the card): the fp32 forward (``wgmma_f32``,
-    out and lse) at three ragged shapes, ``tools/bwd_check.py``'s checks
+    checker, which refuses the card): the fp32 flash forward
+    (``wgmma_f32``, out and lse) at three ragged shapes, the fp32 SSD
+    forward (``mma_f32``) at two, ``tools/bwd_check.py``'s checks
     (each backward kernel at a ragged shape, ``ssd_bwd_mma`` at two), the
     bf16 SSD backward at SSD_BWD_BF16_CASES' ragged S 300 (four heads a
     block, a workspace) against the per-step oracle, and ``[serve ckpt]``
@@ -4278,6 +4527,7 @@ def phase_poison(ckpt_100m, state_100m, ckpt_small):
     t0 = time.perf_counter()
     with _build.poisoned():
         poison_flash_fwd()
+        poison_ssd_fwd()
         bwd_check.run_checks()
         label, B, S, H, P, N, G, _, _, dt_dtype = next(
             c for c in SSD_BWD_BF16_CASES if c[0].startswith("ragged S 300"))
@@ -4299,8 +4549,9 @@ def phase_poison(ckpt_100m, state_100m, ckpt_small):
         del x, dt, A, Bm, Cm, h0, dy, dhf, args, got, want
         phase_serve_ckpt(ckpt_100m, state_100m)
         phase_serve_ckpt_card_vs_cpu(ckpt_small)
-    log(f"[poison] every output and workspace NaN-filled: the backward "
-        f"checks, the bf16 SSD backward and [serve ckpt] passed their "
+    log(f"[poison] every output and workspace NaN-filled: the fp32 "
+        f"forwards, the backward checks, the bf16 SSD backward and [serve "
+        f"ckpt] passed their "
         f"gates ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -4378,8 +4629,20 @@ def main():
         **fwd32["100m S2048"],
         "at": "100m S 2048 training shape (B 8, Hq 12 / Hkv 4, S 2048, D "
         "64, causal, with lse)", "by_shape": fwd32}
-    for k, timing in phase_scan_fwd_fp32().items():
-        entries[k]["fp32_training_forward"] = timing
+    fwd_scans = phase_scan_fwd_fp32()
+    entries["rwkv6_scan"]["fp32_training_forward"] = fwd_scans["rwkv6_scan"]
+    # the fp32 SSD forward (mma_f32, what fp32 training and prefill run)
+    # as an entry of its own: its launches are the mma_f32 ones
+    entries["ssm_scan_f32"] = {
+        "name": "ssm_scan_f32", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:66",
+        "counter": "ssm_scan", "counted_variant": "mma_f32",
+        "launches": None,
+        "max_abs_err": entries["ssm_scan"].pop("fp32_max_abs_err"),
+        **fwd_scans["ssm_scan"]["100m training"],
+        "by_shape": fwd_scans["ssm_scan"],
+        "float64_distances": ssd_fwd_f64_distances()}
     data, main = phase_main_path(counters)
     dyn, dyn_rows, dyn_peaks = phase_dynamics(data, counters)
     paths = {"main": main, **phase_robust(data, counters), **dyn,

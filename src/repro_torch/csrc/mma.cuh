@@ -2,8 +2,10 @@
  * Tensor-core and copy helpers shared by the scan kernels (ssm_scan.cu,
  * rwkv6_scan.cu): mma.sync m16n8k16 bf16 -> fp32, ldmatrix, cp.async, the
  * 16-byte-chunk swizzle of shared-memory tiles, the split of fp32 values
- * into bf16 terms, and the cluster barrier, mbarriers and st.async by
- * which the two blocks of a WKV cluster trade partial sums.
+ * into bf16 terms and the sums of their term products, the compensated
+ * (two-sum) scan of a chunk's cumsum, and the cluster barrier, mbarriers
+ * and st.async by which the two blocks of a WKV cluster trade partial
+ * sums.
  *
  * Fragment layouts of mma.m16n8k16 (g = lane / 4, q = lane % 4):
  *   A (16 x 16, row-major): a0 (row g, cols 2q, 2q+1), a1 (row g+8, cols
@@ -210,6 +212,130 @@ __device__ __forceinline__ void split(float a, float b, uint32_t (&t)[K]) {
     a -= f.x;
     b -= f.y;
   }
+}
+
+// ---- fp32 factors as three bf16 terms (ssd_fwd_mma_f32, ssd_bwd_mma_f32) ----
+
+// d += a b over the term products of a KA-term and a KB-term factor with
+// i + j < max(KA, KB), the small ones first and the main pair (0, 0) last
+// (kernels/ssm_scan/ref.py's _tc_mm), for the 2 kJ n8 tiles of kJ x4 B
+// loads (d[2 j], d[2 j + 1] from b[j]), the sums' products interleaved so
+// that no product waits for the one before
+template <int KA, int KB, int kJ, int kD>
+__device__ __forceinline__ void mma_terms_xn(float (&d)[kD][4],
+                                             const uint32_t (&a)[KA][4],
+                                             const uint32_t (&b)[kJ][KB][4]) {
+  static_assert(kD == 2 * kJ, "two n8 tiles a load");
+  constexpr int kTop = (KA > KB ? KA : KB) - 1;
+#pragma unroll
+  for (int i = 0; i < KA; ++i)
+#pragma unroll
+    for (int j = 0; j < KB; ++j)
+      if (i + j > 0 && i + j <= kTop) {
+#pragma unroll
+        for (int n = 0; n < kJ; ++n) {
+          mma::mma_bf16(d[2 * n], a[i], b[n][j][0], b[n][j][1]);
+          mma::mma_bf16(d[2 * n + 1], a[i], b[n][j][2], b[n][j][3]);
+        }
+      }
+#pragma unroll
+  for (int n = 0; n < kJ; ++n) {
+    mma::mma_bf16(d[2 * n], a[0], b[n][0][0], b[n][0][1]);
+    mma::mma_bf16(d[2 * n + 1], a[0], b[n][0][2], b[n][0][3]);
+  }
+}
+
+// the same for kN n8 tiles of x2 B loads, the kN sums' products
+// interleaved, so that no product waits for the one before
+template <int KA, int KB, int kN>
+__device__ __forceinline__ void mma_terms_n(float (&d)[kN][4],
+                                            const uint32_t (&a)[KA][4],
+                                            const uint32_t (&b)[kN][KB][2]) {
+  constexpr int kTop = (KA > KB ? KA : KB) - 1;
+#pragma unroll
+  for (int i = 0; i < KA; ++i)
+#pragma unroll
+    for (int j = 0; j < KB; ++j)
+      if (i + j > 0 && i + j <= kTop) {
+#pragma unroll
+        for (int n = 0; n < kN; ++n)
+          mma::mma_bf16(d[n], a[i], b[n][j][0], b[n][j][1]);
+      }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) mma::mma_bf16(d[n], a[0], b[n][0][0], b[n][0][1]);
+}
+
+// ldmatrix of the K term planes of a tile, `plane` bytes apart
+template <int K>
+__device__ __forceinline__ void ldsm_k(uint32_t (&r)[K][4], uint32_t addr,
+                                       int plane) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) mma::ldsm_x4(r[k], addr + k * plane);
+}
+template <int K>
+__device__ __forceinline__ void ldsm_k_t(uint32_t (&r)[K][4], uint32_t addr,
+                                         int plane) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) mma::ldsm_x4_t(r[k], addr + k * plane);
+}
+
+// the fp32 pair at (row, col), (row, col + 1) of a three-term tile of W
+// chunks a row: its terms summed, (t0 + t1) + t2, which is exact
+template <int W>
+__device__ __forceinline__ float2 pair3(const unsigned char* tile, int plane,
+                                        int row, int col) {
+  const int off = mma::swz_el<W>(row, col);
+  const float2 a = mma::unpack(*reinterpret_cast<const uint32_t*>(tile + off));
+  const float2 b = mma::unpack(
+      *reinterpret_cast<const uint32_t*>(tile + plane + off));
+  const float2 c = mma::unpack(
+      *reinterpret_cast<const uint32_t*>(tile + 2 * plane + off));
+  return make_float2((a.x + b.x) + c.x, (a.y + b.y) + c.y);
+}
+
+// s + e = a + b exactly (Knuth's two-sum)
+__device__ __forceinline__ void two_sum(float& s, float& e, float a,
+                                        float b) {
+  s = a + b;
+  const float bb = s - a;
+  e = (a - (s - bb)) + (b - bb);
+}
+
+// inclusive prefix sums of (h0, l0) at row lane and (h1, l1) at row lane +
+// 32 over the 64 rows, by one warp, each an unevaluated sum hi + lo that
+// keeps the bits a plain fp32 cumsum rounds away
+__device__ __forceinline__ void scan64_2(float& h0, float& l0, float& h1,
+                                         float& l1, int lane) {
+  float s, e;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float uh0 = __shfl_up_sync(0xffffffffu, h0, o);
+    const float ul0 = __shfl_up_sync(0xffffffffu, l0, o);
+    const float uh1 = __shfl_up_sync(0xffffffffu, h1, o);
+    const float ul1 = __shfl_up_sync(0xffffffffu, l1, o);
+    if (lane >= o) {
+      two_sum(s, e, h0, uh0);
+      h0 = s;
+      l0 += ul0 + e;
+      two_sum(s, e, h1, uh1);
+      h1 = s;
+      l1 += ul1 + e;
+    }
+  }
+  const float th = __shfl_sync(0xffffffffu, h0, 31);
+  const float tl = __shfl_sync(0xffffffffu, l0, 31);
+  two_sum(s, e, h1, th);
+  h1 = s;
+  l1 += tl + e;
+}
+
+// exp2 of hi + lo; of a difference of two compensated sums
+__device__ __forceinline__ float exp2_2(float h, float l) {
+  return mma::fast_exp2(h) * mma::fast_exp2(l);
+}
+__device__ __forceinline__ float exp2_d(float ha, float la, float hb,
+                                        float lb) {
+  return mma::fast_exp2((ha - hb) + (la - lb));
 }
 
 }  // namespace mma

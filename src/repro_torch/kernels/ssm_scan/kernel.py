@@ -1,17 +1,24 @@
 """Launch wrapper of the CUDA ``ssm_scan`` kernel (``csrc/ssm_scan.cu``).
 
-Replaces ``repro/kernels/ssm_scan/kernel.py:66 ssm_scan_pallas``.  Two
-variants, chosen by the dtype of x, B and C with no fallback between them:
-fp32 launches ``ssd_fwd_simt`` (one block of 256 threads a (batch, head),
-the three chunk products as fp32 FMAs, bound by the SIMT rate), bf16
-launches ``ssd_fwd_mma`` (two blocks of 128 threads a (batch, head), each
-owning half of P; the chunk products on tensor cores with the fp32
-factors as two bf16 terms, the next chunk staged by cp.async while this
-one computes: bound by the bytes it moves).  Both walk the chunks of S
-with the (P, N) fp32 state on the SM, read B and C per group (no
-``repeat`` copy) and every tensor through its strides, so the model's
-(B, S, H, P) layout goes in without a transpose.  See the source for the
-design and its bound.
+Replaces ``repro/kernels/ssm_scan/kernel.py:66 ssm_scan_pallas``.  The
+dtype of x, B and C picks the variant (``VARIANTS``), with no fallback
+between them: fp32 launches ``ssd_fwd_mma_f32`` (variant ``mma_f32``:
+the chunk products on tensor cores with every factor as three bf16
+terms, each k-step's products into a zeroed partial, the within-chunk
+cumsum of dt A as a compensated pair; B and C split into their term
+planes once by a pre-pass, ``ssd_split3_bc``, into a workspace this
+wrapper allocates, x split as it lands; three blocks an SM), bf16
+launches ``ssd_fwd_mma`` (``mma``: the fp32 factors as two bf16 terms,
+the next chunk staged by cp.async while this one computes: bound by the
+bytes it moves).  Both run two blocks of 128 threads a (batch, head),
+each owning half of P.
+``ssd_fwd_simt`` (``simt``: one block of 256 threads a (batch, head),
+the chunk products as fp32 FMAs) runs only where asked for by name on
+fp32 values (``fwd_variant``): the yardstick of the tests and
+``chip_smoke.py``.  Each walks the chunks of S with the (P, N) fp32
+state on the SM, reads B and C per group (no ``repeat`` copy) and every
+tensor through its strides, so the model's (B, S, H, P) layout goes in
+without a transpose.  See the source for the design and its bound.
 
 ``ssm_scan_bwd_cuda`` launches the gradient of either variant, the
 backward of the training forward, on the tensor cores for both dtypes
@@ -45,10 +52,16 @@ from repro_torch.kernels import _build
 # (32, 16), and the two mixed sizes
 SIZES = ((32, 16), (32, 64), (64, 16), (64, 64))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-VARIANTS = {torch.float32: "simt", torch.bfloat16: "mma"}
+# the forward's variant of each dtype of x, B and C, and the ones a call
+# may name: fp32 on the tensor cores (the default) or SIMT, bf16 on the
+# tensor cores; each variant's code in the C entry
+VARIANTS = {torch.float32: "mma_f32", torch.bfloat16: "mma"}
+FWD_ALLOWED = {torch.float32: ("mma_f32", "simt"),
+               torch.bfloat16: ("mma",)}
+FWD_CODES = {"simt": 0, "mma": 1, "mma_f32": 2}
 CHUNK = 64                      # rows of a chunk inside the kernel
 
-launches = _build.LaunchCounter(variants=("mma", "simt"))
+launches = _build.LaunchCounter(variants=("mma_f32", "mma", "simt"))
 # one count a call of ssm_scan_bwd_cuda, by variant: the tensor cores on
 # fp32 x, B and C (the default) and on bf16 ones (the default), the SIMT
 # kernel on either where asked for by name
@@ -73,19 +86,25 @@ MMA_MIN_BLOCKS = 256
 
 
 def smem_bytes(variant: str, P: int, N: int) -> int:
-    """Dynamic shared memory of one block, as ``csrc/ssm_scan.cu`` sizes
-    it.  SIMT: x·dt, B, C, the state and the masked decay matrix in fp32,
-    rows padded by one float, and four rows of 64 (dt, seg, exp(seg),
-    exp(seg_last - seg)).  mma: two stages of x (P / 2 columns), B and C
-    in bf16 and dt in fp32, the state's two bf16 terms and each of the 4
-    warps' seg."""
+    """Dynamic shared memory of one forward block, as ``csrc/ssm_scan.cu``
+    sizes it.  ``simt``: x·dt, B, C, the state and the masked decay
+    matrix in fp32, rows padded by one float, and four rows of 64 (dt,
+    seg, exp(seg), exp(seg_last - seg)).  ``mma``: two stages of x (P / 2
+    columns), B and C in bf16 and dt in fp32, the state's two bf16 terms
+    and each of the 4 warps' seg.  ``mma_f32`` (``SsdTileF32``): three
+    bf16 term planes each of x (P / 2 columns), B, C and the state, one
+    chunk's worth; fp32 dt and the compensated seg, hi and lo."""
     L = CHUNK
+    PB = P // 2
     if variant == "simt":
         return 4 * (L * (P + 1) + 2 * L * (N + 1) + P * (N + 1)
                     + L * (L + 1) + 4 * L)
-    PB = P // 2
-    stage = L * PB * 2 + 2 * L * N * 2 + L * 4
-    return 2 * stage + 2 * PB * N * 2 + 4 * L * 4
+    if variant == "mma":
+        stage = L * PB * 2 + 2 * L * N * 2 + L * 4
+        return 2 * stage + 2 * PB * N * 2 + 4 * L * 4
+    if variant == "mma_f32":
+        return 3 * 2 * (L * PB + 2 * L * N + PB * N) + 4 * 3 * L
+    raise ValueError(f"unknown ssm_scan variant {variant!r}")
 
 
 def bwd_smem_bytes(P: int, N: int, variant: str = "simt") -> int:
@@ -151,25 +170,50 @@ def heads_per_block(B: int, H: int, G: int) -> int:
     return hpb
 
 
-def launch_shape(variant: str, B: int, H: int, G: int = 1):
-    """(grid, threads a block) of one launch: the SIMT forward one block
-    a (batch, head), the mma forward two (each half of P); the bf16
-    tensor-core backward one block of 128 threads a (batch,
-    ``heads_per_block`` heads of a group), the fp32 one a block of 256
-    (passes A and B on a warpgroup each) a (batch, head)."""
+def fwd_variant(dtype: torch.dtype, variant: Optional[str] = None) -> str:
+    """The forward variant a call of ``ssm_scan_cuda`` runs on x, B and C
+    of ``dtype``: ``VARIANTS[dtype]`` unless one is named; fp32 takes
+    ``"mma_f32"`` or ``"simt"``, bf16 ``"mma"`` (``FWD_ALLOWED``)."""
+    if dtype not in VARIANTS:
+        raise TypeError(f"ssm_scan cuda: takes float32 or bfloat16 x, Bm "
+                        f"and Cm, got {dtype}")
+    if variant is None:
+        return VARIANTS[dtype]
+    allowed = FWD_ALLOWED[dtype]
+    if variant not in allowed:
+        raise ValueError(f"ssm_scan cuda: variant {variant!r} does not take "
+                         f"{dtype} (one of {allowed})")
+    return variant
+
+
+def launch_shape(variant: str, B: int, H: int):
+    """(grid, threads a block) of one forward launch: ``simt`` one block
+    of 256 threads a (batch, head), ``mma`` and ``mma_f32`` two of 128
+    (each half of P)."""
     if variant == "simt":
         return (H, B), 256
+    if variant in ("mma", "mma_f32"):
+        return (2 * H, B), 128
+    raise ValueError(f"unknown ssm_scan variant {variant!r}")
+
+
+def bwd_launch_shape(variant: str, B: int, H: int, G: int = 1):
+    """(grid, threads a block) of one tensor-core backward launch: the
+    bf16 one (``mma_bf16``) a block of 128 threads a (batch,
+    ``heads_per_block`` heads of a group), the fp32 one (``mma_f32``) a
+    block of 256 (passes A and B on a warpgroup each) a (batch, head)."""
     if variant == "mma_bf16":
         return (H // heads_per_block(B, H, G), B), 128
     if variant == "mma_f32":
         return (H, B), 256
-    return (2 * H, B), 128
+    raise ValueError(f"unknown ssm_scan backward variant {variant!r}")
 
 
 def rows_error(t: torch.Tensor) -> Optional[str]:
-    """Why the mma kernels cannot read the rows of ``t`` 16 bytes at a
-    time (cp.async of bf16 x, B and C; float4 loads of the backwards' fp32
-    dy and of ``mma_f32``'s fp32 x, B and C), or None if they can: the
+    """Why the tensor-core kernels cannot read the rows of ``t`` 16 bytes
+    at a time (cp.async of bf16 x, B and C; float4 loads of the fp32 x, B
+    and C of both ``mma_f32`` kernels and of the backwards' dy), or None
+    if they can: the
     last axis contiguous, every other stride a multiple of 16 bytes, a
     16-byte-aligned base."""
     per = 16 // t.element_size()
@@ -194,7 +238,7 @@ def _entry():
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_void_p]
@@ -204,15 +248,19 @@ def _entry():
 
 def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   Bm: torch.Tensor, Cm: torch.Tensor,
-                  h0: Optional[torch.Tensor] = None):
+                  h0: Optional[torch.Tensor] = None,
+                  variant: Optional[str] = None):
     """x: (B, H, S, P); dt: (B, H, S); A: (H,); Bm, Cm: (B, G, S, N) with
     head h reading group h // (H // G) (G == H: groups already expanded);
     h0: (B, H, P, N) fp32 or None (zeros), all on one CUDA device.
 
     Returns y (B, H, S, P) fp32 — a view of (B, S, H, P) memory, the
-    model's layout — and the final state (B, H, P, N) fp32.  fp32 x, B
-    and C launch the SIMT variant, bf16 the mma one.  Launches on the
-    current stream and does not synchronise."""
+    model's layout — and the final state (B, H, P, N) fp32.
+    ``variant`` (``fwd_variant``): fp32 x, B and C run ``"mma_f32"``
+    unless ``"simt"`` is named, bf16 ones ``"mma"``; the tensor-core
+    variants read the rows of x, B and C 16 bytes at a time
+    (``rows_error``).  Launches on the current stream and does not
+    synchronise."""
     dev = x.device
     tensors = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)) + \
         ((("h0", h0),) if h0 is not None else ())
@@ -220,12 +268,13 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssm_scan cuda: every tensor must lie on one CUDA "
                          f"device, got " + ", ".join(
                              f"{n} {t.device}" for n, t in tensors))
-    if x.dtype not in DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype \
-            or dt.dtype not in DTYPES:
+    if x.dtype not in VARIANTS or Bm.dtype != x.dtype \
+            or Cm.dtype != x.dtype or dt.dtype not in DTYPES:
         raise TypeError(f"ssm_scan cuda: takes float32 or bfloat16 x, Bm "
                         f"and Cm of one dtype and a float32 or bfloat16 "
                         f"dt, got {x.dtype}, {Bm.dtype}, {Cm.dtype}, "
                         f"{dt.dtype}")
+    variant = fwd_variant(x.dtype, variant)
     if h0 is not None and h0.dtype != torch.float32:
         raise TypeError(f"ssm_scan cuda: h0 must be float32, got "
                         f"{h0.dtype}")
@@ -253,7 +302,7 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"ssm_scan cuda: {name} must have a contiguous "
                              f"last axis, got strides {t.stride()}")
-        if x.dtype == torch.bfloat16:
+        if variant != "simt":
             _check_rows(name, t)
     y = _build.empty((B, S, H, P), torch.float32, dev).transpose(1, 2)
     if S == 0 or B == 0 or H == 0:
@@ -261,6 +310,9 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             if h0 is None else h0.clone()
         return y, hf
     hf = _build.empty((B, H, P, N), torch.float32, dev)
+    # mma_f32: B's and C's three bf16 term planes, (2, B, G, 3, S, N)
+    ws = _build.empty((2, B, G, 3, S, N), torch.bfloat16, dev) \
+        if variant == "mma_f32" else None
     A32 = A.float().contiguous()
     h0c = None if h0 is None else h0.contiguous()
     strides = (ctypes.c_int64 * 15)(*x.stride()[:3], *dt.stride(),
@@ -268,18 +320,19 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                     *y.stride()[:3])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _entry()(DTYPES[x.dtype], DTYPES[dt.dtype], P, N,
+        err = _entry()(FWD_CODES[variant], DTYPES[dt.dtype], P, N,
                        x.data_ptr(), dt.data_ptr(), A32.data_ptr(),
                        Bm.data_ptr(), Cm.data_ptr(),
                        None if h0c is None else h0c.data_ptr(),
-                       y.data_ptr(), hf.data_ptr(), strides, B, H, G, S,
-                       stream)
+                       y.data_ptr(), hf.data_ptr(),
+                       None if ws is None else ws.data_ptr(), strides, B, H,
+                       G, S, stream)
     if err != 0:
-        raise RuntimeError(f"ssm_scan cuda: {VARIANTS[x.dtype]} launch "
+        raise RuntimeError(f"ssm_scan cuda: {variant} launch "
                            f"failed with CUDA error {err} at x "
                            f"{tuple(x.shape)}, Bm {tuple(Bm.shape)}, "
                            f"{x.dtype}")
-    launches.add(VARIANTS[x.dtype])
+    launches.add(variant)
     return y, hf
 
 

@@ -473,3 +473,128 @@ def ssm_scan_bwd_f32_mirror(x: torch.Tensor, dt: torch.Tensor,
     dB, dC = (v.reshape(Bsz, G, rep, S, N).sum(2) for v in (dB, dC))
     return dx, ddt.to(dt_dtype if f == torch.float32 else f), dA.sum(0), \
         dB, dC, gc
+
+
+def ssm_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         Bm: torch.Tensor, Cm: torch.Tensor,
+                         h0: Optional[torch.Tensor] = None,
+                         chunk: int = 64):
+    """The chunked form as ``ssd_fwd_simt`` (``csrc/ssm_scan.cu``) takes
+    it, in x's dtype (fp32: that kernel's algebra, the yardstick of the
+    fp32 tensor-core forward; float64: exact), for tests only.  Shapes as
+    ``ssm_scan_ref`` but Bm, Cm (B, G, S, N) with head h reading group h
+    // (H / G).  Per chunk: seg the plain cumsum of dt A, M = (C Bᵀ) ∘
+    exp(seg_i − seg_l) for l ≤ i, y = M (x dt) + exp(seg_i) C stateᵀ and
+    state ← exp(seg_last) state + Σ_l exp(seg_last − seg_l) (x_l dt_l) ⊗
+    B_l.  Returns y (B, H, S, P) and the final state (B, H, P, N)."""
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    Bsz, H, S, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[-1]
+    rep = H // G
+    x, dt, A = (v.to(f) for v in (x, dt, A))
+    Bh, Ch = (v.to(f).repeat_interleave(rep, 1) for v in (Bm, Cm))
+    L = chunk
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool))   # [i, l]: l ≤ i
+    h = torch.zeros((Bsz, H, P, N), dtype=f) if h0 is None else h0.to(f)
+    y = torch.zeros((Bsz, H, S, P), dtype=f)
+    for c0 in range(0, S, L):
+        sl = slice(c0, min(c0 + L, S))
+        n, pad = sl.stop - sl.start, L - (sl.stop - sl.start)
+
+        def take(v, sl=sl, pad=pad):
+            v = v[:, :, sl]
+            return torch.nn.functional.pad(v, (0, 0, 0, pad)) \
+                if v.ndim == 4 else torch.nn.functional.pad(v, (0, pad))
+        xc, dtc, bc, cc = (take(v) for v in (x, dt, Bh, Ch))
+        seg = torch.cumsum(dtc * A[None, :, None], -1)
+        e = torch.exp(seg)
+        dec = torch.exp((seg[..., :, None] - seg[..., None, :])
+                        .masked_fill(~tri, 0)).masked_fill(~tri, 0)
+        xdt = xc * dtc[..., None]
+        yc = (cc @ bc.transpose(-1, -2) * dec) @ xdt \
+            + e[..., None] * (cc @ h.transpose(-1, -2))
+        y[:, :, sl] = yc[:, :, :n]
+        wl = torch.exp(seg[..., -1:] - seg)
+        h = e[..., -1, None, None] * h \
+            + (xdt * wl[..., None]).transpose(-1, -2) @ bc
+    return y, h
+
+
+# The factors of the fp32 tensor-core forward's products (``ssd_fwd_mma_f32``
+# in csrc/ssm_scan.cu): x, B and C; the chunk-start state in C stateᵀ;
+# M' = (C Bᵀ) ∘ decay ∘ dt in M' x; and B ∘ w ∘ dt in the state update.
+# The kernel's terms: the fewest with which ``ssm_scan_fwd_f32_mirror``
+# keeps y and the final state within 2x of ``ssm_scan_chunked_ref``'s fp32
+# distance from float64 at every shape of tests/test_torch_ssm_scan.py
+FWD_F32_FACTORS = ("x", "b", "c", "state", "m", "bstate")
+FWD_F32_TERMS = {f: 3 for f in FWD_F32_FACTORS}
+
+
+def ssm_scan_fwd_f32_mirror(x: torch.Tensor, dt: torch.Tensor,
+                            A: torch.Tensor, Bm: torch.Tensor,
+                            Cm: torch.Tensor,
+                            h0: Optional[torch.Tensor] = None,
+                            terms=FWD_F32_TERMS, per_step: bool = True,
+                            chunk: int = 64):
+    """The rounding points of the fp32 tensor-core forward
+    (``ssd_fwd_mma_f32`` in ``csrc/ssm_scan.cu``, variant ``mma_f32``),
+    for tests only.  Shapes as ``ssm_scan_chunked_ref``; fp32 x, B, C,
+    A and h0, fp32 or bf16 dt.
+
+    Per chunk of ``chunk`` rows: seg the within-chunk cumsum of dt A
+    log2 e, kept as a compensated pair (``_seg2``), every decay exp2 of a
+    difference of two such (``_sub2``); C Bᵀ, C stateᵀ (skipped on chunk
+    0 without h0) and M' x (M' = (C Bᵀ) ∘ decay ∘ dt, formed in fp32),
+    every factor in ``terms[factor]`` bf16 terms (``terms`` an int for
+    all, or None: exact), each k-step's products into a zeroed partial
+    added rounded to nearest as ``_tc_mm`` sums them (``per_step`` False:
+    a product's k-steps into one zeroed partial), y = fma(e, C stateᵀ,
+    M' x) in fp32; the carried state ← e_last state + Xᵀ (B ∘ w ∘ dt),
+    each k-step's products a zeroed partial.  Float64 inputs with
+    ``terms=None`` run all of it in float64: ``ssm_scan_ref``'s
+    function.  Returns y (B, H, S, P) and the final state (B, H, P, N),
+    fp32 (float64 for float64 x)."""
+    if isinstance(terms, int) or terms is None:
+        terms = {f: terms for f in FWD_F32_FACTORS}
+    t = terms
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    Bsz, H, S, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[-1]
+    rep = H // G
+    x, dt, A = (v.to(f) for v in (x, dt, A))
+    A2 = A * torch.tensor(1.4426950408889634, dtype=f)
+    Bh, Ch = (v.to(f).repeat_interleave(rep, 1) for v in (Bm, Cm))
+    L = chunk
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool))   # [i, l]: l ≤ i
+    h = torch.zeros((Bsz, H, P, N), dtype=f) if h0 is None else h0.to(f)
+    y = torch.zeros((Bsz, H, S, P), dtype=f)
+    for c0 in range(0, S, L):
+        sl = slice(c0, min(c0 + L, S))
+        n, pad = sl.stop - sl.start, L - (sl.stop - sl.start)
+
+        def take(v, sl=sl, pad=pad):
+            v = v[:, :, sl]
+            return torch.nn.functional.pad(v, (0, 0, 0, pad)) \
+                if v.ndim == 4 else torch.nn.functional.pad(v, (0, pad))
+        xc, dtc, bc, cc = (take(v) for v in (x, dt, Bh, Ch))
+        seg = _seg2(dtc * A2[None, :, None])                # log2 units
+        e = _exp2(seg)
+        dec = torch.where(tri, _exp2(_sub2(
+            tuple(v[..., :, None] for v in seg),
+            tuple(v[..., None, :] for v in seg)).masked_fill(~tri, 0)), 0)
+        wl = _exp2(_sub2(tuple(v[..., -1:] for v in seg), seg))
+        cb = _tc_mm(cc, bc.transpose(-1, -2), t["c"], t["b"],
+                    per_step=per_step)
+        m = cb * dec * dtc[..., None, :]
+        intra = _tc_mm(m, xc, t["m"], t["x"], per_step=per_step)
+        if c0 == 0 and h0 is None:
+            yc = intra
+        else:
+            inter = _tc_mm(cc, h.transpose(-1, -2), t["c"], t["state"],
+                           per_step=per_step)
+            yc = _fma(e[..., None].expand_as(inter), inter, intra)
+        y[:, :, sl] = yc[:, :, :n]
+        bw = bc * (wl * dtc)[..., None]
+        h = _tc_mm(xc.transpose(-1, -2), bw, t["x"], t["bstate"],
+                   acc=h * e[..., -1, None, None], per_step=True)
+    return y, h

@@ -577,7 +577,31 @@ SCAN_VARIANTS = pytest.mark.parametrize(
     "dtype", [torch.float32, torch.bfloat16], ids=["simt", "mma"])
 
 
-@SCAN_VARIANTS
+# the SSD forward's variants: fp32 x, B and C on the tensor cores (the
+# default) and on the SIMT pipes (by name), bf16 on the tensor cores
+SSD_VARIANTS = pytest.mark.parametrize(
+    "dtype,variant", [(torch.float32, "mma_f32"), (torch.float32, "simt"),
+                      (torch.bfloat16, "mma")],
+    ids=["mma_f32", "simt", "mma"])
+
+
+def _ssd_variant(variant):
+    """ssm_scan in the model's layout through ``variant``: the op where
+    it is its dtype's default, the kernel wrapper by name elsewhere."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+
+    def call(x, dt, A, Bm, Cm, h0=None):
+        if variant == SK.VARIANTS[x.dtype]:
+            return ssm_scan(x, dt, A, Bm, Cm, h0, impl="cuda")
+        k = [t.transpose(1, 2) for t in (x, dt, Bm, Cm)]
+        y, h = SK.ssm_scan_cuda(k[0], k[1], A, k[2], k[3], h0,
+                                variant=variant)
+        return y.transpose(1, 2), h
+    return call
+
+
+@SSD_VARIANTS
 @pytest.mark.parametrize("B,S,H,P,N,G,h0", [
     (1, 100, 4, 32, 16, 2, False),                  # ragged, G 2
     (2, 64, 2, 64, 64, 1, True),
@@ -587,14 +611,13 @@ SCAN_VARIANTS = pytest.mark.parametrize(
     (1, 300, 8, 64, 64, 1, False),
     (2, 1000, 4, 32, 16, 2, False),                 # ragged S 1000
 ])
-def test_ssm_scan_kernel_matches_plain(cuda, B, S, H, P, N, G, h0, dtype):
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, H, P, N, G, h0, dtype,
+                                       variant):
     from repro_torch.kernels.ssm_scan import kernel as SK
-    from repro_torch.kernels.ssm_scan.ops import ssm_scan
     args = _ssd_inputs(B, S, H, P, N, G, dtype, cuda, seed=S, h0=h0)
     before = dict(SK.launches.by_variant)
-    y, h = ssm_scan(*args, impl="cuda")
+    y, h = _ssd_variant(variant)(*args)
     torch.cuda.synchronize()
-    variant = SK.VARIANTS[dtype]
     assert {v: n - before[v] for v, n in SK.launches.by_variant.items()} \
         == {v: int(v == variant) for v in before}
     want_y, want_h = _ssd_plain(*args)
@@ -605,36 +628,37 @@ def test_ssm_scan_kernel_matches_plain(cuda, B, S, H, P, N, G, h0, dtype):
         assert ok, err
 
 
-@SCAN_VARIANTS
-def test_ssm_scan_kernel_splits_over_a_carried_state(cuda, dtype):
-    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+@SSD_VARIANTS
+def test_ssm_scan_kernel_splits_over_a_carried_state(cuda, dtype, variant):
+    call = _ssd_variant(variant)
     x, dt, A, Bm, Cm, _ = _ssd_inputs(2, 150, 4, 32, 16, 2, dtype, cuda,
                                       seed=3)
-    y, h = ssm_scan(x, dt, A, Bm, Cm)
-    y1, h1 = ssm_scan(x[:, :70], dt[:, :70], A, Bm[:, :70], Cm[:, :70])
-    y2, h2 = ssm_scan(x[:, 70:], dt[:, 70:], A, Bm[:, 70:], Cm[:, 70:], h1)
+    y, h = call(x, dt, A, Bm, Cm)
+    y1, h1 = call(x[:, :70], dt[:, :70], A, Bm[:, :70], Cm[:, :70])
+    y2, h2 = call(x[:, 70:], dt[:, 70:], A, Bm[:, 70:], Cm[:, 70:], h1)
     assert _within(torch.cat([y1, y2], 1), y, SSM_REL)[0]
     assert _within(h2, h, SSM_REL)[0]
 
 
-@SCAN_VARIANTS
-def test_ssm_scan_kernel_is_deterministic_and_counts_launches(cuda, dtype):
+@SSD_VARIANTS
+def test_ssm_scan_kernel_is_deterministic_and_counts_launches(cuda, dtype,
+                                                              variant):
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     args = _ssd_inputs(2, 200, 4, 64, 64, 1, dtype, cuda)
     before = SK.launches.count
     by_variant = dict(SK.launches.by_variant)
-    a = ssm_scan(*args)
-    b = ssm_scan(*args)
+    a = _ssd_variant(variant)(*args)
+    b = _ssd_variant(variant)(*args)
     ssm_scan(*args, impl="torch")                   # plain version
     assert SK.launches.count == before + 2
-    assert SK.launches.by_variant[SK.VARIANTS[dtype]] == \
-        by_variant[SK.VARIANTS[dtype]] + 2
+    assert SK.launches.by_variant[variant] == by_variant[variant] + 2
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
     from repro_torch.kernels.ssm_scan.kernel import ssm_scan_cuda
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
     x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 8, 4, 32, 16, 2, torch.float32,
                                       cuda)
     k = lambda t: t.transpose(1, 2)                 # noqa: E731
@@ -647,11 +671,22 @@ def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
         ssm_scan_cuda(k(x[:, :, :3]), k(dt[:, :, :3]), A[:3], k(Bm), k(Cm))
     with pytest.raises(ValueError):
         ssm_scan_cuda(k(x), k(dt), A.cpu(), k(Bm), k(Cm))
-    # bf16 rows the mma variant cannot copy 16 bytes at a time
-    flat = torch.zeros(1 + x.numel(), dtype=torch.bfloat16, device=cuda)
-    xs = flat[1:].view(x.shape)
-    with pytest.raises(ValueError, match="16-byte"):
-        ssm_scan_cuda(k(xs), k(dt), A, k(Bm).bfloat16(), k(Cm).bfloat16())
+    with pytest.raises(ValueError, match="variant"):  # bf16 has one variant
+        ssm_scan_cuda(k(x).bfloat16(), k(dt), A, k(Bm).bfloat16(),
+                      k(Cm).bfloat16(), variant="mma_f32")
+    # rows the tensor-core variants cannot read 16 bytes at a time: both
+    # raise, the SIMT one takes them, and the op copies them
+    for dtype in (torch.bfloat16, torch.float32):
+        flat = torch.zeros(1 + x.numel(), dtype=dtype, device=cuda)
+        xs = flat[1:].view(x.shape)
+        xs.copy_(x)
+        with pytest.raises(ValueError, match="16-byte"):
+            ssm_scan_cuda(k(xs), k(dt), A, k(Bm).to(dtype), k(Cm).to(dtype))
+    got = ssm_scan(xs, dt, A, Bm, Cm)
+    simt = ssm_scan_cuda(k(xs), k(dt), A, k(Bm), k(Cm), variant="simt")
+    want = _ssd_plain(x, dt, A, Bm, Cm, None)
+    assert _within(got[0], want[0], SSM_REL)[0]
+    assert _within(simt[0].transpose(1, 2), want[0], SSM_REL)[0]
 
 
 def _wkv_inputs(B, S, H, D, dtype, device, seed=0, s0=False):
@@ -1374,8 +1409,8 @@ def test_ssm_scan_backward_fp32_variants_pass_one_gate(cuda, B, S, H, P, N,
 def test_ssm_scan_backward_fp32_rows_it_cannot_read(cuda):
     """``mma_f32`` reads the rows of fp32 x, B, C and dy as float4: a row
     stride that is no multiple of 16 bytes raises before a launch, the
-    SIMT variant takes it, and ``SSDScanFn`` copies such an input (the
-    fp32 forward takes any layout), its gradient still the oracle's."""
+    SIMT variant takes it, and the op copies such an input before the
+    forward (``mma_f32`` too), its gradient still the oracle's."""
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     B, S, H, P, N = 1, 70, 2, 32, 16
@@ -1393,9 +1428,12 @@ def test_ssm_scan_backward_fp32_rows_it_cannot_read(cuda):
                                 variant="simt")
     assert bool(torch.isfinite(simt[0]).all())
     args = [x, dt, A, Bm, Cm, None]
-    before = SK.bwd_launches.by_variant["mma_f32"]
+    before = (SK.launches.by_variant["mma_f32"],
+              SK.bwd_launches.by_variant["mma_f32"])
     got = _scan_grads(ssm_scan, args, dy, None)
-    assert SK.bwd_launches.by_variant["mma_f32"] == before + 1
+    assert (SK.launches.by_variant["mma_f32"],
+            SK.bwd_launches.by_variant["mma_f32"]) == (before[0] + 1,
+                                                       before[1] + 1)
     _check_scan_grads(got, _scan_grads(_ssd_plain, args, dy, None),
                       SSD_BWD_TOL)
 
@@ -1801,7 +1839,7 @@ def test_bf16_training_step_of_narrow_zamba2_runs_the_kernels(cuda):
     assert ran == [{"wgmma": 4, "wgmma_f32": 0, "simt": 0},
                    {"wgmma_f32": 0, "simt": 0, "wgmma_bf16": 2,
                     "simt_bf16": 0},
-                   {"mma": 8, "simt": 0},
+                   {"mma_f32": 0, "mma": 8, "simt": 0},
                    {"simt": 0, "mma_bf16": 4, "simt_bf16": 0, "mma_f32": 0}]
     assert bool(torch.isfinite(loss))
     for g in grads:

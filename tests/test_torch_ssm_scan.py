@@ -12,11 +12,18 @@ On the same numpy inputs (fp32 unless a case says bf16):
 * a carried h0: two calls over the halves of S equal one call over all of
   it, on both sides;
 * the wrapper's contract: unknown impls, the CUDA wrapper refusing CPU
-  tensors.
+  tensors, the variant rule, each variant's shared memory and grid, the
+  op's copy of rows the tensor-core kernels cannot read;
+* the fp32 tensor-core forward's rounding points
+  (``ref.ssm_scan_fwd_f32_mirror``) against a float64 truth, beside
+  ``ssd_fwd_simt``'s algebra (``ref.ssm_scan_chunked_ref``) in fp32.
 
 The CUDA kernel itself is held to ``ssm_scan_ref`` on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
+import contextlib
+import functools
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -28,6 +35,7 @@ from repro.kernels.ssm_scan.ref import ssm_scan_ref as jax_ssm_scan_ref
 
 from repro_torch.kernels.ssm_scan import kernel as K
 from repro_torch.kernels.ssm_scan import ops
+from repro_torch.kernels.ssm_scan import ref as R
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 # Per-step forms on both sides: fp32, other summation order in the
@@ -167,13 +175,14 @@ def test_every_ssm_config_has_a_kernel_variant():
 SM_SMEM, BLOCK_RESERVED, BLOCK_SMEM_MAX = 233_472, 1024, 232_448
 
 
-@pytest.mark.parametrize("dtype,variant", [(torch.float32, "simt"),
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "mma_f32"),
                                            (torch.bfloat16, "mma")])
 def test_the_variant_follows_the_dtype(dtype, variant):
-    """fp32 x, B and C launch the SIMT kernel, bf16 the tensor-core one;
-    the launch counter counts each, and a CPU call counts neither."""
-    assert K.VARIANTS[dtype] == variant
-    assert set(K.launches.by_variant) == {"mma", "simt"}
+    """fp32 x, B and C launch the fp32 tensor-core kernel, bf16 the bf16
+    one; the launch counter counts each and the SIMT kernel, and a CPU
+    call counts none."""
+    assert K.VARIANTS[dtype] == variant == K.fwd_variant(dtype)
+    assert set(K.launches.by_variant) == {"mma_f32", "mma", "simt"}
     x, dt, A, Bm, Cm = _inputs(1, 70, 2, 32, 16, 1, "float32")
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
     before = (K.launches.count, dict(K.launches.by_variant))
@@ -181,28 +190,50 @@ def test_the_variant_follows_the_dtype(dtype, variant):
     assert (K.launches.count, dict(K.launches.by_variant)) == before
 
 
+def test_forward_variant_rule():
+    """fp32 takes ``mma_f32`` unless ``simt`` is named; bf16 takes
+    ``mma`` only; anything else raises, as the backward's rule does."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert K.fwd_variant(f32, "simt") == "simt"
+    assert K.fwd_variant(f32, "mma_f32") == "mma_f32"
+    assert K.fwd_variant(bf16, "mma") == "mma"
+    for dtype, bad in ((bf16, "mma_f32"), (bf16, "simt"), (f32, "mma"),
+                       (f32, "mma_bf16"), (f32, "wgmma")):
+        with pytest.raises(ValueError, match="variant"):
+            K.fwd_variant(dtype, bad)
+    with pytest.raises(TypeError):
+        K.fwd_variant(torch.float16)
+    assert set(K.FWD_CODES) == {v for vs in K.FWD_ALLOWED.values()
+                                for v in vs}
+
+
 def test_the_launch_counter_counts_the_scan_variants():
     from repro_torch.kernels import _build
-    c = _build.LaunchCounter(variants=("mma", "simt"))
+    c = _build.LaunchCounter(variants=("mma_f32", "mma", "simt"))
     view = c.by_variant
-    for v in ("mma", "mma", "simt"):
+    for v in ("mma", "mma_f32", "mma_f32", "simt"):
         c.add(v)
-    assert (c.count, view) == (3, {"mma": 2, "simt": 1})
+    assert (c.count, view) == (4, {"mma_f32": 2, "mma": 1, "simt": 1})
     c.reset()
-    assert (c.count, view) == (0, {"mma": 0, "simt": 0})
+    assert (c.count, view) == (0, {"mma_f32": 0, "mma": 0, "simt": 0})
 
 
 @pytest.mark.parametrize("P,N", K.SIZES)
 def test_each_variant_fits_the_sm(P, N):
-    """Shared memory and grid of both variants at every compiled (P, N):
-    within a block's 227 KB; the mma variant four blocks an SM, two
-    blocks of 128 threads a (batch, head)."""
+    """Shared memory and grid of the three variants at every compiled (P,
+    N): within a block's 227 KB; the bf16 mma variant four blocks an SM,
+    the fp32 one three, each two blocks of 128 threads a (batch, head)."""
     simt, mma = K.smem_bytes("simt", P, N), K.smem_bytes("mma", P, N)
-    assert 0 < simt <= BLOCK_SMEM_MAX and 0 < mma <= BLOCK_SMEM_MAX
+    f32 = K.smem_bytes("mma_f32", P, N)
+    assert all(0 < b <= BLOCK_SMEM_MAX for b in (simt, mma, f32))
     assert 4 * (mma + BLOCK_RESERVED) <= SM_SMEM
-    B, H = 4, 64                                     # zamba2's prefill
+    assert 3 * (f32 + BLOCK_RESERVED) <= SM_SMEM
+    B, H = 32, 24                                    # zamba2 100m training
     assert K.launch_shape("simt", B, H) == ((H, B), 256)
     assert K.launch_shape("mma", B, H) == ((2 * H, B), 128)
+    assert K.launch_shape("mma_f32", B, H) == ((2 * H, B), 128)
+    with pytest.raises(ValueError, match="variant"):
+        K.smem_bytes("mma_bf16", P, N)
 
 
 def test_smem_bytes_at_the_zamba2_heads():
@@ -212,6 +243,27 @@ def test_smem_bytes_at_the_zamba2_heads():
     # state's two bf16 terms (32 x 64), four warps' seg
     assert K.smem_bytes("mma", 64, 64) == \
         2 * (64 * 32 * 2 + 2 * 64 * 64 * 2 + 256) + 2 * 32 * 64 * 2 + 1024
+    # three bf16 planes of x (64 x 32), B, C (64 x 64) and the state (32
+    # x 64); dt and the seg's hi and lo
+    assert K.smem_bytes("mma_f32", 64, 64) == 74_496 == \
+        3 * 2 * (64 * 32 + 2 * 64 * 64 + 32 * 64) + 4 * 3 * 64
+
+
+def test_the_op_copies_rows_the_kernels_cannot_read():
+    """``ops.readable_rows``, which the op applies to x, B and C before a
+    launch: a view whose rows the tensor-core kernels read 16 bytes at a
+    time passes as it is (the model's split projection), any other is
+    copied to contiguous memory with the same values."""
+    for dtype in (torch.float32, torch.bfloat16):
+        per = 16 // torch.tensor([], dtype=dtype).element_size()
+        proj = torch.randn(2, 9, 3 * 32 + 2 * 16).to(dtype)
+        x = proj[..., :96].reshape(2, 9, 3, 32).transpose(1, 2)
+        assert ops.readable_rows(x) is x
+        odd = torch.randn(2, 9, 3 * 32 + per // 2).to(dtype)
+        xo = odd[..., :96].reshape(2, 9, 3, 32).transpose(1, 2)
+        got = ops.readable_rows(xo)
+        assert K.rows_error(xo) is not None and K.rows_error(got) is None
+        assert got is not xo and torch.equal(got, xo)
 
 
 # ---- the backward's variants ------------------------------------------------
@@ -352,7 +404,165 @@ def test_fp32_heads_per_block(B, H, G, hpb):
     four heads a block were slower at the training shapes and the full
     layer, PERF.md): one block of 256 threads (two warpgroups) a (batch,
     head); the bf16 kernel keeps its ``heads_per_block``."""
-    assert K.launch_shape("mma_f32", B, H, G) == ((H // hpb, B), 256)
-    assert K.launch_shape("mma_bf16", B, H, G) == (
+    assert K.bwd_launch_shape("mma_f32", B, H, G) == ((H // hpb, B), 256)
+    assert K.bwd_launch_shape("mma_bf16", B, H, G) == (
         (H // K.heads_per_block(B, H, G), B), 128)
     assert K.heads_per_block(32, 64, 1) == 8      # bf16 keeps its own
+
+
+# ---- the fp32 tensor-core forward's rounding points --------------------------
+# ssd_fwd_mma_f32 passes every factor of its chunk products to the tensor
+# cores as three bf16 terms (x, B, C, the state, M' and B o w o dt), sums
+# each k-step's products into a zeroed partial (the tensor cores truncate
+# each mma's sum) and keeps the within-chunk cumsum of dt A as a
+# compensated pair.  ref.ssm_scan_fwd_f32_mirror models those points; held
+# here to float64 through the per-step oracle against
+# ref.ssm_scan_chunked_ref in fp32 (ssd_fwd_simt's algebra, the
+# yardstick): y and the final state of the mirror no more than
+# F32_RATIO times as far from float64.
+
+F32_RATIO = 2.0
+# (B, H, S, P, N, G, h0, bf16 dt): zamba2's heads at the training S 128
+# and at S 1024 (64 chunks of the full layer cut to 16), ragged S with G
+# > 1 and h0, P 32 / N 16 with a bf16 dt, and S 1 and S 5 with h0, where
+# the state's own terms carry y
+F32_FWD_SHAPES = [
+    (1, 2, 128, 64, 64, 1, False, False),
+    (1, 2, 1024, 64, 64, 1, False, False),
+    (1, 4, 300, 64, 64, 2, True, False),
+    (2, 4, 130, 32, 16, 2, True, True),
+    (2, 8, 1, 64, 64, 1, True, False),
+    (2, 8, 5, 64, 16, 1, True, False),
+]
+
+
+def _f32_fwd_case(B, H, S, P, N, G, h0, dt_bf16):
+    """fp32 x, B, C (per group), A and h0, fp32 or bf16 dt, drawn as
+    ``chip_smoke.py``'s ``_ssd_inputs`` draws them."""
+    rng = np.random.RandomState(S + N + H)
+    f32 = torch.float32
+    x = torch.tensor(rng.randn(B, H, S, P) * 0.5, dtype=f32)
+    dt = torch.tensor(np.log1p(np.exp(rng.randn(B, H, S))), dtype=f32)
+    if dt_bf16:
+        dt = dt.to(torch.bfloat16)
+    A = torch.tensor(-np.exp(rng.rand(H) * 2.8), dtype=f32)
+    Bm, Cm = (torch.tensor(rng.randn(B, G, S, N) * 0.5, dtype=f32)
+              for _ in range(2))
+    hh = torch.tensor(rng.randn(B, H, P, N), dtype=f32) if h0 else None
+    return [x, dt, A, Bm, Cm, hh]
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """The mirror's many small products on one thread (a thread pool's
+    waits slow them by orders of magnitude under the parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_fwd_yardstick(shape):
+    """The case's float64 truth (y, state) and ssd_fwd_simt's algebra's
+    distance from it (max |y - truth|, max |h - truth|)."""
+    args = _f32_fwd_case(*shape)
+    rep = shape[1] // shape[5]
+    d = [None if a is None else a.double() for a in args]
+    with _one_thread():
+        truth = ssm_scan_ref(d[0], d[1], d[2],
+                             d[3].repeat_interleave(rep, 1),
+                             d[4].repeat_interleave(rep, 1), d[5])
+        simt = R.ssm_scan_chunked_ref(*args)
+    return args, truth, tuple(float((s.double() - t).abs().max())
+                              for s, t in zip(simt, truth))
+
+
+def _f32_fwd_ratios(shape, **mirror):
+    """(y, state): the mirror's float64 distance over ssd_fwd_simt's
+    algebra's, each distance max |x - truth|."""
+    args, truth, simt = _f32_fwd_yardstick(shape)
+    with _one_thread():
+        got = R.ssm_scan_fwd_f32_mirror(*args, **mirror)
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+               for g in got)
+    return tuple(float((g.double() - t).abs().max()) / max(s, 1e-300)
+                 for g, t, s in zip(got, truth, simt))
+
+
+@pytest.mark.parametrize("shape", F32_FWD_SHAPES)
+def test_ssd_fwd_f32_mirror_in_the_kernels_terms_passes_the_gate(shape):
+    y, h = _f32_fwd_ratios(shape)
+    print(f"fp32 forward mirror {shape}: y {y:.3f}, state {h:.3f}")
+    assert max(y, h) <= F32_RATIO, (y, h)
+
+
+@pytest.mark.parametrize("factor", R.FWD_F32_FACTORS)
+def test_ssd_fwd_f32_mirror_with_a_factor_in_one_term_fewer(factor):
+    """Each factor one term fewer than the kernel's (``FWD_F32_TERMS``,
+    the fewest that pass), reported at every shape: each then fails the
+    gate at one shape at least."""
+    terms = dict(R.FWD_F32_TERMS, **{factor: R.FWD_F32_TERMS[factor] - 1})
+    worst = max(max(_f32_fwd_ratios(s, terms=terms))
+                for s in F32_FWD_SHAPES)
+    print(f"fp32 forward mirror, {factor} in {terms[factor]} terms: "
+          f"worst {worst:.3f}")
+    assert worst > F32_RATIO
+
+
+def test_ssd_fwd_f32_mirror_with_one_partial_a_product():
+    """Each chunk product summed over all of its k-steps in one zeroed
+    partial (every mma's truncation at the running sum's size): reported,
+    and y then lies past the gate at S 1, where the k-step partials keep
+    it within."""
+    shape = F32_FWD_SHAPES[4]
+    steps, whole = _f32_fwd_ratios(shape), \
+        _f32_fwd_ratios(shape, per_step=False)
+    print(f"fp32 forward mirror {shape}: k-step partials {steps}, one "
+          f"partial a product {whole}")
+    assert whole[0] > F32_RATIO >= steps[0]
+
+
+@pytest.mark.parametrize("shape", F32_FWD_SHAPES)
+def test_ssd_fwd_f32_mirror_unrounded_is_the_reference(shape):
+    """terms=None on float64 inputs: the fp32 kernel's algebra (the
+    compensated cumsum in log2 units, M' with dt folded in, the k-step
+    partials, the skipped C stateᵀ on chunk 0 without h0) is
+    ``ssm_scan_ref``'s and ``ssm_scan_chunked_ref``'s, within 1e-10 of
+    max(1, |y|)."""
+    args = [None if a is None else a.double()
+            for a in _f32_fwd_case(*shape[:7], False)]
+    rep = shape[1] // shape[5]
+    with _one_thread():
+        got = R.ssm_scan_fwd_f32_mirror(*args, terms=None)
+        want = ssm_scan_ref(args[0], args[1], args[2],
+                            args[3].repeat_interleave(rep, 1),
+                            args[4].repeat_interleave(rep, 1), args[5])
+        chunked = R.ssm_scan_chunked_ref(*args)
+    for g, w, c in zip(got, want, chunked):
+        assert g.dtype == torch.float64
+        top = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-10 * top
+        assert float((c - w).abs().max()) <= 1e-10 * top
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,dtype", CASES[:5])
+def test_ssd_fwd_f32_mirror_matches_jax_xla_and_pallas_interpret(
+        B, S, H, P, N, G, chunk, dtype):
+    """The mirror in the kernel's terms, fp32, in the model's layout
+    against JAX's ``ssm_scan`` under ``impl="xla"`` (the per-step oracle)
+    and ``impl="pallas_interpret"`` (the Pallas kernel's chunked form), at
+    the chunked form's tolerance."""
+    x, dt, A, Bm, Cm = _inputs(B, S, H, P, N, G, dtype, seed=4)
+    kl = lambda a: torch.from_numpy(np.moveaxis(a, 1, 2).copy())  # noqa
+    with _one_thread():
+        y, h = R.ssm_scan_fwd_f32_mirror(kl(x), kl(dt), torch.tensor(A),
+                                         kl(Bm), kl(Cm))
+    y = y.transpose(1, 2)
+    jargs = (_j(x), _j(dt), _j(A), _j(Bm), _j(Cm))
+    for impl, kw in (("xla", {}), ("pallas_interpret", {"chunk": chunk})):
+        jy, jh = jax_ssm_scan(*jargs, impl=impl, **kw)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), **CHUNK_TOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(jh), **CHUNK_TOL)

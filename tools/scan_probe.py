@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of the bf16 scan kernels goes, and what their gates catch,
-on one card.
+"""Where the time of the scan kernels goes, and what their gates catch, on
+one card.
 
-    python3 tools/scan_probe.py [--out DIR]
+    python3 tools/scan_probe.py [--out DIR] [--fp32]
 
 No profiler sees inside a kernel on the machine with the card (``ncu`` does
 not run there), so, as ``tools/flash_probe.py`` does for flash, this script
@@ -27,6 +27,17 @@ elsewhere leaves the probe working.  The outputs of ``kernel``,
 (``_check_scan`` at ``SSM_REL`` / ``WKV_REL`` of max(1, |plain|), plain the
 per-step oracle): the script fails unless the kernel passes it and every
 fault fails it.
+
+``--fp32`` does the same for the fp32 SSD forward (``ssd_fwd_mma_f32``,
+variant ``mma_f32``, its ``// @probe f32 <name>`` lines) at zamba2
+100m's training shape (B 32, S 128, H 24, P = N = 64, G 1, fp32): the
+faults are M' in its leading term alone and the second chunk's state
+update left out (which only the final state shows), held on y and the
+state to ``SSM_REL`` of the per-step oracle; and one more copy,
+``two_blocks``, the kernel as it is under ``__launch_bounds__`` for two
+blocks an SM (up to 255 registers) in place of three, timed in turns
+with the kernel and ``ssd_fwd_simt`` at 100m, 10m and the zamba2-1.2b
+layer: what the occupancy buys against the registers it costs.
 
 Nothing here is used by the port.  It needs the CUDA toolkit and a card.
 """
@@ -55,6 +66,8 @@ from repro_torch.kernels.ssm_scan.ops import ssm_scan  # noqa: E402
 
 WARPS = 4                       # warps of a block of either mma kernel
 SLOTS = 8                       # probe slots a warp
+# ssd_fwd_mma_f32's launch bounds, and the two-block copy's
+F32_BOUNDS = "__launch_bounds__(kMmaThreads, 3)\nssd_fwd_mma_f32("
 
 
 def probed(src, tag="", warps=WARPS):
@@ -97,6 +110,22 @@ def variants(src):
             "probed": prob}, names
 
 
+def variants_f32(src):
+    """The copies of ``ssm_scan.cu`` that ``--fp32`` runs (the fp32
+    kernel's probe lines)."""
+    prob, names = probed(src, tag="f32 ")
+    zero = ("      for (int k = 1; k < kT3; ++k)\n"
+            "        for (int m = 0; m < 4; ++m) mt[k][m] = 0u;")
+    if src.count(F32_BOUNDS) != 1:
+        raise SystemExit("scan_probe: ssd_fwd_mma_f32's launch bounds moved")
+    return {"kernel": src,
+            "one_term": at(src, "f32 one_term", zero),
+            "skip_state": at(src, "f32 state-update", "    if (c != 1)"),
+            "two_blocks": src.replace(F32_BOUNDS, F32_BOUNDS.replace(
+                ", 3)", ", 2)")),
+            "probed": prob}, names
+
+
 def build(out, sources):
     """Build every copy, one nvcc each, all started together."""
     os.makedirs(out, exist_ok=True)
@@ -116,7 +145,7 @@ def build(out, sources):
             raise SystemExit(f"scan_probe: {name} did not build:\n{report}")
         regs = {k.split("_mma")[1][:40]: (r.registers, r.spill_stores)
                 for k, r in _build.ptxas_kernels(report).items()
-                if "_mma" in k}
+                if "_mma" in k and "fwd" in k}
         print(f"[build] {name}: mma kernels' (registers, spill stores) "
               f"{regs}")
         libs[name] = ctypes.CDLL(os.path.join(out, f"{name}.so"))
@@ -167,36 +196,114 @@ def run(label, module, symbol, libs, names, call, plain, rel, chunks,
             with entry(module, symbol, libs[name]):
                 times.setdefault(name, []).append(
                     CS.cuda_ms(call, reps=20, warmup=3))
-    lib = libs["probed"]
-    with entry(module, symbol, lib):
-        call()
-        torch.cuda.synchronize()
-        lib.probe_reset()
-        call()
-        torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * (WARPS * SLOTS))()
-    lib.probe_read(buf)
-    per = blocks * chunks
-    rows = []
-    for w in range(WARPS):
-        phases = ", ".join(f"{n} {buf[w * SLOTS + k] / per:.0f}"
-                           for k, n in enumerate(names))
-        total = sum(buf[w * SLOTS + k] for k in range(len(names))) / per
-        rows.append(f"warp {w}: {phases} (sum {total:.0f})")
+    with entry(module, symbol, libs["probed"]):
+        rows = phases(libs["probed"], call, names, blocks * chunks)
     print(f"[{label}] kernel {times['kernel']} ms, one term "
           f"{times['one_term']} ms; cycles per chunk by phase:\n  "
           + "\n  ".join(rows))
     return ok
 
 
+def phases(lib, call, names, per):
+    """Cycles a chunk of each probed phase, per warp, of one call."""
+    call()
+    torch.cuda.synchronize()
+    lib.probe_reset()
+    call()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (WARPS * SLOTS))()
+    lib.probe_read(buf)
+    rows = []
+    for w in range(WARPS):
+        row = ", ".join(f"{n} {buf[w * SLOTS + k] / per:.0f}"
+                        for k, n in enumerate(names))
+        total = sum(buf[w * SLOTS + k] for k in range(len(names))) / per
+        rows.append(f"warp {w}: {row} (sum {total:.0f})")
+    return rows
+
+
+def main_f32(args):
+    """``--fp32``: the fp32 SSD forward's gate, faults, times and
+    phases."""
+    with open(os.path.join(ROOT, "src", "repro_torch", "csrc",
+                           "ssm_scan.cu")) as f:
+        copies, names = variants_f32(f.read())
+    libs = build(args.out + "_f32", copies)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"[device] {smi}")
+    P, N, G = 64, 64, 1
+    ok = True
+    for label, B, S, H in CS.SSD_FWD_SHAPES:
+        x, dt, A, Bm, Cm, _ = CS._ssd_inputs(B, S, H, P, N, G,
+                                             torch.float32, seed=1)
+        k = [t.transpose(1, 2) for t in (x, dt, Bm, Cm)]
+
+        def call():
+            return ssm_scan(x, dt, A, Bm, Cm)
+
+        def simt():
+            return SK.ssm_scan_cuda(k[0], k[1], A, k[2], k[3],
+                                    variant="simt")
+        reps = 20 if S <= 128 else 5
+        if label == "100m training":
+            want = ssm_scan(x, dt, A, Bm, Cm, impl="torch")
+            gate = []
+            for name in ("kernel", "one_term", "skip_state", "two_blocks"):
+                with entry(SK, "ssm_scan_fwd", libs[name]):
+                    got = call()
+                torch.cuda.synchronize()
+                worst = max(float(((g - w).abs() / w.abs().clamp_min(1.0))
+                                  .max()) for g, w in zip(got, want))
+                passed = worst <= CS.SSM_REL and all(
+                    bool(torch.isfinite(g).all()) for g in got)
+                ok &= passed == (name in ("kernel", "two_blocks"))
+                gate.append(f"{name} {worst:.3e} of max(1, |plain|) "
+                            f"{'passes' if passed else 'fails'}")
+            print(f"[ssm_scan fp32 {label}] gate ({CS.SSM_REL}, y and "
+                  f"state): {'; '.join(gate)}")
+            with entry(SK, "ssm_scan_fwd", libs["probed"]):
+                rows = phases(libs["probed"], call, names,
+                              2 * B * H * math.ceil(S / SK.CHUNK))
+            print(f"[ssm_scan fp32 {label}] cycles per chunk by phase:\n  "
+                  + "\n  ".join(rows))
+        times = {}
+        for _ in range(2):            # in turns: a, b, c, d, a, b, c, d
+            for name in ("kernel", "two_blocks", "one_term"):
+                with entry(SK, "ssm_scan_fwd", libs[name]):
+                    times.setdefault(name, []).append(
+                        CS.cuda_ms(call, reps=reps, warmup=3))
+            times.setdefault("simt", []).append(
+                CS.cuda_ms(simt, reps=reps, warmup=3))
+        bound = max(CS.ssd_fwd_bounds(B, S, H, P, N, G)[2:])
+        print(f"[ssm_scan fp32 {label}] (B{B} S{S} H{H}) ms in turns, "
+              f"bound {bound * 1e3:.1f} us: " + "; ".join(
+                  f"{n} {t[0]:.4f} / {t[1]:.4f} ({bound / min(t):.1%})"
+                  for n, t in times.items()))
+        del x, dt, A, Bm, Cm, k
+        torch.cuda.empty_cache()
+    if not ok:
+        print("scan_probe: the gate did not pass the kernel and fail both "
+              "of its faults", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "probe"),
                     help="where the copies of the sources are built")
+    ap.add_argument("--fp32", action="store_true",
+                    help="the fp32 SSD forward (mma_f32) at zamba2 100m's "
+                    "training shape, and its occupancy in turns at 100m, "
+                    "10m and the zamba2-1.2b layer")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("scan_probe: no CUDA card visible", file=sys.stderr)
         return 2
+    if args.fp32:
+        return main_f32(args)
     csrc = os.path.join(ROOT, "src", "repro_torch", "csrc")
     srcs, names = {}, {}
     for kern in ("ssm_scan", "rwkv6_scan"):
